@@ -5,7 +5,8 @@
 
 Phases, in order; any failure exits non-zero:
   1. device and build: print the card's name and power limit, build the
-     flash-attention forward kernel from the sources, switch TF32 and bf16
+     flash-attention kernels (forward, backward dq and dk/dv) from the
+     sources with ptxas's per-kernel report, switch TF32 and bf16
      reduced-precision reductions off;
   2. kernel against its plain PyTorch version on the card, at Transformer-
      base attention shapes (B=8, T=1024, H=8, dh=64, ragged lengths), with
@@ -17,10 +18,27 @@ Phases, in order; any failure exits non-zero:
      a seed, bf16 compute, the flash flag on, serving 16 requests with source
      and target lengths in 600-1024 through Inference.infer in two batches of
      8; every distribution finite and summing to 1, 18 kernel launches per
-     batch, agreement with the dense attention path on the first batch.
+     batch, agreement with the dense attention path on the first batch;
+  4. the backward kernels against the plain backward on the card, at the
+     same shapes, layouts, dtypes and masks as phase 2: dq, dk and dv, the
+     time of each kernel beside its bound, the plain backward's time and the
+     time of scaled_dot_product_attention's backward alone (a yardstick only);
+  5. training: Transformer-base (32000/32000, bf16 compute, f32 masters) with
+     random weights from a seed, through trainer.SGD(...).train with
+     Momentum(0.05 / 1024, 0.9) on batches of 8 with source and target
+     lengths in 600-1024 (one of each at 1024, so every slot pads to
+     T = 1024): every
+     cost finite, the cost falling over repeated steps on one batch, 18
+     forward, 18 dq and 18 dk/dv launches per step, one step's gradients
+     with flash against the dense path (f32 and bf16 compute), seconds per
+     step, tokens per second and peak memory;
+  6. torch.profiler over two training steps: the top device kernels by time
+     and the device's busy share of the window ("not measured" when the
+     profiler shows no device time).
 
 The last line is {"ok": true, "device": {...}}; the line before it lists the
-kernels with their launches on the main path, errors and times.  Without a
+kernels with their launches on the main path (the timed training steps of
+phase 5), errors and times.  Without a
 CUDA device, or without the paddle_tpu_torch package beside it, the script
 exits non-zero and prints no result.
 """
@@ -50,8 +68,30 @@ TOL_O = {"bfloat16": 1e-3, "float32": 1e-4}
 TOL_O_REL = {"bfloat16": 1e-2, "float32": 0.0}
 TOL_LSE = {"bfloat16": 1e-4, "float32": 1e-4}  # f32 in both
 
+# backward kernels vs plain backward: |d| <= TOL_G + TOL_G_REL * |ref|
+# (each gradient is rounded once to its dtype on store)
+TOL_G = {"bfloat16": 1e-3, "float32": 1e-4}
+TOL_G_REL = {"bfloat16": 1e-2, "float32": 0.0}
+# per (query, key, head) the masks keep: operations of each kernel
+OPS_PER_PAIR = {"fwd": 4 * DH, "dq": 6 * DH, "dkv": 8 * DH}
+
 N_REQUESTS = 16
 BATCH = 8
+MIN_LEN = 600  # shortest training source or target
+# bench.py's transformer_long_ctx trains with Momentum(0.05, 0.9); the cost is
+# summed over each sample's tokens, and at that rate repeated steps diverge,
+# so the smoke takes the same rate per token of the padded length
+TRAIN_LR = 0.05 / T
+TRAIN_BATCHES = 4  # distinct batches of the timed training run
+FIXED_STEPS = 5  # repeated steps on one batch: the cost must fall
+# one step's gradients, flash against dense: |dg| / |g_dense|, L2 over every
+# leaf.  Per-leaf maxima are no bar at this size: a ReLU unit of the FFN
+# whose pre-activation is within rounding of 0 flips between the paths and
+# moves its bias gradient by one token's share (about 1% of a sum over ~8000
+# tokens), even in f32.  f32: summation order and such flips, <= 1e-3.
+# bf16: the dense path also rounds scores and probabilities to bf16 where the
+# kernels keep f32, <= 5e-2.
+GRAD_REL = {"float32": 1e-3, "bfloat16": 5e-2}
 VOCAB = 32000
 FEEDING = {"src_word": 0, "trg_word": 1, "trg_next": 2}
 
@@ -94,13 +134,30 @@ def attention_pairs(lengths, t, causal) -> int:
     return total
 
 
-def bound_ms(lengths, causal, elem_bytes, peak_flops):
-    """(least ms, "operations" or "bytes"): q, k, v read once, O, lse
-    written once; 4*dh operations per (query, key, head) the masks keep."""
-    ops = 4 * DH * H * attention_pairs(lengths, T, causal)
-    nbytes = 4 * B * T * H * DH * elem_bytes + B * H * T * 4 + B * 4
+def bound_ms(kernel, lengths, causal, elem_bytes, peak_flops):
+    """(least ms, "operations" or "bytes") of one flash kernel: each input
+    read once and each output written once (fwd: q, k, v -> O, lse; dq:
+    q, k, v, dO, lse, delta -> dq; dkv: the same -> dk, dv), and
+    OPS_PER_PAIR[kernel] * H operations per (query, key) pair the masks keep."""
+    ops = OPS_PER_PAIR[kernel] * H * attention_pairs(lengths, T, causal)
+    tile = B * T * H * DH * elem_bytes
+    stats = B * H * T * 4  # one f32 [B, H, T] array
+    nbytes = {
+        "fwd": 4 * tile + stats,
+        "dq": 5 * tile + 2 * stats,
+        "dkv": 6 * tile + 2 * stats,
+    }[kernel] + B * 4
     t_ops, t_bytes = ops / peak_flops, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def attention_mask(torch, lengths, causal):
+    """[B, 1, T, T] boolean mask of the flash kernels' masks, for SDPA."""
+    key_ok = torch.arange(T, device="cuda")[None, :] < lengths[:, None].long()
+    mask = key_ok[:, None, None, :]
+    if causal:
+        mask = mask & torch.tril(torch.ones(T, T, dtype=torch.bool, device="cuda"))[None, None]
+    return mask
 
 
 def qkv_operands(torch, gen, dtype, layout):
@@ -122,8 +179,6 @@ def phase_kernel(torch, fa):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device="cuda").manual_seed(0)
     lengths = torch.tensor(LENGTHS, dtype=torch.int32, device="cuda")
-    key_ok = torch.arange(T, device="cuda")[None, :] < lengths[:, None].long()
-    tril = torch.tril(torch.ones(T, T, dtype=torch.bool, device="cuda"))
     row = None
     worst = 0.0
     for layout in ("fused", "separate"):
@@ -140,15 +195,13 @@ def phase_kernel(torch, fa):
                 err_l = (lse_k - lse_r).abs().max().item()
                 finite = bool(torch.isfinite(o_k.float()).all() and torch.isfinite(lse_k).all())
                 tol_o, tol_l = TOL_O[dtype_name], TOL_LSE[dtype_name]
-                mask = key_ok[:, None, None, :]
-                if causal:
-                    mask = mask & tril[None, None]
+                mask = attention_mask(torch, lengths, causal)
                 qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
                 ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, lengths, causal))
                 plain = time_ms(torch, lambda: fa.flash_attention_reference(q, k, v, lengths, causal), iters=5)
                 lib = time_ms(torch, lambda: sdpa(qh, kh, vh, attn_mask=mask))
                 peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
-                bnd, bound_by = bound_ms(LENGTHS, causal, q.element_size(), peak)
+                bnd, bound_by = bound_ms("fwd", LENGTHS, causal, q.element_size(), peak)
                 say(f"kernel {layout} {dtype_name} causal={causal} strides {q.stride()}: "
                     f"max|dO|={err_o:.3e} (<= {tol_o} + {TOL_O_REL[dtype_name]}*|O|, "
                     f"worst excess {excess_o:.3e}) max|dlse|={err_l:.3e} (<= {tol_l}); "
@@ -168,7 +221,7 @@ def phase_kernel(torch, fa):
 def make_requests(rng):
     reqs = []
     for _ in range(N_REQUESTS):
-        ns, nt = rng.randint(600, 1025, size=2)
+        ns, nt = rng.randint(MIN_LEN, T + 1, size=2)
         trg = rng.randint(2, VOCAB, size=nt)
         reqs.append((list(rng.randint(2, VOCAB, size=ns)), [0] + list(trg[:-1]), list(trg)))
     return reqs
@@ -261,6 +314,220 @@ def compare(name, a, b, max_dp, min_agree=0.99):
         raise SystemExit(f"{name}: the paths disagree")
 
 
+def launch_counts(fa):
+    return (fa.flash_attention.launches, fa.flash_attention_bwd.dq_launches,
+            fa.flash_attention_bwd.dkv_launches)
+
+
+def reset_counts(fa):
+    fa.flash_attention.launches = 0
+    fa.flash_attention_bwd.dq_launches = 0
+    fa.flash_attention_bwd.dkv_launches = 0
+
+
+def phase_bwd_kernel(torch, fa):
+    """Backward kernels vs the plain backward on the card; returns the
+    kernels-line rows of dq and dk/dv (their times at the fused bf16
+    non-causal case, the self-attention layout of the main path)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    lengths = torch.tensor(LENGTHS, dtype=torch.int32, device="cuda")
+    rows, worst = {}, {"dq": 0.0, "dkv": 0.0}
+    for layout in ("fused", "separate"):
+        for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+            q, k, v = qkv_operands(torch, gen, dtype, layout)
+            do = torch.randn((B, T, H, DH), generator=gen, device="cuda").to(dtype)
+            for causal in (False, True):
+                o, lse = fa.flash_attention(q, k, v, lengths, causal, return_lse=True)
+                delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+                got = fa.flash_attention_bwd(q, k, v, o, lse, delta, do, lengths, causal)
+                want = fa.flash_attention_bwd_reference(q, k, v, lse, delta, do, lengths, causal)
+                torch.cuda.synchronize()
+                tol, rel = TOL_G[dtype_name], TOL_G_REL[dtype_name]
+                errs = []
+                for name, x, r in zip(("dq", "dk", "dv"), got, want):
+                    d = (x.float() - r.float()).abs()
+                    excess = (d - rel * r.float().abs()).max().item()
+                    errs.append(f"{name} max|d|={d.max().item():.3e} excess {excess:.3e} "
+                                f"max|ref|={r.float().abs().max().item():.3e}")
+                    if not bool(torch.isfinite(x.float()).all()) or excess > tol:
+                        raise SystemExit(f"backward kernel disagrees with the plain backward "
+                                         f"({name}, {layout}, {dtype_name}, causal={causal})")
+                    kn = "dq" if name == "dq" else "dkv"
+                    worst[kn] = max(worst[kn], d.max().item())
+                # each kernel alone, into preallocated outputs
+                operands = (q, k, v, do, lse, delta, lengths)
+                outs = tuple(torch.empty_like(x) for x in got)
+                ms_dq = time_ms(torch, lambda: fa._launch_bwd("dq", operands, outs[:1], causal))
+                ms_dkv = time_ms(torch, lambda: fa._launch_bwd("dkv", operands, outs[1:], causal))
+                plain = time_ms(torch, lambda: fa.flash_attention_bwd_reference(
+                    q, k, v, lse, delta, do, lengths, causal), iters=3)
+                # SDPA's backward alone, over one retained forward graph
+                mask = attention_mask(torch, lengths, causal)
+                qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+                lib_out = sdpa(qh, kh, vh, attn_mask=mask)
+                lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+                    lib_out, (qh, kh, vh), do.transpose(1, 2), retain_graph=True))
+                del lib_out
+                peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+                bnd = {kn: bound_ms(kn, LENGTHS, causal, q.element_size(), peak)
+                       for kn in ("dq", "dkv")}
+                say(f"bwd {layout} {dtype_name} causal={causal}: {'; '.join(errs)} "
+                    f"(<= {tol} + {rel}*|ref|); dq {ms_dq:.4f} ms (bound "
+                    f"{bnd['dq'][0]:.4f}, {bnd['dq'][1]}), dkv {ms_dkv:.4f} ms (bound "
+                    f"{bnd['dkv'][0]:.4f}, {bnd['dkv'][1]}), plain backward {plain:.4f} ms, "
+                    f"sdpa backward {lib_bwd:.4f} ms")
+                if layout == "fused" and dtype == torch.bfloat16 and not causal:
+                    for kn, ms in (("dq", ms_dq), ("dkv", ms_dkv)):
+                        rows[kn] = {"ms": ms, "plain_ms": plain, "bound_ms": bnd[kn][0],
+                                    "bound_by": bnd[kn][1], "library_ms": lib_bwd}
+    for kn, r in rows.items():
+        r["max_abs_err"] = worst[kn]
+    return rows
+
+
+def train_samples(rng, n):
+    """n (src, trg, trg_next) samples with lengths in 600-1024; the first
+    has a source and a target of length 1024, so a batch led by it pads
+    every slot to T = 1024."""
+    out = []
+    for i in range(n):
+        ns, nt = (T, T) if i == 0 else rng.randint(MIN_LEN, T + 1, size=2)
+        trg = rng.randint(2, VOCAB, size=nt)
+        out.append((list(rng.randint(2, VOCAB, size=ns)), [0] + list(trg[:-1]), list(trg)))
+    return out
+
+
+def run_steps(P, trainer, samples, on_event=None):
+    trainer.train(P.batch(lambda: iter(samples), BATCH), feeding=FEEDING,
+                  event_handler=on_event)
+
+
+def grads_of(torch, net, params, batch):
+    """(cost, {name: gradient}) of the network's mean cost on `batch`."""
+    leaves = {l: {k: v.detach().requires_grad_(True) for k, v in p.items()}
+              for l, p in params.items()}
+    cost, _ = net.cost(leaves, batch)
+    names = [(l, k) for l, p in leaves.items() for k in p]
+    gs = torch.autograd.grad(cost, [leaves[l][k] for l, k in names], allow_unused=True)
+    return cost.item(), {f"{l}.{k}": g for (l, k), g in zip(names, gs) if g is not None}
+
+
+def phase_train(torch, P, fa, card):
+    """Transformer-base training through SGD.train; returns the launches of
+    each kernel in the timed run and the trainer (for the profiler)."""
+    from paddle_tpu_torch.models.transformer import transformer_base
+    from paddle_tpu_torch.reader.feeder import DataFeeder
+
+    P.init(seed=11, compute_dtype="bfloat16", use_flash_attention=True)
+    cost, _ = transformer_base(VOCAB, VOCAB)
+    params = P.parameters.create(cost, seed=11)
+    trainer = P.trainer.SGD(
+        cost, params, P.optimizer.Momentum(learning_rate=TRAIN_LR, momentum=0.9))
+    rng = np.random.RandomState(1)
+    warm = train_samples(rng, BATCH)
+    timed = [s for _ in range(TRAIN_BATCHES) for s in train_samples(rng, BATCH)]
+    run_steps(P, trainer, warm)  # first step: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_counts(fa)
+    steps, clock = [], [0.0]
+
+    def on_event(e):
+        if isinstance(e, P.event.BeginIteration):
+            torch.cuda.synchronize()
+            clock[0] = time.perf_counter()
+        elif isinstance(e, P.event.EndIteration):
+            # the cost's host copy waits for the whole step, update included
+            steps.append((time.perf_counter() - clock[0], launch_counts(fa), e.cost))
+
+    run_steps(P, trainer, timed, on_event)
+    launches = launch_counts(fa)
+    per_step = [tuple(c - p for c, p in zip(cur[1], prev))
+                for cur, prev in zip(steps, [(0, 0, 0)] + [s[1] for s in steps[:-1]])]
+    costs = [s[2] for s in steps]
+    secs = [s[0] for s in steps]
+    say(f"train: {len(steps)} steps, costs {[round(c, 4) for c in costs]}, launches per step "
+        f"(fwd, dq, dkv) {per_step}, seconds per step {[round(x, 4) for x in secs]}")
+    if len(steps) != TRAIN_BATCHES or not all(np.isfinite(costs)):
+        raise SystemExit("training gave a non-finite cost or a missing step")
+    if per_step != [(18, 18, 18)] * TRAIN_BATCHES:
+        raise SystemExit(f"expected 18/18/18 flash launches per step, got {per_step}")
+    valid = sum(len(s[0]) + len(s[1]) for s in timed)
+    mean_s = float(np.mean(secs))
+    say(f"train: {mean_s:.4f} s per step (mean of {len(secs)}), "
+        f"{valid / sum(secs):.1f} valid tokens/s ({2 * BATCH * T * len(secs) / sum(secs):.1f} "
+        f"padded tokens/s), peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"on {card}")
+
+    fixed = train_samples(rng, BATCH)
+    fixed_costs = []
+    run_steps(P, trainer, fixed * FIXED_STEPS,
+              lambda e: fixed_costs.append(e.cost) if isinstance(e, P.event.EndIteration) else None)
+    say(f"train: {FIXED_STEPS} steps on one batch, costs {[round(c, 4) for c in fixed_costs]}")
+    if not all(np.isfinite(fixed_costs)) or not fixed_costs[-1] < fixed_costs[0]:
+        raise SystemExit("the cost did not fall over repeated steps on one batch")
+
+    # one step's gradients, flash against dense, from the trained parameters
+    for dtype_name in ("float32", "bfloat16"):
+        net = P.CompiledNetwork(P.Topology(cost), compute_dtype=dtype_name)
+        feeder = DataFeeder(net.topology.data_types(), FEEDING, device=trainer.device)
+        batch = feeder(fixed)
+        before = launch_counts(fa)
+        c_f, g_f = grads_of(torch, net, trainer.parameters.params, batch)
+        flash_launches = tuple(a - b for a, b in zip(launch_counts(fa), before))
+        P.flags.set_flag("use_flash_attention", False)
+        try:
+            c_d, g_d = grads_of(torch, net, trainer.parameters.params, batch)
+        finally:
+            P.flags.set_flag("use_flash_attention", True)
+        if flash_launches != (18, 18, 18) or launch_counts(fa) != tuple(
+                b + f for b, f in zip(before, flash_launches)):
+            raise SystemExit(f"{dtype_name} gradients: flash launches {flash_launches}, "
+                             "or the dense path launched a flash kernel")
+        diff2 = {n: ((g_f[n].float() - g_d[n].float()) ** 2).sum().item() for n in g_d}
+        norm2 = {n: (g_d[n].float() ** 2).sum().item() for n in g_d}
+        rel_l2 = (sum(diff2.values()) / sum(norm2.values())) ** 0.5
+        leaf = max(g_d, key=lambda n: diff2[n] / max(norm2[n], 1e-30))
+        say(f"train {dtype_name} gradients flash vs dense: cost {c_f:.6f} vs {c_d:.6f}; "
+            f"|dg|/|g| over all {len(g_d)} leaves = {rel_l2:.3e} (<= "
+            f"{GRAD_REL[dtype_name]}); worst leaf {leaf} "
+            f"{(diff2[leaf] / max(norm2[leaf], 1e-30)) ** 0.5:.3e}")
+        if set(g_f) != set(g_d) or not rel_l2 <= GRAD_REL[dtype_name]:
+            raise SystemExit(f"{dtype_name} gradients: flash and dense disagree")
+        del g_f, g_d
+    return {"fwd": launches[0], "dq": launches[1], "dkv": launches[2]}, trainer
+
+
+def phase_profile(torch, P, trainer):
+    """Top device kernels over two training steps from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    samples = [s for _ in range(2) for s in train_samples(np.random.RandomState(2), BATCH)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_steps(P, trainer, samples)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    total_us = sum(e.self_device_time_total for e in dev)
+    if total_us <= 0:
+        say("profile: the profiler shows no device time; device split not measured")
+        return
+    say(f"profile: 2 steps in {wall:.4f} s (profiler on), device busy {total_us / 1e6:.4f} s "
+        f"({total_us / 1e6 / wall:.3f} of the window); top device kernels per step:")
+    for e in sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)[:12]:
+        say(f"  {e.self_device_time_total / 2e3:9.3f} ms  {e.count / 2:6.1f} calls  "
+            f"{100 * e.self_device_time_total / total_us:5.1f}%  {e.key[:100]}")
+    flash = {kn: sum(e.self_device_time_total for e in dev if f"fa_{kn}_kernel" in e.key)
+             for kn in ("fwd", "bwd_dq", "bwd_dkv")}
+    say("profile: flash kernels per step " + ", ".join(
+        f"{kn} {us / 2e3:.3f} ms ({100 * us / total_us:.1f}%)" for kn, us in flash.items()))
+
+
 def main() -> int:
     import torch
 
@@ -285,23 +552,26 @@ def main() -> int:
     say("tf32 off for matmul and cudnn; bf16 reduced-precision reductions off")
     t0 = time.perf_counter()
     fa.build(verbose=True)
-    say(f"build: flash_attention_fwd in {time.perf_counter() - t0:.2f} s")
+    say(f"build: {', '.join(os.path.basename(x) for x in fa.SOURCES)} in "
+        f"{time.perf_counter() - t0:.2f} s")
 
-    row = phase_kernel(torch, fa)
-    launches = phase_slice(torch, P, fa, card)
-    kernels = [{
-        "name": "flash_attention_fwd",
-        "route": "cuda",
-        "source": "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
-        "replaces": "paddle_tpu/ops/pallas_attention.py:82",
-        "launches": launches,
-        "max_abs_err": row["max_abs_err"],
-        "ms": row["ms"],
-        "plain_ms": row["plain_ms"],
-        "bound_ms": row["bound_ms"],
-        "bound_by": row["bound_by"],
-        "library_ms": row["library_ms"],
-    }]
+    rows = {"fwd": phase_kernel(torch, fa)}
+    phase_slice(torch, P, fa, card)
+    rows.update(phase_bwd_kernel(torch, fa))
+    launches, trainer = phase_train(torch, P, fa, card)
+    phase_profile(torch, P, trainer)
+    kernels = [
+        {"name": name, "route": "cuda", "source": f"paddle_tpu_torch/csrc/{src}",
+         "replaces": f"paddle_tpu/ops/pallas_attention.py:{line}",
+         "launches": launches[kn],
+         **{key: rows[kn][key] for key in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+        for kn, name, src, line in (
+            ("fwd", "flash_attention_fwd", "flash_attention_fwd.cu", 82),
+            ("dq", "flash_attention_bwd_dq", "flash_attention_bwd.cu", 133),
+            ("dkv", "flash_attention_bwd_dkv", "flash_attention_bwd.cu", 173),
+        )
+    ]
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",

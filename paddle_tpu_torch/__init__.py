@@ -1,13 +1,17 @@
 """paddle_tpu_torch — the PyTorch/CUDA port of ``paddle_tpu``, for an NVIDIA
 H100.  It keeps the JAX package's module layout, names and user surface;
-the JAX package stays beside it as the reference.  This slice serves
-Transformer-base inference, with multi-head attention on a hand-written CUDA
-flash-attention forward kernel (``ops/flash_attention.py``)::
+the JAX package stays beside it as the reference.  It serves and trains
+Transformer-base, with multi-head attention on hand-written CUDA
+flash-attention kernels (``ops/flash_attention.py``: the forward, and the dq
+and dk/dv backward kernels)::
 
     import paddle_tpu_torch as paddle
     paddle.init(seed=1, compute_dtype="bfloat16", use_flash_attention=True)
     cost, probs = paddle.models.transformer.transformer_base(32000, 32000)
-    params = paddle.parameters.create(probs, seed=1)
+    params = paddle.parameters.create(cost, seed=1)
+    trainer = paddle.trainer.SGD(cost, params, paddle.optimizer.Momentum(
+        learning_rate=0.05, momentum=0.9))
+    trainer.train(paddle.batch(reader, 8), num_passes=1, feeding={...})
     out = paddle.infer(probs, params, samples, feeding={...}, batch_size=8)
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
@@ -18,7 +22,10 @@ from __future__ import annotations
 
 from paddle_tpu_torch import activation  # noqa: F401
 from paddle_tpu_torch import attr  # noqa: F401
+from paddle_tpu_torch import event  # noqa: F401
 from paddle_tpu_torch import inference  # noqa: F401
+from paddle_tpu_torch import optimizer  # noqa: F401
+from paddle_tpu_torch import trainer  # noqa: F401
 from paddle_tpu_torch import layers as layer  # noqa: F401
 from paddle_tpu_torch import parameters  # noqa: F401
 from paddle_tpu_torch.core import data_types as data_type  # noqa: F401
@@ -26,6 +33,7 @@ from paddle_tpu_torch.core import topology  # noqa: F401
 from paddle_tpu_torch.core.compiler import CompiledNetwork  # noqa: F401
 from paddle_tpu_torch.core.topology import Topology  # noqa: F401
 from paddle_tpu_torch.inference import Inference, infer  # noqa: F401
+from paddle_tpu_torch.minibatch import batch  # noqa: F401
 from paddle_tpu_torch.models import transformer as _transformer  # noqa: F401
 from paddle_tpu_torch import models  # noqa: F401
 from paddle_tpu_torch.utils import flags  # noqa: F401

@@ -7,9 +7,14 @@ layer's torch impl eagerly (the JAX package traces the same loop under
 dtype each layer that is not full-precision gets its parameters and inputs
 cast to bf16 and its output cast back to bf16, exactly as in the JAX loop.
 
+:meth:`CompiledNetwork.cost` is the differentiable quantity of training
+(the mean of the first output); the train step takes its gradient with
+autograd.
+
 Not ported yet: name-shared parameters (``param_name``/``param_names``
-ParamAttr sharing), dynamic widths, dropout and error clipping in training,
-non-trainable state.  A topology that asks for them raises at build.
+ParamAttr sharing), dynamic widths and non-trainable state (these raise at
+build), dropout and error clipping in training (these raise in
+``apply(train=True)``).
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from paddle_tpu_torch.core.batch import Batch, SeqTensor
+from paddle_tpu_torch.core.device import resolve_device
 from paddle_tpu_torch.core.topology import Topology
 from paddle_tpu_torch.layers.base import ApplyContext, get_layer_impl, stable_hash
 from paddle_tpu_torch.ops.activations import apply_activation
@@ -103,10 +109,12 @@ class CompiledNetwork:
                 )
 
     # ------------------------------------------------------------------
-    def init_params(self, seed: int = 0, device="cpu") -> Params:
+    def init_params(self, seed: int = 0, device=None) -> Params:
         """Each layer draws from its own generator, seeded from `seed` and a
         stable hash of its name (the JAX package folds the name into its
-        key the same way)."""
+        key the same way).  On `device`: the card unless the caller asks
+        for the CPU."""
+        device = resolve_device(device)
         params: Params = {}
         for name in self.topology.order:
             conf = self.topology.layers[name]
@@ -175,5 +183,22 @@ class CompiledNetwork:
                 out = out.with_data(apply_activation(conf.act, out.data, mask))
             if train and conf.drop_rate > 0.0:
                 raise NotImplementedError(f"layer {name!r}: dropout is not ported yet")
+            if train and conf.attr("error_clip"):
+                raise NotImplementedError(f"layer {name!r}: error clipping is not ported yet")
             ctx.outputs[name] = out
         return ctx.outputs, {}
+
+    def forward(
+        self, params: Params, batch: Batch, *, train: bool = True
+    ) -> Tuple[SeqTensor, Dict[str, SeqTensor]]:
+        """The first declared output and the full output dict."""
+        outs, _ = self.apply(params, batch, train=train)
+        return outs[self.topology.output_names[0]], outs
+
+    def cost(
+        self, params: Params, batch: Batch, *, train: bool = True
+    ) -> Tuple[torch.Tensor, Dict[str, SeqTensor]]:
+        """(scalar mean cost, outputs): the mean of the first output, the
+        quantity the train step differentiates."""
+        out, outs = self.forward(params, batch, train=train)
+        return out.data.mean(), outs

@@ -1,6 +1,6 @@
 """Layer DSL of the port — the part of ``paddle_tpu/layers/__init__.py`` that
 Transformer-base uses: ``data`` (:178), ``fc`` (:215), ``embedding`` (:275),
-``addto`` (:306), ``classification_cost`` (:1116, configuration only),
+``addto`` (:306), ``classification_cost`` (:1116),
 ``layer_norm`` (:2414), ``multi_head_attention`` (:2420) and
 ``pos_encoding`` (:2450).  Each function returns a :class:`LayerOutput`
 handle; the graph is gathered by parent traversal when a Topology is built.
@@ -22,6 +22,7 @@ from paddle_tpu_torch.core.topology import LayerConf, LayerOutput, auto_name
 from paddle_tpu_torch.layers import base as _base  # noqa: F401
 from paddle_tpu_torch.layers import basic as _basic  # noqa: F401
 from paddle_tpu_torch.layers import attention as _attention  # noqa: F401
+from paddle_tpu_torch.layers import cost as _cost  # noqa: F401
 
 Inputish = Union[LayerOutput, Sequence[LayerOutput]]
 
@@ -241,8 +242,9 @@ def classification_cost(
     input: LayerOutput, label: LayerOutput, weight=None, name=None, evaluator=None,
     layer_attr=None,
 ) -> LayerOutput:
-    """Softmax output + cross-entropy.  The configuration builds; the cost
-    layer has no impl in the port yet, so compiling it raises."""
+    """Softmax output + cross-entropy (the cost fuses into log-softmax
+    cross-entropy over the input's pre-activation when its act is
+    softmax)."""
     if weight is not None:
         raise NotImplementedError("weighted classification_cost is not ported yet")
     return _cost2("cross_entropy", input, label, name=name)

@@ -4,9 +4,10 @@ encoding — the counterpart of ``paddle_tpu/layers/attention.py`` (:43,
 
 Under bf16 mixed precision the softmax and layer-norm statistics compute in
 float32 and cast back, as in the JAX package.  Multi-head attention with
-equal query and key lengths goes through the flash-attention forward kernel
-(``ops/flash_attention.py``) when the ``use_flash_attention`` flag is on and
-``supported()`` holds; otherwise the dense path materialises the [T, T]
+equal query and key lengths goes through the flash-attention kernels
+(``ops/flash_attention.py``: the forward, and the dq and dk/dv backward
+kernels when a gradient is taken) when the ``use_flash_attention`` flag is on
+and ``supported()`` holds; otherwise the dense path materialises the [T, T]
 scores.
 """
 
@@ -98,9 +99,14 @@ def mha_apply(conf, params, inputs, ctx):
 
     out = None
     if tq == tk and get_flag("use_flash_attention") and fa.supported(tq, dh):
-        # the kernel on a CUDA tensor, its plain version on a CPU tensor
+        # the kernels on a CUDA tensor, their plain versions on a CPU tensor;
+        # the autograd Function (backward kernels) when a gradient is wanted
         lengths = kv_in.lengths if kv_in.is_seq else None
-        out = fa.flash_attention(q, k, v, lengths, causal).reshape(b, tq, d)
+        wants_grad = torch.is_grad_enabled() and (
+            q.requires_grad or k.requires_grad or v.requires_grad
+        )
+        attend = fa.flash_attention_diff if wants_grad else fa.flash_attention
+        out = attend(q, k, v, lengths, causal).reshape(b, tq, d)
 
     if out is None:  # dense path
         qh = q.permute(0, 2, 1, 3)

@@ -1,21 +1,30 @@
-"""Flash-attention forward: a hand-written CUDA kernel for Hopper and its
-plain PyTorch version.
+"""Flash attention: hand-written CUDA kernels for Hopper (the forward and the
+two backward kernels, dq and dk/dv) and their plain PyTorch versions.
 
 Counterpart of ``paddle_tpu/ops/pallas_attention.py`` (``flash_attention``,
-``_flash_fwd`` and the TPU kernel ``_fa_fwd_kernel``).  The kernel lives in
-``paddle_tpu_torch/csrc/flash_attention_fwd.cu``; it is compiled with
-``nvcc`` at first use into ``paddle_tpu_torch/_build/`` and bound through a
-plain C function loaded with ``ctypes``.
+``flash_attention_diff``, ``_flash_fwd``, ``_flash_bwd`` and the TPU kernels
+``_fa_fwd_kernel``, ``_fa_bwd_dq_kernel``, ``_fa_bwd_dkv_kernel``).  The
+kernels live in ``paddle_tpu_torch/csrc/*.cu``; they are compiled with
+``nvcc`` at first use into one shared library under
+``paddle_tpu_torch/_build/`` and bound through plain C functions loaded with
+``ctypes``.
 
-Routing is by the tensor's device: a CUDA tensor launches the kernel (or
-raises), a CPU tensor runs :func:`flash_attention_reference`, the blocked
-online-softmax loop that plays the part ``interpret=True`` plays in the JAX
-package.  There is no fallback from one to the other.
+Routing is by the tensor's device: a CUDA tensor launches a kernel (or
+raises), a CPU tensor runs the plain version (:func:`flash_attention_reference`,
+:func:`flash_attention_bwd_reference`), the blocked loops that play the part
+``interpret=True`` plays in the JAX package.  There is no fallback from one
+to the other.
+
+:func:`flash_attention` has no autograd history (the kernel writes into
+fresh tensors), so it refuses inputs that require grad while grad mode is
+on; :func:`flash_attention_diff` is the differentiable entry point, a
+``torch.autograd.Function`` whose backward is the two backward kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import math
 import os
@@ -27,14 +36,14 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30
-BLOCK = 64  # keys per tile: the kernel's BN in csrc/flash_attention_fwd.cu
+BLOCK = 64  # keys per tile: BN of the kernels in csrc/
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "flash_attention_fwd.cu")
+SOURCES = tuple(sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cu"))))
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _lib = None
@@ -51,30 +60,62 @@ def _nvcc() -> str:
     for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the flash-attention kernel cannot be built")
+    raise RuntimeError("nvcc not found: the flash-attention kernels cannot be built")
 
 
 def build(verbose: bool = False) -> str:
-    """Compile the kernel into ``_build/`` (keyed by the source's hash, so an
-    edited source rebuilds) and return the shared library's path."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """Compile every ``csrc/*.cu`` into one shared library in ``_build/``
+    (keyed by the hash of every source plus the flags, so an edited source
+    rebuilds) and return its path.  One ``nvcc`` per source, all started
+    together, then one link; ``verbose`` prints ptxas's per-kernel
+    registers, shared memory and spills."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        with open(src, "rb") as f:
+            h.update(os.path.basename(src).encode() + b"\0" + f.read())
     os.makedirs(BUILD_DIR, exist_ok=True)
-    out = os.path.join(BUILD_DIR, f"flash_attention_fwd-{digest}.so")
+    out = os.path.join(BUILD_DIR, f"flash_attention-{h.hexdigest()[:16]}.so")
     if os.path.exists(out):
         return out
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, SOURCE]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    jobs = []
+    for src in SOURCES:
+        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()), "-c", "-o", obj, src]
+        jobs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for src, _, proc in jobs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{os.path.basename(src)} ({proc.returncode}):\n{err}")
+        elif verbose and err:
+            print(f"{os.path.basename(src)}:\n{err.strip()}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    tmp = f"{out}.{tag}"
+    proc = subprocess.run(
+        [nvcc, "-shared", "-o", tmp, *(obj for _, obj, _ in jobs)],
+        capture_output=True, text=True,
+    )
+    for _, obj, _ in jobs:
+        os.remove(obj)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose and proc.stderr:
-        print(proc.stderr.strip())
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, out)
     return out
+
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGTYPES = {
+    # dtype, q k v lengths o lse, b t h dh, 6 strides, causal, stream
+    "flash_attention_fwd": [_I] + [_P] * 6 + [_I] * 4 + [_L] * 6 + [_I, _P],
+    # dtype, q k v dO lse delta lengths dq, b t h dh, 8 strides, causal, stream
+    "flash_attention_bwd_dq": [_I] + [_P] * 8 + [_I] * 4 + [_L] * 8 + [_I, _P],
+    # dtype, q k v dO lse delta lengths dk dv, b t h dh, 8 strides, causal, stream
+    "flash_attention_bwd_dkv": [_I] + [_P] * 9 + [_I] * 4 + [_L] * 8 + [_I, _P],
+}
 
 
 def _load():
@@ -82,17 +123,22 @@ def _load():
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
-            fn = lib.flash_attention_fwd
-            fn.argtypes = (
-                [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                + [ctypes.c_longlong] * 6 + [ctypes.c_int, ctypes.c_void_p]
-            )
-            fn.restype = ctypes.c_int
+            for name, argtypes in _ARGTYPES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _lib = lib
     return _lib
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The plain versions' accumulation type: f32, or f64 for f64 inputs (so
+    that ``torch.autograd.gradcheck`` can hold the Function to finite
+    differences on the CPU)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
 
 
 def _check(q, k, v, lengths):
@@ -111,6 +157,28 @@ def _check(q, k, v, lengths):
     return b, t, h, dh
 
 
+def _kernel_operands(dev, dtype, dh, lengths, b, t, **operands):
+    """Check what the CUDA kernels take (dtype, dh, dense [H, dh] axes of
+    each operand) and return lengths as a contiguous int32 tensor on `dev`."""
+    if dev.type != "cuda":
+        raise ValueError(f"no flash-attention kernel for device {dev}")
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"the kernels take float32 or bfloat16, not {dtype}")
+    if dh % 8 or dh > 128:
+        raise ValueError(f"the kernels take dh a multiple of 8 up to 128; got {dh}")
+    for name, x in operands.items():
+        if x.stride(3) != 1 or x.stride(2) != dh:
+            raise ValueError(
+                f"{name} must have dense [H, dh] axes (strides {dh}, 1); got "
+                f"strides {x.stride()}"
+            )
+    if lengths is None:
+        return torch.full((b,), t, dtype=torch.int32, device=dev)
+    if lengths.dtype != torch.int32 or lengths.device != dev or not lengths.is_contiguous():
+        raise ValueError("lengths must be a contiguous int32 tensor on q's device")
+    return lengths
+
+
 def flash_attention(
     q: torch.Tensor,  # [B, T, H, dh]
     k: torch.Tensor,
@@ -121,28 +189,20 @@ def flash_attention(
     return_lse: bool = False,
 ):
     """[B, T, H, dh] -> [B, T, H, dh] exact softmax attention (and the f32
-    row log-sum-exp [B, H, T] with ``return_lse``)."""
+    row log-sum-exp [B, H, T] with ``return_lse``).  No autograd history:
+    inputs that require grad in grad mode raise (use
+    :func:`flash_attention_diff`)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention records no gradient; inputs that require grad "
+            "go through flash_attention_diff"
+        )
     b, t, h, dh = _check(q, k, v, lengths)
     if q.device.type == "cpu":
         return flash_attention_reference(
             q, k, v, lengths, causal, return_lse=return_lse
         )
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash-attention kernel for device {q.device}")
-    if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"the kernel takes float32 or bfloat16, not {q.dtype}")
-    if dh % 8 or dh > 128:
-        raise ValueError(f"the kernel takes dh a multiple of 8 up to 128; got {dh}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.stride(3) != 1 or x.stride(2) != dh:
-            raise ValueError(
-                f"{name} must have dense [H, dh] axes (strides {dh}, 1); got "
-                f"strides {x.stride()}"
-            )
-    if lengths is None:
-        lengths = torch.full((b,), t, dtype=torch.int32, device=q.device)
-    elif lengths.dtype != torch.int32 or lengths.device != q.device or not lengths.is_contiguous():
-        raise ValueError("lengths must be a contiguous int32 tensor on q's device")
+    lengths = _kernel_operands(q.device, q.dtype, dh, lengths, b, t, q=q, k=k, v=v)
     lib = _load()
     out = torch.empty((b, t, h, dh), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
@@ -164,36 +224,135 @@ def flash_attention(
 flash_attention.launches = 0
 
 
+def flash_attention_bwd(q, k, v, o, lse, delta, do, lengths=None, causal=False):
+    """(dq, dk, dv) of attention, in q's, k's and v's dtypes, from the
+    forward's residuals: ``o`` [B, T, H, dh] (checked for shape; the kernels
+    read it only through ``delta``), ``lse`` [B, H, T] from the forward,
+    ``delta = rowsum(dO * O)`` [B, H, T] and the output gradient ``do``.  The
+    two CUDA kernels on a CUDA tensor, their plain version on a CPU tensor."""
+    b, t, h, dh = _check(q, k, v, lengths)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(
+            f"o and do must be {tuple(q.shape)}; got {tuple(o.shape)}, {tuple(do.shape)}"
+        )
+    if tuple(lse.shape) != (b, h, t) or tuple(delta.shape) != (b, h, t):
+        raise ValueError(
+            f"lse and delta must be [B, H, T]={(b, h, t)}; got "
+            f"{tuple(lse.shape)}, {tuple(delta.shape)}"
+        )
+    if any(x.device != q.device for x in (o, lse, delta, do)):
+        raise ValueError("o, lse, delta and do must lie on q's device")
+    if do.dtype != q.dtype:
+        raise TypeError(f"do must be {q.dtype}, not {do.dtype}")
+    do = do.contiguous()  # a copy only if autograd handed a strided gradient
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(q, k, v, lse, delta, do, lengths, causal)
+    lengths = _kernel_operands(q.device, q.dtype, dh, lengths, b, t, q=q, k=k, v=v, do=do)
+    if lse.dtype != torch.float32 or delta.dtype != torch.float32:
+        raise TypeError("lse and delta must be float32")
+    lse, delta = lse.contiguous(), delta.contiguous()
+    dq = torch.empty((b, t, h, dh), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, t, h, dh), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, t, h, dh), dtype=v.dtype, device=q.device)
+    operands = (q, k, v, do, lse, delta, lengths)
+    _launch_bwd("dq", operands, (dq,), causal)
+    _launch_bwd("dkv", operands, (dk, dv), causal)
+    return dq, dk, dv
+
+
+def _launch_bwd(kernel: str, operands, outs, causal: bool) -> None:
+    """Launch one backward kernel, ``"dq"`` or ``"dkv"``, on the current
+    stream: `operands` = (q, k, v, do, lse, delta, lengths) as
+    :func:`flash_attention_bwd` checked them, `outs` its dense outputs."""
+    q, k, v, do, lse, delta, lengths = operands
+    b, t, h, dh = q.shape
+    fn = getattr(_load(), f"flash_attention_bwd_{kernel}")
+    with torch.cuda.device(q.device):
+        err = fn(
+            _DTYPE_CODE[q.dtype], *(x.data_ptr() for x in (*operands, *outs)), b, t, h, dh,
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), do.stride(0), do.stride(1), int(bool(causal)),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd_{kernel} launch failed: cudaError {err}")
+    name = f"{kernel}_launches"
+    setattr(flash_attention_bwd, name, getattr(flash_attention_bwd, name) + 1)
+
+
+# launches of each backward CUDA kernel; the plain version never counts
+flash_attention_bwd.dq_launches = 0
+flash_attention_bwd.dkv_launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the kernel (or its plain version) with the row lse kept.
+    Backward: delta = rowsum(dO * O) in plain torch (outside the kernels, as
+    in the JAX package), then :func:`flash_attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lengths, causal):
+        o, lse = flash_attention(q, k, v, lengths, causal, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse, lengths)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, lengths = ctx.saved_tensors
+        acc = _acc_dtype(o.dtype)
+        delta = (do.to(acc) * o.to(acc)).sum(-1).permute(0, 2, 1).contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, delta, do, lengths, ctx.causal)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_diff(q, k, v, lengths=None, causal=False):
+    """Differentiable flash attention (the counterpart of the JAX package's
+    ``flash_attention_diff`` custom VJP): gradients flow to q, k and v."""
+    return _FlashAttention.apply(q, k, v, lengths, causal)
+
+
+def _valid_lengths(lengths, b, t, dev):
+    if lengths is None:
+        return torch.full((b,), t, dtype=torch.int64, device=dev)
+    return lengths.to(device=dev, dtype=torch.int64).clamp(0, t)
+
+
+def _key_mask(k0, k1, lens, q_pos, causal):
+    """[B, 1, T or 1, bk] validity of keys [k0, k1) for every query row."""
+    k_pos = torch.arange(k0, k1, device=lens.device)
+    mask = (k_pos[None, :] < lens[:, None])[:, None, None, :]
+    if causal:
+        mask = mask & (k_pos[None, :] <= q_pos[:, None])[None, None]
+    return mask
+
+
 def flash_attention_reference(q, k, v, lengths=None, causal=False, *, return_lse=False):
     """The kernel's arithmetic in plain torch: key tiles of ``BLOCK`` walked
-    with an online softmax in f32 (scores and probabilities stay f32, as in
-    the kernel), key tiles past every length skipped (a masked key adds
-    nothing to m, l or the sum), fully masked rows giving O = 0 and
-    lse = -1e30 + log(1e-20)."""
+    with an online softmax in f32 (f64 for f64 inputs; scores and
+    probabilities stay in that type, as in the kernel), key tiles past every
+    length skipped (a masked key adds nothing to m, l or the sum), fully
+    masked rows giving O = 0 and lse = -1e30 + log(1e-20)."""
     b, t, h, dh = _check(q, k, v, lengths)
     dev = q.device
-    if lengths is None:
-        lens = torch.full((b,), t, dtype=torch.int64, device=dev)
-    else:
-        lens = lengths.to(device=dev, dtype=torch.int64).clamp(0, t)
+    acc_t = _acc_dtype(q.dtype)
+    lens = _valid_lengths(lengths, b, t, dev)
     scale = 1.0 / math.sqrt(dh)
-    qh, kh, vh = (x.permute(0, 2, 1, 3).float() for x in (q, k, v))  # [B,H,T,dh]
-    m = torch.full((b, h, t), -math.inf, dtype=torch.float32, device=dev)
-    l = torch.zeros((b, h, t), dtype=torch.float32, device=dev)
-    acc = torch.zeros((b, h, t, dh), dtype=torch.float32, device=dev)
+    qh, kh, vh = (x.permute(0, 2, 1, 3).to(acc_t) for x in (q, k, v))  # [B,H,T,dh]
+    m = torch.full((b, h, t), -math.inf, dtype=acc_t, device=dev)
+    l = torch.zeros((b, h, t), dtype=acc_t, device=dev)
+    acc = torch.zeros((b, h, t, dh), dtype=acc_t, device=dev)
     q_pos = torch.arange(t, device=dev)
     n_tiles = (int(lens.max()) + BLOCK - 1) // BLOCK if b else 0
     for k0 in range(0, n_tiles * BLOCK, BLOCK):
-        k_pos = torch.arange(k0, min(k0 + BLOCK, t), device=dev)
-        s = torch.matmul(qh, kh[:, :, k0 : k0 + BLOCK].transpose(-1, -2)) * scale
-        mask = (k_pos[None, :] < lens[:, None])[:, None, None, :]  # [B,1,1,bk]
-        if causal:
-            mask = mask & (k_pos[None, :] <= q_pos[:, None])[None, None]
+        k1 = min(k0 + BLOCK, t)
+        s = torch.matmul(qh, kh[:, :, k0:k1].transpose(-1, -2)) * scale
+        mask = _key_mask(k0, k1, lens, q_pos, causal)
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.where(mask, torch.exp(s - m_new[..., None]), torch.zeros_like(s))
         corr = torch.exp(m - m_new)
-        acc = acc * corr[..., None] + torch.matmul(p, vh[:, :, k0 : k0 + BLOCK])
+        acc = acc * corr[..., None] + torch.matmul(p, vh[:, :, k0:k1])
         l = l * corr + p.sum(dim=-1)
         m = m_new
     m = torch.where(torch.isinf(m), torch.full_like(m, NEG_INF), m)
@@ -201,3 +360,37 @@ def flash_attention_reference(q, k, v, lengths=None, causal=False, *, return_lse
     out = (acc / l_safe[..., None]).permute(0, 2, 1, 3).to(q.dtype)
     lse = m + torch.log(l_safe)
     return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd_reference(q, k, v, lse, delta, do, lengths=None, causal=False):
+    """The backward kernels' arithmetic in plain torch: key tiles of
+    ``BLOCK`` walked with f32 (f64 for f64 inputs) scores, probabilities
+    p = exp(s - lse) under the forward's masks, ds = p (dp - delta) scale,
+    and f32 accumulators dq += ds k, dk = ds^T q, dv = p^T dO.  Masked keys
+    get dk = dv = 0 and a row with no valid key gives dq = 0."""
+    b, t, h, dh = _check(q, k, v, lengths)
+    dev = q.device
+    acc_t = _acc_dtype(q.dtype)
+    lens = _valid_lengths(lengths, b, t, dev)
+    scale = 1.0 / math.sqrt(dh)
+    qh, kh, vh, doh = (x.permute(0, 2, 1, 3).to(acc_t) for x in (q, k, v, do))
+    lse_c, delta_c = lse.to(acc_t)[..., None], delta.to(acc_t)[..., None]  # [B,H,T,1]
+    dq = torch.zeros((b, h, t, dh), dtype=acc_t, device=dev)
+    dk = torch.zeros_like(dq)
+    dv = torch.zeros_like(dq)
+    q_pos = torch.arange(t, device=dev)
+    n_tiles = (int(lens.max()) + BLOCK - 1) // BLOCK if b else 0
+    for k0 in range(0, n_tiles * BLOCK, BLOCK):
+        k1 = min(k0 + BLOCK, t)
+        kt, vt = kh[:, :, k0:k1], vh[:, :, k0:k1]
+        s = torch.matmul(qh, kt.transpose(-1, -2)) * scale
+        mask = _key_mask(k0, k1, lens, q_pos, causal)
+        p = torch.where(mask, torch.exp(s - lse_c), torch.zeros_like(s))
+        dp = torch.matmul(doh, vt.transpose(-1, -2))
+        ds = p * (dp - delta_c) * scale
+        dq += torch.matmul(ds, kt)
+        dk[:, :, k0:k1] = torch.matmul(ds.transpose(-1, -2), qh)
+        dv[:, :, k0:k1] = torch.matmul(p.transpose(-1, -2), doh)
+    return tuple(
+        g.permute(0, 2, 1, 3).to(x.dtype) for g, x in ((dq, q), (dk, k), (dv, v))
+    )

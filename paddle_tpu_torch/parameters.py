@@ -1,8 +1,9 @@
 """Parameters — the counterpart of ``paddle_tpu/parameters.py`` for what
-inference needs: :func:`create` from a network and a seed, and
+inference and training need: :func:`create` from a network and a seed, and
 :func:`from_numpy`, which carries the JAX package's parameters (a
 ``{layer: {key: ndarray}}`` tree) into the port so both compute the same
-function.  Tar checkpoints are not ported yet."""
+function (its network-less tree is adopted by ``trainer.SGD``).  Tar
+checkpoints are not ported yet."""
 
 from __future__ import annotations
 

@@ -65,8 +65,9 @@ def reset_flags() -> None:
 define_flag("seed", 0, "global RNG seed")
 define_flag("compute_dtype", "", "bfloat16 enables mixed precision")
 define_flag("use_flash_attention", False,
-            "hand-written flash-attention forward kernel (ops/"
-            "flash_attention.py) for multi_head_attention with equal query "
-            "and key lengths that pass supported(): the CUDA kernel on a "
-            "CUDA tensor, its plain version on a CPU tensor; off keeps the "
-            "dense [T, T] path (counterpart of use_pallas_attention)")
+            "hand-written flash-attention kernels (ops/flash_attention.py: "
+            "the forward, and the dq and dk/dv backward kernels when a "
+            "gradient is taken) for multi_head_attention with equal query "
+            "and key lengths that pass supported(): the CUDA kernels on a "
+            "CUDA tensor, their plain versions on a CPU tensor; off keeps "
+            "the dense [T, T] path (counterpart of use_pallas_attention)")

@@ -74,6 +74,15 @@ def test_entry_points_raise_without_cuda():
     params = paddle_tpu_torch.parameters.create(probs, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         paddle_tpu_torch.Inference(probs, params)
+    cost, _ = paddle_tpu_torch.models.transformer.transformer_cost(
+        20, 20, d_model=16, n_heads=2, n_layers=1, d_ff=32
+    )
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        paddle_tpu_torch.trainer.SGD(
+            cost, update_equation=paddle_tpu_torch.optimizer.Momentum(learning_rate=0.1)
+        )
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        paddle_tpu_torch.CompiledNetwork(paddle_tpu_torch.Topology(cost)).init_params(0)
 
 
 def test_chip_smoke_fails_without_cuda():
