@@ -13,7 +13,8 @@ Phases, in order; any failure exits non-zero:
      q, k, v as strided slices of one fused projection (self-attention) and
      as dense tensors (cross-attention), bf16 and f32, causal off and on; times of the kernel, the plain version and
      torch's scaled_dot_product_attention (a yardstick only: the port never
-     calls it) beside the least time the card could take;
+     calls it; the kernels it ran on are named from the profiler) beside the
+     least time the card could take;
   3. the slice: Transformer-base (32000/32000 vocab) with random weights from
      a seed, bf16 compute, the flash flag on, serving 16 requests with source
      and target lengths in 600-1024 through Inference.infer in two batches of
@@ -23,6 +24,12 @@ Phases, in order; any failure exits non-zero:
      same shapes, layouts, dtypes and masks as phase 2: dq, dk and dv, the
      time of each kernel beside its bound, the plain backward's time and the
      time of scaled_dot_product_attention's backward alone (a yardstick only);
+  4b. edge shapes of the bf16 tensor-core kernels against the plain
+     versions: the forward (O, lse) and the backward (dq, dk, dv) at
+     T = 200 with dh = 40 (padded to 48 in shared memory), a length-0 row
+     and a length that is not a multiple of 16, at dh = 64 and at dh = 128,
+     fused and dense operands, causal off and on, at the bars of phases 2
+     and 4;
   5. training: Transformer-base (32000/32000, bf16 compute, f32 masters) with
      random weights from a seed, through trainer.SGD(...).train with
      Momentum(0.05 / 1024, 0.9) on batches of 8 with source and target
@@ -89,8 +96,8 @@ FIXED_STEPS = 5  # repeated steps on one batch: the cost must fall
 # whose pre-activation is within rounding of 0 flips between the paths and
 # moves its bias gradient by one token's share (about 1% of a sum over ~8000
 # tokens), even in f32.  f32: summation order and such flips, <= 1e-3.
-# bf16: the dense path also rounds scores and probabilities to bf16 where the
-# kernels keep f32, <= 5e-2.
+# bf16: the dense path rounds scores and the whole softmax to bf16, where the
+# kernels keep f32 and round only p and ds before their products, <= 5e-2.
 GRAD_REL = {"float32": 1e-3, "bfloat16": 5e-2}
 VOCAB = 32000
 FEEDING = {"src_word": 0, "trg_word": 1, "trg_next": 2}
@@ -119,6 +126,24 @@ def time_ms(torch, fn, iters=20, warmup=3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_kernels(torch, fn) -> str:
+    """The device kernels one call of fn runs, by name, from torch.profiler
+    ("not measured" when the profiler shows no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    if not dev:
+        return "not measured"
+    dev.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    return "; ".join(f"{e.key[:90]} {e.self_device_time_total / e.count:.1f} us" for e in dev[:4])
 
 
 def attention_pairs(lengths, t, causal) -> int:
@@ -214,6 +239,8 @@ def phase_kernel(torch, fa):
                 if layout == "fused" and dtype == torch.bfloat16 and not causal:
                     row = {"ms": ms, "plain_ms": plain, "bound_ms": bnd,
                            "bound_by": bound_by, "library_ms": lib}
+                    say("kernel: sdpa (bool mask, bf16) ran on: " + device_kernels(
+                        torch, lambda: sdpa(qh, kh, vh, attn_mask=mask)))
     row["max_abs_err"] = worst
     return row
 
@@ -368,6 +395,10 @@ def phase_bwd_kernel(torch, fa):
                 lib_out = sdpa(qh, kh, vh, attn_mask=mask)
                 lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
                     lib_out, (qh, kh, vh), do.transpose(1, 2), retain_graph=True))
+                if layout == "fused" and dtype == torch.bfloat16 and not causal:
+                    say("bwd: sdpa backward (bool mask, bf16) ran on: " + device_kernels(
+                        torch, lambda: torch.autograd.grad(
+                            lib_out, (qh, kh, vh), do.transpose(1, 2), retain_graph=True)))
                 del lib_out
                 peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
                 bnd = {kn: bound_ms(kn, LENGTHS, causal, q.element_size(), peak)
@@ -384,6 +415,57 @@ def phase_bwd_kernel(torch, fa):
     for kn, r in rows.items():
         r["max_abs_err"] = worst[kn]
     return rows
+
+
+# edge shapes of the bf16 tensor-core kernels: (B, T, H, dh, lengths)
+EDGE_CASES = (
+    (3, 200, 4, 40, [200, 77, 0]),
+    (3, 200, 4, 64, [200, 77, 0]),
+    (2, 256, 4, 128, [256, 131]),
+)
+
+
+def phase_edges(torch, fa):
+    """bf16 forward and backward kernels against their plain versions at the
+    edge shapes, both operand layouts, causal off and on; phases 2 and 4's
+    bf16 bars.  The f32 kernels are the scalar ones of the earlier phases."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    dt, name = torch.bfloat16, "bfloat16"
+    for b, t, h, dh, lens in EDGE_CASES:
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        for layout in ("fused", "separate"):
+            if layout == "fused":
+                qkv = torch.randn((b, t, 3 * h * dh), generator=gen, device="cuda").to(dt)
+                q, k, v = (x.view(b, t, h, dh) for x in qkv.split(h * dh, dim=-1))
+            else:
+                q, k, v = (torch.randn((b, t, h, dh), generator=gen, device="cuda").to(dt)
+                           for _ in range(3))
+            do = torch.randn((b, t, h, dh), generator=gen, device="cuda").to(dt)
+            for causal in (False, True):
+                o, lse = fa.flash_attention(q, k, v, lengths, causal, return_lse=True)
+                o_r, lse_r = fa.flash_attention_reference(q, k, v, lengths, causal, return_lse=True)
+                delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+                got = fa.flash_attention_bwd(q, k, v, o, lse, delta, do, lengths, causal)
+                want = fa.flash_attention_bwd_reference(q, k, v, lse, delta, do, lengths, causal)
+                torch.cuda.synchronize()
+                excess = {}
+                for key, x, r, tol, rel in (
+                        ("O", o, o_r, TOL_O[name], TOL_O_REL[name]),
+                        ("lse", lse, lse_r, TOL_LSE[name], 0.0),
+                        *((g, x, r, TOL_G[name], TOL_G_REL[name])
+                          for g, x, r in zip(("dq", "dk", "dv"), got, want))):
+                    d = (x.float() - r.float()).abs()
+                    excess[key] = (d - rel * r.float().abs()).max().item() - tol
+                    if not bool(torch.isfinite(x.float()).all()):
+                        excess[key] = float("inf")
+                zero = all(torch.count_nonzero(x[i]) == 0
+                           for x in (o, *got) for i, n in enumerate(lens) if n == 0)
+                say(f"edge B={b} T={t} H={h} dh={dh} lengths {lens} {layout} causal={causal}: "
+                    + ", ".join(f"{key} {e:+.3e}" for key, e in excess.items())
+                    + f" (excess over the bar; <= 0 passes), length-0 rows zero: {zero}")
+                if max(excess.values()) > 0 or not zero:
+                    raise SystemExit(f"bf16 kernels disagree with the plain versions at an "
+                                     f"edge shape (dh={dh}, {layout}, causal={causal})")
 
 
 def train_samples(rng, n):
@@ -522,7 +604,8 @@ def phase_profile(torch, P, trainer):
     for e in sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)[:12]:
         say(f"  {e.self_device_time_total / 2e3:9.3f} ms  {e.count / 2:6.1f} calls  "
             f"{100 * e.self_device_time_total / total_us:5.1f}%  {e.key[:100]}")
-    flash = {kn: sum(e.self_device_time_total for e in dev if f"fa_{kn}_kernel" in e.key)
+    # fa_fwd_kernel / fa_fwd_mma_kernel, fa_bwd_dkv_kernel / fa_bwd_dkv_mma_kernel
+    flash = {kn: sum(e.self_device_time_total for e in dev if f"fa_{kn}_" in e.key)
              for kn in ("fwd", "bwd_dq", "bwd_dkv")}
     say("profile: flash kernels per step " + ", ".join(
         f"{kn} {us / 2e3:.3f} ms ({100 * us / total_us:.1f}%)" for kn, us in flash.items()))
@@ -558,6 +641,7 @@ def main() -> int:
     rows = {"fwd": phase_kernel(torch, fa)}
     phase_slice(torch, P, fa, card)
     rows.update(phase_bwd_kernel(torch, fa))
+    phase_edges(torch, fa)
     launches, trainer = phase_train(torch, P, fa, card)
     phase_profile(torch, P, trainer)
     kernels = [

@@ -4,7 +4,7 @@
 //
 // Replaces the TPU kernels paddle_tpu/ops/pallas_attention.py:
 //   _fa_bwd_dq_kernel   -> fa_bwd_dq_kernel
-//   _fa_bwd_dkv_kernel  -> fa_bwd_dkv_kernel
+//   _fa_bwd_dkv_kernel  -> fa_bwd_dkv_mma_kernel (bf16), fa_bwd_dkv_kernel (f32)
 // (both launched by _flash_bwd).  They compute the same functions, with the
 // masks of the forward (keys at or past lengths[b] masked, an optional
 // causal mask, scale = 1/sqrt(dh)):
@@ -12,22 +12,42 @@
 //   dp = dO v^T,   ds = p * (dp - delta) * scale,   delta = rowsum(dO * O)
 //   dq = ds k,     dk = ds^T q,          dv = p^T dO
 // lse comes from the forward kernel and delta is computed outside the
-// kernels, both [B, H, T] f32.  Scores, p, dp, ds and the three accumulators
-// stay f32 (bf16 inputs are widened on load); each gradient rounds once on
-// store.  The TPU kernel rounds p and ds to the input dtype before its MXU
-// products; these kernels keep them f32, as the forward does.
+// kernels, both [B, H, T] f32.  Scores, p, dp, ds and the accumulators are
+// f32; as in the TPU kernels (pallas_attention.py:162, 199, 208), p and ds
+// are rounded to the input dtype before the products dv = p^T dO, dq = ds k
+// and dk = ds^T q (a no-op for f32), and each gradient rounds once on store.
 //
-// Design (simple first):
-//   * dq: one block of 256 threads per (q-tile of 64 rows, head, batch); a
-//     loop over 64-key tiles of K and V staged in shared memory, stopping at
-//     the causal diagonal and at the last tile that holds a valid key.  A
-//     block whose loop runs no tile (a row of length 0) writes dq = 0.
-//   * dk/dv: one block per (64-key tile, head, batch); a loop over q-tiles
-//     (from the diagonal when causal) with Q, dO, lse and delta staged in
-//     shared memory.  A key tile wholly at or past lengths[b] runs no tile
-//     and writes zeros: the outputs come from torch.empty.
-//   * products by scalar FMA with a 4x4 (resp. 4 x dh/16) register tile per
-//     thread, as in the forward; no atomics: each block owns its outputs.
+// Design:
+//   * dq (f32 and bf16): one block of 256 threads per (q-tile of 64 rows,
+//     head, batch); a loop over 64-key tiles of K and V staged in shared
+//     memory as f32, stopping at the causal diagonal and at the last tile
+//     that holds a valid key; products by scalar FMA with a 4x4 (resp.
+//     4 x dh/16) register tile per thread.  A block whose loop runs no tile
+//     (a row of length 0) writes dq = 0.
+//   * dk/dv, bf16: fa_bwd_dkv_mma_kernel, on the tensor cores
+//     (flash_mma.cuh).  One block of DKV_WARPS = 4 warps (64 keys) per
+//     (key tile, head, batch), over q tiles of DKV_BMQ = 32 queries (135
+//     registers, no spills at dh = 64; 64-query tiles fit no better than 174
+//     registers or spill at 168, and were slower without spills; 8 warps
+//     were slower too).  Each warp owns 16 keys, so
+//     every product of a q tile stays in that warp's registers:
+//       S^T = K Q^T,  P^T = exp(S^T scale - lse),  dV += P^T dO,
+//       dP^T = V dO^T,  dS^T = P^T (dP^T - delta) scale,  dK += dS^T Q
+//     (in that order, the last three 32 queries at a time, so the f32 P^T
+//     tile, half of dP^T and the two accumulators are the most that is live:
+//     no spills at dh = 64),
+//     with P^T and dS^T passed from their f32 accumulators to the next
+//     product as bf16 A fragments (never through shared memory).  K and V
+//     stay in shared memory for the whole block; Q, dO, lse and delta of
+//     the next q tile load with cp.async while this one computes (one
+//     __syncthreads per tile).  The loop starts at the diagonal when causal.
+//     The head dim is zero-padded to a multiple of 16 in shared memory.
+//   * dk/dv, f32: fa_bwd_dkv_kernel, one block of 256 threads per (64-key
+//     tile, head, batch), Q, dO, P and dS staged in shared memory as f32,
+//     scalar FMA: the parity dtype, whose bars TF32 products would break.
+//   * Both dk/dv kernels: a key tile wholly at or past lengths[b] runs no q
+//     tile and writes zeros (the outputs come from torch.empty); no atomics,
+//     each block owns its outputs, so the result is deterministic.
 //   * q, k, v and dO are read through their batch and token strides (the
 //     fused QKV projection's column slices need no copy); dq, dk and dv are
 //     written dense [B, T, H, dh].
@@ -36,18 +56,19 @@
 // operations (recomputed s, dp, dq) and dk/dv 8*dh (s, dp, dv, dk), over
 // ~O(B*T*H*dh) bytes: at Transformer-base shapes (T = 1024, dh = 64) far
 // above the H100's ridge point, so both kernels are bounded by operations
-// (989 TFLOP/s bf16 on the tensor cores).  This version does its products
-// on the CUDA cores in f32 and leaves the tensor cores idle; mma.sync/wgmma
-// operands, cp.async or TMA double buffering and a fused dq are for a later
-// version.
+// (989 TFLOP/s bf16 on the tensor cores).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_mma.cuh"
+
 namespace {
 
+constexpr int DKV_WARPS = 4;  // warps (16 keys each) per block of the bf16 dk/dv kernel
+constexpr int DKV_BMQ = 32;   // query rows per tile (a multiple of 32) of the bf16 dk/dv kernel
 constexpr int BM = 64;        // query rows per tile
 constexpr int BN = 64;        // keys per tile
 constexpr int NTHREADS = 256;
@@ -57,6 +78,11 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void from_f32(float* p, float x) { *p = x; }
 __device__ __forceinline__ void from_f32(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+// x rounded to T and back: a product operand of the TPU kernels
+__device__ __forceinline__ float operand(float x, const float*) { return x; }
+__device__ __forceinline__ float operand(float x, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16(x));
+}
 
 // rows [r0, r0 + 64) of one head of x (token stride st) into s[64][ld] as
 // f32; rows at or past t_len read as 0
@@ -167,7 +193,7 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int kp = k0 + tx + 16 * j;
         const bool ok = kp < valid_len && qp < t_len && (!causal || kp <= qp);
         const float p = ok ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
-        dss[r * (BN + 1) + tx + 16 * j] = p * (dp[i][j] - delta_s[r]) * scale;
+        dss[r * (BN + 1) + tx + 16 * j] = operand(p * (dp[i][j] - delta_s[r]) * scale, q);
       }
     }
     __syncthreads();
@@ -337,6 +363,197 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+using fa_mma::bf16;
+
+template <int DP, int NW, int BMQ>
+__global__ void __launch_bounds__(NW * 32)
+fa_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      const int* __restrict__ lengths, bf16* __restrict__ dk,
+                      bf16* __restrict__ dv, int t_len, int n_heads, int dh,
+                      long long qsb, long long qst, long long ksb, long long kst,
+                      long long vsb, long long vst, long long dsb, long long dst,
+                      int causal, float scale) {
+  using namespace fa_mma;
+  constexpr int BNW = NW * 16;  // keys per block
+  constexpr int NT = NW * 32;
+  constexpr int LD = DP + 8;    // padded bf16 row
+  constexpr int KC = DP / 16;   // k-chunks over the head dim
+  constexpr int NQ = BMQ / 8;   // n-tiles over a q tile
+  static_assert(BMQ % 32 == 0, "dP^T is formed 32 queries at a time");
+  constexpr int ND = DP / 8;    // n-tiles of dK, dV
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [BNW][LD]
+  bf16* vs = ks + BNW * LD;                      // [BNW][LD]
+  bf16* qs = vs + BNW * LD;                      // [2][BMQ][LD]
+  bf16* dos = qs + 2 * BMQ * LD;                 // [2][BMQ][LD]
+  float* lse_s = reinterpret_cast<float*>(dos + 2 * BMQ * LD);  // [2][BMQ]
+  float* delta_s = lse_s + 2 * BMQ;                             // [2][BMQ]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int k0 = blockIdx.x * BNW;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int valid_len = min(max(lengths[b], 0), t_len);
+  const long long bh = ((long long)b * n_heads + h) * t_len;
+  const bf16* qb = q + b * qsb + (long long)h * dh;
+  const bf16* ob = dout + b * dsb + (long long)h * dh;
+
+  const int n_q = (t_len + BMQ - 1) / BMQ;
+  // causal: q tiles wholly before this key tile see none of its keys; a key
+  // tile wholly at or past the length is masked for every query
+  const int first = k0 >= valid_len ? n_q : (causal ? k0 / BMQ : 0);
+
+  // Q, dO, lse and delta of q tile `it` into buffer `buf`
+  auto load_q_tile = [&](int it, int buf) {
+    const int q0 = it * BMQ;
+    load_rows<BMQ, DP, NT>(qs + buf * BMQ * LD, qb, qst, q0, t_len, dh);
+    load_rows<BMQ, DP, NT>(dos + buf * BMQ * LD, ob, dst, q0, t_len, dh);
+    for (int i = threadIdx.x; i < BMQ; i += NT) {
+      const bool ok = q0 + i < t_len;
+      cp_async_4(lse_s + buf * BMQ + i, lse + bh + (ok ? q0 + i : 0), ok);
+      cp_async_4(delta_s + buf * BMQ + i, delta + bh + (ok ? q0 + i : 0), ok);
+    }
+  };
+
+  if (first < n_q) {
+    load_rows<BNW, DP, NT>(ks, k + b * ksb + (long long)h * dh, kst, k0, t_len, dh);
+    load_rows<BNW, DP, NT>(vs, v + b * vsb + (long long)h * dh, vst, k0, t_len, dh);
+    load_q_tile(first, 0);
+  }
+  cp_async_commit();
+
+  // this lane's keys: kr and kr + 8 of the warp's 16
+  const int kr = k0 + warp * 16 + g;
+  const bf16* kw = ks + (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8;  // A rows
+  const bf16* vw = vs + (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
+  float acc_k[ND][4], acc_v[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+
+  for (int it = first; it < n_q; ++it) {
+    const int buf = (it - first) & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // tile it landed; every warp is done with tile it - 1
+    if (it + 1 < n_q) {
+      load_q_tile(it + 1, buf ^ 1);
+      cp_async_commit();
+    }
+    const bf16* qt = qs + buf * BMQ * LD;
+    const bf16* ot = dos + buf * BMQ * LD;
+    const float* ls = lse_s + buf * BMQ;
+    const float* dls = delta_s + buf * BMQ;
+    const int q0 = it * BMQ;
+    // B fragments of two query n-tiles (rows of Q or dO) per ldmatrix
+    const int brow = (lane & 7) + ((lane >> 4) << 3), bcol = ((lane >> 3) & 1) * 8;
+
+    // B fragments through ldmatrix.trans for the products over queries
+    const int trow = (lane & 7) + ((lane >> 3) & 1) * 8, tcol = (lane >> 4) * 8;
+
+    // S^T = K Q^T: [16 keys] x [BMQ queries] per warp
+    float st[NQ][4];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) st[j][0] = st[j][1] = st[j][2] = st[j][3] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      uint32_t ka[4];
+      ldmatrix_x4(ka, kw + kc * 16);
+#pragma unroll
+      for (int jp = 0; jp < NQ / 2; ++jp) {
+        uint32_t qf[4];
+        ldmatrix_x4(qf, qt + (jp * 16 + brow) * LD + kc * 16 + bcol);
+        mma_bf16(st[2 * jp], ka, qf[0], qf[1]);
+        mma_bf16(st[2 * jp + 1], ka, qf[2], qf[3]);
+      }
+    }
+    // P^T under the masks; element e of n-tile j is key kr + 8 * (e >> 1),
+    // query q0 + 8 j + 2 tq + (e & 1)
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(ls + j * 8 + 2 * tq);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qp = q0 + j * 8 + 2 * tq + (e & 1);
+        const int kp = kr + 8 * (e >> 1);
+        const bool ok = kp < valid_len && qp < t_len && (!causal || kp <= qp);
+        st[j][e] = ok ? expf(st[j][e] * scale - ((e & 1) ? l2.y : l2.x)) : 0.f;
+      }
+    }
+    // dV += P^T dO: A = P^T rounded to bf16, B = rows of dO.  Done before
+    // dP^T is formed, so the f32 P^T and dP^T tiles and both accumulators
+    // are the most that is live at once.
+#pragma unroll
+    for (int kk = 0; kk < BMQ / 16; ++kk) {
+      uint32_t pa[4];
+      acc_to_a(pa, st[2 * kk], st[2 * kk + 1]);
+#pragma unroll
+      for (int dp = 0; dp < ND / 2; ++dp) {
+        uint32_t of[4];
+        ldmatrix_x4_trans(of, ot + (kk * 16 + trow) * LD + dp * 16 + tcol);
+        mma_bf16(acc_v[2 * dp], pa, of[0], of[1]);
+        mma_bf16(acc_v[2 * dp + 1], pa, of[2], of[3]);
+      }
+    }
+    // dP^T = V dO^T, dS^T = P^T (dP^T - delta) scale (with the unrounded
+    // f32 P^T) and dK += dS^T Q (A = dS^T rounded to bf16, B = rows of Q),
+    // 32 queries at a time: half of dP^T is live, not all of it
+#pragma unroll
+    for (int c = 0; c < BMQ / 32; ++c) {
+      float dpt[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dpt[j][0] = dpt[j][1] = dpt[j][2] = dpt[j][3] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc) {
+        uint32_t va[4];
+        ldmatrix_x4(va, vw + kc * 16);
+#pragma unroll
+        for (int jp = 0; jp < 2; ++jp) {
+          uint32_t of[4];
+          ldmatrix_x4(of, ot + (c * 32 + jp * 16 + brow) * LD + kc * 16 + bcol);
+          mma_bf16(dpt[2 * jp], va, of[0], of[1]);
+          mma_bf16(dpt[2 * jp + 1], va, of[2], of[3]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 d2 = *reinterpret_cast<const float2*>(dls + (c * 4 + j) * 8 + 2 * tq);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dpt[j][e] = st[c * 4 + j][e] * (dpt[j][e] - ((e & 1) ? d2.y : d2.x)) * scale;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        uint32_t da[4];
+        acc_to_a(da, dpt[2 * kk], dpt[2 * kk + 1]);
+#pragma unroll
+        for (int dp = 0; dp < ND / 2; ++dp) {
+          uint32_t qf[4];
+          ldmatrix_x4_trans(qf, qt + (c * 32 + kk * 16 + trow) * LD + dp * 16 + tcol);
+          mma_bf16(acc_k[2 * dp], da, qf[0], qf[1]);
+          mma_bf16(acc_k[2 * dp + 1], da, qf[2], qf[3]);
+        }
+      }
+    }
+  }
+
+  // dK and dV through this warp's rows of the K and V tiles, 16-byte stores
+  cp_async_wait<0>();
+  __syncthreads();  // with no q tile, K's and V's copies may still be in flight
+  const long long row = (long long)n_heads * dh;
+  const long long base = ((long long)b * t_len * n_heads + h) * dh;
+  bf16* kst_s = ks + warp * 16 * LD;
+  bf16* vst_s = vs + warp * 16 * LD;
+  stage_acc<DP>(kst_s, acc_k, 1.f, 1.f);
+  stage_acc<DP>(vst_s, acc_v, 1.f, 1.f);
+  __syncwarp();
+  store_rows<DP>(dk + base, row, kst_s, k0 + warp * 16, t_len, dh);
+  store_rows<DP>(dv + base, row, vst_s, k0 + warp * 16, t_len, dh);
+}
+
 struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
@@ -385,6 +602,26 @@ int launch_dkv(const Args& a, void* dk, void* dv) {
   return (int)cudaGetLastError();
 }
 
+template <int DP>
+int launch_dkv_mma(const Args& a, void* dk, void* dv) {
+  constexpr int NW = DKV_WARPS;
+  constexpr int BMQ = DKV_BMQ;
+  const size_t smem = sizeof(bf16) * (size_t)(2 * NW * 16 + 4 * BMQ) * (DP + 8) +
+                      sizeof(float) * 4 * BMQ;
+  cudaError_t err = cudaFuncSetAttribute(fa_bwd_dkv_mma_kernel<DP, NW, BMQ>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((a.t + NW * 16 - 1) / (NW * 16), a.h, a.b);
+  fa_bwd_dkv_mma_kernel<DP, NW, BMQ><<<grid, NW * 32, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
+      a.delta, a.lengths, static_cast<bf16*>(dk), static_cast<bf16*>(dv), a.t, a.h,
+      a.dh, a.qsb, a.qst, a.ksb, a.kst, a.vsb, a.vst, a.dsb, a.dst, a.causal,
+      1.0f / sqrtf((float)a.dh));
+  return (int)cudaGetLastError();
+}
+
 bool bad_shape(int b, int t, int h, int dh) {
   return dh <= 0 || dh > DMAX || dh % 8 != 0 || b <= 0 || t <= 0 || h <= 0;
 }
@@ -394,7 +631,10 @@ bool bad_shape(int b, int t, int h, int dh) {
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; the head and
 // head-dim axes of q, k, v and dout must be dense ([.., H, dh] with strides
 // dh, 1); lse and delta are dense [B, H, T] f32; the outputs are dense
-// [B, T, H, dh].  Each returns the cudaError_t of its launch (0 on success).
+// [B, T, H, dh].  For the bf16 dk/dv kernel, q, k, v and dout must be
+// 16-byte aligned with batch and token strides that are multiples of 8 (the
+// wrapper checks; cp.async copies 16 bytes).  Each returns the cudaError_t
+// of its launch (0 on success).
 extern "C" int flash_attention_bwd_dq(
     int dtype, const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, const int* lengths, void* dq, int b,
@@ -421,6 +661,15 @@ extern "C" int flash_attention_bwd_dkv(
                qsb, qst, ksb, kst,  vsb, vst,   dsb,     dst, causal,
                static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return launch_dkv<float>(a, dk, dv);
-  if (dtype == 1) return launch_dkv<__nv_bfloat16>(a, dk, dv);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  switch ((dh + 15) / 16) {  // the head dim padded to a multiple of 16
+    case 1: return launch_dkv_mma<16>(a, dk, dv);
+    case 2: return launch_dkv_mma<32>(a, dk, dv);
+    case 3: return launch_dkv_mma<48>(a, dk, dv);
+    case 4: return launch_dkv_mma<64>(a, dk, dv);
+    case 5: return launch_dkv_mma<80>(a, dk, dv);
+    case 6: return launch_dkv_mma<96>(a, dk, dv);
+    case 7: return launch_dkv_mma<112>(a, dk, dv);
+    default: return launch_dkv_mma<128>(a, dk, dv);
+  }
 }

@@ -4,10 +4,16 @@ two backward kernels, dq and dk/dv) and their plain PyTorch versions.
 Counterpart of ``paddle_tpu/ops/pallas_attention.py`` (``flash_attention``,
 ``flash_attention_diff``, ``_flash_fwd``, ``_flash_bwd`` and the TPU kernels
 ``_fa_fwd_kernel``, ``_fa_bwd_dq_kernel``, ``_fa_bwd_dkv_kernel``).  The
-kernels live in ``paddle_tpu_torch/csrc/*.cu``; they are compiled with
-``nvcc`` at first use into one shared library under
-``paddle_tpu_torch/_build/`` and bound through plain C functions loaded with
-``ctypes``.
+kernels live in ``paddle_tpu_torch/csrc/*.cu`` (with the tensor-core building
+blocks in ``csrc/flash_mma.cuh``); they are compiled with ``nvcc`` at first
+use into one shared library under ``paddle_tpu_torch/_build/`` and bound
+through plain C functions loaded with ``ctypes``.
+
+bf16 inputs run the forward and dk/dv on the tensor cores (``mma.sync``,
+``ldmatrix``, ``cp.async``), which copy 16 bytes at a time: each bf16
+operand must be 16-byte aligned with batch and token strides that are
+multiples of 8 elements, or the wrapper raises.  f32 inputs run the scalar
+kernels (TF32 products would break the f32 bars).
 
 Routing is by the tensor's device: a CUDA tensor launches a kernel (or
 raises), a CPU tensor runs the plain version (:func:`flash_attention_reference`,
@@ -40,6 +46,7 @@ BLOCK = 64  # keys per tile: BN of the kernels in csrc/
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cu"))))
+HEADERS = tuple(sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cuh"))))
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -65,12 +72,12 @@ def _nvcc() -> str:
 
 def build(verbose: bool = False) -> str:
     """Compile every ``csrc/*.cu`` into one shared library in ``_build/``
-    (keyed by the hash of every source plus the flags, so an edited source
-    rebuilds) and return its path.  One ``nvcc`` per source, all started
-    together, then one link; ``verbose`` prints ptxas's per-kernel
-    registers, shared memory and spills."""
+    (keyed by the hash of every source and header plus the flags, so an
+    edited source or header rebuilds) and return its path.  One ``nvcc`` per
+    source, all started together, then one link; ``verbose`` prints ptxas's
+    per-kernel registers, shared memory and spills."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in (*SOURCES, *HEADERS):
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + b"\0" + f.read())
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -157,9 +164,23 @@ def _check(q, k, v, lengths):
     return b, t, h, dh
 
 
+def check_aligned(name: str, x: torch.Tensor) -> None:
+    """The bf16 tensor-core kernels copy 16-byte chunks (8 elements) with
+    cp.async: `x` must start on 16 bytes, with batch and token strides that
+    are multiples of 8 elements.  The main path always meets this (the fused
+    QKV splits at H * dh, a multiple of 8; cross-attention is dense)."""
+    if x.data_ptr() % 16 or x.stride(0) % 8 or x.stride(1) % 8:
+        raise ValueError(
+            f"{name}: the bf16 kernels need a 16-byte aligned operand with batch "
+            f"and token strides that are multiples of 8; got address "
+            f"{x.data_ptr():#x}, strides {x.stride()}"
+        )
+
+
 def _kernel_operands(dev, dtype, dh, lengths, b, t, **operands):
     """Check what the CUDA kernels take (dtype, dh, dense [H, dh] axes of
-    each operand) and return lengths as a contiguous int32 tensor on `dev`."""
+    each operand, bf16 alignment) and return lengths as a contiguous int32
+    tensor on `dev`."""
     if dev.type != "cuda":
         raise ValueError(f"no flash-attention kernel for device {dev}")
     if dtype not in _DTYPE_CODE:
@@ -172,6 +193,8 @@ def _kernel_operands(dev, dtype, dh, lengths, b, t, **operands):
                 f"{name} must have dense [H, dh] axes (strides {dh}, 1); got "
                 f"strides {x.stride()}"
             )
+        if dtype == torch.bfloat16:
+            check_aligned(name, x)
     if lengths is None:
         return torch.full((b,), t, dtype=torch.int32, device=dev)
     if lengths.dtype != torch.int32 or lengths.device != dev or not lengths.is_contiguous():
@@ -312,6 +335,14 @@ def flash_attention_diff(q, k, v, lengths=None, causal=False):
     return _FlashAttention.apply(q, k, v, lengths, causal)
 
 
+def _operand(x, dtype):
+    """x rounded to the input dtype and kept in its own: a product operand
+    of the kernels (pallas_attention.py:114, 162, 199, 208 round p and ds to
+    the input dtype before the MXU; the tensor-core kernels do the same).
+    A no-op for f32 and f64 inputs."""
+    return x.to(dtype).to(x.dtype)
+
+
 def _valid_lengths(lengths, b, t, dev):
     if lengths is None:
         return torch.full((b,), t, dtype=torch.int64, device=dev)
@@ -329,10 +360,11 @@ def _key_mask(k0, k1, lens, q_pos, causal):
 
 def flash_attention_reference(q, k, v, lengths=None, causal=False, *, return_lse=False):
     """The kernel's arithmetic in plain torch: key tiles of ``BLOCK`` walked
-    with an online softmax in f32 (f64 for f64 inputs; scores and
-    probabilities stay in that type, as in the kernel), key tiles past every
-    length skipped (a masked key adds nothing to m, l or the sum), fully
-    masked rows giving O = 0 and lse = -1e30 + log(1e-20)."""
+    with an online softmax in f32 (f64 for f64 inputs; scores, the max and
+    the normaliser stay in that type, as in the kernel), p rounded to the
+    input dtype before P@V (the TPU kernel's MXU operand, a no-op for f32),
+    key tiles past every length skipped (a masked key adds nothing to m, l
+    or the sum), fully masked rows giving O = 0 and lse = -1e30 + log(1e-20)."""
     b, t, h, dh = _check(q, k, v, lengths)
     dev = q.device
     acc_t = _acc_dtype(q.dtype)
@@ -352,7 +384,7 @@ def flash_attention_reference(q, k, v, lengths=None, causal=False, *, return_lse
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.where(mask, torch.exp(s - m_new[..., None]), torch.zeros_like(s))
         corr = torch.exp(m - m_new)
-        acc = acc * corr[..., None] + torch.matmul(p, vh[:, :, k0:k1])
+        acc = acc * corr[..., None] + torch.matmul(_operand(p, q.dtype), vh[:, :, k0:k1])
         l = l * corr + p.sum(dim=-1)
         m = m_new
     m = torch.where(torch.isinf(m), torch.full_like(m, NEG_INF), m)
@@ -366,8 +398,10 @@ def flash_attention_bwd_reference(q, k, v, lse, delta, do, lengths=None, causal=
     """The backward kernels' arithmetic in plain torch: key tiles of
     ``BLOCK`` walked with f32 (f64 for f64 inputs) scores, probabilities
     p = exp(s - lse) under the forward's masks, ds = p (dp - delta) scale,
-    and f32 accumulators dq += ds k, dk = ds^T q, dv = p^T dO.  Masked keys
-    get dk = dv = 0 and a row with no valid key gives dq = 0."""
+    and f32 accumulators dq += ds k, dk = ds^T q, dv = p^T dO, with p and ds
+    rounded to the input dtype before those products (the TPU kernels' MXU
+    operands; a no-op for f32).  Masked keys get dk = dv = 0 and a row with
+    no valid key gives dq = 0."""
     b, t, h, dh = _check(q, k, v, lengths)
     dev = q.device
     acc_t = _acc_dtype(q.dtype)
@@ -387,10 +421,10 @@ def flash_attention_bwd_reference(q, k, v, lse, delta, do, lengths=None, causal=
         mask = _key_mask(k0, k1, lens, q_pos, causal)
         p = torch.where(mask, torch.exp(s - lse_c), torch.zeros_like(s))
         dp = torch.matmul(doh, vt.transpose(-1, -2))
-        ds = p * (dp - delta_c) * scale
+        ds = _operand(p * (dp - delta_c) * scale, q.dtype)
         dq += torch.matmul(ds, kt)
         dk[:, :, k0:k1] = torch.matmul(ds.transpose(-1, -2), qh)
-        dv[:, :, k0:k1] = torch.matmul(p.transpose(-1, -2), doh)
+        dv[:, :, k0:k1] = torch.matmul(_operand(p, q.dtype).transpose(-1, -2), doh)
     return tuple(
         g.permute(0, 2, 1, 3).to(x.dtype) for g, x in ((dq, q), (dk, k), (dv, v))
     )

@@ -13,6 +13,7 @@ import torch
 
 from paddle_tpu_torch.core.batch import SeqTensor, ladder_len
 from paddle_tpu_torch.core.data_types import InputType, SeqLevel, SlotKind
+from paddle_tpu_torch.core.device import resolve_device
 
 
 def _round_up(n: int, m: int) -> int:
@@ -30,7 +31,8 @@ def feed_dtypes_of(topology) -> Dict[str, str]:
 
 class DataFeeder:
     """feeding: {slot_name: index_in_sample}, or slot names in sample order;
-    None means the order of `data_types`."""
+    None means the order of `data_types`.  ``device=None`` is the port's
+    default device (the card; raises without one)."""
 
     def __init__(
         self,
@@ -41,7 +43,7 @@ class DataFeeder:
         dtype=np.float32,
         feed_dtypes: Optional[Dict[str, Any]] = None,
         ladder: Optional[Sequence[int]] = None,
-        device="cpu",
+        device=None,
     ):
         self.data_types = list(data_types)
         self.feed_dtypes = dict(feed_dtypes or {})
@@ -55,7 +57,7 @@ class DataFeeder:
         self.min_seq_len = min_seq_len
         self.ladder = tuple(ladder) if ladder else None
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
     def __call__(self, batch_data: List[Any]) -> Dict[str, SeqTensor]:
         return self.convert(batch_data)

@@ -157,6 +157,172 @@ def test_cuda_kernel_matches_plain(cuda, dtype, atol, causal):
 
 
 # ---------------------------------------------------------------------------
+# bf16: the plain versions against the interpret kernels in the working type
+# ---------------------------------------------------------------------------
+
+# Both sides round p (and, backward, ds) to bf16 before each product and the
+# result once on store; they differ in f32 summation order and exp's last
+# bit.  That moves a rounded result by one bf16 step (2^-7 |x| bounds a step
+# at x: it is 2^(e-7) for |x| in [2^e, 2^(e+1))), and, where it flips the
+# rounding of one p or ds, moves a whole row by one bf16 step of that
+# operand times its partner: a step at the tensor's scale, 2^-8 max|x|.
+BF16_STEP = 2.0 ** -7
+
+
+def _bf16(*arrays):
+    """numpy f32 arrays -> (the same values as JAX bf16, as torch bf16)."""
+    import jax.numpy as jnp
+
+    return (
+        [jnp.asarray(a, jnp.bfloat16) for a in arrays],
+        [torch.from_numpy(a).to(torch.bfloat16) for a in arrays],
+    )
+
+
+def _assert_one_bf16_step(got, want, name):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    bar = BF16_STEP * np.abs(want) + BF16_STEP / 2 * np.abs(want).max()
+    excess = np.abs(got - want) - bar
+    assert excess.max() <= 0, f"{name}: {excess.max()} past one bf16 step"
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_plain_forward_matches_pallas_interpret(causal):
+    """Ragged length, a length-0 row.  The JAX kernel walks 64-key tiles
+    (block_k=64) like the port, so the online softmax rescales at the same
+    keys and p rounds from the same values."""
+    import jax.numpy as jnp
+
+    _, jfa = _jax()
+    (jq, jk, jv), (tq, tk, tv) = _bf16(*_qkv(b=3, seed=2))
+    lens = np.asarray([256, 173, 0], np.int32)
+    want_o, res = jfa._flash_fwd(jq, jk, jv, jnp.asarray(lens), causal, 128, 64, True)
+    got_o, got_lse = tfa.flash_attention(tq, tk, tv, torch.from_numpy(lens), causal, return_lse=True)
+    assert got_o.dtype == torch.bfloat16
+    _assert_one_bf16_step(got_o.float().numpy(), want_o.astype(jnp.float32), "O")
+    # lse is f32 on both sides: the f32 bar of the f32 tests
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(res[-1])[..., 0], atol=ATOL)
+    assert torch.count_nonzero(got_o[2]) == 0
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_plain_backward_matches_pallas_interpret(causal):
+    """dq, dk, dv of sum(o * w) (a fixed f32 cotangent, so both sides get
+    the same bf16 dO) through both differentiable entry points."""
+    import jax
+    import jax.numpy as jnp
+
+    _, jfa = _jax()
+    q, k, v = _qkv(b=3, seed=3)
+    w = np.random.RandomState(4).randn(*q.shape).astype(np.float32)
+    lens = np.asarray([256, 173, 0], np.int32)
+    jqkv, tqkv = _bf16(q, k, v)
+
+    def loss(q, k, v):
+        o = jfa.flash_attention_diff(q, k, v, jnp.asarray(lens), causal, 128, 64, True)
+        return jnp.sum(o.astype(jnp.float32) * w)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*jqkv)
+    tqkv = [x.requires_grad_(True) for x in tqkv]
+    o = tfa.flash_attention_diff(*tqkv, torch.from_numpy(lens), causal)
+    (o.float() * torch.from_numpy(w)).sum().backward()
+    for name, x, wg in zip("qkv", tqkv, want):
+        assert x.grad.dtype == torch.bfloat16
+        _assert_one_bf16_step(x.grad.float().numpy(), wg.astype(jnp.float32), f"d{name}")
+        assert torch.count_nonzero(x.grad[2]) == 0
+
+
+def test_bf16_rounding_is_a_noop_for_f32():
+    """The operand rounding of the plain versions changes nothing in f32."""
+    x = torch.randn(4, 64, generator=torch.Generator().manual_seed(0))
+    assert torch.equal(tfa._operand(x, torch.float32), x)
+    assert torch.equal(tfa._operand(x.double(), torch.float64), x.double())
+    r = tfa._operand(x, torch.bfloat16)
+    assert r.dtype == torch.float32 and torch.equal(r, x.to(torch.bfloat16).float())
+
+
+# Scores of query rows 0 and 1 against key 1 (key 0 scores 0): bf16 values
+# whose exp, 0.96982 and 0.96357, lies about a third of a bf16 step from the
+# nearest bf16 (0.96875 and 0.96484), so exp's last bit cannot flip the
+# rounding, while rounding moves 1 - p by 4-11% and p0 - p1 by 38%.
+ROUNDING_SCORES = (-0.0306396484375, -0.037109375)
+
+
+def _rounding_probe():
+    """bf16-exact [1, 128, 1, 64] inputs, length 2, on which rounding p and
+    ds before their products moves O, dq, dk and dv by several bf16 steps:
+    q_i = s_i e0 +- e2 (rows 0, 1; other rows 0), k_0 = 8 e3 and
+    k_1 = 8 e0 - 8 e3 (scale 1/8: s_i0 = 0, s_i1 = s_i), v_0 = -e1, v_1 = e1,
+    so O_i[1] = (p_i1 - 1) / (1 + p_i1); and, with v = 0, dO_i = +-e1,
+    lse = 0 and delta = -8 on rows 0 and 1, ds_ij = p_ij, so
+    dv_1[1] = dk_1[2] = p_01 - p_11 and dq_i[3] = 8 (1 - p_i1)."""
+    shape = (1, 128, 1, 64)
+    q, k, v, do, out = (np.zeros(shape, np.float32) for _ in range(5))
+    for i, (s, sign) in enumerate(zip(ROUNDING_SCORES, (1.0, -1.0))):
+        q[0, i, 0, 0], q[0, i, 0, 2] = s, sign
+        do[0, i, 0, 1], out[0, i, 0, 1] = sign, -8.0 * sign  # delta_i = -8
+    k[0, 0, 0, 3] = 8.0
+    k[0, 1, 0, 0], k[0, 1, 0, 3] = 8.0, -8.0
+    v[0, 0, 0, 1], v[0, 1, 0, 1] = -1.0, 1.0
+    return q, k, v, do, out, np.asarray([2], np.int32)
+
+
+def _far_from(got, want, name):
+    """The unrounded plain version must miss the one-bf16-step bar."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert (np.abs(got - want) > BF16_STEP * np.abs(want)).any(), (
+        f"{name}: dropping the bf16 rounding stays within one bf16 step"
+    )
+
+
+def test_bf16_plain_forward_rounds_p_as_pallas_does(monkeypatch):
+    """O of the plain forward holds to the interpret kernel within one bf16
+    step of each value (no tensor-wide term), and misses it without the
+    rounding of p before P@V (pallas_attention.py:114)."""
+    import jax.numpy as jnp
+
+    _, jfa = _jax()
+    q, k, v, _, _, lens = _rounding_probe()
+    (jq, jk, jv), (tq, tk, tv) = _bf16(q, k, v)
+    want = np.asarray(
+        jfa._flash_fwd(jq, jk, jv, jnp.asarray(lens), False, 128, 64, True)[0].astype(jnp.float32)
+    )
+    got = tfa.flash_attention(tq, tk, tv, torch.from_numpy(lens)).float().numpy()
+    assert (np.abs(got - want) <= BF16_STEP * np.abs(want)).all(), np.abs(got - want).max()
+    monkeypatch.setattr(tfa, "_operand", lambda x, dtype: x)
+    _far_from(tfa.flash_attention(tq, tk, tv, torch.from_numpy(lens)).float().numpy(), want, "O")
+
+
+def test_bf16_plain_backward_rounds_p_and_ds_as_pallas_does(monkeypatch):
+    """dq, dk, dv of the plain backward equal the interpret kernels' exactly
+    on the probe (every sum is exact there and each p sits away from a bf16
+    rounding boundary), and miss them without the rounding of p before dv
+    (pallas_attention.py:199) and of ds before dq and dk (:162, :208)."""
+    import jax.numpy as jnp
+
+    _, jfa = _jax()
+    q, k, _, do, out, lens = _rounding_probe()
+    (jq, jk, jv, jdo, jout), tensors = _bf16(q, k, np.zeros_like(q), do, out)
+    res = (jq, jk, jv, jnp.asarray(lens), jnp.swapaxes(jout, 1, 2),
+           jnp.zeros((1, 1, 128, 1), jnp.float32))
+    want = [np.asarray(g.astype(jnp.float32)) for g in jfa._flash_bwd(False, 128, 64, True, res, jdo)[:3]]
+    tq, tk, tv, tdo, tout = tensors
+    lse = torch.zeros((1, 1, 128))
+    delta = (tdo.float() * tout.float()).sum(-1).permute(0, 2, 1).contiguous()
+    assert delta[0, 0, :2].tolist() == [-8.0, -8.0]
+
+    def plain():
+        return [g.float().numpy() for g in tfa.flash_attention_bwd_reference(
+            tq, tk, tv, lse, delta, tdo, torch.from_numpy(lens))]
+
+    for name, g, w in zip(("dq", "dk", "dv"), plain(), want):
+        np.testing.assert_array_equal(g, w, err_msg=name)
+    monkeypatch.setattr(tfa, "_operand", lambda x, dtype: x)
+    for name, g, w in zip(("dq", "dk", "dv"), plain(), want):
+        _far_from(g, w, name)
+
+
+# ---------------------------------------------------------------------------
 # backward: flash_attention_diff / flash_attention_bwd
 # ---------------------------------------------------------------------------
 
@@ -300,3 +466,53 @@ def test_cuda_backward_kernels_match_plain(cuda, dtype, atol, causal, layout):
         assert torch.count_nonzero(x[2]) == 0, name
     # keys past the length get no gradient
     assert torch.count_nonzero(got[1][1, 77:]) == torch.count_nonzero(got[2][1, 77:]) == 0
+
+
+# ---------------------------------------------------------------------------
+# the bf16 tensor-core kernels' alignment rule (16-byte cp.async chunks)
+# ---------------------------------------------------------------------------
+
+
+def _misaligned_views(dev, b=2, t=128, h=2, dh=64):
+    """(name, q) bf16 views the tensor-core kernels cannot copy in 16-byte
+    chunks: an address 2 bytes past 16, and a token stride of h*dh + 4."""
+    wide = torch.zeros((b, t, h * dh + 8), dtype=torch.bfloat16, device=dev)
+    odd = torch.zeros((b, t, h * dh + 4), dtype=torch.bfloat16, device=dev)
+    return (
+        ("address", wide[..., 1 : 1 + h * dh].view(b, t, h, dh)),
+        ("token stride", odd[..., : h * dh].view(b, t, h, dh)),
+    )
+
+
+@pytest.mark.parametrize("case", [0, 1])
+def test_check_aligned_rejects_what_cp_async_cannot_copy(case):
+    name, x = _misaligned_views("cpu")[case]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa.check_aligned(name, x)
+
+
+def test_check_aligned_takes_the_main_path_operands():
+    """The fused QKV's column slices (token stride 3*H*dh) and dense tensors."""
+    b, t, h, dh = 2, 128, 2, 40
+    qkv = torch.zeros((b, t, 3 * h * dh), dtype=torch.bfloat16)
+    for x in (*(y.view(b, t, h, dh) for y in qkv.split(h * dh, dim=-1)),
+              torch.zeros((b, t, h, dh), dtype=torch.bfloat16)):
+        tfa.check_aligned("q", x)
+
+
+@pytest.mark.cuda
+def test_cuda_misaligned_bf16_raises(cuda):
+    """A misaligned bf16 view raises ValueError, never a fallback: forward
+    and backward, and no launch is counted."""
+    before = (tfa.flash_attention.launches, tfa.flash_attention_bwd.dq_launches,
+              tfa.flash_attention_bwd.dkv_launches)
+    for name, x in _misaligned_views(cuda):
+        ok = torch.zeros(x.shape, dtype=torch.bfloat16, device=cuda)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            tfa.flash_attention(x, ok, ok)
+        o, lse = tfa.flash_attention(ok, ok, ok, return_lse=True)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            tfa.flash_attention_bwd(ok, x, ok, o, lse, torch.zeros_like(lse), ok)
+    assert tfa.flash_attention_bwd.dq_launches == before[1]
+    assert tfa.flash_attention_bwd.dkv_launches == before[2]
+    assert tfa.flash_attention.launches == before[0] + 2

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import paddle_tpu_torch
+from paddle_tpu_torch.reader.feeder import DataFeeder
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "paddle_tpu_torch")
@@ -83,6 +84,10 @@ def test_entry_points_raise_without_cuda():
         )
     with pytest.raises(RuntimeError, match="device='cpu'"):
         paddle_tpu_torch.CompiledNetwork(paddle_tpu_torch.Topology(cost)).init_params(0)
+    data_types = paddle_tpu_torch.Topology(cost).data_types()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DataFeeder(data_types)
+    assert DataFeeder(data_types, device="cpu").device == torch.device("cpu")
 
 
 def test_chip_smoke_fails_without_cuda():
