@@ -6,14 +6,15 @@
 Phases, in order; any failure exits non-zero:
   1. device and build: print the card's name and power limit, build the
      flash-attention kernels (forward, backward dq and dk/dv) from the
-     sources with ptxas's per-kernel report, switch TF32 and bf16
-     reduced-precision reductions off;
+     sources and print ptxas's registers and spills for each kernel, switch
+     TF32 and bf16 reduced-precision reductions off;
   2. kernel against its plain PyTorch version on the card, at Transformer-
      base attention shapes (B=8, T=1024, H=8, dh=64, ragged lengths), with
      q, k, v as strided slices of one fused projection (self-attention) and
-     as dense tensors (cross-attention), bf16 and f32, causal off and on; times of the kernel, the plain version and
-     torch's scaled_dot_product_attention (a yardstick only: the port never
-     calls it; the kernels it ran on are named from the profiler) beside the
+     as dense tensors (cross-attention), bf16 and f32, causal off and on;
+     times of the kernel, the plain version and torch's
+     scaled_dot_product_attention (a yardstick only: the port never calls
+     it; the kernels it ran on are named from the profiler) beside the
      least time the card could take;
   3. the slice: Transformer-base (32000/32000 vocab) with random weights from
      a seed, bf16 compute, the flash flag on, serving 16 requests with source
@@ -21,9 +22,18 @@ Phases, in order; any failure exits non-zero:
      8; every distribution finite and summing to 1, 18 kernel launches per
      batch, agreement with the dense attention path on the first batch;
   4. the backward kernels against the plain backward on the card, at the
-     same shapes, layouts, dtypes and masks as phase 2: dq, dk and dv, the
-     time of each kernel beside its bound, the plain backward's time and the
-     time of scaled_dot_product_attention's backward alone (a yardstick only);
+     same shapes, layouts, dtypes and masks as phase 2: dq, dk and dv (f32
+     within 1e-4, bf16 within the derived per-element bar of
+     flash_attention_bwd_bar, whose worst |d|/bar is printed), the device
+     kernel the bf16 dq launch ran (from the profiler), the time of each
+     kernel beside its bound, the plain backward's time and the time of
+     scaled_dot_product_attention's backward alone (a yardstick only); and
+     two planted faults of the plain backward (ds left unrounded, the
+     length mask dropped), each of which must exceed the bf16 bar somewhere
+     in these cases;
+  4a. the bf16 bar's sweep: seeds x causal off/on x fused/dense operands at
+     phase 4's shapes, every gradient within the bar, the worst |d|/bar of
+     dq, dk and dv printed;
   4b. edge shapes of the bf16 tensor-core kernels against the plain
      versions: the forward (O, lse) and the backward (dq, dk, dv) at
      T = 200 with dh = 40 (padded to 48 in shared memory), a length-0 row
@@ -39,9 +49,11 @@ Phases, in order; any failure exits non-zero:
      forward, 18 dq and 18 dk/dv launches per step, one step's gradients
      with flash against the dense path (f32 and bf16 compute), seconds per
      step, tokens per second and peak memory;
-  6. torch.profiler over two training steps: the top device kernels by time
-     and the device's busy share of the window ("not measured" when the
-     profiler shows no device time).
+  6. torch.profiler over two training steps: the top device kernels by time,
+     the device's busy share of the window, and the dq kernel, which must
+     run as fa_bwd_dq_mma_kernel 18 times per step (this shows the main
+     path's bf16 dq route; phase 4's lone launches are sometimes missing
+     from the profiler's window).
 
 The last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels with their launches on the main path (the timed training steps of
@@ -75,10 +87,12 @@ TOL_O = {"bfloat16": 1e-3, "float32": 1e-4}
 TOL_O_REL = {"bfloat16": 1e-2, "float32": 0.0}
 TOL_LSE = {"bfloat16": 1e-4, "float32": 1e-4}  # f32 in both
 
-# backward kernels vs plain backward: |d| <= TOL_G + TOL_G_REL * |ref|
-# (each gradient is rounded once to its dtype on store)
-TOL_G = {"bfloat16": 1e-3, "float32": 1e-4}
-TOL_G_REL = {"bfloat16": 1e-2, "float32": 0.0}
+# backward kernels vs plain backward: f32 |d| <= TOL_G32 (the f32 kernels
+# round nothing); bf16 |d| <= fa.flash_attention_bwd_bar, per element: the
+# rounding flips of ds and p that the two summation orders can cause, the
+# f32 sum-order slack and the store's rounding, with no flat floor
+TOL_G32 = 1e-4
+BAR_SEEDS = (10, 11, 12, 13)  # the bf16 bar's sweep at phase 4's shapes
 # per (query, key, head) the masks keep: operations of each kernel
 OPS_PER_PAIR = {"fwd": 4 * DH, "dq": 6 * DH, "dkv": 8 * DH}
 
@@ -128,22 +142,83 @@ def time_ms(torch, fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def ptxas_report(log: str) -> list:
+    """(kernel, registers, spill store bytes, spill load bytes) per entry
+    function of an nvcc -Xptxas -v log, names demangled by c++filt where the
+    toolkit's host has it."""
+    import re
+    import shutil
+
+    regs, spills, cur = {}, {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur:
+            spills[cur] = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            regs[cur] = int(m.group(1))
+    names = list(regs)
+    shown = names
+    if names and shutil.which("c++filt"):
+        shown = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                               text=True).stdout.splitlines()
+    return [(nice.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void "), regs[n],
+             *spills.get(n, (0, 0))) for n, nice in zip(names, shown)]
+
+
+def build_with_report(fa):
+    """Build the kernels and return (ptxas_report of the build, seconds)."""
+    import contextlib
+    import io
+
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        fa.build(verbose=True)
+    return ptxas_report(log.getvalue()), time.perf_counter() - t0
+
+
+def bwd_excess(torch, got, want, bars):
+    """{gradient: (max(|d| - bar), worst |d| / bar, max |d|)} of kernel
+    outputs `got` against `want`; the first <= 0 passes (a non-finite output
+    counts as inf; where the bar is 0 only d = 0 passes)."""
+    out = {}
+    for name, x, r, bar in zip(("dq", "dk", "dv"), got, want, bars):
+        d = (x.double() - r.double()).abs()
+        bar = torch.as_tensor(bar, dtype=torch.float64, device=d.device)
+        ratio = torch.where(bar > 0, d / bar, torch.where(d > 0, float("inf"), 0.0))
+        finite = bool(torch.isfinite(x.float()).all())
+        out[name] = ((d - bar).max().item() if finite else float("inf"),
+                     ratio.max().item() if finite else float("inf"), d.max().item())
+    return out
+
+
 def device_kernels(torch, fn) -> str:
-    """The device kernels one call of fn runs, by name, from torch.profiler
-    ("not measured" when the profiler shows no device time)."""
-    from torch.profiler import ProfilerActivity, profile
+    """The device kernels a call of fn runs, by name and time per recorded
+    launch, from torch.profiler over three calls ("not measured" when the
+    profiler shows no device time; the record of a lone ctypes launch is
+    sometimes missing from the window)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(3):
+            with record_function("call"):
+                fn()
         torch.cuda.synchronize()
     dev = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+           if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+           and e.key != "call"]  # the range's own device-side annotation
     if not dev:
         return "not measured"
     dev.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    return "; ".join(f"{e.key[:90]} {e.self_device_time_total / e.count:.1f} us" for e in dev[:4])
+    return "; ".join(f"{e.key[:90]} {e.self_device_time_total / e.count:.1f} us per launch "
+                     f"({e.count} of 3 calls recorded)"
+                     for e in dev[:4])
 
 
 def attention_pairs(lengths, t, causal) -> int:
@@ -352,36 +427,65 @@ def reset_counts(fa):
     fa.flash_attention_bwd.dkv_launches = 0
 
 
+def bwd_case(torch, fa, gen, dtype, layout, causal, lengths):
+    """Operands of one backward check at phase 4's shapes: (q, k, v, do,
+    lse, delta, o) with lse and o from the forward kernel."""
+    q, k, v = qkv_operands(torch, gen, dtype, layout)
+    do = torch.randn((B, T, H, DH), generator=gen, device="cuda").to(dtype)
+    o, lse = fa.flash_attention(q, k, v, lengths, causal, return_lse=True)
+    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+    return q, k, v, do, lse, delta, o
+
+
+def fmt_excess(ex):
+    return "; ".join(f"{n} max|d|={e[2]:.3e} worst |d|/bar {e[1]:.3f} excess {e[0]:+.3e}"
+                     for n, e in ex.items())
+
+
+# the planted faults of the plain backward that the bf16 bar must reject
+FAULTS = {
+    "ds unrounded": lambda fa, a, lengths, causal: fa.flash_attention_bwd_reference(
+        *a, lengths, causal, round_ds=False),
+    "length mask dropped": lambda fa, a, lengths, causal: fa.flash_attention_bwd_reference(
+        *a, None, causal),
+}
+
+
 def phase_bwd_kernel(torch, fa):
     """Backward kernels vs the plain backward on the card; returns the
     kernels-line rows of dq and dk/dv (their times at the fused bf16
-    non-causal case, the self-attention layout of the main path)."""
+    non-causal case, the self-attention layout of the main path).  bf16 is
+    held to the derived bar, which must also reject both planted faults."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device="cuda").manual_seed(1)
     lengths = torch.tensor(LENGTHS, dtype=torch.int32, device="cuda")
     rows, worst = {}, {"dq": 0.0, "dkv": 0.0}
+    caught = {f: {"dq": 0, "dk": 0, "dv": 0} for f in FAULTS}
     for layout in ("fused", "separate"):
         for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
-            q, k, v = qkv_operands(torch, gen, dtype, layout)
-            do = torch.randn((B, T, H, DH), generator=gen, device="cuda").to(dtype)
             for causal in (False, True):
-                o, lse = fa.flash_attention(q, k, v, lengths, causal, return_lse=True)
-                delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+                q, k, v, do, lse, delta, o = bwd_case(torch, fa, gen, dtype, layout, causal, lengths)
+                args = (q, k, v, lse, delta, do)
                 got = fa.flash_attention_bwd(q, k, v, o, lse, delta, do, lengths, causal)
-                want = fa.flash_attention_bwd_reference(q, k, v, lse, delta, do, lengths, causal)
+                want = fa.flash_attention_bwd_reference(*args, lengths, causal)
+                bf16 = dtype == torch.bfloat16
+                bars = (fa.flash_attention_bwd_bar(*args, lengths, causal) if bf16
+                        else (TOL_G32,) * 3)
                 torch.cuda.synchronize()
-                tol, rel = TOL_G[dtype_name], TOL_G_REL[dtype_name]
-                errs = []
-                for name, x, r in zip(("dq", "dk", "dv"), got, want):
-                    d = (x.float() - r.float()).abs()
-                    excess = (d - rel * r.float().abs()).max().item()
-                    errs.append(f"{name} max|d|={d.max().item():.3e} excess {excess:.3e} "
-                                f"max|ref|={r.float().abs().max().item():.3e}")
-                    if not bool(torch.isfinite(x.float()).all()) or excess > tol:
+                ex = bwd_excess(torch, got, want, bars)
+                if bf16:
+                    for fault, plant in FAULTS.items():
+                        wrong = plant(fa, args, lengths, causal)
+                        for name, x, r, bar in zip(("dq", "dk", "dv"), got, wrong, bars):
+                            over = ~((x.double() - r.double()).abs() <= bar)
+                            caught[fault][name] += int(over.sum().item())
+                        del wrong
+                for name, e in ex.items():
+                    if e[0] > 0:
                         raise SystemExit(f"backward kernel disagrees with the plain backward "
                                          f"({name}, {layout}, {dtype_name}, causal={causal})")
                     kn = "dq" if name == "dq" else "dkv"
-                    worst[kn] = max(worst[kn], d.max().item())
+                    worst[kn] = max(worst[kn], e[2])
                 # each kernel alone, into preallocated outputs
                 operands = (q, k, v, do, lse, delta, lengths)
                 outs = tuple(torch.empty_like(x) for x in got)
@@ -395,26 +499,62 @@ def phase_bwd_kernel(torch, fa):
                 lib_out = sdpa(qh, kh, vh, attn_mask=mask)
                 lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
                     lib_out, (qh, kh, vh), do.transpose(1, 2), retain_graph=True))
-                if layout == "fused" and dtype == torch.bfloat16 and not causal:
+                main = layout == "fused" and bf16 and not causal
+                if main:
+                    ran = device_kernels(torch, lambda: fa._launch_bwd("dq", operands, outs[:1], causal))
+                    say("bwd: the bf16 dq launch ran on: " + ran)
+                    if ran != "not measured" and "fa_bwd_dq_mma_kernel" not in ran:
+                        raise SystemExit("the bf16 dq launch did not run fa_bwd_dq_mma_kernel")
                     say("bwd: sdpa backward (bool mask, bf16) ran on: " + device_kernels(
                         torch, lambda: torch.autograd.grad(
                             lib_out, (qh, kh, vh), do.transpose(1, 2), retain_graph=True)))
                 del lib_out
-                peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+                peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
                 bnd = {kn: bound_ms(kn, LENGTHS, causal, q.element_size(), peak)
                        for kn in ("dq", "dkv")}
-                say(f"bwd {layout} {dtype_name} causal={causal}: {'; '.join(errs)} "
-                    f"(<= {tol} + {rel}*|ref|); dq {ms_dq:.4f} ms (bound "
+                say(f"bwd {layout} {dtype_name} causal={causal}: {fmt_excess(ex)} "
+                    f"(bar: {'derived bf16 bar' if bf16 else TOL_G32}); dq {ms_dq:.4f} ms (bound "
                     f"{bnd['dq'][0]:.4f}, {bnd['dq'][1]}), dkv {ms_dkv:.4f} ms (bound "
                     f"{bnd['dkv'][0]:.4f}, {bnd['dkv'][1]}), plain backward {plain:.4f} ms, "
                     f"sdpa backward {lib_bwd:.4f} ms")
-                if layout == "fused" and dtype == torch.bfloat16 and not causal:
+                if main:
                     for kn, ms in (("dq", ms_dq), ("dkv", ms_dkv)):
                         rows[kn] = {"ms": ms, "plain_ms": plain, "bound_ms": bnd[kn][0],
                                     "bound_by": bnd[kn][1], "library_ms": lib_bwd}
+    for fault, counts in caught.items():
+        say(f"bwd planted fault '{fault}' in the plain backward: elements past the bf16 bar "
+            f"over phase 4's bf16 cases: " + ", ".join(f"{n} {c}" for n, c in counts.items()))
+        if not any(counts.values()):
+            raise SystemExit(f"the bf16 bar let the planted fault '{fault}' through")
     for kn, r in rows.items():
         r["max_abs_err"] = worst[kn]
     return rows
+
+
+def phase_bar_sweep(torch, fa):
+    """The bf16 backward kernels against the plain backward under the derived
+    bar over seeds x causal x operand layouts at phase 4's shapes; prints the
+    worst |d| / bar of dq, dk and dv."""
+    lengths = torch.tensor(LENGTHS, dtype=torch.int32, device="cuda")
+    worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+    for seed in BAR_SEEDS:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        for layout in ("fused", "separate"):
+            for causal in (False, True):
+                q, k, v, do, lse, delta, o = bwd_case(
+                    torch, fa, gen, torch.bfloat16, layout, causal, lengths)
+                args = (q, k, v, lse, delta, do)
+                got = fa.flash_attention_bwd(q, k, v, o, lse, delta, do, lengths, causal)
+                ex = bwd_excess(torch, got, fa.flash_attention_bwd_reference(*args, lengths, causal),
+                                fa.flash_attention_bwd_bar(*args, lengths, causal))
+                for name, e in ex.items():
+                    worst[name] = max(worst[name], e[1])
+                    if e[0] > 0:
+                        raise SystemExit(f"bar sweep: {name} past the bf16 bar (seed {seed}, "
+                                         f"{layout}, causal={causal}): {fmt_excess(ex)}")
+    say(f"bar sweep: seeds {list(BAR_SEEDS)} x causal off/on x fused/separate, bf16, phase 4's "
+        f"shapes: worst |d|/bar " + ", ".join(f"{n} {w:.3f}" for n, w in worst.items())
+        + " (<= 1 passes)")
 
 
 # edge shapes of the bf16 tensor-core kernels: (B, T, H, dh, lengths)
@@ -427,8 +567,9 @@ EDGE_CASES = (
 
 def phase_edges(torch, fa):
     """bf16 forward and backward kernels against their plain versions at the
-    edge shapes, both operand layouts, causal off and on; phases 2 and 4's
-    bf16 bars.  The f32 kernels are the scalar ones of the earlier phases."""
+    edge shapes, both operand layouts, causal off and on; phase 2's O and
+    lse bars and the derived bf16 backward bar.  The f32 kernels are the
+    scalar ones of the earlier phases."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     dt, name = torch.bfloat16, "bfloat16"
     for b, t, h, dh, lens in EDGE_CASES:
@@ -445,24 +586,28 @@ def phase_edges(torch, fa):
                 o, lse = fa.flash_attention(q, k, v, lengths, causal, return_lse=True)
                 o_r, lse_r = fa.flash_attention_reference(q, k, v, lengths, causal, return_lse=True)
                 delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+                args = (q, k, v, lse, delta, do)
                 got = fa.flash_attention_bwd(q, k, v, o, lse, delta, do, lengths, causal)
-                want = fa.flash_attention_bwd_reference(q, k, v, lse, delta, do, lengths, causal)
+                want = fa.flash_attention_bwd_reference(*args, lengths, causal)
+                bars = fa.flash_attention_bwd_bar(*args, lengths, causal)
                 torch.cuda.synchronize()
                 excess = {}
                 for key, x, r, tol, rel in (
                         ("O", o, o_r, TOL_O[name], TOL_O_REL[name]),
-                        ("lse", lse, lse_r, TOL_LSE[name], 0.0),
-                        *((g, x, r, TOL_G[name], TOL_G_REL[name])
-                          for g, x, r in zip(("dq", "dk", "dv"), got, want))):
+                        ("lse", lse, lse_r, TOL_LSE[name], 0.0)):
                     d = (x.float() - r.float()).abs()
                     excess[key] = (d - rel * r.float().abs()).max().item() - tol
                     if not bool(torch.isfinite(x.float()).all()):
                         excess[key] = float("inf")
+                ex = bwd_excess(torch, got, want, bars)
+                excess.update({g: e[0] for g, e in ex.items()})
                 zero = all(torch.count_nonzero(x[i]) == 0
                            for x in (o, *got) for i, n in enumerate(lens) if n == 0)
                 say(f"edge B={b} T={t} H={h} dh={dh} lengths {lens} {layout} causal={causal}: "
                     + ", ".join(f"{key} {e:+.3e}" for key, e in excess.items())
-                    + f" (excess over the bar; <= 0 passes), length-0 rows zero: {zero}")
+                    + " (excess over the bar; <= 0 passes), worst |d|/bar "
+                    + ", ".join(f"{g} {e[1]:.3f}" for g, e in ex.items())
+                    + f", length-0 rows zero: {zero}")
                 if max(excess.values()) > 0 or not zero:
                     raise SystemExit(f"bf16 kernels disagree with the plain versions at an "
                                      f"edge shape (dh={dh}, {layout}, causal={causal})")
@@ -597,8 +742,8 @@ def phase_profile(torch, P, trainer):
            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     total_us = sum(e.self_device_time_total for e in dev)
     if total_us <= 0:
-        say("profile: the profiler shows no device time; device split not measured")
-        return
+        raise SystemExit("profile: the profiler shows no device time, so the dq route "
+                         "is not shown")
     say(f"profile: 2 steps in {wall:.4f} s (profiler on), device busy {total_us / 1e6:.4f} s "
         f"({total_us / 1e6 / wall:.3f} of the window); top device kernels per step:")
     for e in sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)[:12]:
@@ -609,6 +754,14 @@ def phase_profile(torch, P, trainer):
              for kn in ("fwd", "bwd_dq", "bwd_dkv")}
     say("profile: flash kernels per step " + ", ".join(
         f"{kn} {us / 2e3:.3f} ms ({100 * us / total_us:.1f}%)" for kn, us in flash.items()))
+    dq = [e for e in dev if "fa_bwd_dq_" in e.key]
+    for e in dq:
+        say(f"profile: dq ran as {e.key[:90]}: {e.count / 2:.1f} calls and "
+            f"{e.self_device_time_total / 2e3:.3f} ms per step")
+    # the timed steps are bf16: every dq launch must be the tensor-core kernel
+    if len(dq) != 1 or "fa_bwd_dq_mma_kernel<" not in dq[0].key or dq[0].count != 2 * 18:
+        raise SystemExit("profile: the training steps' dq did not run as 18 launches per "
+                         "step of fa_bwd_dq_mma_kernel")
 
 
 def main() -> int:
@@ -633,14 +786,17 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     say("tf32 off for matmul and cudnn; bf16 reduced-precision reductions off")
-    t0 = time.perf_counter()
-    fa.build(verbose=True)
-    say(f"build: {', '.join(os.path.basename(x) for x in fa.SOURCES)} in "
-        f"{time.perf_counter() - t0:.2f} s")
+    report, secs = build_with_report(fa)
+    say(f"build: {', '.join(os.path.basename(x) for x in fa.SOURCES)} in {secs:.2f} s")
+    for name, regs, st, ld in report:
+        say(f"ptxas: {name}: {regs} registers, spill stores {st} B, spill loads {ld} B")
+    if not report:
+        say("ptxas: the library was built before this run; no report")
 
     rows = {"fwd": phase_kernel(torch, fa)}
     phase_slice(torch, P, fa, card)
     rows.update(phase_bwd_kernel(torch, fa))
+    phase_bar_sweep(torch, fa)
     phase_edges(torch, fa)
     launches, trainer = phase_train(torch, P, fa, card)
     phase_profile(torch, P, trainer)

@@ -9,11 +9,14 @@ blocks in ``csrc/flash_mma.cuh``); they are compiled with ``nvcc`` at first
 use into one shared library under ``paddle_tpu_torch/_build/`` and bound
 through plain C functions loaded with ``ctypes``.
 
-bf16 inputs run the forward and dk/dv on the tensor cores (``mma.sync``,
+bf16 inputs run all three kernels on the tensor cores (``mma.sync``,
 ``ldmatrix``, ``cp.async``), which copy 16 bytes at a time: each bf16
 operand must be 16-byte aligned with batch and token strides that are
 multiples of 8 elements, or the wrapper raises.  f32 inputs run the scalar
-kernels (TF32 products would break the f32 bars).
+kernels (TF32 products would break the f32 bars).  A bf16 kernel and its
+plain version both round p and ds to bf16 but sum in other orders, so they
+may differ by rounding flips: :func:`flash_attention_bwd_bar` bounds how far
+a correct backward kernel may lie from the plain one.
 
 Routing is by the tensor's device: a CUDA tensor launches a kernel (or
 raises), a CPU tensor runs the plain version (:func:`flash_attention_reference`,
@@ -394,37 +397,157 @@ def flash_attention_reference(q, k, v, lengths=None, causal=False, *, return_lse
     return (out, lse) if return_lse else out
 
 
-def flash_attention_bwd_reference(q, k, v, lse, delta, do, lengths=None, causal=False):
+def _bwd_tiles(q, k, v, lse, delta, do, lengths, causal, acc_t):
+    """The backward kernels' walk in plain torch, in `acc_t`: yields
+    ``(k0, k1, mask, s, p, dpd, ds)`` for each key tile [k0, k1) of ``BLOCK``
+    up to the last that holds a valid key, with the tile's [B, H, T, k1-k0]
+    mask, scaled scores s = q k^T scale, probabilities p = where(mask,
+    exp(s - lse), 0), dpd = dO v^T - delta and the unrounded
+    ds = p dpd scale."""
+    b, t, h, dh = q.shape
+    dev = q.device
+    lens = _valid_lengths(lengths, b, t, dev)
+    scale = 1.0 / math.sqrt(dh)
+    qh, kh, vh, doh = (x.permute(0, 2, 1, 3).to(acc_t) for x in (q, k, v, do))
+    lse_c, delta_c = lse.to(acc_t)[..., None], delta.to(acc_t)[..., None]  # [B,H,T,1]
+    q_pos = torch.arange(t, device=dev)
+    n_tiles = (int(lens.max()) + BLOCK - 1) // BLOCK if b else 0
+    for k0 in range(0, n_tiles * BLOCK, BLOCK):
+        k1 = min(k0 + BLOCK, t)
+        s = torch.matmul(qh, kh[:, :, k0:k1].transpose(-1, -2)) * scale
+        mask = _key_mask(k0, k1, lens, q_pos, causal)
+        p = torch.where(mask, torch.exp(s - lse_c), torch.zeros_like(s))
+        dpd = torch.matmul(doh, vh[:, :, k0:k1].transpose(-1, -2)) - delta_c
+        yield k0, k1, mask, s, p, dpd, p * dpd * scale
+
+
+def flash_attention_bwd_reference(q, k, v, lse, delta, do, lengths=None, causal=False,
+                                  *, round_ds=True):
     """The backward kernels' arithmetic in plain torch: key tiles of
     ``BLOCK`` walked with f32 (f64 for f64 inputs) scores, probabilities
     p = exp(s - lse) under the forward's masks, ds = p (dp - delta) scale,
     and f32 accumulators dq += ds k, dk = ds^T q, dv = p^T dO, with p and ds
     rounded to the input dtype before those products (the TPU kernels' MXU
     operands; a no-op for f32).  Masked keys get dk = dv = 0 and a row with
-    no valid key gives dq = 0."""
+    no valid key gives dq = 0.  ``round_ds=False`` leaves ds unrounded: a
+    planted fault that the bf16 bar (:func:`flash_attention_bwd_bar`) must
+    reject, never a mode of the kernels."""
     b, t, h, dh = _check(q, k, v, lengths)
-    dev = q.device
     acc_t = _acc_dtype(q.dtype)
-    lens = _valid_lengths(lengths, b, t, dev)
-    scale = 1.0 / math.sqrt(dh)
-    qh, kh, vh, doh = (x.permute(0, 2, 1, 3).to(acc_t) for x in (q, k, v, do))
-    lse_c, delta_c = lse.to(acc_t)[..., None], delta.to(acc_t)[..., None]  # [B,H,T,1]
-    dq = torch.zeros((b, h, t, dh), dtype=acc_t, device=dev)
+    qh, kh, doh = (x.permute(0, 2, 1, 3).to(acc_t) for x in (q, k, do))
+    dq = torch.zeros((b, h, t, dh), dtype=acc_t, device=q.device)
     dk = torch.zeros_like(dq)
     dv = torch.zeros_like(dq)
-    q_pos = torch.arange(t, device=dev)
-    n_tiles = (int(lens.max()) + BLOCK - 1) // BLOCK if b else 0
-    for k0 in range(0, n_tiles * BLOCK, BLOCK):
-        k1 = min(k0 + BLOCK, t)
-        kt, vt = kh[:, :, k0:k1], vh[:, :, k0:k1]
-        s = torch.matmul(qh, kt.transpose(-1, -2)) * scale
-        mask = _key_mask(k0, k1, lens, q_pos, causal)
-        p = torch.where(mask, torch.exp(s - lse_c), torch.zeros_like(s))
-        dp = torch.matmul(doh, vt.transpose(-1, -2))
-        ds = _operand(p * (dp - delta_c) * scale, q.dtype)
-        dq += torch.matmul(ds, kt)
+    for k0, k1, _, _, p, _, ds in _bwd_tiles(q, k, v, lse, delta, do, lengths, causal, acc_t):
+        if round_ds:
+            ds = _operand(ds, q.dtype)
+        dq += torch.matmul(ds, kh[:, :, k0:k1])
         dk[:, :, k0:k1] = torch.matmul(ds.transpose(-1, -2), qh)
         dv[:, :, k0:k1] = torch.matmul(_operand(p, q.dtype).transpose(-1, -2), doh)
     return tuple(
         g.permute(0, 2, 1, 3).to(x.dtype) for g, x in ((dq, q), (dk, k), (dv, v))
     )
+
+
+# unit roundoff of f32 sums: 2^-24 rounding to nearest (the plain version's
+# cuBLAS or CPU GEMMs); 2^-23 for the tensor cores' f32 accumulation, which
+# is not specified to round to nearest (one ulp per addition covers
+# truncation)
+_U_PLAIN, _U_KERNEL = 2.0 ** -24, 2.0 ** -23
+# absolute slack of any f32 operation on subnormal values
+_TINY = 2.0 ** -140
+
+
+def _gamma(n):
+    """Bound on |kernel sum - plain sum| / sum |terms| for n terms whose
+    products are exact in f32 (bf16 x bf16), summed in any order on each
+    side: gamma_n = n u / (1 - n u) for each side's unit roundoff."""
+    return sum(n * u / (1 - n * u) for u in (_U_PLAIN, _U_KERNEL))
+
+
+def _flips(x, d):
+    """How far the bf16 rounding of any f32 value within d of x can lie from
+    the rounding of x: round(x + d) - round(x - d) (rounding is monotone).
+    0 where no bf16 rounding midpoint lies within d of x, one bf16 step of x
+    at a near-tie.  x, d f64; the ends move outward by one f32 step so that
+    their own rounding to f32 cannot narrow the interval."""
+    hi = torch.nextafter((x + d).float(), torch.tensor(math.inf, device=x.device))
+    lo = torch.nextafter((x - d).float(), torch.tensor(-math.inf, device=x.device))
+    return hi.to(torch.bfloat16).double() - lo.to(torch.bfloat16).double()
+
+
+def flash_attention_bwd_bar(q, k, v, lse, delta, do, lengths=None, causal=False):
+    """Per-element bars (f64, [B, T, H, dh] each) on |g_kernel - g_plain| for
+    the bf16 dq, dk and dv: what a correct kernel may differ from
+    :func:`flash_attention_bwd_reference` by, with no flat floor.
+
+    Each gradient is g = sum_r a_r b_r with a_r rounded to bf16 before the
+    product (a = ds, b = k for dq; a = ds, b = q for dk; a = p, b = dO for
+    dv).  Kernel and plain version compute the same f32 a_r in another
+    order, so their a_r differ by at most delta_r (below); the bar is
+
+    * flipped operands: sum_r |b_r| (round(a_r + delta_r) - round(a_r -
+      delta_r)), one bf16 step of a_r where a_r lies within delta_r of a
+      bf16 rounding midpoint, 0 elsewhere;
+    * summation order: gamma_n sum_r (|a_r| + flip_r) |b_r|, n the count of
+      unmasked terms (adding a masked 0 is exact);
+    * the store: 2^-7 (|g| + flip + 2 order) bounds the two roundings of g
+      to bf16 (each within half a step, 2^-8 of its value).
+
+    delta_r, carried from two dot products of length dh whose bf16 products
+    are exact in f32 (so each differs by at most gamma_dh sum |terms|):
+      x  = s scale - lse:    dx  = scale gamma_dh sum_d |q_d k_d|
+                                   + u (5 |s scale| + 2 |x|)
+           (scale itself rounded on each side, a multiply and a subtract on
+           each side, possibly fused);
+      p  = exp(x):           dp  = p (expm1(dx) (1 + 2^-21) + 2^-21)
+           (exp within 2 ulp on each side);
+      dpd = dO v - delta:    dd  = gamma_dh sum_d |dO_d v_d| + 2 u |dpd|;
+      ds = p dpd scale:      dds = scale (dp (|dpd| + dd) + p dd) + 7 u |ds|
+           (the scale and the two multiplies rounded on each side);
+    u = 2^-24, plus 2^-140 absolute for subnormals."""
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the bar is for bf16 inputs; {q.dtype} has its own bars")
+    b, t, h, dh = _check(q, k, v, lengths)
+    f64 = torch.float64
+    scale = 1.0 / math.sqrt(dh)
+    u, g_dh = _U_PLAIN, _gamma(dh)
+    qh, kh, vh, doh = (x.permute(0, 2, 1, 3).to(f64) for x in (q, k, v, do))
+    aq, ak, av, ado = (x.abs() for x in (qh, kh, vh, doh))
+    lse_c = lse.to(f64)[..., None]
+    # per gradient: the plain f64 sum, the flip term, sum (|a| + flip) |b|, n
+    sums = {g: [torch.zeros((b, h, t, dh), dtype=f64, device=q.device) for _ in range(3)]
+            + [torch.zeros((b, h, t, 1), dtype=f64, device=q.device)]
+            for g in ("dq", "dk", "dv")}
+    for k0, k1, mask, s, p, dpd, ds in _bwd_tiles(
+            q, k, v, lse, delta, do, lengths, causal, torch.float32):
+        s, p, dpd, ds = (x.to(f64) for x in (s, p, dpd, ds))
+        kt = slice(k0, k1)
+        mask = mask.expand(p.shape)
+        # masked keys give p = 0 on both sides (and x is unbounded on a row
+        # with no valid key, whose lse is -1e30)
+        dx = torch.where(mask, scale * g_dh * torch.matmul(aq, ak[:, :, kt].transpose(-1, -2))
+                         + u * (5 * s.abs() + 2 * (s - lse_c).abs()), 0.0)
+        d_p = p * (torch.expm1(dx) * (1 + 2.0 ** -21) + 2.0 ** -21) + _TINY
+        d_dpd = g_dh * torch.matmul(ado, av[:, :, kt].transpose(-1, -2)) + 2 * u * dpd.abs()
+        d_ds = scale * (d_p * (dpd.abs() + d_dpd) + p * d_dpd) + 7 * u * ds.abs() + _TINY
+        n = mask.to(f64)
+        f_ds, f_p = _flips(ds, d_ds), _flips(p, d_p)
+        r_ds, r_p = (_operand(x.float(), torch.bfloat16).to(f64) for x in (ds, p))
+        # dq sums over this tile's keys; dk and dv over every query, into
+        # this tile's key rows
+        for name, a_r, flip, n_r, rows, b_, b_abs in (
+                ("dq", r_ds, f_ds, n, slice(None), kh[:, :, kt], ak[:, :, kt]),
+                ("dk", r_ds.mT, f_ds.mT, n.mT, kt, qh, aq),
+                ("dv", r_p.mT, f_p.mT, n.mT, kt, doh, ado)):
+            g, fl, ab, cnt = sums[name]
+            g[:, :, rows] += torch.matmul(a_r, b_)
+            fl[:, :, rows] += torch.matmul(flip, b_abs)
+            ab[:, :, rows] += torch.matmul(a_r.abs() + flip, b_abs)
+            cnt[:, :, rows] += n_r.sum(-1, keepdim=True)
+    bars = []
+    for name in ("dq", "dk", "dv"):
+        g, fl, ab, cnt = sums[name]
+        order = _gamma(cnt) * ab
+        bars.append((fl + order + 2.0 ** -7 * (g.abs() + fl + 2 * order)).permute(0, 2, 1, 3))
+    return tuple(bars)

@@ -431,17 +431,69 @@ def test_bwd_wrapper_checks_operands():
     assert tfa.flash_attention_bwd.dq_launches == tfa.flash_attention_bwd.dkv_launches == 0
 
 
+def _bar_case(causal, seed=5):
+    """bf16 operands, the forward's lse and delta, the derived bars and the
+    plain backward, at a ragged length."""
+    q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16) for x in (*_qkv(seed=seed), _qkv(seed=seed + 1)[0]))
+    lens = torch.tensor([256, 173], dtype=torch.int32)
+    o, lse = tfa.flash_attention(q, k, v, lens, causal, return_lse=True)
+    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+    args = (q, k, v, lse, delta, do)
+    return args, lens, tfa.flash_attention_bwd_bar(*args, lens, causal), \
+        tfa.flash_attention_bwd_reference(*args, lens, causal)
+
+
+def _excess(got, want, bars):
+    """max over elements of |got - want| - bar, per gradient."""
+    return [((g.double() - w.double()).abs() - bar).max().item()
+            for g, w, bar in zip(got, want, bars)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("variant", ["f64_sums", "ds_unrounded", "mask_dropped"])
+def test_bf16_bar_passes_other_sum_orders_and_rejects_faults(monkeypatch, variant, causal):
+    """The derived bf16 bar against three backwards: the plain one with its
+    sums taken in f64 (another summation order, whose ds round from other
+    f32 values: it differs, within the bar), one with ds left unrounded and
+    one with the length mask dropped (each past the bar somewhere)."""
+    args, lens, bars, want = _bar_case(causal)
+    if variant == "f64_sums":
+        monkeypatch.setattr(tfa, "_acc_dtype", lambda dtype: torch.float64)
+        got = tfa.flash_attention_bwd_reference(*args, lens, causal)
+        assert any(not torch.equal(g, w) for g, w in zip(got, want))
+        assert max(_excess(got, want, bars)) <= 0
+    elif variant == "ds_unrounded":
+        got = tfa.flash_attention_bwd_reference(*args, lens, causal, round_ds=False)
+        ex = _excess(got, want, bars)
+        assert ex[0] > 0 and ex[1] > 0, ex  # dq and dk; dv does not use ds
+    else:
+        got = tfa.flash_attention_bwd_reference(*args, None, causal)
+        assert min(_excess(got, want, bars)) > 0
+
+
+def test_bf16_bar_has_no_flat_floor():
+    """Where both sides are exactly 0 (keys past the length, a length-0
+    row) the bar is 0; it takes bf16 inputs only."""
+    args, lens, bars, want = _bar_case(False)
+    assert torch.count_nonzero(bars[1][1, 173:]) == torch.count_nonzero(bars[2][1, 173:]) == 0
+    assert (bars[0] > 0).all()
+    q, k, v, lse, delta, do = args
+    with pytest.raises(TypeError):
+        tfa.flash_attention_bwd_bar(q.float(), k.float(), v.float(), lse, delta, do.float(), lens)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [40, 64, 128])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("layout", ["fused", "separate"])
-def test_cuda_backward_kernels_match_plain(cuda, dtype, atol, causal, layout):
-    """Both backward kernels against the plain backward: ragged T, a dh that
-    is not a power of two, a length-0 row and a length that is not a multiple
-    of 64; q/k/v as strided slices of one fused projection or dense.  Each
-    gradient rounds once on store, so a bf16 value may land one step away:
-    |d| <= atol + 1e-2 |ref| in bf16."""
-    b, t, h, dh = 3, 200, 4, 40
+def test_cuda_backward_kernels_match_plain(cuda, dtype, dh, causal, layout):
+    """Both backward kernels against the plain backward: ragged T, head dims
+    that are and are not multiples of 16, a length-0 row and a length that is
+    not a multiple of 64; q/k/v as strided slices of one fused projection or
+    dense.  f32: |d| <= 1e-4; bf16: |d| <= flash_attention_bwd_bar, which
+    bounds the rounding flips of ds and p and the store's rounding."""
+    b, t, h = 3, 200, 4
     g = torch.Generator(device="cuda").manual_seed(0)
     if layout == "fused":
         qkv = torch.randn((b, t, 3 * h * dh), generator=g, device=cuda).to(dtype)
@@ -457,12 +509,14 @@ def test_cuda_backward_kernels_match_plain(cuda, dtype, atol, causal, layout):
     after = (tfa.flash_attention_bwd.dq_launches, tfa.flash_attention_bwd.dkv_launches)
     assert after == (before[0] + 1, before[1] + 1)
     want = tfa.flash_attention_bwd_reference(q, k, v, lse, delta, do, lens, causal)
+    if dtype == torch.bfloat16:
+        bars = tfa.flash_attention_bwd_bar(q, k, v, lse, delta, do, lens, causal)
+    else:
+        bars = (1e-4,) * 3
     torch.cuda.synchronize()
-    rel = 1e-2 if dtype == torch.bfloat16 else 0.0
-    for name, x, r in zip(("dq", "dk", "dv"), got, want):
+    for name, x, r, bar in zip(("dq", "dk", "dv"), got, want, bars):
         assert x.dtype == dtype and x.is_contiguous()
-        excess = ((x.float() - r.float()).abs() - rel * r.float().abs()).max().item()
-        assert excess <= atol, name
+        assert bool(((x.double() - r.double()).abs() <= bar).all()), name
         assert torch.count_nonzero(x[2]) == 0, name
     # keys past the length get no gradient
     assert torch.count_nonzero(got[1][1, 77:]) == torch.count_nonzero(got[2][1, 77:]) == 0
