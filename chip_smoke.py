@@ -53,7 +53,26 @@ Phases, in order; any failure exits non-zero:
      the device's busy share of the window, and the dq kernel, which must
      run as fa_bwd_dq_mma_kernel 18 times per step (this shows the main
      path's bf16 dq route; phase 4's lone launches are sometimes missing
-     from the profiler's window).
+     from the profiler's window);
+  8. ResNet-50 training at bench.py's configuration (depth 50, 1000
+     classes, 224x224x3, batch 128, bf16 compute over f32 masters,
+     Momentum(0.01, 0.9): bench.py's rate 0.1 oscillates on the fixed
+     batch; random images and labels from a seed) through
+     trainer.SGD(...).train, with cuDNN autotuning switched on: one warm-up
+     step, 4 timed steps on distinct batches (seconds per step, images/s,
+     the convs' analytic FLOPs and their share of the bf16 peak, peak
+     memory), 5 steps on one batch (the cost must fall), every batch-norm
+     moving statistic moved and finite, and one step's gradients at B=2 on
+     the card in f32 held to the CPU's f64 gradient no further than the
+     CPU's own f32 gradient is (times 2);
+  7. ResNet-50 serving from phase 8's parameters and state through
+     Inference.infer: 256 images in two batches of 128, bf16, every
+     distribution finite and summing to 1; two images in f32 on the card
+     and on the CPU, probabilities and logits compared;
+  9. torch.profiler over two ResNet-50 training steps: the top device
+     kernels, the busy share, device time by origin (torch's kernels,
+     memcpy, cuDNN and cuBLAS) and the layout-transform kernels per step
+     beside the convs.  No flash kernel may launch in phases 8, 7, 9.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels with their launches on the main path (the timed training steps of
@@ -630,11 +649,12 @@ def run_steps(P, trainer, samples, on_event=None):
                   event_handler=on_event)
 
 
-def grads_of(torch, net, params, batch):
-    """(cost, {name: gradient}) of the network's mean cost on `batch`."""
+def grads_of(torch, net, params, batch, state=None):
+    """(cost, {name: gradient}) of the network's mean cost on `batch` in
+    training mode (batch norm on batch statistics)."""
     leaves = {l: {k: v.detach().requires_grad_(True) for k, v in p.items()}
               for l, p in params.items()}
-    cost, _ = net.cost(leaves, batch)
+    cost, _ = net.cost(leaves, batch, state=state, train=True)
     names = [(l, k) for l, p in leaves.items() for k in p]
     gs = torch.autograd.grad(cost, [leaves[l][k] for l, k in names], allow_unused=True)
     return cost.item(), {f"{l}.{k}": g for (l, k), g in zip(names, gs) if g is not None}
@@ -763,6 +783,270 @@ def phase_profile(torch, P, trainer):
         raise SystemExit("profile: the training steps' dq did not run as 18 launches per "
                          "step of fa_bwd_dq_mma_kernel")
 
+# ResNet-50 at bench.py's configuration (bench.py:386-392): depth 50, 1000
+# classes, 224x224x3, batch 128, bf16 compute over f32 masters, Momentum with
+# momentum 0.9; random images and labels from a seed, as bench.py's.
+# bench.py's rate 0.1, from this random init, drives the cost on distinct
+# batches up (7.6 -> 8.7 in four steps) and makes it oscillate on the fixed
+# batch (9.54 -> 11.03 over five steps in one of five runs), so the smoke
+# takes 0.01; the work of a step, and so its time, does not depend on it
+RN_DEPTH, RN_CLASSES, RN_IMG, RN_BATCH = 50, 1000, 224, 128
+RN_LR = 0.01
+RN_TIMED = 4  # distinct batches of the timed run, after one warm-up step
+RN_FIXED = 5  # steps on one fixed batch: the cost must fall
+RN_INFER = 256  # served images, in batches of RN_BATCH
+RN_CHECK_B = 2  # batch of the card-against-CPU checks
+# Card against CPU in f32 (TF32 off), through the same port code and
+# weights: summation order only (cuDNN's autotuned algorithms against the
+# CPU's convolutions).
+# - One training step's gradients at B=2 are ill-conditioned: the pooled
+#   gradient is constant over each image's last 8x8 map, and batch norm's
+#   backward on batch statistics subtracts its mean, so f32 rounding is
+#   amplified (the CPU's own f32 gradient lies 1.6e-3 to 2.2e-2, relative
+#   L2, from its f64 gradient, trained and untrained).  So both f32
+#   gradients are held to the CPU's f64 gradient of the same function: the
+#   card's may be at most RN_GRAD_SLACK times as far from it as the CPU's
+#   f32 one, and never needs to be nearer than RN_GRAD_FLOOR.
+# - Served outputs (global statistics: batch norm is affine) are
+#   well-conditioned: 1e-4 on the probabilities and 1e-3 of the largest
+#   |logit| on the logits (the moving statistics of a few steps can
+#   saturate the softmax, where the logits still show a disagreement).
+RN_GRAD_SLACK = 2.0
+RN_GRAD_FLOOR = 1e-5
+RN_PROB_ABS = 1e-4
+RN_LOGIT_REL = 1e-3
+RN_FEEDING = {"image": 0, "label": 1}
+
+
+def resnet_images(rng, n):
+    """n (image, label) samples: flat CHW images from N(0, 1), as bench.py's."""
+    imgs = rng.randn(n, 3 * RN_IMG * RN_IMG).astype(np.float32)
+    labels = rng.randint(0, RN_CLASSES, size=n)
+    return [(imgs[i], int(labels[i])) for i in range(n)]
+
+
+def run_resnet(P, trainer, samples, on_event=None):
+    trainer.train(P.batch(lambda: iter(samples), RN_BATCH), feeding=RN_FEEDING,
+                  event_handler=on_event)
+
+
+def conv_flops(topology) -> int:
+    """Forward FLOPs per image of the topology's convs: 2 kh kw (cin/groups)
+    cout out_h out_w each."""
+    return sum(2 * a["filter_h"] * a["filter_w"] * (a["in_c"] // a["groups"]) * a["channels"]
+               * a["out_h"] * a["out_w"]
+               for a in (c.attrs for c in topology.layers.values() if c.type == "conv"))
+
+
+def rel_l2(torch, got, want) -> float:
+    """|got - want| / |want| over every leaf of two {name: tensor} dicts."""
+    d2 = sum(((got[n].double().cpu() - want[n].double().cpu()) ** 2).sum().item() for n in want)
+    n2 = sum((want[n].double().cpu() ** 2).sum().item() for n in want)
+    return (d2 / n2) ** 0.5
+
+
+def phase_resnet_train(torch, P, card):
+    """Phase 8: ResNet-50 training through SGD.train; returns the trainer
+    and the prediction layer."""
+    from paddle_tpu_torch.models.resnet import resnet_cost
+    from paddle_tpu_torch.reader.feeder import DataFeeder
+
+    torch.backends.cudnn.benchmark = True
+    say("resnet: torch.backends.cudnn.benchmark on from here on (autotuned conv algorithms)")
+    P.init(seed=21, compute_dtype="bfloat16")
+    cost, probs = resnet_cost(depth=RN_DEPTH, class_num=RN_CLASSES, img_size=RN_IMG)
+    params = P.parameters.create(cost, seed=21)
+    state0 = {l: {k: v.clone() for k, v in s.items()} for l, s in params.state.items()}
+    trainer = P.trainer.SGD(cost, params, P.optimizer.Momentum(learning_rate=RN_LR, momentum=0.9))
+    topo = trainer.topology
+    step_flops = 3 * RN_BATCH * conv_flops(topo)
+    say(f"resnet: ResNet-{RN_DEPTH} {RN_IMG}x{RN_IMG}x3, {RN_CLASSES} classes, batch {RN_BATCH}, "
+        f"bf16 compute, Momentum({RN_LR}, 0.9), "
+        f"{sum(v.numel() for p in params.params.values() for v in p.values())} "
+        f"parameters, {sum(c.type == 'conv' for c in topo.layers.values())} convs, "
+        f"{len(params.state)} batch norms; {step_flops:.6e} conv FLOPs per training step "
+        f"(3 x forward)")
+    rng = np.random.RandomState(5)
+    t0 = time.perf_counter()
+    run_resnet(P, trainer, resnet_images(rng, RN_BATCH))  # cuDNN autotuning, allocator
+    torch.cuda.synchronize()
+    say(f"resnet: warm-up step {time.perf_counter() - t0:.3f} s")
+    timed = resnet_images(rng, RN_TIMED * RN_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    steps, clock = [], [0.0]
+
+    def on_event(e):
+        if isinstance(e, P.event.BeginIteration):
+            torch.cuda.synchronize()
+            clock[0] = time.perf_counter()
+        elif isinstance(e, P.event.EndIteration):
+            # the cost's host copy waits for the whole step, update included
+            steps.append((time.perf_counter() - clock[0], e.cost))
+
+    run_resnet(P, trainer, timed, on_event)
+    secs, costs = [s[0] for s in steps], [s[1] for s in steps]
+    peak = torch.cuda.max_memory_allocated()
+    say(f"resnet train: {len(steps)} steps, costs {[round(c, 4) for c in costs]}, seconds per "
+        f"step {[round(x, 4) for x in secs]} (each includes feeding the batch from the host)")
+    if len(steps) != RN_TIMED or not all(np.isfinite(costs)):
+        raise SystemExit("resnet training gave a non-finite cost or a missing step")
+    mean_s = float(np.mean(secs))
+    say(f"resnet train: {mean_s:.4f} s per step (mean of {len(secs)}), "
+        f"{RN_BATCH * len(secs) / sum(secs):.2f} images/s, conv FLOPs "
+        f"{step_flops / mean_s / 1e12:.2f} TFLOP/s = {step_flops / mean_s / PEAK_BF16_FLOPS:.4f} of "
+        f"the bf16 peak, peak memory {peak / 2**30:.2f} GiB on {card}")
+
+    feeder = DataFeeder(topo.data_types(), RN_FEEDING, device=trainer.device)
+    t0 = time.perf_counter()
+    feeder(timed[:RN_BATCH])
+    torch.cuda.synchronize()
+    say(f"resnet train: feeding one batch from the host (numpy stack, copy to the card) "
+        f"{time.perf_counter() - t0:.4f} s of each step")
+
+    fixed = resnet_images(rng, RN_BATCH)
+    fixed_costs = []
+    run_resnet(P, trainer, fixed * RN_FIXED,
+               lambda e: fixed_costs.append(e.cost) if isinstance(e, P.event.EndIteration) else None)
+    say(f"resnet train: {RN_FIXED} steps on one batch, costs {[round(c, 4) for c in fixed_costs]}")
+    if not all(np.isfinite(fixed_costs)) or not fixed_costs[-1] < fixed_costs[0]:
+        raise SystemExit("resnet: the cost did not fall over repeated steps on one batch")
+
+    state = trainer.parameters.state
+    still = [l for l in state0 for k in ("mean", "var") if torch.equal(state[l][k], state0[l][k])]
+    finite = all(bool(torch.isfinite(v).all()) for s in state.values() for v in s.values())
+    var_lo = min(s["var"].min().item() for s in state.values())
+    say(f"resnet train: batch-norm state of {len(state)} layers after {1 + RN_TIMED + RN_FIXED} "
+        f"steps: {len(still)} statistics unmoved, finite {finite}, smallest moving var {var_lo:.4e}")
+    if still or not finite or set(state) != set(state0):
+        raise SystemExit("resnet: a batch-norm moving statistic did not move or is not finite")
+
+    # one step's gradients at B=2, card (f32) against CPU (f32, f64), from the
+    # trained parameters and state
+    net = P.CompiledNetwork(P.Topology(cost), compute_dtype="float32")
+    check = resnet_images(np.random.RandomState(6), RN_CHECK_B)
+    got = {}
+    for where, dev, dtype in (("card f32", trainer.device, torch.float32),
+                              ("CPU f32", torch.device("cpu"), torch.float32),
+                              ("CPU f64", torch.device("cpu"), torch.float64)):
+        batch = DataFeeder(net.topology.data_types(), RN_FEEDING, device=dev)(check)
+        batch["image"] = batch["image"].with_data(batch["image"].data.to(dtype))
+        cast = lambda tree: {l: {k: v.to(dev, dtype) for k, v in p.items()} for l, p in tree.items()}
+        t0 = time.perf_counter()
+        got[where] = grads_of(torch, net, cast(trainer.parameters.params), batch, cast(state))
+        say(f"resnet gradients, {where}: cost {got[where][0]:.9f} in {time.perf_counter() - t0:.2f} s")
+    ref = got["CPU f64"][1]
+    e_card, e_cpu = (rel_l2(torch, got[w][1], ref) for w in ("card f32", "CPU f32"))
+    bar = max(RN_GRAD_SLACK * e_cpu, RN_GRAD_FLOOR)
+    say(f"resnet gradients B={RN_CHECK_B}, |dg|/|g| over all {len(ref)} leaves against the CPU's "
+        f"f64: card f32 {e_card:.3e} (<= {bar:.3e} = max({RN_GRAD_SLACK} x CPU f32's, "
+        f"{RN_GRAD_FLOOR})), CPU f32 {e_cpu:.3e}; card vs CPU f32 "
+        f"{rel_l2(torch, got['card f32'][1], got['CPU f32'][1]):.3e}")
+    if set(got["card f32"][1]) != set(ref) or not e_card <= bar:
+        raise SystemExit("resnet: the card's gradients stray from the CPU's")
+    return trainer, probs
+
+
+def phase_resnet_infer(torch, P, probs, trainer, card):
+    """Phase 7: ResNet-50 serving through Inference.infer from the trained
+    parameters and state (global statistics)."""
+    from paddle_tpu_torch.core.device import tree_to
+    from paddle_tpu_torch.reader.feeder import DataFeeder
+
+    P.init(compute_dtype="bfloat16")
+    inf = P.Inference(probs, trainer.parameters)
+    images = [(x,) for x, _ in resnet_images(np.random.RandomState(7), RN_INFER + RN_BATCH)]
+    inf.infer(images[RN_INFER:], batch_size=RN_BATCH)  # warm-up
+    torch.cuda.synchronize()
+    results, batch_s = [], []
+    t0 = time.perf_counter()
+    for res in inf.iter_infer_field(field="value", input=images[:RN_INFER], batch_size=RN_BATCH):
+        # each batch ends in a host copy of its outputs, which waits for the card
+        batch_s.append(time.perf_counter() - t0 - sum(batch_s))
+        results.append(res[0])
+    wall = time.perf_counter() - t0
+    out = np.concatenate(results, axis=0)
+    sums = out.sum(axis=1)
+    say(f"resnet infer: {RN_INFER} images in {len(results)} batches of {RN_BATCH}, bf16, seconds "
+        f"per batch {[round(x, 4) for x in batch_s]}, {RN_INFER / wall:.2f} images/s on {card}; "
+        f"row sums in [{sums.min():.6f}, {sums.max():.6f}], top probability "
+        f"{out.max(axis=1).mean():.4f} on average")
+    if out.shape != (RN_INFER, RN_CLASSES) or not np.isfinite(out).all():
+        raise SystemExit(f"resnet infer: output {out.shape} not finite or not "
+                         f"{(RN_INFER, RN_CLASSES)}")
+    if np.abs(sums - 1.0).max() > 1e-2:
+        raise SystemExit("resnet infer: a distribution does not sum to 1 within 1e-2")
+
+    P.init(compute_dtype="float32")
+    two = images[:RN_CHECK_B]
+    card_p = P.Inference(probs, trainer.parameters).infer(two, batch_size=RN_CHECK_B)
+    cpu_p = P.Inference(probs, trainer.parameters, device="cpu").infer(two, batch_size=RN_CHECK_B)
+    dp = float(np.abs(card_p - cpu_p).max())
+    # the same forward's logits, on each device
+    net = P.CompiledNetwork(P.Topology(probs), compute_dtype="float32")
+    logits = []
+    for dev in (trainer.device, torch.device("cpu")):
+        batch = DataFeeder(net.topology.data_types(), {"image": 0}, device=dev)(two)
+        with torch.inference_mode():
+            outs, _ = net.apply(tree_to(trainer.parameters.params, dev), batch,
+                                state=tree_to(trainer.parameters.state, dev), train=False)
+        logits.append(outs[probs.name + "@logits"].data.cpu().double())
+    dl = ((logits[0] - logits[1]).abs().max() / logits[1].abs().max()).item()
+    say(f"resnet infer f32 B={RN_CHECK_B}, card vs CPU: max|dp| = {dp:.3e} (<= {RN_PROB_ABS}), "
+        f"max|dlogit|/max|logit| = {dl:.3e} (<= {RN_LOGIT_REL}, largest |logit| "
+        f"{logits[1].abs().max().item():.4e}), top classes {card_p.argmax(axis=1).tolist()} vs "
+        f"{cpu_p.argmax(axis=1).tolist()}")
+    if not dp <= RN_PROB_ABS or not dl <= RN_LOGIT_REL:
+        raise SystemExit("resnet infer: card and CPU outputs disagree")
+    P.init(compute_dtype="bfloat16")
+
+
+# device kernels that only change a tensor's layout or dtype
+LAYOUT_KERNELS = ("nchwToNhwc", "nhwcToNchw", "direct_copy")
+
+
+def phase_resnet_profile(torch, P, trainer):
+    """Phase 9: torch.profiler over two ResNet-50 training steps: the top
+    device kernels, the busy share, and the layout-transform kernels per
+    step beside the convs, which shows whether the convs run in NHWC."""
+    from torch.profiler import ProfilerActivity, profile
+
+    samples = resnet_images(np.random.RandomState(8), 2 * RN_BATCH)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_resnet(P, trainer, samples)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    dev = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    total_us = sum(e.self_device_time_total for e in dev)
+    if total_us <= 0:
+        raise SystemExit("resnet profile: the profiler shows no device time")
+    say(f"resnet profile: 2 steps in {wall:.4f} s (profiler on), device busy {total_us / 1e6:.4f} s "
+        f"({total_us / 1e6 / wall:.3f} of the window); top device kernels per step:")
+    for e in sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)[:12]:
+        say(f"  {e.self_device_time_total / 2e3:9.3f} ms  {e.count / 2:6.1f} calls  "
+            f"{100 * e.self_device_time_total / total_us:5.1f}%  {e.key[:100]}")
+    ops = {e.key: e.count / 2 for e in events if e.device_type == torch.autograd.DeviceType.CPU}
+    say("resnet profile: conv ops per step: " + ", ".join(
+        f"{k} {ops.get(k, 0):.1f}" for k in ("aten::cudnn_convolution", "aten::convolution_backward")))
+    for pat in LAYOUT_KERNELS:
+        hits = [e for e in dev if pat in e.key]
+        say(f"resnet profile: '{pat}' kernels per step: {sum(e.count for e in hits) / 2:.1f} "
+            f"launches, {sum(e.self_device_time_total for e in hits) / 2e3:.3f} ms "
+            f"({100 * sum(e.self_device_time_total for e in hits) / total_us:.1f}% of device time)")
+    groups = {"torch's own kernels (elementwise, reductions, copies)": lambda k: "at::native" in k,
+              "memcpy and memset": lambda k: k.startswith(("Memcpy", "Memset")),
+              "library kernels (cuDNN convs, cuBLAS)": lambda k: True}
+    left = list(dev)
+    for name, match in groups.items():
+        hits = [e for e in left if match(e.key)]
+        left = [e for e in left if not match(e.key)]
+        us = sum(e.self_device_time_total for e in hits)
+        say(f"resnet profile: {name}: {us / 2e3:.3f} ms per step ({100 * us / total_us:.1f}% of "
+            f"device time), {sum(e.count for e in hits) / 2:.1f} launches")
+
 
 def main() -> int:
     import torch
@@ -778,6 +1062,7 @@ def main() -> int:
         print(f"chip_smoke: the paddle_tpu_torch package is missing ({e})", file=sys.stderr)
         return 2
 
+    start = time.perf_counter()
     card = card_line()
     say(card)
     say(f"torch {torch.__version__} cuda {torch.version.cuda} on "
@@ -800,6 +1085,17 @@ def main() -> int:
     phase_edges(torch, fa)
     launches, trainer = phase_train(torch, P, fa, card)
     phase_profile(torch, P, trainer)
+    del trainer
+    # the ResNet path runs no flash kernel: its counts stay 0 over phases 8, 7, 9
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    rn_trainer, rn_probs = phase_resnet_train(torch, P, card)
+    phase_resnet_infer(torch, P, rn_probs, rn_trainer, card)
+    phase_resnet_profile(torch, P, rn_trainer)
+    say(f"resnet: phases 8, 7, 9 took {time.perf_counter() - t0:.1f} s; flash launches "
+        f"(fwd, dq, dkv) over them: {launch_counts(fa)}")
+    if launch_counts(fa) != (0, 0, 0):
+        raise SystemExit("the ResNet path launched a flash kernel")
     kernels = [
         {"name": name, "route": "cuda", "source": f"paddle_tpu_torch/csrc/{src}",
          "replaces": f"paddle_tpu/ops/pallas_attention.py:{line}",
@@ -812,6 +1108,7 @@ def main() -> int:
             ("dkv", "flash_attention_bwd_dkv", "flash_attention_bwd.cu", 173),
         )
     ]
+    say(f"chip_smoke: all phases in {time.perf_counter() - start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",

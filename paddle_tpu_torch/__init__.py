@@ -3,7 +3,9 @@ H100.  It keeps the JAX package's module layout, names and user surface;
 the JAX package stays beside it as the reference.  It serves and trains
 Transformer-base, with multi-head attention on hand-written CUDA
 flash-attention kernels (``ops/flash_attention.py``: the forward, and the dq
-and dk/dv backward kernels)::
+and dk/dv backward kernels), and the image models LeNet and ResNet
+(``models/lenet.py``, ``models/resnet.py``: convs and pools on cuDNN in
+NHWC, batch norm with its moving statistics as layer state)::
 
     import paddle_tpu_torch as paddle
     paddle.init(seed=1, compute_dtype="bfloat16", use_flash_attention=True)
@@ -28,12 +30,15 @@ from paddle_tpu_torch import optimizer  # noqa: F401
 from paddle_tpu_torch import trainer  # noqa: F401
 from paddle_tpu_torch import layers as layer  # noqa: F401
 from paddle_tpu_torch import parameters  # noqa: F401
+from paddle_tpu_torch import pooling  # noqa: F401
 from paddle_tpu_torch.core import data_types as data_type  # noqa: F401
 from paddle_tpu_torch.core import topology  # noqa: F401
 from paddle_tpu_torch.core.compiler import CompiledNetwork  # noqa: F401
 from paddle_tpu_torch.core.topology import Topology  # noqa: F401
 from paddle_tpu_torch.inference import Inference, infer  # noqa: F401
 from paddle_tpu_torch.minibatch import batch  # noqa: F401
+from paddle_tpu_torch.models import lenet as _lenet  # noqa: F401
+from paddle_tpu_torch.models import resnet as _resnet  # noqa: F401
 from paddle_tpu_torch.models import transformer as _transformer  # noqa: F401
 from paddle_tpu_torch import models  # noqa: F401
 from paddle_tpu_torch.utils import flags  # noqa: F401

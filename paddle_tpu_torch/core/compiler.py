@@ -9,12 +9,13 @@ cast to bf16 and its output cast back to bf16, exactly as in the JAX loop.
 
 :meth:`CompiledNetwork.cost` is the differentiable quantity of training
 (the mean of the first output); the train step takes its gradient with
-autograd.
+autograd.  Non-trainable layer state (batch norm's moving statistics) is
+threaded functionally as in the JAX package: ``apply`` reads ``state`` and
+returns ``{**state, **updates}``, leaving its inputs untouched.
 
 Not ported yet: name-shared parameters (``param_name``/``param_names``
-ParamAttr sharing), dynamic widths and non-trainable state (these raise at
-build), dropout and error clipping in training (these raise in
-``apply(train=True)``).
+ParamAttr sharing) and dynamic widths (these raise at build), dropout and
+error clipping in training (these raise in ``apply(train=True)``).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from paddle_tpu_torch.layers.base import ApplyContext, get_layer_impl, stable_ha
 from paddle_tpu_torch.ops.activations import apply_activation
 
 Params = Dict[str, Dict[str, Any]]
+NetState = Dict[str, Dict[str, Any]]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -127,6 +129,24 @@ class CompiledNetwork:
                 params[name] = p
         return params
 
+    def init_state(self, device=None) -> NetState:
+        """Each stateful layer's initial state (batch norm: mean 0, var 1),
+        on `device`: the card unless the caller asks for the CPU."""
+        device = resolve_device(device)
+        state: NetState = {}
+        for name in self.topology.order:
+            conf = self.topology.layers[name]
+            impl = self._impls[name]
+            if impl.init_state is not None:
+                in_confs = [self.topology.layers[i] for i in conf.inputs]
+                s = impl.init_state(conf, in_confs, device)
+                if s:
+                    state[name] = s
+        return state
+
+    def init(self, seed: int = 0, device=None) -> Tuple[Params, NetState]:
+        return self.init_params(seed, device), self.init_state(device)
+
     def named_parameters(self) -> Dict[str, str]:
         """Global parameter table {declared name: dotted storage path}; empty
         while name-shared parameters are not ported."""
@@ -147,12 +167,13 @@ class CompiledNetwork:
 
     # ------------------------------------------------------------------
     def apply(
-        self, params: Params, batch: Batch, *, train: bool = False
-    ) -> Tuple[Dict[str, SeqTensor], Dict[str, Any]]:
-        """Run the whole graph; returns every layer's output by name (and an
-        empty state dict, the JAX signature's second value)."""
+        self, params: Params, batch: Batch, *, state: Optional[NetState] = None,
+        train: bool = True,
+    ) -> Tuple[Dict[str, SeqTensor], NetState]:
+        """Run the whole graph; returns every layer's output by name and the
+        updated state."""
         mixed = self.compute_dtype != torch.float32
-        ctx = ApplyContext(train=train, dtype=self.compute_dtype)
+        ctx = ApplyContext(train=train, state=state or {}, dtype=self.compute_dtype)
         for name in self.topology.order:
             conf = self.topology.layers[name]
             impl = self._impls[name]
@@ -186,19 +207,22 @@ class CompiledNetwork:
             if train and conf.attr("error_clip"):
                 raise NotImplementedError(f"layer {name!r}: error clipping is not ported yet")
             ctx.outputs[name] = out
-        return ctx.outputs, {}
+        return ctx.outputs, {**ctx.state, **ctx.new_state}
 
     def forward(
-        self, params: Params, batch: Batch, *, train: bool = True
-    ) -> Tuple[SeqTensor, Dict[str, SeqTensor]]:
-        """The first declared output and the full output dict."""
-        outs, _ = self.apply(params, batch, train=train)
-        return outs[self.topology.output_names[0]], outs
+        self, params: Params, batch: Batch, *, state: Optional[NetState] = None,
+        train: bool = True,
+    ) -> Tuple[SeqTensor, Dict[str, SeqTensor], NetState]:
+        """The first declared output, the full output dict and the updated
+        state."""
+        outs, new_state = self.apply(params, batch, state=state, train=train)
+        return outs[self.topology.output_names[0]], outs, new_state
 
     def cost(
-        self, params: Params, batch: Batch, *, train: bool = True
-    ) -> Tuple[torch.Tensor, Dict[str, SeqTensor]]:
-        """(scalar mean cost, outputs): the mean of the first output, the
-        quantity the train step differentiates."""
-        out, outs = self.forward(params, batch, train=train)
-        return out.data.mean(), outs
+        self, params: Params, batch: Batch, *, state: Optional[NetState] = None,
+        train: bool = True,
+    ) -> Tuple[torch.Tensor, Tuple[Dict[str, SeqTensor], NetState]]:
+        """(scalar mean cost, (outputs, new state)): the mean of the first
+        output, the quantity the train step differentiates."""
+        out, outs, new_state = self.forward(params, batch, state=state, train=train)
+        return out.data.mean(), (outs, new_state)

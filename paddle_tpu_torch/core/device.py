@@ -24,3 +24,9 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def tree_to(tree, device: torch.device):
+    """A ``{layer: {key: tensor}}`` tree (parameters or layer state) with
+    every tensor on `device`."""
+    return {layer: {k: v.to(device) for k, v in p.items()} for layer, p in tree.items()}

@@ -1,5 +1,6 @@
 """Parameter initialisation on a ``torch.Generator`` — the counterpart of
-``paddle_tpu/core/initializers.py`` (gaussian, default std 1/sqrt(fan_in)).
+``paddle_tpu/core/initializers.py`` (gaussian, default std 1/sqrt(fan_in);
+``conv_normal`` for HWIO conv kernels).
 
 Values are drawn on the CPU generator and then moved to ``device``, so one
 seed gives the same parameters on every device.  They differ from the JAX
@@ -32,3 +33,11 @@ def zeros(shape: Sequence[int], device="cpu", dtype=torch.float32) -> torch.Tens
 
 def ones(shape: Sequence[int], device="cpu", dtype=torch.float32) -> torch.Tensor:
     return torch.ones(tuple(shape), dtype=dtype, device=device)
+
+
+def conv_normal(gen: torch.Generator, shape: Sequence[int], device="cpu",
+                dtype=torch.float32) -> torch.Tensor:
+    """For conv kernels laid out [kh, kw, cin, cout]: std over the receptive
+    field kh * kw * cin."""
+    kh, kw, cin, _ = shape
+    return normal(gen, shape, default_std(kh * kw * cin), device, dtype)

@@ -23,7 +23,7 @@ from paddle_tpu_torch.core.batch import (
     slice_batch_rows,
 )
 from paddle_tpu_torch.core.compiler import CompiledNetwork, get_default_compute_dtype
-from paddle_tpu_torch.core.device import resolve_device
+from paddle_tpu_torch.core.device import resolve_device, tree_to
 from paddle_tpu_torch.core.topology import LayerOutput, Topology
 
 __all__ = ["infer", "Inference"]
@@ -70,12 +70,13 @@ class Inference:
         # parameters may come from a larger (training) topology: apply()
         # looks layers up by name, so the superset carries unused entries
         tree = getattr(parameters, "params", parameters)
-        self._params = {
-            layer: {k: v.to(self.device) for k, v in p.items()} for layer, p in tree.items()
-        }
+        self._params = tree_to(tree, self.device)
+        # layer state (batch norm's moving statistics) serves as the global
+        # statistics of inference
+        self._state = tree_to(getattr(parameters, "state", None) or {}, self.device)
 
     def _fwd(self, batch):
-        all_outs, _ = self.network.apply(self._params, batch, train=False)
+        all_outs, _ = self.network.apply(self._params, batch, state=self._state, train=False)
         keep = set(self.output_names)
         return {n: v for n, v in all_outs.items() if n in keep or n.split("@")[0] in keep}
 

@@ -1,13 +1,17 @@
 """Layer DSL of the port — the part of ``paddle_tpu/layers/__init__.py`` that
-Transformer-base uses: ``data`` (:178), ``fc`` (:215), ``embedding`` (:275),
-``addto`` (:306), ``classification_cost`` (:1116),
-``layer_norm`` (:2414), ``multi_head_attention`` (:2420) and
+Transformer-base, LeNet and the ResNet family use: ``data`` (:178), ``fc``
+(:215), ``embedding`` (:275), ``addto`` (:306), ``img_conv`` (:403),
+``img_pool`` (:484), ``batch_norm`` (:535), ``classification_cost``
+(:1116), ``layer_norm`` (:2414), ``multi_head_attention`` (:2420) and
 ``pos_encoding`` (:2450).  Each function returns a :class:`LayerOutput`
 handle; the graph is gathered by parent traversal when a Topology is built.
+Output-size bookkeeping (conv arithmetic) mirrors the reference's
+config_parser.py ``cnn_output_size``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence, Union
 
 import numpy as np
@@ -17,10 +21,12 @@ from paddle_tpu_torch.activation import act_name
 from paddle_tpu_torch.attr import ExtraAttr, ParamAttr
 from paddle_tpu_torch.core.data_types import InputType
 from paddle_tpu_torch.core.topology import LayerConf, LayerOutput, auto_name
+from paddle_tpu_torch.pooling import pool_name
 
 # register the layer impls
 from paddle_tpu_torch.layers import base as _base  # noqa: F401
 from paddle_tpu_torch.layers import basic as _basic  # noqa: F401
+from paddle_tpu_torch.layers import conv as _conv  # noqa: F401
 from paddle_tpu_torch.layers import attention as _attention  # noqa: F401
 from paddle_tpu_torch.layers import cost as _cost  # noqa: F401
 
@@ -73,7 +79,12 @@ def _param_attrs(param_attr: Optional[ParamAttr]) -> dict:
     }
 
 
+_IMG_ATTR_KEYS = ("out_h", "out_w", "in_h", "in_w", "in_c", "channels")
+
+
 def _img_passthrough(input: LayerOutput) -> dict:
+    """Image-geometry attrs carried through shape-preserving layers (addto,
+    batch_norm) so conv chains keep their spatial metadata."""
     a = input.conf.attrs
     out = {}
     c = a.get("channels") or a.get("in_c")
@@ -82,6 +93,16 @@ def _img_passthrough(input: LayerOutput) -> dict:
     if c is not None and h is not None:
         out.update(in_c=c, in_h=h, in_w=w, channels=c, out_h=h, out_w=w)
     return out
+
+
+def cnn_output_size(
+    img_size: int, filter_size: int, padding: int, stride: int, caffe_mode: bool = True
+) -> int:
+    """reference: python/paddle/trainer/config_parser.py cnn_output_size."""
+    output = (2 * padding + img_size - filter_size) / float(stride)
+    if caffe_mode:
+        return 1 + int(math.floor(output))
+    return 1 + int(math.ceil(output))
 
 
 def _unary(type_: str, input: LayerOutput, size=None, name=None, **attrs) -> LayerOutput:
@@ -224,6 +245,208 @@ def addto(
 
 
 addto_layer = addto
+
+
+# ---------------------------------------------------------------------------
+# image layers
+# ---------------------------------------------------------------------------
+
+
+def _img_attrs(input: LayerOutput, num_channels: Optional[int]):
+    a = input.conf.attrs
+    in_c = num_channels or a.get("channels") or a.get("in_c")
+    in_h = a.get("out_h") or a.get("in_h")
+    in_w = a.get("out_w") or a.get("in_w")
+    if in_h is None:
+        # flat input, CHW order: width = floor(sqrt(pixels)), height =
+        # pixels // width (reference config_parser.get_img_size)
+        if not in_c:
+            raise ValueError(f"num_channels required for flat input {input.name}")
+        hw = input.size // in_c
+        in_w = int(math.isqrt(hw))
+        in_h = hw // in_w
+        if in_h * in_w != hw:
+            raise ValueError(
+                f"{input.name}: cannot factor {hw} pixels into height x width "
+                f"(got {in_h}x{in_w})"
+            )
+    return int(in_c), int(in_h), int(in_w)
+
+
+def img_conv(
+    input: LayerOutput,
+    filter_size: int,
+    num_filters: int,
+    stride: int = 1,
+    padding: int = 0,
+    groups: int = 1,
+    num_channels: Optional[int] = None,
+    act=None,
+    bias_attr: Union[bool, ParamAttr] = True,
+    param_attr: Optional[ParamAttr] = None,
+    trans: bool = False,
+    caffe_mode: bool = True,
+    filter_size_y: Optional[int] = None,
+    stride_y: Optional[int] = None,
+    padding_y: Optional[int] = None,
+    shared_biases: bool = True,  # v1 per-channel bias sharing: always true here
+    layer_type: Optional[str] = None,  # 'exconv'/'cudnn_conv' backend hint: cuDNN runs both
+    name: Optional[str] = None,
+    layer_attr: Optional[ExtraAttr] = None,
+) -> LayerOutput:
+    """reference img_conv_layer (layers.py) -> ExpandConvLayer/CudnnConvLayer."""
+    if trans:
+        raise NotImplementedError("img_conv(trans=True) (convt) is not ported yet")
+    in_c, in_h, in_w = _img_attrs(input, num_channels)
+    # reference accepts (x, y) tuples for filter_size/stride/padding
+    if isinstance(filter_size, (list, tuple)):
+        filter_size, filter_size_y = filter_size
+    if isinstance(stride, (list, tuple)):
+        stride, stride_y = stride
+    if isinstance(padding, (list, tuple)):
+        padding, padding_y = padding
+    fh = filter_size_y or filter_size
+    fw = filter_size
+    sh = stride_y or stride
+    sw = stride
+    ph = padding_y if padding_y is not None else padding
+    pw = padding
+    out_h = cnn_output_size(in_h, fh, ph, sh, caffe_mode)
+    out_w = cnn_output_size(in_w, fw, pw, sw, caffe_mode)
+    drop, shard = _extra(layer_attr)
+    conf = LayerConf(
+        name=name or auto_name("conv"),
+        type="conv",
+        size=out_h * out_w * num_filters,
+        inputs=(input.name,),
+        act=act_name(act if act is not None else _act_mod.Relu()),
+        bias=bool(bias_attr),
+        attrs={
+            "in_c": in_c,
+            "in_h": in_h,
+            "in_w": in_w,
+            "filter_h": fh,
+            "filter_w": fw,
+            "stride_h": sh,
+            "stride_w": sw,
+            "pad_h": ph,
+            "pad_w": pw,
+            "groups": groups,
+            **_param_attrs(param_attr),
+            "channels": num_filters,
+            "out_h": out_h,
+            "out_w": out_w,
+        },
+        drop_rate=drop,
+        shard_axis=shard,
+    )
+    _set_error_clip(conf, layer_attr)
+    return LayerOutput(conf, [input])
+
+
+img_conv_layer = img_conv
+
+
+def img_pool(
+    input: LayerOutput,
+    pool_size: int,
+    stride: int = 1,
+    padding: int = 0,
+    pool_type=None,
+    num_channels: Optional[int] = None,
+    pool_size_y: Optional[int] = None,
+    stride_y: Optional[int] = None,
+    padding_y: Optional[int] = None,
+    ceil_mode: bool = True,
+    name: Optional[str] = None,
+) -> LayerOutput:
+    """reference img_pool_layer -> PoolLayer; v1 uses ceil output sizing."""
+    in_c, in_h, in_w = _img_attrs(input, num_channels)
+    kh = pool_size_y or pool_size
+    kw = pool_size
+    sh = stride_y or stride
+    sw = stride
+    ph = padding_y if padding_y is not None else padding
+    pw = padding
+    out_h = cnn_output_size(in_h, kh, ph, sh, caffe_mode=not ceil_mode)
+    out_w = cnn_output_size(in_w, kw, pw, sw, caffe_mode=not ceil_mode)
+    conf = LayerConf(
+        name=name or auto_name("pool"),
+        type="pool",
+        size=out_h * out_w * in_c,
+        inputs=(input.name,),
+        bias=False,
+        attrs={
+            "in_c": in_c,
+            "in_h": in_h,
+            "in_w": in_w,
+            "filter_h": kh,
+            "filter_w": kw,
+            "stride_h": sh,
+            "stride_w": sw,
+            "pad_h": ph,
+            "pad_w": pw,
+            "pool_type": pool_name(pool_type),
+            "channels": in_c,
+            "out_h": out_h,
+            "out_w": out_w,
+        },
+    )
+    return LayerOutput(conf, [input])
+
+
+img_pool_layer = img_pool
+
+
+def batch_norm(
+    input: LayerOutput,
+    act=None,
+    num_channels: Optional[int] = None,
+    epsilon: float = 1e-5,
+    moving_average_fraction: float = 0.9,
+    use_global_stats: Optional[bool] = None,
+    bias_attr=True,
+    param_attr: Optional[ParamAttr] = None,
+    layer_attr: Optional[ExtraAttr] = None,
+    batch_norm_type: Optional[str] = None,
+    name: Optional[str] = None,
+) -> LayerOutput:
+    """Batch norm over the channels of an image input (or the features of a
+    flat one).  As in the JAX package, the layer is built without a shift
+    whatever `bias_attr` says."""
+    a = input.conf.attrs
+    img = (a.get("out_h") or a.get("in_h")) is not None
+    if img:
+        in_c, in_h, in_w = _img_attrs(input, num_channels)
+        attrs = {
+            **_param_attrs(param_attr),
+            "channels": in_c,
+            "in_h": in_h,
+            "in_w": in_w,
+            "in_c": in_c,
+            "out_h": in_h,
+            "out_w": in_w,
+        }
+    else:
+        attrs = {"channels": num_channels or input.size}
+    attrs.update(
+        epsilon=epsilon,
+        moving_average_fraction=moving_average_fraction,
+        use_global_stats=bool(use_global_stats),
+    )
+    conf = LayerConf(
+        name=name or auto_name("batch_norm"),
+        type="batch_norm",
+        size=input.size,
+        inputs=(input.name,),
+        act=act_name(act),
+        bias=False,
+        attrs=attrs,
+    )
+    return LayerOutput(conf, [input])
+
+
+batch_norm_layer = batch_norm
 
 
 def _cost2(type_: str, input: LayerOutput, label: LayerOutput, name=None, **attrs):

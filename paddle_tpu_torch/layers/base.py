@@ -3,7 +3,10 @@
 
   * ``init(conf, in_confs, gen, device) -> params`` builds its tensors from a
     ``torch.Generator``;
-  * ``apply(conf, params, inputs, ctx) -> SeqTensor`` runs its forward.
+  * ``apply(conf, params, inputs, ctx) -> SeqTensor`` runs its forward;
+
+and a layer with non-trainable state (batch norm's moving statistics) also
+has ``init_state(conf, in_confs, device) -> state``.
 """
 
 from __future__ import annotations
@@ -24,6 +27,10 @@ class ApplyContext:
 
     train: bool
     outputs: Dict[str, SeqTensor] = dataclasses.field(default_factory=dict)
+    # non-trainable per-layer state (batch-norm moving stats): read from
+    # `state`, write updates into `new_state` (the inputs are not mutated)
+    state: Dict[str, Dict[str, Any]] = dataclasses.field(default_factory=dict)
+    new_state: Dict[str, Dict[str, Any]] = dataclasses.field(default_factory=dict)
     dtype: Any = torch.float32
 
 
@@ -34,6 +41,7 @@ def stable_hash(name: str) -> int:
 
 InitFn = Callable[[LayerConf, List[LayerConf], torch.Generator, Any], Dict[str, Any]]
 ApplyFn = Callable[[LayerConf, Dict[str, Any], List[SeqTensor], ApplyContext], SeqTensor]
+StateInitFn = Callable[[LayerConf, List[LayerConf], Any], Dict[str, Any]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +49,8 @@ class LayerImpl:
     type: str
     init: InitFn
     apply: ApplyFn
+    # builds the initial non-trainable state; None = stateless
+    init_state: Optional[StateInitFn] = None
     # the compiler applies conf.act after `apply` when True
     auto_activation: bool = True
     # the compiler hands this layer f32 inputs under mixed precision
@@ -58,6 +68,7 @@ def register_layer(
     type_name: str,
     init: Optional[InitFn] = None,
     *,
+    init_state: Optional[StateInitFn] = None,
     auto_activation: bool = True,
     full_precision: bool = False,
 ):
@@ -70,6 +81,7 @@ def register_layer(
             type=type_name,
             init=init or no_params,
             apply=apply,
+            init_state=init_state,
             auto_activation=auto_activation,
             full_precision=full_precision,
         )

@@ -6,7 +6,9 @@ counterpart of ``paddle_tpu/trainer/sgd.py`` over the eager train step::
                   feeding={...})
 
 It runs on the card unless the caller passes ``device="cpu"`` (and raises
-without one).  The parameters are updated in place.
+without one).  The parameters are updated in place; the layer state (batch
+norm's moving statistics) is carried from step to step and written back to
+``parameters.state``, and ``test`` evaluates with it as global statistics.
 
 Not ported yet: checkpoints and tar saving, the device-resident pass cache,
 the ahead-of-time executable cache, asynchronous feeding, the divergence
@@ -22,7 +24,7 @@ import numpy as np
 
 from paddle_tpu_torch import event as v2_event
 from paddle_tpu_torch.core.compiler import CompiledNetwork
-from paddle_tpu_torch.core.device import resolve_device
+from paddle_tpu_torch.core.device import resolve_device, tree_to
 from paddle_tpu_torch.core.topology import LayerOutput, Topology
 from paddle_tpu_torch.optimizer import Optimizer
 from paddle_tpu_torch.parameters import Parameters, create_from_network
@@ -77,10 +79,8 @@ class SGD:
             )
         if parameters.network is None:
             parameters.network = self.network
-        parameters.params = {
-            layer: {k: v.to(self.device) for k, v in p.items()}
-            for layer, p in parameters.params.items()
-        }
+        parameters.params = tree_to(parameters.params, self.device)
+        parameters.state = tree_to(parameters.state, self.device)
         self.parameters = parameters
         self.optimizer = update_equation
         self._metrics_fn = default_metrics_fn(self.topology)
@@ -109,7 +109,9 @@ class SGD:
         if event_handler is None:
             event_handler = lambda e: None
         feeder = self._make_feeder(feeding)
-        params, opt_state = self.parameters.params, self._opt_state
+        params, state, opt_state = (
+            self.parameters.params, self.parameters.state, self._opt_state
+        )
         for pass_id in range(num_passes):
             event_handler(v2_event.BeginPass(pass_id))
             if "pass" in opt_state:
@@ -119,7 +121,9 @@ class SGD:
             for batch_id, data in enumerate(reader()):
                 event_handler(v2_event.BeginIteration(pass_id, batch_id))
                 batch = feeder(data)
-                params, opt_state, metrics = self._train_step(params, opt_state, batch)
+                params, state, opt_state, metrics = self._train_step(
+                    params, state, opt_state, batch
+                )
                 cost = float(metrics.pop("cost"))
                 costs.append(cost)
                 weights.append(_batch_rows(batch))
@@ -128,17 +132,19 @@ class SGD:
             # per-sample mean: each batch weighs by its row count
             mean_cost = float(np.average(costs, weights=weights)) if costs else 0.0
             event_handler(v2_event.EndPass(pass_id, {"mean_cost": mean_cost}))
-        self.parameters.params, self._opt_state = params, opt_state
+        self.parameters.params, self.parameters.state = params, state
+        self._opt_state = opt_state
 
     def test(self, reader: Callable, feeding=None) -> v2_event.TestResult:
-        """Cost and metrics over `reader`, averaged per sample."""
+        """Cost and metrics over `reader`, averaged per sample, with the
+        layer state as global statistics."""
         feeder = self._make_feeder(feeding)
         costs: List[float] = []
         weights: List[int] = []
         sums: Dict[str, float] = {}
         for data in reader():
             batch = feeder(data)
-            metrics = self._eval_step(self.parameters.params, batch)
+            metrics = self._eval_step(self.parameters.params, self.parameters.state, batch)
             rows = _batch_rows(batch)
             costs.append(float(metrics.pop("cost")))
             weights.append(rows)

@@ -2,7 +2,8 @@
 
 One train step is the cost of the network on a batch, its gradient with
 respect to every master parameter by ``torch.autograd.grad``, one optimizer
-update (in place) and the metrics.  PyTorch runs it eagerly; the JAX package
+update (in place), the layer state the forward produced (batch norm's moving
+statistics, detached) and the metrics.  PyTorch runs it eagerly; the JAX package
 jits the same body into one program.  Multi-head attention routed through
 flash attention takes its gradient from the hand-written backward kernels
 (``ops/flash_attention.py``).
@@ -29,10 +30,11 @@ def _not_ported(what: str):
 
 
 def _train_step_body(network: CompiledNetwork, optimizer: Optimizer, extra_metrics=None):
-    """(params, opt_state, batch) -> (params, opt_state, metrics), with the
-    parameter and optimizer tensors updated in place."""
+    """(params, state, opt_state, batch) -> (params, state, opt_state,
+    metrics), with the parameter and optimizer tensors updated in place and
+    the layer state replaced."""
 
-    def step(params, opt_state, batch):
+    def step(params, state, opt_state, batch):
         # views of the masters that share their storage: the graph hangs off
         # these, and the in-place update below writes the masters themselves
         leaves = {
@@ -40,7 +42,7 @@ def _train_step_body(network: CompiledNetwork, optimizer: Optimizer, extra_metri
             for layer, p in params.items()
         }
         with torch.enable_grad():
-            cost, outs = network.cost(leaves, batch, train=True)
+            cost, (outs, new_state) = network.cost(leaves, batch, state=state, train=True)
             flat = [v for p in leaves.values() for v in p.values()]
             grads_flat = torch.autograd.grad(cost, flat, allow_unused=True)
         grads, i = {}, 0
@@ -51,10 +53,14 @@ def _train_step_body(network: CompiledNetwork, optimizer: Optimizer, extra_metri
                 grads[layer][k] = torch.zeros_like(v) if g is None else g
                 i += 1
         params, opt_state = optimizer.update(grads, opt_state, params)
+        # the state carries no graph into the next step
+        new_state = {
+            layer: {k: v.detach() for k, v in s.items()} for layer, s in new_state.items()
+        }
         metrics: Metrics = {"cost": cost.detach()}
         if extra_metrics is not None:
             metrics.update(extra_metrics(outs))
-        return params, opt_state, metrics
+        return params, new_state, opt_state, metrics
 
     return step
 
@@ -68,8 +74,8 @@ def make_train_step(
     sentinel: Optional[bool] = None,
     quantized: Optional[bool] = None,
 ):
-    """The train step ``(params, opt_state, batch) -> (params, opt_state,
-    metrics)``; see :func:`_train_step_body`."""
+    """The train step ``(params, state, opt_state, batch) -> (params, state,
+    opt_state, metrics)``; see :func:`_train_step_body`."""
     if mesh is not None:
         _not_ported("training over a device mesh")
     if prune_masks:
@@ -84,13 +90,14 @@ def make_train_step(
 def make_eval_step(
     network: CompiledNetwork, mesh=None, extra_metrics: Optional[MetricsFn] = None
 ):
-    """``(params, batch) -> metrics`` at test time, without gradients."""
+    """``(params, state, batch) -> metrics`` at test time, without gradients
+    and with global statistics (``train=False``); the state is not updated."""
     if mesh is not None:
         _not_ported("evaluation over a device mesh")
 
     @torch.no_grad()
-    def step(params, batch):
-        cost, outs = network.cost(params, batch, train=False)
+    def step(params, state, batch):
+        cost, (outs, _) = network.cost(params, batch, state=state, train=False)
         metrics: Metrics = {"cost": cost}
         if extra_metrics is not None:
             metrics.update(extra_metrics(outs))

@@ -27,6 +27,7 @@ for name in names:
 bad = [m for m in sys.modules if m == "jaxlib" or m.startswith(("jax.", "jaxlib.", "paddle_tpu."))]
 assert not bad, bad
 print(len(names))
+print(" ".join(names))
 """
 
 
@@ -36,7 +37,10 @@ def test_every_module_imports_without_jax():
         timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 20  # every module of the package was walked
+    count, names = proc.stdout.strip().splitlines()
+    assert int(count) >= 25  # every module of the package was walked
+    for mod in ("layers.conv", "models.lenet", "models.resnet", "pooling"):
+        assert f"paddle_tpu_torch.{mod}" in names.split()
 
 
 _FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax\b|jaxlib\b|paddle_tpu(?!_torch)\b)", re.M)
@@ -88,6 +92,34 @@ def test_entry_points_raise_without_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         DataFeeder(data_types)
     assert DataFeeder(data_types, device="cpu").device == torch.device("cpu")
+
+
+def test_image_entry_points_raise_without_cuda():
+    """Parameters.create, Inference and SGD on a ResNet topology: the card
+    unless the caller asks for the CPU, where they carry the batch-norm
+    state."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device; the no-CUDA error cannot show")
+    cost, probs = paddle_tpu_torch.models.resnet.resnet_cost(depth=18, class_num=4, img_size=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        paddle_tpu_torch.parameters.create(cost)
+    params = paddle_tpu_torch.parameters.create(cost, device="cpu")
+    assert len(params.state) == 20
+    assert all(v.device.type == "cpu" for s in params.state.values() for v in s.values())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        paddle_tpu_torch.Inference(probs, params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        paddle_tpu_torch.trainer.SGD(
+            cost, params, paddle_tpu_torch.optimizer.Momentum(learning_rate=0.1, momentum=0.9)
+        )
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        paddle_tpu_torch.CompiledNetwork(paddle_tpu_torch.Topology(cost)).init_state()
+    trainer = paddle_tpu_torch.trainer.SGD(
+        cost, params, paddle_tpu_torch.optimizer.Momentum(learning_rate=0.1, momentum=0.9),
+        device="cpu",
+    )
+    assert trainer.parameters is params and set(params.state) == {
+        name for name, conf in trainer.topology.layers.items() if conf.type == "batch_norm"}
 
 
 def test_chip_smoke_fails_without_cuda():
