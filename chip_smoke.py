@@ -73,6 +73,36 @@ Phases, in order; any failure exits non-zero:
      kernels, the busy share, device time by origin (torch's kernels,
      memcpy, cuDNN and cuBLAS) and the layout-transform kernels per step
      beside the convs.  No flash kernel may launch in phases 8, 7, 9.
+     Phase 8 also reads the first batch norm's sum |moving mean| in an
+     EndPass handler (non-zero, and equal to the value after train
+     returns), and takes one step on a batch with a NaN pixel, which the
+     divergence sentinel must skip: health 0, and params, layer state and
+     optimizer state torch.equal to before;
+ 10. the training spine at full width, on phase 5's Transformer-base
+     configuration (bf16 over f32 masters, flash on, Momentum(0.05 / 1024,
+     0.9)): SGD.train over 2 passes of 3 batches with save_dir and
+     saving_period=1, an EndPass handler running trainer.test on a
+     held-out batch and saving the parameter tar into a buffer; a
+     Parameters.from_tar of the last buffer must serve the same batch
+     bit-identically to the trained parameters; save_checkpoint after step
+     2, and a trainer built from fresh parameters restores it (params,
+     momentum and step counter equal to the first trainer's at step 2, bit
+     for bit) and trains the remaining 4 batches, whose costs must equal
+     the uninterrupted run's bit for bit (or, if a second uninterrupted run
+     in this process shows the step is not bit-reproducible, lie within
+     three times their spread); bytes and seconds of every save and
+     restore, the flash launches over the phase, and seconds per step with
+     the sentinel on and off beside phase 5's;
+ 10b. the eight optimizers on the card: 3 updates of the full
+     Transformer-base parameter tree in f32 with gradients from a seeded
+     generator, on the card and on the CPU from the same numbers; worst
+     |d| / max|param| per leaf <= 1e-5;
+ 10c. dropout and error clipping on the card: an fc of width 2048 over
+     8x1024 tokens with drop_rate 0.1 (bf16): kept share within 5 sigma of
+     0.9, kept values equal the undropped ones / 0.9, the same seed gives
+     the same mask and the next another, train=False leaves the output
+     untouched; an error_clipping_threshold's clipped gradient on the card
+     against the CPU's (f32, relative L2 <= 1e-5).
 
 The last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels with their launches on the main path (the timed training steps of
@@ -744,7 +774,7 @@ def phase_train(torch, P, fa, card):
         if set(g_f) != set(g_d) or not rel_l2 <= GRAD_REL[dtype_name]:
             raise SystemExit(f"{dtype_name} gradients: flash and dense disagree")
         del g_f, g_d
-    return {"fwd": launches[0], "dq": launches[1], "dkv": launches[2]}, trainer
+    return {"fwd": launches[0], "dq": launches[1], "dkv": launches[2]}, trainer, mean_s
 
 
 def phase_profile(torch, P, trainer):
@@ -875,6 +905,9 @@ def phase_resnet_train(torch, P, card):
     torch.cuda.reset_peak_memory_stats()
     steps, clock = [], [0.0]
 
+    first_bn = next(n for n, c in topo.layers.items() if c.type == "batch_norm")
+    end_pass_mean = []
+
     def on_event(e):
         if isinstance(e, P.event.BeginIteration):
             torch.cuda.synchronize()
@@ -882,8 +915,15 @@ def phase_resnet_train(torch, P, card):
         elif isinstance(e, P.event.EndIteration):
             # the cost's host copy waits for the whole step, update included
             steps.append((time.perf_counter() - clock[0], e.cost))
+        elif isinstance(e, P.event.EndPass):
+            end_pass_mean.append(trainer.parameters.state[first_bn]["mean"].abs().sum().item())
 
     run_resnet(P, trainer, timed, on_event)
+    after = trainer.parameters.state[first_bn]["mean"].abs().sum().item()
+    say(f"resnet train: sum |moving mean| of {first_bn} read in the EndPass handler "
+        f"{end_pass_mean}, after train returned {after}")
+    if len(end_pass_mean) != 1 or not end_pass_mean[0] > 0 or end_pass_mean[0] != after:
+        raise SystemExit("resnet: EndPass did not see the trained batch-norm state")
     secs, costs = [s[0] for s in steps], [s[1] for s in steps]
     peak = torch.cuda.max_memory_allocated()
     say(f"resnet train: {len(steps)} steps, costs {[round(c, 4) for c in costs]}, seconds per "
@@ -911,6 +951,7 @@ def phase_resnet_train(torch, P, card):
     if not all(np.isfinite(fixed_costs)) or not fixed_costs[-1] < fixed_costs[0]:
         raise SystemExit("resnet: the cost did not fall over repeated steps on one batch")
 
+    phase_nan_step(torch, P, trainer)
     state = trainer.parameters.state
     still = [l for l in state0 for k in ("mean", "var") if torch.equal(state[l][k], state0[l][k])]
     finite = all(bool(torch.isfinite(v).all()) for s in state.values() for v in s.values())
@@ -944,6 +985,46 @@ def phase_resnet_train(torch, P, card):
     if set(got["card f32"][1]) != set(ref) or not e_card <= bar:
         raise SystemExit("resnet: the card's gradients stray from the CPU's")
     return trainer, probs
+
+
+def clone_tree(tree):
+    """A copy of nested dicts and tuples of tensors (numbers pass)."""
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(clone_tree(v) for v in tree)
+    return tree.clone() if hasattr(tree, "clone") else tree
+
+
+def trees_equal(torch, a, b) -> bool:
+    """Bit equality of two nested dicts and tuples of tensors."""
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(trees_equal(torch, a[k], b[k]) for k in a)
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(trees_equal(torch, x, y) for x, y in zip(a, b))
+    return torch.equal(a, b) if torch.is_tensor(a) else a == b
+
+
+def phase_nan_step(torch, P, trainer):
+    """Phase 8: one step on a batch with a NaN pixel through the trainer's
+    train step: the divergence sentinel must report health 0 and leave
+    params, layer state and optimizer state torch.equal to before."""
+    from paddle_tpu_torch.reader.feeder import DataFeeder
+
+    samples = resnet_images(np.random.RandomState(9), RN_BATCH)
+    samples[3][0][RN_IMG] = np.nan
+    batch = DataFeeder(trainer.topology.data_types(), RN_FEEDING, device=trainer.device)(samples)
+    params, state, opt = trainer.parameters.params, trainer.parameters.state, trainer._opt_state
+    before = clone_tree((params, state, opt))
+    step = P.trainer.make_train_step(trainer.network, trainer.optimizer)
+    p2, s2, o2, m = step(params, state, opt, batch, 1)
+    health = float(m["health"])
+    same = trees_equal(torch, (p2, s2, o2), before)
+    say(f"resnet sentinel: a batch with a NaN pixel: cost {float(m['cost'])}, grad_norm "
+        f"{float(m['grad_norm'])}, health {health}; params, batch-norm state and momentum "
+        f"(step {o2['step']}) torch.equal to before: {same}")
+    if health != 0.0 or not same:
+        raise SystemExit("resnet: the NaN step was not skipped with the state unchanged")
 
 
 def phase_resnet_infer(torch, P, probs, trainer, card):
@@ -1047,6 +1128,320 @@ def phase_resnet_profile(torch, P, trainer):
         say(f"resnet profile: {name}: {us / 2e3:.3f} ms per step ({100 * us / total_us:.1f}% of "
             f"device time), {sum(e.count for e in hits) / 2:.1f} launches")
 
+# Phase 10: the training spine at full width, on phase 5's configuration.
+SPINE_BATCHES, SPINE_PASSES = 3, 2  # distinct batches per pass, passes
+SPINE_SAVE_STEP = 2  # save_checkpoint after this step
+SPINE_SPREAD_SLACK = 3.0  # restored costs within this times two runs' spread
+SENTINEL_ROUNDS = 10  # (off, on, on, off) rounds timing the sentinel's cost
+# Phase 10b: each rule 3 updates of the full parameter tree in f32, card
+# against CPU from the same numbers: elementwise arithmetic that may round
+# differently in the last place (fused multiply-adds), far below 1e-5 of the
+# leaf's largest |param|
+OPT_UPDATES, OPT_REL = 3, 1e-5
+OPT_RULES = {
+    "Momentum": dict(learning_rate=0.01, momentum=0.9),
+    "SparseMomentum": dict(learning_rate=0.01),
+    "AdaGrad": dict(learning_rate=0.01),
+    "AdaDelta": dict(learning_rate=1.0),
+    "RMSProp": dict(learning_rate=1e-3),
+    "DecayedAdaGrad": dict(learning_rate=1e-3),
+    "Adam": dict(learning_rate=1e-3),
+    "AdaMax": dict(learning_rate=2e-3),
+}
+# Phase 10c: dropout on an fc of width 2048 over 8 x 1024 tokens (bf16), and
+# error clipping card against CPU in f32 (summation order only: relative L2
+# of the gradients <= 1e-5; the clip must bind, moving them >= 1e-2)
+DROP_RATE, DROP_IN, DROP_W = 0.1, 512, 2048
+CLIP_T, CLIP_REL, CLIP_BINDS = 1e-3, 1e-5, 1e-2
+
+
+def dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def phase_spine(torch, P, fa, card, phase5_s):
+    """Phase 10; returns the trained parameter tree (for phase 10b)."""
+    import io
+    import tempfile
+
+    from paddle_tpu_torch import checkpoint as ckpt
+    from paddle_tpu_torch.models.transformer import transformer_base
+
+    P.init(seed=31, compute_dtype="bfloat16", use_flash_attention=True)
+    cost, probs = transformer_base(VOCAB, VOCAB)
+    rng = np.random.RandomState(31)
+    batches = [train_samples(rng, BATCH) for _ in range(SPINE_BATCHES)]
+    held = train_samples(rng, BATCH)
+    n_steps = SPINE_BATCHES * SPINE_PASSES
+
+    def make_trainer(seed):
+        return P.trainer.SGD(cost, P.parameters.create(cost, seed=seed),
+                             P.optimizer.Momentum(learning_rate=TRAIN_LR, momentum=0.9))
+
+    def run(trainer, batch_list, num_passes, log, on_extra=None, **kw):
+        samples = [x for b in batch_list for x in b]
+        clock = [0.0]
+
+        def on_event(e):
+            if isinstance(e, P.event.BeginIteration):
+                torch.cuda.synchronize()
+                clock[0] = time.perf_counter()
+            elif isinstance(e, P.event.EndIteration):
+                log.append((e.cost, time.perf_counter() - clock[0]))
+            if on_extra is not None:
+                on_extra(e)
+
+        trainer.train(P.batch(lambda: iter(samples), BATCH), num_passes=num_passes,
+                      feeding=FEEDING, event_handler=on_event, **kw)
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip-smoke-spine-")
+    reset_counts(fa)
+    t_phase = time.perf_counter()
+    # (a) the uninterrupted run, sentinel on (the default)
+    trainer = make_trainer(31)
+    man = ckpt.CheckpointManager(os.path.join(tmp.name, "ckpt"), max_to_keep=1)
+    log_a, info, snap = [], {"test": [], "tar": []}, {}
+
+    def on_extra(e):
+        if isinstance(e, P.event.EndIteration) and len(log_a) == SPINE_SAVE_STEP:
+            # the parameters and momentum are updated in place: the trainer
+            # holds this step's values
+            t0 = time.perf_counter()
+            trainer.save_checkpoint(man)
+            info["save"] = (dir_bytes(man.directory), time.perf_counter() - t0)
+            snap["state"] = clone_tree((trainer.parameters.params, trainer._opt_state["m"]))
+            snap["step"] = (trainer._opt_state["step"], trainer._step_count)
+        elif isinstance(e, P.event.EndPass):
+            t0 = time.perf_counter()
+            res = trainer.test(P.batch(lambda: iter(held), BATCH), feeding=FEEDING)
+            info["test"].append((e.pass_id, res.cost, time.perf_counter() - t0))
+            buf = io.BytesIO()
+            t0 = time.perf_counter()
+            trainer.save_parameter_to_tar(buf)
+            info["tar"].append((len(buf.getvalue()), time.perf_counter() - t0))
+            info["last_tar"] = buf
+
+    pass_dir = os.path.join(tmp.name, "passes")
+    t0 = time.perf_counter()
+    run(trainer, batches, SPINE_PASSES, log_a, on_extra, save_dir=pass_dir, saving_period=1)
+    t_train = time.perf_counter() - t0
+    costs_a = [c for c, _ in log_a]
+    say(f"spine: SGD.train {SPINE_PASSES} passes of {SPINE_BATCHES} batches in {t_train:.2f} s "
+        f"(saves and tests included): costs {costs_a}, seconds per step "
+        f"{[round(x, 4) for _, x in log_a]}")
+    say(f"spine: EndPass trainer.test on a held-out batch (pass, cost, s): {info['test']}; "
+        f"parameter tar into a buffer (bytes, s): {info['tar']}")
+    passes = sorted(os.listdir(pass_dir))
+    say(f"spine: save_dir holds {passes}, {dir_bytes(pass_dir)} bytes "
+        f"(params.tar and one v1 file per parameter in each)")
+    if (len(costs_a) != n_steps or not all(np.isfinite(costs_a)) or len(info["test"]) != 2
+            or not all(np.isfinite(c) for _, c, _ in info["test"])
+            or passes != ["pass-00000", "pass-00001"]):
+        raise SystemExit("spine: the run, its EndPass tests or its pass dirs are incomplete")
+
+    # (b) a Parameters from the last tar serves bit-identically
+    buf = info["last_tar"]
+    buf.seek(0)
+    t0 = time.perf_counter()
+    loaded = P.parameters.Parameters.from_tar(buf)
+    t_load = time.perf_counter() - t0
+    out_mem = P.Inference(probs, trainer.parameters).infer(batches[0], feeding=FEEDING,
+                                                           batch_size=BATCH)
+    out_tar = P.Inference(probs, loaded).infer(batches[0], feeding=FEEDING, batch_size=BATCH)
+    same = bool(np.array_equal(out_mem, out_tar))
+    say(f"spine: Parameters.from_tar of the last tar ({len(buf.getvalue())} bytes, read in "
+        f"{t_load:.3f} s): Inference of batch 0 {out_tar.shape}, bit-identical to the "
+        f"trained in-memory parameters: {same}")
+    if not same or not np.isfinite(out_mem).all():
+        raise SystemExit("spine: the parameters loaded from the tar serve differently")
+
+    # (c) a trainer from fresh parameters restores the step-2 checkpoint
+    restored = make_trainer(77)
+    t0 = time.perf_counter()
+    if not restored.restore_checkpoint(man):
+        raise SystemExit("spine: restore_checkpoint found no checkpoint")
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    equal = trees_equal(torch, (restored.parameters.params, restored._opt_state["m"]),
+                        snap["state"])
+    steps = (restored._opt_state["step"], restored._step_count)
+    say(f"spine: save_checkpoint after step {SPINE_SAVE_STEP}: {info['save'][0]} bytes in "
+        f"{info['save'][1]:.3f} s; restore_checkpoint into fresh parameters in {t_restore:.3f} s: "
+        f"params and momentum bit-identical to the first trainer's at step {SPINE_SAVE_STEP}: "
+        f"{equal}; optimizer step and step count {steps} (want {snap['step']})")
+    if not equal or steps != snap["step"] or steps[0] != SPINE_SAVE_STEP:
+        raise SystemExit("spine: the restored state differs from the saved one")
+    del snap
+    log_b = []
+    rest = batches[SPINE_SAVE_STEP:] + batches * (SPINE_PASSES - 1)
+    run(restored, rest, 1, log_b)
+    costs_b = [c for c, _ in log_b]
+    del restored
+    # a second uninterrupted run, with the sentinel off: its costs give the
+    # spread of two runs, its steps the time without the sentinel
+    P.flags.set_flag("divergence_sentinel", False)
+    try:
+        plain = make_trainer(31)
+    finally:
+        P.flags.set_flag("divergence_sentinel", True)
+    log_c = []
+    run(plain, batches, SPINE_PASSES, log_c)
+    costs_c = [c for c, _ in log_c]
+    # the sentinel's cost: the train step with it on and off, in turns on
+    # this trainer's state (off, on, on, off, ...), from batches fed before
+    from paddle_tpu_torch.reader.feeder import DataFeeder
+
+    feeder = DataFeeder(plain.topology.data_types(), FEEDING, device=plain.device)
+    fed = [feeder(b) for b in batches]
+    step_fns = {flag: P.trainer.make_train_step(plain.network, plain.optimizer, sentinel=flag)
+                for flag in (False, True)}
+    turns = {False: [], True: []}
+    tree = (plain.parameters.params, plain.parameters.state, plain._opt_state)
+    for i, flag in enumerate((False, True, True, False) * SENTINEL_ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        *tree, m = step_fns[flag](*tree, fed[i % len(fed)])
+        float(m["cost"])  # waits for the step, update included
+        turns[flag].append(time.perf_counter() - t0)
+    del plain, tree, fed
+    tail_a, tail_c = costs_a[SPINE_SAVE_STEP:], costs_c[SPINE_SAVE_STEP:]
+    spread = max(abs(a - c) for a, c in zip(tail_a, tail_c))
+    diff = max(abs(a - b) for a, b in zip(tail_a, costs_b)) if len(costs_b) == len(tail_a) else None
+    bitwise = costs_b == tail_a
+    say(f"spine: restored trainer's costs over the remaining {len(costs_b)} batches {costs_b}; "
+        f"uninterrupted {tail_a}; bit for bit: {bitwise}; max |d| {diff}; a second "
+        f"uninterrupted run {tail_c}, spread {spread} (bar when not bit for bit: "
+        f"{SPINE_SPREAD_SLACK} x spread)")
+    if diff is None or not (bitwise or (spread > 0 and diff <= SPINE_SPREAD_SLACK * spread)):
+        raise SystemExit("spine: the restored trainer does not continue like the uninterrupted one")
+
+    # (d) the kernels were on the path, (e) the sentinel's cost per step
+    counts = launch_counts(fa)
+    n_train = len(log_a) + len(log_b) + len(log_c) + len(turns[False]) + len(turns[True])
+    say(f"spine: flash launches (fwd, dq, dkv) over phase 10: {counts} for {n_train} training "
+        f"steps (18 per step each), 2 tests and 2 served batches; phase {time.perf_counter() - t_phase:.1f} s")
+    if counts[0] < 18 * n_train or counts[1] != 18 * n_train or counts[2] != 18 * n_train:
+        raise SystemExit("spine: the flash kernels were not on the path of every step")
+    on = float(np.mean([x for _, x in log_a[1:]]))
+    off = float(np.mean([x for _, x in log_c[1:]]))
+    say(f"spine: seconds per SGD.train step (mean of steps 2-{n_steps}, feeding included) "
+        f"sentinel on {on:.4f} (first run), off {off:.4f} (third run) ({100 * (on / off - 1):+.1f}%); "
+        f"phase 5 (sentinel on) {phase5_s:.4f}; on {card}")
+    q_on, q_off = (np.percentile(turns[flag], [25, 50, 75]) for flag in (True, False))
+    say(f"spine: the train step alone in turns (off, on, on, off) x {SENTINEL_ROUNDS}: sentinel on "
+        f"{[round(x, 4) for x in turns[True]]}, off {[round(x, 4) for x in turns[False]]}; "
+        f"quartiles on {[round(float(x), 4) for x in q_on]} s, off "
+        f"{[round(float(x), 4) for x in q_off]} s; "
+        f"medians {100 * (q_on[1] / q_off[1] - 1):+.1f}%")
+    params = trainer.parameters.params
+    tmp.cleanup()
+    return params
+
+
+def phase_optimizers(torch, P, params, card_dev):
+    """Phase 10b: the eight rules on the full Transformer-base tree, card
+    against CPU."""
+    base = {l: {k: v.detach().float().cpu() for k, v in p.items()} for l, p in params.items()}
+    n = sum(v.numel() for p in base.values() for v in p.values())
+    gen = torch.Generator().manual_seed(53)
+    grads = [{l: {k: torch.randn(v.shape, generator=gen) for k, v in p.items()}
+              for l, p in base.items()} for _ in range(OPT_UPDATES)]
+    to_card = lambda tree: {l: {k: v.to(card_dev) for k, v in p.items()} for l, p in tree.items()}  # noqa: E731
+    worst_all = 0.0
+    for name, kw in OPT_RULES.items():
+        cpu_p, card_p = clone_tree(base), to_card(base)
+        cpu_o, card_o = getattr(P.optimizer, name)(**kw), getattr(P.optimizer, name)(**kw)
+        cpu_s, card_s = cpu_o.init(cpu_p), card_o.init(card_p)
+        t0 = time.perf_counter()
+        for g in grads:
+            card_o.update(to_card(g), card_s, card_p)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for g in grads:
+            cpu_o.update(g, cpu_s, cpu_p)
+        t_cpu = time.perf_counter() - t0
+        worst, leaf = -1.0, None
+        for l, p in cpu_p.items():
+            for k, v in p.items():
+                r = ((card_p[l][k].cpu() - v).abs().max() / v.abs().max().clamp(min=1e-30)).item()
+                if not r <= worst:
+                    worst, leaf = r, f"{l}.{k}"
+        slots = card_o.slot_names()
+        say(f"optimizers: {name}({kw}) slots {slots}: {OPT_UPDATES} updates of {n} f32 parameters, "
+            f"card {t_card:.3f} s (the gradients' copy included), CPU {t_cpu:.3f} s; worst "
+            f"|d| / max|param| per leaf {worst:.3e} at {leaf} (<= {OPT_REL})")
+        if not worst <= OPT_REL or not card_s["step"] == cpu_s["step"] == OPT_UPDATES:
+            raise SystemExit(f"optimizers: {name} on the card strays from the CPU")
+        worst_all = max(worst_all, worst)
+        del cpu_p, card_p, cpu_s, card_s
+    say(f"optimizers: worst over the eight rules {worst_all:.3e} (<= {OPT_REL})")
+
+
+def phase_dropout_clip(torch, P, card_dev):
+    """Phase 10c: dropout statistics on the card, and error clipping card
+    against CPU."""
+    from paddle_tpu_torch.core.batch import SeqTensor
+
+    L, A, dt = P.layer, P.activation, P.data_type
+    P.init(seed=41, compute_dtype="bfloat16")
+    x = L.data("spine_x", dt.dense_vector_sequence(DROP_IN))
+    h = L.fc(x, size=DROP_W, act=A.Sigmoid(), name="spine_drop",
+             layer_attr=P.attr.ExtraAttr(drop_rate=DROP_RATE))
+    net = P.CompiledNetwork(P.Topology(h))
+    params = net.init_params(41)
+    gen = torch.Generator(device=card_dev).manual_seed(41)
+    batch = {"spine_x": SeqTensor(
+        torch.randn((BATCH, T, DROP_IN), generator=gen, device=card_dev),
+        torch.full((BATCH,), T, dtype=torch.int32, device=card_dev))}
+    keep = 1.0 - DROP_RATE
+    with torch.no_grad():
+        out = lambda train, rng: net.apply(params, batch, train=train, rng=rng)[0]["spine_drop"].data  # noqa: E731
+        plain = out(False, None)
+        a, a2, b, off = out(True, 5), out(True, 5), out(True, 6), out(False, 5)
+        torch.cuda.synchronize()
+        ms_plain = time_ms(torch, lambda: out(False, None), iters=10)
+        ms_drop = time_ms(torch, lambda: out(True, 5), iters=10)
+    mask = a != 0
+    share = mask.float().mean().item()
+    sigma = (keep * DROP_RATE / mask.numel()) ** 0.5
+    scaled = torch.equal(a[mask], (plain / keep)[mask])
+    same, other = torch.equal(a, a2), not torch.equal(mask, b != 0)
+    untouched = torch.equal(off, plain) and bool((plain != 0).all())
+    say(f"dropout: fc {DROP_IN}->{DROP_W} over {BATCH}x{T} tokens, {plain.dtype}, rate {DROP_RATE}: "
+        f"kept share {share:.6f} ({abs(share - keep) / sigma:.2f} sigma from {keep}, bar 5); kept "
+        f"values == undropped / {keep}: {scaled}; same seed same mask: {same}; next seed another "
+        f"mask: {other}; train=False untouched: {untouched}; forward {ms_drop:.4f} ms with "
+        f"dropout, {ms_plain:.4f} ms without")
+    if not (abs(share - keep) <= 5 * sigma and scaled and same and other and untouched):
+        raise SystemExit("dropout: a check failed on the card")
+
+    P.init(seed=43, compute_dtype="float32")
+    rng = np.random.RandomState(43)
+    xs = rng.randn(64, 256).astype(np.float32)
+    labels = rng.randint(0, 16, size=64)
+    got = {}
+    for clip in (CLIP_T, 0.0):
+        cx = L.data("clip_x", dt.dense_vector(256))
+        lab = L.data("clip_label", dt.integer_value(16))
+        attr = P.attr.ExtraAttr(error_clipping_threshold=clip) if clip else None
+        hh = L.fc(cx, size=256, act=A.Tanh(), layer_attr=attr, name="clip_h")
+        pred = L.fc(hh, size=16, act=A.Softmax(), name="clip_pred")
+        cnet = P.CompiledNetwork(P.Topology(L.classification_cost(pred, lab)))
+        cpu_params = cnet.init_params(43, device="cpu")
+        for where, dev in (("card", card_dev), ("CPU", torch.device("cpu"))):
+            batch = {"clip_x": SeqTensor(torch.from_numpy(xs).to(dev)),
+                     "clip_label": SeqTensor(torch.from_numpy(labels).to(dev))}
+            tree = {l: {k: v.to(dev) for k, v in p.items()} for l, p in cpu_params.items()}
+            got[where, clip] = grads_of(torch, cnet, tree, batch)[1]
+    e = rel_l2(torch, got["card", CLIP_T], got["CPU", CLIP_T])
+    binds = rel_l2(torch, got["CPU", CLIP_T], got["CPU", 0.0])
+    say(f"error clip: threshold {CLIP_T}, f32: clipped gradients card vs CPU relative L2 "
+        f"{e:.3e} (<= {CLIP_REL}); clipped vs unclipped (CPU) {binds:.3e} (>= {CLIP_BINDS})")
+    if not e <= CLIP_REL or not binds >= CLIP_BINDS:
+        raise SystemExit("error clip: the card's clipped gradient strays, or the clip did not bind")
+    P.init(compute_dtype="bfloat16")
+
 
 def main() -> int:
     import torch
@@ -1083,7 +1478,7 @@ def main() -> int:
     rows.update(phase_bwd_kernel(torch, fa))
     phase_bar_sweep(torch, fa)
     phase_edges(torch, fa)
-    launches, trainer = phase_train(torch, P, fa, card)
+    launches, trainer, phase5_s = phase_train(torch, P, fa, card)
     phase_profile(torch, P, trainer)
     del trainer
     # the ResNet path runs no flash kernel: its counts stay 0 over phases 8, 7, 9
@@ -1096,6 +1491,15 @@ def main() -> int:
         f"(fwd, dq, dkv) over them: {launch_counts(fa)}")
     if launch_counts(fa) != (0, 0, 0):
         raise SystemExit("the ResNet path launched a flash kernel")
+    trainer_dev = rn_trainer.device
+    del rn_trainer
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    spine_params = phase_spine(torch, P, fa, card, phase5_s)
+    phase_optimizers(torch, P, spine_params, trainer_dev)
+    del spine_params
+    phase_dropout_clip(torch, P, trainer_dev)
+    say(f"spine: phases 10, 10b, 10c took {time.perf_counter() - t0:.1f} s")
     kernels = [
         {"name": name, "route": "cuda", "source": f"paddle_tpu_torch/csrc/{src}",
          "replaces": f"paddle_tpu/ops/pallas_attention.py:{line}",

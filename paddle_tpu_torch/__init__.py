@@ -5,7 +5,10 @@ Transformer-base, with multi-head attention on hand-written CUDA
 flash-attention kernels (``ops/flash_attention.py``: the forward, and the dq
 and dk/dv backward kernels), and the image models LeNet and ResNet
 (``models/lenet.py``, ``models/resnet.py``: convs and pools on cuDNN in
-NHWC, batch norm with its moving statistics as layer state)::
+NHWC, batch norm with its moving statistics as layer state).  The training
+spine is ported: dropout, error clipping, name-shared parameters, the eight
+optimizers, the divergence sentinel, evaluators, the v1 parameter tar and
+full-state checkpoints (``checkpoint.CheckpointManager``)::
 
     import paddle_tpu_torch as paddle
     paddle.init(seed=1, compute_dtype="bfloat16", use_flash_attention=True)
@@ -14,7 +17,11 @@ NHWC, batch norm with its moving statistics as layer state)::
     trainer = paddle.trainer.SGD(cost, params, paddle.optimizer.Momentum(
         learning_rate=0.05, momentum=0.9))
     trainer.train(paddle.batch(reader, 8), num_passes=1, feeding={...})
-    out = paddle.infer(probs, params, samples, feeding={...}, batch_size=8)
+    with open("params.tar", "wb") as f:
+        trainer.save_parameter_to_tar(f)
+    with open("params.tar", "rb") as f:
+        loaded = paddle.parameters.Parameters.from_tar(f)
+    out = paddle.infer(probs, loaded, samples, feeding={...}, batch_size=8)
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 with no CUDA device they raise rather than fall back.
@@ -24,6 +31,8 @@ from __future__ import annotations
 
 from paddle_tpu_torch import activation  # noqa: F401
 from paddle_tpu_torch import attr  # noqa: F401
+from paddle_tpu_torch import checkpoint  # noqa: F401
+from paddle_tpu_torch import evaluator  # noqa: F401
 from paddle_tpu_torch import event  # noqa: F401
 from paddle_tpu_torch import inference  # noqa: F401
 from paddle_tpu_torch import optimizer  # noqa: F401

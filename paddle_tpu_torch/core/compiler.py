@@ -6,6 +6,14 @@ layer's torch impl eagerly (the JAX package traces the same loop under
 ``jax.jit``).  Master parameters stay float32; under a bfloat16 compute
 dtype each layer that is not full-precision gets its parameters and inputs
 cast to bf16 and its output cast back to bf16, exactly as in the JAX loop.
+After the activation, training applies the layer's dropout (drawn from a
+generator seeded by the step's ``rng`` and the layer's name) and its error
+clipping (the backward clamps the output's gradient).
+
+Parameters shared by name (``ParamAttr(name=...)``, whole-layer
+``param_name`` or per-key ``param_names``, intra-layer duplicates included)
+live once, at the first declarer in topology order; every later declarer
+reads the owner's tensor, so autograd sums the gradients of every use.
 
 :meth:`CompiledNetwork.cost` is the differentiable quantity of training
 (the mean of the first output); the train step takes its gradient with
@@ -13,9 +21,9 @@ autograd.  Non-trainable layer state (batch norm's moving statistics) is
 threaded functionally as in the JAX package: ``apply`` reads ``state`` and
 returns ``{**state, **updates}``, leaving its inputs untouched.
 
-Not ported yet: name-shared parameters (``param_name``/``param_names``
-ParamAttr sharing) and dynamic widths (these raise at build), dropout and
-error clipping in training (these raise in ``apply(train=True)``).
+Not ported yet: recurrent_group sub-topologies (these raise at build) and
+dynamic widths (``resolve_dynamic_widths``; no layer of the port's DSL makes
+them).
 """
 
 from __future__ import annotations
@@ -24,10 +32,11 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from paddle_tpu_torch.analysis.diagnostics import Diagnostic, DiagnosticError, Severity
 from paddle_tpu_torch.core.batch import Batch, SeqTensor
 from paddle_tpu_torch.core.device import resolve_device
 from paddle_tpu_torch.core.topology import Topology
-from paddle_tpu_torch.layers.base import ApplyContext, get_layer_impl, stable_hash
+from paddle_tpu_torch.layers.base import ApplyContext, get_layer_impl, mix_seed
 from paddle_tpu_torch.ops.activations import apply_activation
 
 Params = Dict[str, Dict[str, Any]]
@@ -55,6 +64,43 @@ def set_default_compute_dtype(dtype) -> None:
 
 def get_default_compute_dtype() -> Optional[torch.dtype]:
     return _default_compute_dtype
+
+
+class _ErrorClip(torch.autograd.Function):
+    """Identity forward; the backward clamps the layer output's gradient to
+    [-t, t] in its dtype (reference ExtraLayerAttribute
+    .error_clipping_threshold; JAX ``_error_clip``)."""
+
+    @staticmethod
+    def forward(ctx, x, t):
+        ctx.t = t
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.clamp(-ctx.t, ctx.t), None
+
+
+def error_clip(x: torch.Tensor, t: float) -> torch.Tensor:
+    return _ErrorClip.apply(x, float(t))
+
+
+def dropout(x: torch.Tensor, rate: float, gen: torch.Generator) -> torch.Tensor:
+    """Keep each value with probability 1 - rate and divide the kept ones by
+    it (the JAX package's ``where(mask, x / keep, 0)``, in x's dtype)."""
+    keep = 1.0 - rate
+    mask = torch.empty(x.shape, device=x.device).bernoulli_(keep, generator=gen)
+    return torch.where(mask.bool(), x / keep, torch.zeros_like(x))
+
+
+def _share_conflict_error(message: str, layer: str) -> DiagnosticError:
+    """A parameter-sharing conflict as rule G006, the id the JAX package
+    gives it."""
+    return DiagnosticError(Diagnostic(
+        rule="G006", severity=Severity.ERROR, layer=layer, message=message,
+        hint="give the parameters distinct ParamAttr names, or align the "
+        "declaring layers' shapes/forms",
+    ))
 
 
 def _cast_floats(x, dtype):
@@ -101,14 +147,48 @@ class CompiledNetwork:
             name: get_layer_impl(conf.type) for name, conf in topology.layers.items()
         }
         for name, conf in topology.layers.items():
-            if conf.attr("param_name") or conf.attr("param_names"):
-                raise NotImplementedError(
-                    f"layer {name!r}: name-shared parameters are not ported yet"
-                )
             if conf.attr("_sub_topology") is not None:
                 raise NotImplementedError(
                     f"layer {name!r}: recurrent_group sub-topologies are not ported yet"
                 )
+        # name-shared parameters: the first declarer in topology order owns
+        # them.  _param_owner: whole-layer sharer -> owner layer;
+        # _shared_keys: sharer -> {key: (owner layer, owner key)};
+        # _named_params: declared name -> (owner layer, key or None)
+        self._param_owner: Dict[str, str] = {}
+        self._shared_keys: Dict[str, Dict[str, Tuple[str, str]]] = {}
+        self._named_params: Dict[str, Tuple[str, Optional[str]]] = {}
+        owners: Dict[str, str] = {}
+        key_owners: Dict[str, Tuple[str, str]] = {}
+        for name in topology.order:
+            conf = topology.layers[name]
+            pmap = conf.attr("param_names") or {}
+            pname = conf.attr("param_name")
+            if pname and not pmap:
+                if pname in key_owners:
+                    ol, ok = key_owners[pname]
+                    raise _share_conflict_error(
+                        f"parameter name {pname!r} is declared whole-layer by {name!r} "
+                        f"but per-key by {ol!r}.{ok!r}; sharing across the two forms "
+                        "is not supported — use distinct names", name)
+                if pname in owners:
+                    self._param_owner[name] = owners[pname]
+                else:
+                    owners[pname] = name
+                    self._named_params[pname] = (name, None)
+            for key, gname in pmap.items():
+                if not gname:
+                    continue
+                if gname in owners:
+                    raise _share_conflict_error(
+                        f"parameter name {gname!r} is declared per-key by {name!r}.{key!r} "
+                        f"but whole-layer by {owners[gname]!r}; sharing across the two "
+                        "layer kinds is not supported — use distinct names", name)
+                if gname in key_owners:
+                    self._shared_keys.setdefault(name, {})[key] = key_owners[gname]
+                else:
+                    key_owners[gname] = (name, key)
+                    self._named_params[gname] = (name, key)
 
     # ------------------------------------------------------------------
     def init_params(self, seed: int = 0, device=None) -> Params:
@@ -121,10 +201,27 @@ class CompiledNetwork:
         for name in self.topology.order:
             conf = self.topology.layers[name]
             in_confs = [self.topology.layers[i] for i in conf.inputs]
-            gen = torch.Generator().manual_seed(
-                (int(seed) * 0x9E3779B1 + stable_hash(name)) & 0x7FFFFFFFFFFFFFFF
-            )
+            gen = torch.Generator().manual_seed(mix_seed(seed, name))
             p = self._impls[name].init(conf, in_confs, gen, device)
+            owner = self._param_owner.get(name)
+            if owner is not None:
+                # storage lives at the owner: the shapes must agree now, so a
+                # name collision fails at build and not inside a matmul
+                want = {k: tuple(v.shape) for k, v in p.items()}
+                have = {k: tuple(v.shape) for k, v in params.get(owner, {}).items()}
+                if want != have:
+                    raise _share_conflict_error(
+                        f"shares parameter {conf.attr('param_name')!r} with {owner!r} but "
+                        f"expects shapes {want} != owner's {have}", name)
+                continue
+            for key, (ol, okey) in self._shared_keys.get(name, {}).items():
+                src = p[okey] if ol == name else params[ol][okey]
+                if p[key].shape != src.shape:
+                    raise _share_conflict_error(
+                        f"parameter {key!r} shares storage with {ol!r}.{okey!r} but "
+                        f"expects shape {tuple(p[key].shape)} != owner's "
+                        f"{tuple(src.shape)}", name)
+                del p[key]
             if p:
                 params[name] = p
         return params
@@ -147,16 +244,41 @@ class CompiledNetwork:
     def init(self, seed: int = 0, device=None) -> Tuple[Params, NetState]:
         return self.init_params(seed, device), self.init_state(device)
 
+    def layer_params(self, params: Params, name: str) -> Dict[str, Any]:
+        """This layer's param dict: the owner's for a whole-layer sharer, with
+        each shared key grafted from its owner (a copy: the canonical tree
+        is never mutated)."""
+        p = params.get(self._param_owner.get(name, name), {})
+        shared = self._shared_keys.get(name)
+        if shared:
+            p = dict(p)
+            for key, (ol, okey) in shared.items():
+                p[key] = p[okey] if ol == name else params[ol][okey]
+        return p
+
     def named_parameters(self) -> Dict[str, str]:
-        """Global parameter table {declared name: dotted storage path}; empty
-        while name-shared parameters are not ported."""
-        return {}
+        """Global parameter table: {declared parameter name: dotted storage
+        path into the params tree}."""
+        return {
+            gname: top if key is None else f"{top}.{key}"
+            for gname, (top, key) in self._named_params.items()
+        }
+
+    def materialize_shared(self, params: Params) -> Params:
+        """Params with every shared key grafted back in place, per layer
+        (for a sub-network compiled without this network's sharing maps)."""
+        out: Params = {}
+        for name in self.topology.order:
+            p = self.layer_params(params, name)
+            if p:
+                out[name] = p
+        return out
 
     def resolve_layer_call(self, name: str, params: Params, ins):
         """(layer params, inputs) as the apply loop hands them to the impl:
-        the mixed-precision casts included."""
+        the shared-parameter lookup and the mixed-precision casts included."""
         impl = self._impls[name]
-        p = params.get(name, {})
+        p = self.layer_params(params, name)
         if self.compute_dtype != torch.float32:
             if impl.full_precision:
                 ins = [_cast_floats(x, torch.float32) for x in ins]
@@ -168,12 +290,13 @@ class CompiledNetwork:
     # ------------------------------------------------------------------
     def apply(
         self, params: Params, batch: Batch, *, state: Optional[NetState] = None,
-        train: bool = True,
+        train: bool = True, rng: Optional[int] = None,
     ) -> Tuple[Dict[str, SeqTensor], NetState]:
         """Run the whole graph; returns every layer's output by name and the
-        updated state."""
+        updated state.  `rng` (the step's seed) enables dropout in
+        training."""
         mixed = self.compute_dtype != torch.float32
-        ctx = ApplyContext(train=train, state=state or {}, dtype=self.compute_dtype)
+        ctx = ApplyContext(train=train, rng=rng, state=state or {}, dtype=self.compute_dtype)
         for name in self.topology.order:
             conf = self.topology.layers[name]
             impl = self._impls[name]
@@ -202,27 +325,30 @@ class CompiledNetwork:
                     ctx.outputs[name + "@logits"] = out
                 mask = out.mask() if (out.is_seq and conf.act == "sequence_softmax") else None
                 out = out.with_data(apply_activation(conf.act, out.data, mask))
-            if train and conf.drop_rate > 0.0:
-                raise NotImplementedError(f"layer {name!r}: dropout is not ported yet")
-            if train and conf.attr("error_clip"):
-                raise NotImplementedError(f"layer {name!r}: error clipping is not ported yet")
+            if impl.auto_dropout and conf.drop_rate > 0.0 and train:
+                gen = ctx.layer_rng(name + "/dropout", out.data.device)
+                if gen is not None:
+                    out = out.with_data(dropout(out.data, conf.drop_rate, gen))
+            eclip = conf.attr("error_clip", 0.0)
+            if eclip and train:
+                out = out.with_data(error_clip(out.data, eclip))
             ctx.outputs[name] = out
         return ctx.outputs, {**ctx.state, **ctx.new_state}
 
     def forward(
         self, params: Params, batch: Batch, *, state: Optional[NetState] = None,
-        train: bool = True,
+        train: bool = True, rng: Optional[int] = None,
     ) -> Tuple[SeqTensor, Dict[str, SeqTensor], NetState]:
         """The first declared output, the full output dict and the updated
         state."""
-        outs, new_state = self.apply(params, batch, state=state, train=train)
+        outs, new_state = self.apply(params, batch, state=state, train=train, rng=rng)
         return outs[self.topology.output_names[0]], outs, new_state
 
     def cost(
         self, params: Params, batch: Batch, *, state: Optional[NetState] = None,
-        train: bool = True,
+        train: bool = True, rng: Optional[int] = None,
     ) -> Tuple[torch.Tensor, Tuple[Dict[str, SeqTensor], NetState]]:
         """(scalar mean cost, (outputs, new state)): the mean of the first
         output, the quantity the train step differentiates."""
-        out, outs, new_state = self.forward(params, batch, state=state, train=train)
+        out, outs, new_state = self.forward(params, batch, state=state, train=train, rng=rng)
         return out.data.mean(), (outs, new_state)

@@ -4,7 +4,9 @@ The same batch ladder, chunking and unpadding as the JAX package: a batch
 pads its sequence slots to a ladder rung and its batch axis to a
 DEFAULT_BATCH_LADDER rung, runs the network's forward under
 ``torch.inference_mode()``, and sequence outputs are unpadded back to the
-reference's concatenated valid rows.
+reference's concatenated valid rows.  The parameters may be a
+``Parameters``, a bare ``{layer: {key: tensor}}`` tree or the topology-free
+``DetachedParameters`` of ``Parameters.from_tar(f)``.
 """
 
 from __future__ import annotations
@@ -67,6 +69,14 @@ class Inference:
         self.output_names = [o.name for o in outs]
         self.topology = Topology(outs)
         self.network = CompiledNetwork(self.topology, compute_dtype=get_default_compute_dtype())
+        if not hasattr(parameters, "network") and hasattr(parameters, "merge_into"):
+            # a topology-free bag from the static Parameters.from_tar(f):
+            # parameters for this topology, merged by name
+            from paddle_tpu_torch.parameters import create_from_network
+
+            detached = parameters
+            parameters = create_from_network(self.network, seed=0, device=self.device)
+            detached.merge_into(parameters)
         # parameters may come from a larger (training) topology: apply()
         # looks layers up by name, so the superset carries unused entries
         tree = getattr(parameters, "params", parameters)

@@ -1,6 +1,6 @@
 """Layer DSL of the port — the part of ``paddle_tpu/layers/__init__.py`` that
 Transformer-base, LeNet and the ResNet family use: ``data`` (:178), ``fc``
-(:215), ``embedding`` (:275), ``addto`` (:306), ``img_conv`` (:403),
+(:215), ``embedding`` (:275), ``addto`` (:306), ``dropout`` (:360), ``img_conv`` (:403),
 ``img_pool`` (:484), ``batch_norm`` (:535), ``classification_cost``
 (:1116), ``layer_norm`` (:2414), ``multi_head_attention`` (:2420) and
 ``pos_encoding`` (:2450).  Each function returns a :class:`LayerOutput`
@@ -245,6 +245,24 @@ def addto(
 
 
 addto_layer = addto
+
+
+def dropout(input: LayerOutput, dropout_rate: float, name: Optional[str] = None) -> LayerOutput:
+    """Standalone dropout: an addto of one input with a drop_rate (the
+    reference's dropout_layer is sugar over ExtraAttr.drop_rate)."""
+    conf = LayerConf(
+        name=name or auto_name("dropout"),
+        type="addto",
+        size=input.size,
+        inputs=(input.name,),
+        bias=False,
+        attrs=_img_passthrough(input),
+        drop_rate=dropout_rate,
+    )
+    return LayerOutput(conf, [input])
+
+
+dropout_layer = dropout
 
 
 # ---------------------------------------------------------------------------

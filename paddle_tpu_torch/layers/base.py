@@ -6,7 +6,10 @@
   * ``apply(conf, params, inputs, ctx) -> SeqTensor`` runs its forward;
 
 and a layer with non-trainable state (batch norm's moving statistics) also
-has ``init_state(conf, in_confs, device) -> state``.
+has ``init_state(conf, in_confs, device) -> state``.  Random draws in the
+forward (dropout) come from :meth:`ApplyContext.layer_rng`: a generator
+seeded from the step's seed and the layer's name, as the JAX package folds
+the name into the step's key.
 """
 
 from __future__ import annotations
@@ -26,12 +29,27 @@ class ApplyContext:
     """Context threaded through layer application."""
 
     train: bool
+    # the step's seed (an int): per-layer generators derive from it; None
+    # draws nothing (dropout is then off)
+    rng: Optional[int] = None
     outputs: Dict[str, SeqTensor] = dataclasses.field(default_factory=dict)
     # non-trainable per-layer state (batch-norm moving stats): read from
     # `state`, write updates into `new_state` (the inputs are not mutated)
     state: Dict[str, Dict[str, Any]] = dataclasses.field(default_factory=dict)
     new_state: Dict[str, Dict[str, Any]] = dataclasses.field(default_factory=dict)
     dtype: Any = torch.float32
+
+    def layer_rng(self, name: str, device) -> Optional[torch.Generator]:
+        """A generator on `device` seeded from the step's seed and `name`
+        (a CUDA tensor's ``bernoulli_`` needs a CUDA generator)."""
+        if self.rng is None:
+            return None
+        return torch.Generator(device=device).manual_seed(mix_seed(self.rng, name))
+
+
+def mix_seed(seed: int, name: str) -> int:
+    """A 63-bit seed from `seed` and a stable hash of `name`."""
+    return (int(seed) * 0x9E3779B1 + stable_hash(name)) & 0x7FFFFFFFFFFFFFFF
 
 
 def stable_hash(name: str) -> int:
@@ -53,6 +71,8 @@ class LayerImpl:
     init_state: Optional[StateInitFn] = None
     # the compiler applies conf.act after `apply` when True
     auto_activation: bool = True
+    # the compiler applies dropout (conf.drop_rate) after the activation
+    auto_dropout: bool = True
     # the compiler hands this layer f32 inputs under mixed precision
     full_precision: bool = False
 
@@ -70,6 +90,7 @@ def register_layer(
     *,
     init_state: Optional[StateInitFn] = None,
     auto_activation: bool = True,
+    auto_dropout: bool = True,
     full_precision: bool = False,
 ):
     """Decorator over the apply function."""
@@ -83,6 +104,7 @@ def register_layer(
             apply=apply,
             init_state=init_state,
             auto_activation=auto_activation,
+            auto_dropout=auto_dropout,
             full_precision=full_precision,
         )
         return apply

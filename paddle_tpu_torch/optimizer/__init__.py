@@ -1,18 +1,19 @@
-"""Optimizers — the counterpart of ``paddle_tpu/optimizer/__init__.py`` for
-the rules Transformer training uses: ``Momentum`` (alias ``SGD``, plain or
-Nesterov) and ``Adam``, with the learning-rate schedules, L1/L2
-regularization, elementwise gradient clipping and ``ModelAverage``.
+"""Optimizers — the counterpart of ``paddle_tpu/optimizer/__init__.py``: its
+eight rules (``Momentum``, alias ``SGD``, plain or Nesterov;
+``SparseMomentum``, ``AdaGrad``, ``AdaDelta``, ``RMSProp``,
+``DecayedAdaGrad``, ``Adam`` and ``AdaMax``), with the learning-rate
+schedules, L1/L2 regularization, elementwise gradient clipping and
+``ModelAverage``.  The slots carry the JAX package's names, so the
+optimizer state of a checkpoint loads in either package.
 
 The order of one update is the JAX package's: the schedule's counter, the
 clip, L2 folded into the gradient, the per-leaf rule, the step bump, the L1
 shrink, the model average.  Where the JAX package returns new trees, the
 port updates the parameter and slot tensors **in place** under
 ``torch.no_grad()`` (one copy of each in device memory) and returns the same
-objects.  The parameter tree is ``{layer: {key: tensor}}``; the optimizer
-state is ``{"step": int, <slot>: tree, ...}``.
-
-Not ported yet: AdaGrad, AdaDelta, RMSProp, DecayedAdaGrad, AdaMax and
-SparseMomentum.
+objects; each rule's arithmetic follows the JAX order.  The parameter tree
+is ``{layer: {key: tensor}}``; the optimizer state is ``{"step": int,
+<slot>: tree, ...}``.
 """
 
 from __future__ import annotations
@@ -290,6 +291,94 @@ class Momentum(Optimizer):
 SGD = Momentum
 
 
+class SparseMomentum(Momentum):
+    """The reference's SparseMomentum computes plain momentum (its lazy
+    bookkeeping only spares untouched rows on a CPU parameter server), so
+    this is Momentum under the v1 name, with its default momentum 0.9."""
+
+    def __init__(self, momentum: float = 0.9, **kw):
+        super().__init__(momentum=momentum, **kw)
+
+
+class AdaGrad(Optimizer):
+    """acc += g^2; p -= lr * g / (sqrt(acc) + eps)."""
+
+    def __init__(self, epsilon: float = 1e-6, **kw):
+        super().__init__(**kw)
+        self.epsilon = epsilon
+
+    def slot_names(self):
+        return ("accum",)
+
+    def rule(self, g, p, lr, slots, step):
+        (acc,) = slots
+        acc.add_(torch.square(g))
+        p.sub_(lr * g / (torch.sqrt(acc) + self.epsilon))
+
+
+class AdaDelta(Optimizer):
+    """E[g^2] and E[dx^2] with decay rho; dx = -sqrt((E[dx^2] + eps) /
+    (E[g^2] + eps)) * g; p += lr * dx."""
+
+    def __init__(self, rho: float = 0.95, epsilon: float = 1e-6, **kw):
+        super().__init__(**kw)
+        self.rho = rho
+        self.epsilon = epsilon
+
+    def slot_names(self):
+        return ("accum_g", "accum_x")
+
+    def rule(self, g, p, lr, slots, step):
+        eg, ex = slots
+        eg.mul_(self.rho).add_((1 - self.rho) * torch.square(g))
+        dx = -torch.sqrt((ex + self.epsilon) / (eg + self.epsilon)) * g
+        ex.mul_(self.rho).add_((1 - self.rho) * torch.square(dx))
+        p.add_(lr * dx)
+
+
+class RMSProp(Optimizer):
+    """Centred, as the reference's: E[g^2] and E[g] with decay rho;
+    p -= lr * g / sqrt(E[g^2] - E[g]^2 + eps)."""
+
+    def __init__(self, rho: float = 0.95, epsilon: float = 1e-6, **kw):
+        super().__init__(**kw)
+        self.rho = rho
+        self.epsilon = epsilon
+
+    def slot_names(self):
+        return ("ms", "mg")
+
+    def rule(self, g, p, lr, slots, step):
+        ms, mg = slots
+        ms.mul_(self.rho).add_((1 - self.rho) * torch.square(g))
+        mg.mul_(self.rho).add_((1 - self.rho) * g)
+        p.sub_(lr * g / torch.sqrt(ms - torch.square(mg) + self.epsilon))
+
+
+class DecayedAdaGrad(Optimizer):
+    """acc = rho * acc + (1 - rho) * g^2; p -= lr * g / sqrt(acc + eps)."""
+
+    def __init__(self, rho: float = 0.95, epsilon: float = 1e-6, **kw):
+        super().__init__(**kw)
+        self.rho = rho
+        self.epsilon = epsilon
+
+    def slot_names(self):
+        return ("accum",)
+
+    def rule(self, g, p, lr, slots, step):
+        (acc,) = slots
+        acc.mul_(self.rho).add_((1 - self.rho) * torch.square(g))
+        p.sub_(lr * g / torch.sqrt(acc + self.epsilon))
+
+
+def _bias_correction(beta: float, t: float, dtype) -> torch.Tensor:
+    """max(1 - beta^t, 1e-16) in the parameters' dtype, as the JAX package
+    computes it; the floor never binds for t >= 1 (a zero-dimensional CPU
+    tensor, which acts as a scalar on a CUDA operand)."""
+    return torch.clamp(1 - torch.tensor(beta, dtype=dtype) ** t, min=1e-16)
+
+
 class Adam(Optimizer):
     """Adam with bias correction."""
 
@@ -307,13 +396,27 @@ class Adam(Optimizer):
         t = step + 1.0
         m.mul_(self.beta1).add_((1 - self.beta1) * g)
         v.mul_(self.beta2).add_((1 - self.beta2) * torch.square(g))
-        # bias corrections in the parameters' dtype, as the JAX package
-        # computes them; the floor keeps them positive and never binds for
-        # t >= 1 (zero-dimensional CPU tensors: scalars to a CUDA operand)
-        c1, c2 = (
-            torch.clamp(1 - torch.tensor(beta, dtype=p.dtype) ** t, min=1e-16)
-            for beta in (self.beta1, self.beta2)
-        )
-        mhat = m / c1
-        vhat = v / c2
+        mhat = m / _bias_correction(self.beta1, t, p.dtype)
+        vhat = v / _bias_correction(self.beta2, t, p.dtype)
         p.sub_(lr * mhat / (torch.sqrt(vhat) + self.epsilon))
+
+
+class AdaMax(Optimizer):
+    """m = b1 * m + (1 - b1) * g; u = max(b2 * u, |g|);
+    p -= lr / (1 - b1^t) * m / (u + 1e-12)."""
+
+    def __init__(self, beta1: float = 0.9, beta2: float = 0.999, **kw):
+        super().__init__(**kw)
+        self.beta1 = beta1
+        self.beta2 = beta2
+
+    def slot_names(self):
+        return ("m", "u")
+
+    def rule(self, g, p, lr, slots, step):
+        m, u = slots
+        t = step + 1.0
+        m.mul_(self.beta1).add_((1 - self.beta1) * g)
+        torch.maximum(u.mul_(self.beta2), torch.abs(g), out=u)
+        corr = _bias_correction(self.beta1, t, p.dtype)
+        p.sub_((lr / corr) * m / (u + 1e-12))

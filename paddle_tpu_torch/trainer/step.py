@@ -8,8 +8,16 @@ jits the same body into one program.  Multi-head attention routed through
 flash attention takes its gradient from the hand-written backward kernels
 (``ops/flash_attention.py``).
 
+The divergence sentinel (the ``divergence_sentinel`` flag, on by default as
+in the JAX package) checks that the cost and the gradients' global norm are
+finite.  The JAX package computes the update and then selects the old or the
+new trees; the port updates in place, so it decides first: an unhealthy step
+skips the update and returns the parameters, the layer state and the
+optimizer state as they were, bit for bit.  ``health`` and ``grad_norm``
+ride the metrics.
+
 Not ported yet: a device mesh (data or model parallelism), static pruning
-masks, the divergence sentinel and the quantized gradient reduction.
+masks and the quantized gradient reduction.
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from paddle_tpu_torch.core.batch import SeqTensor
 from paddle_tpu_torch.core.compiler import CompiledNetwork
 from paddle_tpu_torch.optimizer import Optimizer
 
@@ -29,12 +38,37 @@ def _not_ported(what: str):
     raise NotImplementedError(f"{what} is not ported yet")
 
 
-def _train_step_body(network: CompiledNetwork, optimizer: Optimizer, extra_metrics=None):
-    """(params, state, opt_state, batch) -> (params, state, opt_state,
-    metrics), with the parameter and optimizer tensors updated in place and
-    the layer state replaced."""
+def _global_norm(grads) -> torch.Tensor:
+    """float32 L2 norm over every gradient leaf, in one reduction per device
+    (``_foreach_norm``) rather than one kernel per leaf: any NaN or Inf leaf
+    makes it non-finite, so its finiteness is the whole tree's health."""
+    leaves = [g.float() for p in grads.values() for g in p.values()]
+    if not leaves:
+        return torch.zeros(())
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(leaves)))
 
-    def step(params, state, opt_state, batch):
+
+def _sentinel_enabled(sentinel: Optional[bool]) -> bool:
+    if sentinel is not None:
+        return bool(sentinel)
+    from paddle_tpu_torch.utils.flags import get_flag
+
+    return bool(get_flag("divergence_sentinel"))
+
+
+def draw_seed(gen: torch.Generator) -> int:
+    """The next step seed from a trainer's generator."""
+    return int(torch.randint(0, 2**62, (1,), generator=gen))
+
+
+def _train_step_body(network: CompiledNetwork, optimizer: Optimizer, extra_metrics=None,
+                     sentinel: Optional[bool] = None):
+    """(params, state, opt_state, batch, rng=None) -> (params, state,
+    opt_state, metrics), with the parameter and optimizer tensors updated in
+    place and the layer state replaced; `rng` is the step's seed (dropout)."""
+    guard = _sentinel_enabled(sentinel)
+
+    def step(params, state, opt_state, batch, rng: Optional[int] = None):
         # views of the masters that share their storage: the graph hangs off
         # these, and the in-place update below writes the masters themselves
         leaves = {
@@ -42,7 +76,8 @@ def _train_step_body(network: CompiledNetwork, optimizer: Optimizer, extra_metri
             for layer, p in params.items()
         }
         with torch.enable_grad():
-            cost, (outs, new_state) = network.cost(leaves, batch, state=state, train=True)
+            cost, (outs, new_state) = network.cost(
+                leaves, batch, state=state, train=True, rng=rng)
             flat = [v for p in leaves.values() for v in p.values()]
             grads_flat = torch.autograd.grad(cost, flat, allow_unused=True)
         grads, i = {}, 0
@@ -52,15 +87,23 @@ def _train_step_body(network: CompiledNetwork, optimizer: Optimizer, extra_metri
                 g = grads_flat[i]
                 grads[layer][k] = torch.zeros_like(v) if g is None else g
                 i += 1
-        params, opt_state = optimizer.update(grads, opt_state, params)
-        # the state carries no graph into the next step
-        new_state = {
-            layer: {k: v.detach() for k, v in s.items()} for layer, s in new_state.items()
-        }
         metrics: Metrics = {"cost": cost.detach()}
+        healthy = True
+        if guard:
+            grad_norm = _global_norm(grads)
+            # the one host sync of the step (the trainer reads the cost anyway)
+            healthy = bool(torch.isfinite(cost.detach().float()) & torch.isfinite(grad_norm))
+            metrics["health"] = torch.tensor(float(healthy))
+            metrics["grad_norm"] = grad_norm
+        if healthy:
+            params, opt_state = optimizer.update(grads, opt_state, params)
+            # the state carries no graph into the next step
+            state = {
+                layer: {k: v.detach() for k, v in s.items()} for layer, s in new_state.items()
+            }
         if extra_metrics is not None:
             metrics.update(extra_metrics(outs))
-        return params, new_state, opt_state, metrics
+        return params, state, opt_state, metrics
 
     return step
 
@@ -74,17 +117,63 @@ def make_train_step(
     sentinel: Optional[bool] = None,
     quantized: Optional[bool] = None,
 ):
-    """The train step ``(params, state, opt_state, batch) -> (params, state,
-    opt_state, metrics)``; see :func:`_train_step_body`."""
+    """The train step ``(params, state, opt_state, batch, rng=None) ->
+    (params, state, opt_state, metrics)``; see :func:`_train_step_body`.
+    `sentinel` None reads the ``divergence_sentinel`` flag."""
     if mesh is not None:
         _not_ported("training over a device mesh")
     if prune_masks:
         _not_ported("static pruning")
-    if sentinel:
-        _not_ported("the divergence sentinel")
     if quantized:
         _not_ported("the quantized gradient reduction")
-    return _train_step_body(network, optimizer, extra_metrics)
+    return _train_step_body(network, optimizer, extra_metrics, sentinel)
+
+
+def _step_slice(batches, i: int):
+    """Batch `i` of batches stacked on a leading [n_steps, ...] axis."""
+    return {
+        name: SeqTensor(
+            t.data[i],
+            None if t.lengths is None else t.lengths[i],
+            None if t.sub_lengths is None else t.sub_lengths[i],
+        )
+        for name, t in batches.items()
+    }
+
+
+def make_multi_train_step(
+    network: CompiledNetwork,
+    optimizer: Optimizer,
+    n_steps: int,
+    mesh=None,
+    extra_metrics: Optional[MetricsFn] = None,
+    prune_masks=None,
+    sentinel: Optional[bool] = None,
+):
+    """``n_steps`` train steps in one call over batches stacked on a leading
+    [n_steps, ...] axis: ``(params, state, opt_state, batches, rng=None) ->
+    (params, state, opt_state, last step's metrics)``.  Step i's seed is the
+    i-th draw of a generator seeded with `rng`.  With the sentinel on, each
+    step skips on its own, and the metrics fold the call: ``health`` is the
+    minimum over the steps and ``skipped_steps`` counts the skipped ones."""
+    step = make_train_step(network, optimizer, mesh, extra_metrics, prune_masks, sentinel)
+
+    def multi(params, state, opt_state, batches, rng: Optional[int] = None):
+        gen = None if rng is None else torch.Generator().manual_seed(int(rng))
+        history = []
+        for i in range(n_steps):
+            seed = None if gen is None else draw_seed(gen)
+            params, state, opt_state, m = step(
+                params, state, opt_state, _step_slice(batches, i), seed)
+            history.append(m)
+        out = dict(history[-1])
+        if "health" in out:
+            health = torch.stack([m["health"] for m in history])
+            out["health"] = health.min()
+            out["skipped_steps"] = (1.0 - health).sum()
+        return params, state, opt_state, out
+
+    return multi
 
 
 def make_eval_step(

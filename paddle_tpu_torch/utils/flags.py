@@ -63,6 +63,7 @@ def reset_flags() -> None:
 
 
 define_flag("seed", 0, "global RNG seed")
+define_flag("log_period", 100, "log training stats every N batches")
 define_flag("compute_dtype", "", "bfloat16 enables mixed precision")
 define_flag("use_flash_attention", False,
             "hand-written flash-attention kernels (ops/flash_attention.py: "
@@ -71,3 +72,16 @@ define_flag("use_flash_attention", False,
             "and key lengths that pass supported(): the CUDA kernels on a "
             "CUDA tensor, their plain versions on a CPU tensor; off keeps "
             "the dense [T, T] path (counterpart of use_pallas_attention)")
+define_flag("divergence_sentinel", True,
+            "a finiteness check of the cost and the gradients' global norm "
+            "in every train step (trainer/step.py): an unhealthy step is "
+            "skipped, leaving parameters, layer state and optimizer state "
+            "bit-identical, and its health and grad_norm ride the metrics; "
+            "the decision rides the cost's host copy, so it adds no sync")
+define_flag("saving_period", 1,
+            "SGD.train with save_dir writes pass-%05d every N passes (the "
+            "default of the JAX package's train(saving_period=...) and of "
+            "its CLI's --saving_period)")
+define_flag("checkpoint_period_batches", 50,
+            "full-state checkpoint cadence in batches of SGD.train with "
+            "checkpoint_dir (the recovery plane, not ported yet)")

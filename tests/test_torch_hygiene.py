@@ -1,6 +1,7 @@
 """Package rules of the port: paddle_tpu_torch and chip_smoke.py import neither
-JAX nor the JAX package, and the entry points run on the card unless the
-caller asks for the CPU (raising, not falling back, without one)."""
+JAX nor the JAX package (every module, the evaluators and checkpoints
+included), and the entry points run on the card unless the caller asks for
+the CPU (raising, not falling back, without one)."""
 
 import os
 import re
@@ -39,7 +40,8 @@ def test_every_module_imports_without_jax():
     assert proc.returncode == 0, proc.stderr
     count, names = proc.stdout.strip().splitlines()
     assert int(count) >= 25  # every module of the package was walked
-    for mod in ("layers.conv", "models.lenet", "models.resnet", "pooling"):
+    for mod in ("layers.conv", "models.lenet", "models.resnet", "pooling", "evaluator",
+                "checkpoint", "trainer.step", "optimizer"):
         assert f"paddle_tpu_torch.{mod}" in names.split()
 
 

@@ -1,8 +1,17 @@
 """The port's optimizers (paddle_tpu_torch/optimizer) against the JAX package's
-(paddle_tpu/optimizer) over three updates of the same numpy trees: Momentum
-(plain and Nesterov) and Adam, each with a constant schedule, with L2 plus
-elementwise clipping, and with a poly schedule.  f32 on both sides, the same
-arithmetic in place of new arrays: parameters and slots agree at atol 1e-6."""
+(paddle_tpu/optimizer).
+
+- Three updates of the same numpy trees: all eight rules (Momentum plain and
+  Nesterov, SparseMomentum, AdaGrad, AdaDelta, RMSProp, DecayedAdaGrad, Adam,
+  AdaMax), each with a constant schedule, with L2 plus elementwise clipping,
+  and with a poly schedule.  f32 on both sides, the same arithmetic in place
+  of new arrays: parameters and slots (of the same names) agree at atol
+  1e-6.
+- 20 steps of trainer.SGD on the demo MLP (tests/configs/demo_mnist_mlp.py
+  through each package's v2 DSL) from the same parameters and batches, one
+  case per rule: every step's cost within 1e-5 relative of the JAX
+  package's, and the parameters within 1e-4 relative L2 at the end (f32;
+  the GEMMs sum in another order, which the 20 updates carry)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,6 +20,8 @@ import torch
 
 from paddle_tpu import optimizer as jopt
 from paddle_tpu_torch import optimizer as topt
+from test_torch_parity import (
+    MLP_FEEDING, build_both, demo_mlp, mlp_samples, numpy_tree, rel_l2, train_both)
 
 ATOL = 1e-6
 SHAPES = {"fc": {"w0": (4, 3), "b": (3,)}, "emb": {"w": (5, 2)}}
@@ -19,6 +30,12 @@ OPTIMIZERS = {
     "momentum": ("Momentum", dict(momentum=0.9)),
     "nesterov": ("Momentum", dict(momentum=0.9, nesterov=True)),
     "adam": ("Adam", dict()),
+    "sparse_momentum": ("SparseMomentum", dict()),
+    "adagrad": ("AdaGrad", dict()),
+    "adadelta": ("AdaDelta", dict()),
+    "rmsprop": ("RMSProp", dict()),
+    "decayed_adagrad": ("DecayedAdaGrad", dict()),
+    "adamax": ("AdaMax", dict()),
 }
 SETTINGS = {
     "constant": lambda pkg: dict(learning_rate=0.05),
@@ -87,3 +104,41 @@ def test_schedules_match_jax():
     assert topt.schedule_counter_unit("pass_manual") == "pass"
     with pytest.raises(ValueError):
         topt.parse_lr_args("3")
+
+
+# the demo MLP's 20-step trajectories: each rule at a rate that moves the
+# cost over 20 steps of 16 samples without diverging
+TRAJECTORY = {
+    "Momentum": dict(learning_rate=0.05, momentum=0.9),
+    "SparseMomentum": dict(learning_rate=0.05),
+    "AdaGrad": dict(learning_rate=0.01),
+    "AdaDelta": dict(learning_rate=1.0),
+    "RMSProp": dict(learning_rate=1e-3),
+    "DecayedAdaGrad": dict(learning_rate=1e-3),
+    "Adam": dict(learning_rate=3e-3),
+    "AdaMax": dict(learning_rate=5e-3),
+}
+TRAJ_STEPS, TRAJ_B = 20, 16
+TRAJ_COST_RTOL, TRAJ_PARAM_REL = 1e-5, 1e-4
+
+
+@pytest.mark.parametrize("rule", sorted(TRAJECTORY))
+def test_demo_mlp_trajectory_matches_jax(rule):
+    (jcost, _), (tcost, _) = build_both(demo_mlp)
+    import paddle_tpu
+
+    jparams = paddle_tpu.parameters.create(jcost, seed=2)
+    want, got, jtrainer, ttrainer = train_both(
+        jcost, tcost, jparams,
+        lambda pkg: getattr(pkg.optimizer, rule)(**TRAJECTORY[rule]),
+        mlp_samples(TRAJ_STEPS * TRAJ_B, seed=3), TRAJ_B, MLP_FEEDING)
+    assert len(got) == len(want) == TRAJ_STEPS
+    worst = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+    drift = rel_l2(ttrainer.parameters.params, numpy_tree(jtrainer.parameters.params))
+    print(f"{rule}: costs {want[0]:.4f} -> {want[-1]:.4f}; worst relative cost difference "
+          f"{worst:.3e} (bar {TRAJ_COST_RTOL}); final parameters relative L2 {drift:.3e} "
+          f"(bar {TRAJ_PARAM_REL})")
+    assert np.mean(want[-5:]) < np.mean(want[:5])  # the rule learns
+    assert worst <= TRAJ_COST_RTOL
+    assert drift <= TRAJ_PARAM_REL
+    assert ttrainer._opt_state["step"] == int(jtrainer._opt_state["step"]) == TRAJ_STEPS

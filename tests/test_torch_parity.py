@@ -1,0 +1,222 @@
+"""The shared parity helper of the port's tests, and tests of its own.
+
+Other ``tests/test_torch_*.py`` files import it (``tests/`` has no
+``__init__.py``, so pytest's prepend import mode puts this directory on the
+path).  The helper builds one topology in both packages, carries the JAX
+package's parameters and layer state into the port with
+``parameters.from_numpy``, feeds both the same numpy batch, and compares
+outputs, gradients and trajectories.
+
+Its own tests: parameters carried over are bit-exact by name in both
+directions; with ``train=False`` a topology with dropout and error
+clipping computes the same forward in both packages (f32, atol 1e-5: the
+same arithmetic in another summation order); and the demo MLP's one-step
+gradients agree (relative L2 1e-5)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+import paddle_tpu
+import paddle_tpu_torch
+from paddle_tpu.core.batch import SeqTensor as JSeq
+from paddle_tpu.core.compiler import CompiledNetwork as JNet
+from paddle_tpu.core.topology import Topology as JTopo
+from paddle_tpu.core.topology import reset_auto_names as j_reset
+from paddle_tpu_torch.core.batch import SeqTensor as TSeq
+from paddle_tpu_torch.core.compiler import CompiledNetwork as TNet
+from paddle_tpu_torch.core.topology import Topology as TTopo
+from paddle_tpu_torch.core.topology import reset_auto_names as t_reset
+
+MLP_FEEDING = {"pixel": 0, "label": 1}
+
+
+# ---------------------------------------------------------------------------
+# the helper
+# ---------------------------------------------------------------------------
+
+
+def build_both(fn):
+    """fn(package) in the JAX package, then in the port, from the same
+    auto-name counters; returns (JAX result, port result)."""
+    j_reset()
+    t_reset()
+    jres = fn(paddle_tpu)
+    tres = fn(paddle_tpu_torch)
+    return jres, tres
+
+
+def numpy_tree(tree):
+    """{layer: {key: float32 ndarray}} of a JAX or port tree (a copy)."""
+    out = {}
+    for k, v in tree.items():
+        out[k] = {}
+        for kk, vv in v.items():
+            if torch.is_tensor(vv):
+                vv = vv.detach().float().cpu().numpy()
+            out[k][kk] = np.array(vv, dtype=np.float32)
+    return out
+
+
+def carry(jparams):
+    """The port's Parameters holding the JAX Parameters' values and state."""
+    return paddle_tpu_torch.parameters.from_numpy(
+        numpy_tree(jparams.params), numpy_tree(jparams.state), device="cpu")
+
+
+def rel_l2(got, want) -> float:
+    """|got - want| / |want| over every leaf of two {layer: {key: array}}
+    trees (or two arrays)."""
+    if not isinstance(want, dict):
+        got, want = {"x": {"x": got}}, {"x": {"x": want}}
+    got, want = numpy_tree(got), numpy_tree(want)
+    assert {(k, kk) for k in got for kk in got[k]} == {(k, kk) for k in want for kk in want[k]}
+    d2 = sum(float(((got[k][kk].astype(np.float64) - want[k][kk]) ** 2).sum())
+             for k in want for kk in want[k])
+    n2 = sum(float((want[k][kk].astype(np.float64) ** 2).sum()) for k in want for kk in want[k])
+    return (d2 / max(n2, 1e-300)) ** 0.5
+
+
+def assert_trees_equal(got, want):
+    """Bit-exact equality of two {layer: {key: array}} trees."""
+    got, want = numpy_tree(got), numpy_tree(want)
+    assert set(got) == set(want)
+    for k in want:
+        assert set(got[k]) == set(want[k]), k
+        for kk in want[k]:
+            assert np.array_equal(got[k][kk], want[k][kk]), f"{k}.{kk}"
+
+
+def batch_both(arrays):
+    """{slot: (data, lengths or None)} numpy arrays as a JAX batch and a port
+    batch."""
+    jb, tb = {}, {}
+    for name, (data, lengths) in arrays.items():
+        jb[name] = JSeq(jnp.asarray(data), None if lengths is None else jnp.asarray(lengths))
+        tb[name] = TSeq(torch.from_numpy(np.array(data)),
+                        None if lengths is None else torch.from_numpy(np.array(lengths)))
+    return jb, tb
+
+
+def grads_both(jcost, tcost, jparams, batch_arrays, *, state=None, train=True):
+    """(JAX cost, port cost, JAX grads, port grads) of the mean cost on one
+    batch from the same parameters (the JAX gradient op by op)."""
+    jnet = JNet(JTopo([jcost]), compute_dtype=jnp.float32)
+    tnet = TNet(TTopo([tcost]), compute_dtype=torch.float32)
+    jb, tb = batch_both(batch_arrays)
+    jstate = jparams.state if state is None else state
+
+    def loss(p):
+        return jnet.cost(p, jb, state=jstate, train=train)[0]
+
+    jc, jg = jax.value_and_grad(loss)(jparams.params)
+    carried = carry(jparams)
+    leaves = {k: {kk: v.clone().requires_grad_(True) for kk, v in p.items()}
+              for k, p in carried.params.items()}
+    tc, _ = tnet.cost(leaves, tb, state=carried.state, train=train)
+    tc.backward()
+    tg = {k: {kk: v.grad for kk, v in p.items()} for k, p in leaves.items()}
+    return float(jc), tc.item(), numpy_tree(jg), numpy_tree(tg)
+
+
+def demo_mlp(pkg, hidden=(128, 64), classes=10, pixels=784):
+    """The network of tests/configs/demo_mnist_mlp.py through a package's
+    v2 DSL: pixel -> fc relu -> fc relu -> fc softmax, classification
+    cost.  Returns (cost, prediction)."""
+    L, A, dt = pkg.layer, pkg.activation, pkg.data_type
+    img = L.data(name="pixel", type=dt.dense_vector(pixels))
+    h = img
+    for size in hidden:
+        h = L.fc(input=h, size=size, act=A.Relu())
+    predict = L.fc(input=h, size=classes, act=A.Softmax())
+    label = L.data(name="label", type=dt.integer_value(classes))
+    return L.classification_cost(input=predict, label=label), predict
+
+
+def mlp_samples(n, seed, classes=10, pixels=784):
+    """n (pixels, label) samples from N(0, 1), each labelled by the argmax of
+    a fixed random projection (learnable, so a trajectory's cost falls)."""
+    proj = np.random.RandomState(1234).randn(pixels, classes)
+    x = np.random.RandomState(seed).randn(n, pixels).astype(np.float32)
+    labels = np.argmax(x @ proj, axis=1)
+    return [(x[i], int(labels[i])) for i in range(n)]
+
+
+def mlp_batch(samples):
+    """A demo-MLP batch as {slot: (data, None)} arrays."""
+    return {"pixel": (np.stack([s[0] for s in samples]), None),
+            "label": (np.asarray([s[1] for s in samples], np.int32), None)}
+
+
+def train_both(jcost, tcost, jparams, make_optimizer, samples, batch_size, feeding,
+               num_passes=1, **train_kw):
+    """SGD.train in both packages from the same parameters and batches;
+    returns (JAX costs, port costs, JAX trainer, port trainer)."""
+    reader = lambda: iter(samples)  # noqa: E731
+    out = []
+    for pkg, cost, params, kw in (
+            (paddle_tpu, jcost, jparams, {}),
+            (paddle_tpu_torch, tcost, carry(jparams), {"device": "cpu"})):
+        costs = []
+        trainer = pkg.trainer.SGD(cost=cost, parameters=params,
+                                  update_equation=make_optimizer(pkg), **kw)
+        trainer.train(pkg.batch(reader, batch_size), num_passes=num_passes, feeding=feeding,
+                      event_handler=lambda e, c=costs, p=pkg: c.append(e.cost)
+                      if isinstance(e, p.event.EndIteration) else None, **train_kw)
+        out.append((costs, trainer))
+    return out[0][0], out[1][0], out[0][1], out[1][1]
+
+
+# ---------------------------------------------------------------------------
+# its own tests
+# ---------------------------------------------------------------------------
+
+
+def test_carried_parameters_are_bit_exact_by_name():
+    (jcost, _), (tcost, _) = build_both(demo_mlp)
+    jparams = paddle_tpu.parameters.create(jcost, seed=3)
+    tparams = carry(jparams)
+    tparams.network = TNet(TTopo([tcost]))
+    assert tparams.names() == list(jparams.names())
+    for name in jparams.names():
+        assert np.array_equal(tparams.get(name), jparams.get(name)), name
+    # and back: the port's values set into the JAX package's parameters
+    rng = np.random.RandomState(0)
+    for name in tparams.names():
+        tparams.set(name, rng.randn(*tparams.get(name).shape).astype(np.float32))
+        jparams.set(name, tparams.get(name))
+        assert np.array_equal(np.asarray(jparams.get(name)), tparams.get(name)), name
+
+
+def _dropout_net(pkg):
+    L, A, dt, attr = pkg.layer, pkg.activation, pkg.data_type, pkg.attr
+    x = L.data(name="x", type=dt.dense_vector(12))
+    h = L.fc(input=x, size=16, act=A.Tanh(),
+             layer_attr=attr.ExtraAttr(drop_rate=0.3, error_clipping_threshold=0.01))
+    h = L.dropout(h, dropout_rate=0.5)
+    return L.fc(input=h, size=5, act=A.Softmax(), name="out")
+
+
+def test_eval_mode_ignores_dropout_and_error_clip():
+    jout, tout = build_both(_dropout_net)
+    jparams = paddle_tpu.parameters.create(jout, seed=1)
+    jb, tb = batch_both({"x": (np.random.RandomState(2).randn(6, 12).astype(np.float32), None)})
+    jnet = JNet(JTopo([jout]), compute_dtype=jnp.float32)
+    tnet = TNet(TTopo([tout]), compute_dtype=torch.float32)
+    assert TTopo([tout]).serialize() == JTopo([jout]).serialize()
+    want = np.asarray(jnet.apply(jparams.params, jb, train=False,
+                                 rng=jax.random.PRNGKey(0))[0]["out"].data)
+    for rng in (None, 7):
+        got = tnet.apply(carry(jparams).params, tb, train=False, rng=rng)[0]["out"].data
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+
+
+def test_demo_mlp_gradients_match_jax():
+    (jcost, _), (tcost, _) = build_both(demo_mlp)
+    jparams = paddle_tpu.parameters.create(jcost, seed=4)
+    jc, tc, jg, tg = grads_both(jcost, tcost, jparams, mlp_batch(mlp_samples(16, 5)))
+    err = rel_l2(tg, jg)
+    print(f"demo MLP: cost {tc} vs {jc}; gradients relative L2 {err:.3e} (bar 1e-5)")
+    assert abs(tc - jc) <= 1e-5 * abs(jc)
+    assert err <= 1e-5

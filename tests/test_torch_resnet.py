@@ -55,6 +55,7 @@ from paddle_tpu_torch.core.topology import Topology as TTopo
 from paddle_tpu_torch.core.topology import reset_auto_names as t_reset
 from paddle_tpu_torch.models import lenet as tlenet
 from paddle_tpu_torch.models import resnet as tresnet
+from test_torch_parity import carry, numpy_tree, rel_l2
 
 B = 4
 # model: (JAX cost fn, port cost fn, kwargs, data slot, pixels, classes)
@@ -91,11 +92,6 @@ def compute_dtype():
     tcompiler.set_default_compute_dtype(prev[1])
 
 
-def _numpy_tree(tree):
-    return {k: {kk: np.asarray(vv, dtype=np.float32) for kk, vv in v.items()}
-            for k, v in tree.items()}
-
-
 def _both(model):
     """(JAX cost, JAX predict, port cost, port predict, JAX Parameters, the
     port's carried Parameters)."""
@@ -105,8 +101,7 @@ def _both(model):
     jcost, jpred = jfn(**kw)
     tcost, tpred = tfn(**kw)
     jparams = paddle_tpu.parameters.create(jcost, seed=5)
-    carried = paddle_tpu_torch.parameters.from_numpy(
-        _numpy_tree(jparams.params), _numpy_tree(jparams.state), device="cpu")
+    carried = carry(jparams)
     return jcost, jpred, tcost, tpred, jparams, carried
 
 
@@ -124,18 +119,13 @@ def _batch(model, samples, seq, as_array):
     return {slot: seq(as_array(img)), "label": seq(as_array(lab))}
 
 
-def _rel(got, want):
-    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    return np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30)
-
-
 def _assert_states_close(got, want, tol):
     assert set(got) == set(want)
     for layer in want:
         for key in ("mean", "var"):
             g = got[layer][key].float().numpy()
             w = np.asarray(want[layer][key], np.float32)
-            assert _rel(g, w) <= tol, (layer, key, _rel(g, w))
+            assert rel_l2(g, w) <= tol, (layer, key, rel_l2(g, w))
 
 
 @pytest.mark.parametrize("model,dtype", [
@@ -250,10 +240,10 @@ def test_inference_uses_the_state_as_global_statistics():
     rng = np.random.RandomState(3)
     moved = {k: {"mean": rng.randn(*v["mean"].shape).astype(np.float32) * 0.1,
                  "var": rng.uniform(0.5, 2.0, v["var"].shape).astype(np.float32)}
-             for k, v in _numpy_tree(jparams.state).items()}
+             for k, v in numpy_tree(jparams.state).items()}
     jparams.state = {k: {kk: jnp.asarray(vv) for kk, vv in v.items()} for k, v in moved.items()}
     carried = paddle_tpu_torch.parameters.from_numpy(
-        _numpy_tree(jparams.params), moved, device="cpu")
+        numpy_tree(jparams.params), moved, device="cpu")
     samples = [(s[0],) for s in _samples("resnet18", 3, seed=4)]
     want = paddle_tpu.infer(output_layer=jpred, parameters=jparams, input=samples)
     got = paddle_tpu_torch.infer(tpred, carried, samples, device="cpu")
