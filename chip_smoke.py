@@ -102,12 +102,26 @@ Phases, in order; any failure exits non-zero:
      0.9, kept values equal the undropped ones / 0.9, the same seed gives
      the same mask and the next another, train=False leaves the output
      untouched; an error_clipping_threshold's clipped gradient on the card
-     against the CPU's (f32, relative L2 <= 1e-5).
+     against the CPU's (f32, relative L2 <= 1e-5);
+ 11. attention-GRU NMT training at bench.py's bench_nmt configuration
+     (seq2seq_cost with word and hidden width 512 and vocab 30000/30000,
+     bf16 compute over f32 masters, Momentum(0.05, 0.9), bench_nmt's 4096
+     pairs with lengths 8-50 drawn beta(2, 3) from RandomState(0)) through
+     trainer.SGD(...).train over reader.bucketing.token_budget_batch at
+     128 x 64 padded tokens, with the use_bucketing feeder: one warm-up
+     step, 4 timed steps (costs, seconds per step, valid target tokens/s,
+     peak memory), the decoder's lowering on each step (it fails unless
+     every step took the fused attention-GRU core), the recurrences' steps
+     run and skipped by the early exit, torch.profiler over two more steps
+     (busy share, device kernels per step, top kernels), no flash launch
+     over the phase; and one step's gradients in f32 at a small width,
+     card against CPU and the fused core against the generic loop on the
+     card (relative L2 over every leaf <= 1e-4).
 
 The last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels with their launches on the main path (the timed training steps of
-phase 5), errors and times.  Without a
-CUDA device, or without the paddle_tpu_torch package beside it, the script
+phase 5; the NMT path of phase 11 runs none of them), errors and times.
+Without a CUDA device, or without the paddle_tpu_torch package beside it, the script
 exits non-zero and prints no result.
 """
 
@@ -680,14 +694,16 @@ def run_steps(P, trainer, samples, on_event=None):
 
 
 def grads_of(torch, net, params, batch, state=None):
-    """(cost, {name: gradient}) of the network's mean cost on `batch` in
-    training mode (batch norm on batch statistics)."""
-    leaves = {l: {k: v.detach().requires_grad_(True) for k, v in p.items()}
-              for l, p in params.items()}
+    """(cost, {dotted name: gradient}) of the network's mean cost on `batch`
+    in training mode (batch norm on batch statistics); the tree may nest (a
+    recurrent group's parameters)."""
+    from paddle_tpu_torch.utils.tree import leaf_paths, map_leaves
+
+    leaves = map_leaves(lambda v: v.detach().requires_grad_(True), params)
+    paths = list(leaf_paths(leaves))
     cost, _ = net.cost(leaves, batch, state=state, train=True)
-    names = [(l, k) for l, p in leaves.items() for k in p]
-    gs = torch.autograd.grad(cost, [leaves[l][k] for l, k in names], allow_unused=True)
-    return cost.item(), {f"{l}.{k}": g for (l, k), g in zip(names, gs) if g is not None}
+    gs = torch.autograd.grad(cost, [v for _, v in paths], allow_unused=True)
+    return cost.item(), {".".join(p): g for (p, _), g in zip(paths, gs) if g is not None}
 
 
 def phase_train(torch, P, fa, card):
@@ -1443,6 +1459,164 @@ def phase_dropout_clip(torch, P, card_dev):
     P.init(compute_dtype="bfloat16")
 
 
+# Phase 11: attention NMT training at bench.py's bench_nmt configuration
+# (bench.py:486-502): word and hidden width 512, source and target vocab
+# 30000, bf16 compute over f32 masters, Momentum(0.05, 0.9), 4096 pairs with
+# lengths 8-50 drawn beta(2, 3) from RandomState(0), token_budget_batch with a
+# budget of 128 x ladder_len(50) = 8192 padded tokens (batches of 128 at rung
+# 64, 256 at rung 32, 512 at rung 16), the feeder on the shape ladder
+NMT_VOCAB, NMT_WIDTH, NMT_BATCH = 30000, 512, 128
+NMT_PAIRS, NMT_MIN_LEN, NMT_MAX_LEN = 4096, 8, 50
+NMT_LR = 0.05
+NMT_TIMED, NMT_PROFILED = 4, 2  # timed steps after one warm-up; profiled steps
+# card against CPU and fused against generic: one step's gradients in f32 at a
+# small width (vocab, width, batch, longest length), relative L2 over every
+# leaf: summation order only
+NMT_SMALL = (512, 64, 8, 30)
+NMT_GRAD_REL = 1e-4
+
+
+def nmt_corpus(vocab, n, seed=0):
+    """bench_nmt's corpus: (src, trg, trg_next) id lists with lengths
+    NMT_MIN_LEN..NMT_MAX_LEN drawn beta(2, 3)."""
+    rng = np.random.RandomState(seed)
+    lens = (NMT_MIN_LEN + np.floor((NMT_MAX_LEN - NMT_MIN_LEN + 1)
+                                   * rng.beta(2.0, 3.0, n))).astype(int)
+    return [tuple([int(t) for t in rng.randint(1, vocab, size=int(n_))] for _ in range(3))
+            for n_ in lens]
+
+
+def nmt_counts():
+    from paddle_tpu_torch.layers.recurrent_group import counters as group
+    from paddle_tpu_torch.ops.rnn import counters as cores
+
+    return group, cores
+
+
+def phase_nmt(torch, P, fa, card):
+    """Phase 11: attention NMT training through SGD.train over
+    token_budget_batch at bench_nmt's configuration, its profile, and one
+    step's gradients card vs CPU and fused vs generic in f32."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.core.batch import DEFAULT_LADDER, ladder_len
+    from paddle_tpu_torch.core.device import tree_to
+    from paddle_tpu_torch.models.seq2seq import seq2seq_cost
+    from paddle_tpu_torch.reader.bucketing import token_budget_batch
+    from paddle_tpu_torch.reader.feeder import DataFeeder
+    from paddle_tpu_torch.utils.tree import leaves
+
+    group, cores = nmt_counts()
+    P.init(seed=51, compute_dtype="bfloat16", use_bucketing=True)
+    cost, _ = seq2seq_cost(NMT_VOCAB, NMT_VOCAB, NMT_WIDTH, NMT_WIDTH)
+    params = P.parameters.create(cost, seed=51)
+    n_params = sum(v.numel() for v in leaves(params.params))
+    trainer = P.trainer.SGD(cost, params, P.optimizer.Momentum(learning_rate=NMT_LR, momentum=0.9))
+    budget = NMT_BATCH * ladder_len(NMT_MAX_LEN)
+    batches = list(token_budget_batch(lambda: iter(nmt_corpus(NMT_VOCAB, NMT_PAIRS)),
+                                      token_budget=budget, drop_last=True)())
+    need = 1 + NMT_TIMED + NMT_PROFILED
+    say(f"nmt: {n_params} parameters in {len(leaves(params.params))} leaves; {len(batches)} "
+        f"batches of budget {budget} padded tokens from {NMT_PAIRS} pairs; steps: "
+        + ", ".join(f"{len(b)}x{ladder_len(max(len(s[1]) for s in b))}" for b in batches[:need]))
+
+    def train(batch_list, on_event=None):
+        trainer.train(lambda: iter(batch_list), feeding=FEEDING, event_handler=on_event)
+
+    reset_counts(fa)
+    train(batches[:1])  # first step: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    group.clear()
+    cores.clear()
+    steps, clock = [], [0.0]
+
+    def on_event(e):
+        if isinstance(e, P.event.BeginIteration):
+            torch.cuda.synchronize()
+            clock[0] = time.perf_counter()
+        elif isinstance(e, P.event.EndIteration):
+            # the cost's host copy waits for the whole step, update included
+            steps.append((time.perf_counter() - clock[0], e.cost))
+
+    timed = batches[1:1 + NMT_TIMED]
+    train(timed, on_event)
+    secs, costs = [s[0] for s in steps], [s[1] for s in steps]
+    valid = sum(len(s[2]) for b in timed for s in b)
+    say(f"nmt: {len(steps)} timed steps at Momentum({NMT_LR}, 0.9), bf16: costs "
+        f"{[round(c, 4) for c in costs]}, seconds per step {[round(x, 4) for x in secs]}")
+    say(f"nmt: {float(np.mean(secs)):.4f} s per step (mean of {len(secs)}), "
+        f"{valid / sum(secs):.1f} valid target tokens/s ({valid} tokens), peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}")
+    say(f"nmt: decoder lowerings {dict(group)}; recurrence steps run/skipped by the early "
+        f"exit: gru {cores['gru_steps']}/{cores['gru_skipped']}, attention-gru "
+        f"{cores['attgru_steps']}/{cores['attgru_skipped']}")
+    if len(steps) != NMT_TIMED or not all(np.isfinite(costs)):
+        raise SystemExit("nmt: training gave a non-finite cost or a missing step")
+    if group["fused"] != NMT_TIMED or group["generic"]:
+        raise SystemExit("nmt: the decoder did not take the fused attention-GRU core on every step")
+
+    prof_batches = batches[1 + NMT_TIMED:need]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train(prof_batches)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    total_us = sum(e.self_device_time_total for e in dev)
+    launches = sum(e.count for e in dev)
+    if total_us <= 0:
+        raise SystemExit("nmt profile: the profiler shows no device time")
+    say(f"nmt profile: {NMT_PROFILED} steps in {wall:.4f} s (profiler on), device busy "
+        f"{total_us / 1e6:.4f} s ({total_us / 1e6 / wall:.3f} of the window), "
+        f"{launches / NMT_PROFILED:.0f} device kernels per step; top device kernels per step:")
+    for e in sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)[:12]:
+        say(f"  {e.self_device_time_total / NMT_PROFILED / 1e3:9.3f} ms  "
+            f"{e.count / NMT_PROFILED:7.1f} calls  {100 * e.self_device_time_total / total_us:5.1f}%  "
+            f"{e.key[:100]}")
+    if launch_counts(fa) != (0, 0, 0):
+        raise SystemExit("nmt: the NMT path launched a flash kernel")
+    del trainer, params
+    torch.cuda.empty_cache()
+
+    # one step's gradients in f32 at a small width: card vs CPU, fused vs generic
+    vocab, width, rows, max_len = NMT_SMALL
+    P.init(seed=53, compute_dtype="float32", use_bucketing=True)
+    small, _ = seq2seq_cost(vocab, vocab, width, width)
+    net = P.CompiledNetwork(P.Topology(small), compute_dtype="float32")
+    cpu_params = net.init_params(53, device="cpu")
+    samples = [tuple(x[:max_len] for x in s) for s in nmt_corpus(vocab, rows, seed=53)]
+    got = {}
+    for where, dev_ in (("card", torch.device("cuda")), ("CPU", torch.device("cpu"))):
+        batch = DataFeeder(net.topology.data_types(), FEEDING, ladder=DEFAULT_LADDER,
+                           device=dev_)(samples)
+        tree = tree_to(cpu_params, dev_)
+        group.clear()
+        got[where] = grads_of(torch, net, tree, batch)
+        if group["fused"] != 1:
+            raise SystemExit(f"nmt: the {where} gradient step did not take the fused core")
+        if where == "card":
+            P.flags.set_flag("fused_attention_gru", False)
+            try:
+                got["generic"] = grads_of(torch, net, tree, batch)
+            finally:
+                P.flags.set_flag("fused_attention_gru", True)
+            if group["generic"] != 1:
+                raise SystemExit("nmt: the generic loop did not run with the fused flag off")
+    e_cpu = rel_l2(torch, got["card"][1], got["CPU"][1])
+    e_gen = rel_l2(torch, got["card"][1], got["generic"][1])
+    say(f"nmt f32 gradients at vocab {vocab}, width {width}, {rows} rows: cost card "
+        f"{got['card'][0]:.6f} CPU {got['CPU'][0]:.6f} generic {got['generic'][0]:.6f}; "
+        f"relative L2 over all {len(got['CPU'][1])} leaves: card vs CPU {e_cpu:.3e}, fused vs "
+        f"generic (card) {e_gen:.3e} (<= {NMT_GRAD_REL})")
+    if set(got["card"][1]) != set(got["CPU"][1]) or not (e_cpu <= NMT_GRAD_REL
+                                                         and e_gen <= NMT_GRAD_REL):
+        raise SystemExit("nmt: the card's gradients stray from the CPU's or the generic loop's")
+    P.init(compute_dtype="bfloat16", use_bucketing=False)
+
+
 def main() -> int:
     import torch
 
@@ -1500,6 +1674,10 @@ def main() -> int:
     del spine_params
     phase_dropout_clip(torch, P, trainer_dev)
     say(f"spine: phases 10, 10b, 10c took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_nmt(torch, P, fa, card)
+    say(f"nmt: phase 11 took {time.perf_counter() - t0:.1f} s")
     kernels = [
         {"name": name, "route": "cuda", "source": f"paddle_tpu_torch/csrc/{src}",
          "replaces": f"paddle_tpu/ops/pallas_attention.py:{line}",

@@ -8,7 +8,11 @@ and dk/dv backward kernels), and the image models LeNet and ResNet
 NHWC, batch norm with its moving statistics as layer state).  The training
 spine is ported: dropout, error clipping, name-shared parameters, the eight
 optimizers, the divergence sentinel, evaluators, the v1 parameter tar and
-full-state checkpoints (``checkpoint.CheckpointManager``)::
+full-state checkpoints (``checkpoint.CheckpointManager``).  The attention
+NMT model (``models/seq2seq.py``) trains through recurrent groups
+(``layers/recurrent_group.py``) on the GRU and fused attention-GRU cores of
+``ops/rnn.py``, fed by the token-budget bucketing reader
+(``reader/bucketing.py``)::
 
     import paddle_tpu_torch as paddle
     paddle.init(seed=1, compute_dtype="bfloat16", use_flash_attention=True)
@@ -38,8 +42,11 @@ from paddle_tpu_torch import inference  # noqa: F401
 from paddle_tpu_torch import optimizer  # noqa: F401
 from paddle_tpu_torch import trainer  # noqa: F401
 from paddle_tpu_torch import layers as layer  # noqa: F401
+from paddle_tpu_torch.layers import networks  # noqa: F401
 from paddle_tpu_torch import parameters  # noqa: F401
 from paddle_tpu_torch import pooling  # noqa: F401
+from paddle_tpu_torch import reader  # noqa: F401
+from paddle_tpu_torch.reader import bucketing as _bucketing  # noqa: F401
 from paddle_tpu_torch.core import data_types as data_type  # noqa: F401
 from paddle_tpu_torch.core import topology  # noqa: F401
 from paddle_tpu_torch.core.compiler import CompiledNetwork  # noqa: F401
@@ -48,6 +55,7 @@ from paddle_tpu_torch.inference import Inference, infer  # noqa: F401
 from paddle_tpu_torch.minibatch import batch  # noqa: F401
 from paddle_tpu_torch.models import lenet as _lenet  # noqa: F401
 from paddle_tpu_torch.models import resnet as _resnet  # noqa: F401
+from paddle_tpu_torch.models import seq2seq as _seq2seq  # noqa: F401
 from paddle_tpu_torch.models import transformer as _transformer  # noqa: F401
 from paddle_tpu_torch import models  # noqa: F401
 from paddle_tpu_torch.utils import flags  # noqa: F401

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import Dict, Sequence, Tuple
 
+import numpy as np
 import torch
 
 
@@ -58,6 +59,11 @@ DEFAULT_BATCH_LADDER: Tuple[int, ...] = (
 )
 
 
+def shape_ladder(base: int = 16, rungs: int = 9) -> Tuple[int, ...]:
+    """Geometric shape ladder base*2^k, k in [0, rungs)."""
+    return tuple(base << k for k in range(rungs))
+
+
 def ladder_len(n: int, ladder: Sequence[int] = DEFAULT_LADDER) -> int:
     """Smallest ladder rung >= n; past the top rung, the next multiple of it."""
     n = max(int(n), 1)
@@ -75,6 +81,49 @@ def _pad_axis(data: torch.Tensor, axis: int, to: int) -> torch.Tensor:
     shape = list(data.shape)
     shape[axis] = to - cur
     return torch.cat([data, data.new_zeros(shape)], dim=axis)
+
+
+def batch_shape_key(batch: Batch) -> tuple:
+    """Hashable shape signature of a fed batch: slot names, data shapes and
+    dtypes (two batches with equal keys have the same padded shapes)."""
+    return tuple(
+        (name, tuple(int(d) for d in batch[name].data.shape), str(batch[name].data.dtype))
+        for name in sorted(batch)
+    )
+
+
+def canonicalize_batch(batch: Batch, ladder: Sequence[int] = DEFAULT_LADDER) -> Batch:
+    """Round every plain sequence slot's padded time axis up to the shape
+    ladder.  Lengths are untouched: the new positions lie past every row's
+    valid range, so masks, cost sums and the scans' early exit treat them as
+    padding.  Nested slots are not ported yet and raise."""
+    out: Batch = {}
+    for name, t in batch.items():
+        if t.is_nested:
+            raise NotImplementedError(f"{name}: nested sequence slots are not ported yet")
+        if t.is_seq:
+            data = _pad_axis(t.data, 1, ladder_len(t.data.shape[1], ladder))
+            t = SeqTensor(data, t.lengths)
+        out[name] = t
+    return out
+
+
+def set_host_lengths(lengths: torch.Tensor, host: np.ndarray) -> torch.Tensor:
+    """Attach the host copy `host` of a lengths tensor (the feeder has it
+    before the upload), so the scans find their live range without reading
+    the device."""
+    lengths._host_lengths = host
+    return lengths
+
+
+def host_lengths(lengths: torch.Tensor) -> np.ndarray:
+    """The host copy of a lengths tensor: the feeder's, or one read of the
+    device that is kept on the tensor for later callers."""
+    host = getattr(lengths, "_host_lengths", None)
+    if host is None:
+        host = lengths.detach().cpu().numpy()
+        lengths._host_lengths = host
+    return host
 
 
 def pad_batch_rows(batch: Batch, to_b: int) -> Batch:

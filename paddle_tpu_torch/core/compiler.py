@@ -12,8 +12,13 @@ clipping (the backward clamps the output's gradient).
 
 Parameters shared by name (``ParamAttr(name=...)``, whole-layer
 ``param_name`` or per-key ``param_names``, intra-layer duplicates included)
-live once, at the first declarer in topology order; every later declarer
-reads the owner's tensor, so autograd sums the gradients of every use.
+live once, at the first declarer in topology order, recurrent-group
+sub-topologies included; every later declarer reads the owner's tensor, so
+autograd sums the gradients of every use.
+
+A recurrent group's sub-network (``layers/recurrent_group.py``) is compiled
+once, when this network is built: a layer impl with a ``build`` hook gets its
+plan made here and finds it in ``ApplyContext.plans`` at every call.
 
 :meth:`CompiledNetwork.cost` is the differentiable quantity of training
 (the mean of the first output); the train step takes its gradient with
@@ -21,9 +26,8 @@ autograd.  Non-trainable layer state (batch norm's moving statistics) is
 threaded functionally as in the JAX package: ``apply`` reads ``state`` and
 returns ``{**state, **updates}``, leaving its inputs untouched.
 
-Not ported yet: recurrent_group sub-topologies (these raise at build) and
-dynamic widths (``resolve_dynamic_widths``; no layer of the port's DSL makes
-them).
+Not ported yet: dynamic widths (``resolve_dynamic_widths``; no layer of the
+port's DSL makes them).
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from paddle_tpu_torch.core.device import resolve_device
 from paddle_tpu_torch.core.topology import Topology
 from paddle_tpu_torch.layers.base import ApplyContext, get_layer_impl, mix_seed
 from paddle_tpu_torch.ops.activations import apply_activation
+from paddle_tpu_torch.utils.tree import get_path, map_leaves
 
 Params = Dict[str, Dict[str, Any]]
 NetState = Dict[str, Dict[str, Any]]
@@ -103,6 +108,53 @@ def _share_conflict_error(message: str, layer: str) -> DiagnosticError:
     ))
 
 
+def _mixed_forms_error(key_owners, g, path, decl) -> DiagnosticError:
+    """Mixed whole-layer/per-key declaration of one global parameter name."""
+    ol, ok, owhole = key_owners[g]
+    kind = "whole-layer inside a recurrent_group" if owhole else "per-key"
+    return _share_conflict_error(
+        f"parameter name {g!r} is declared {decl} by {'.'.join(path)!r} but "
+        f"{kind} by {ol!r}.{'.'.join(ok)!r}; sharing across the two forms "
+        "is not supported — use distinct names", ".".join(path))
+
+
+def _walk_layers(topology, prefix=()):
+    """(path, conf) over a topology and its recurrent-group sub-topologies
+    (path = (top layer, inner..., layer)): named parameters share storage
+    wherever they live."""
+    for name in topology.order:
+        conf = topology.layers[name]
+        yield prefix + (name,), conf
+        sub = conf.attrs.get("_sub_topology")
+        if sub is not None:
+            yield from _walk_layers(sub, prefix + (name,))
+
+
+def _graft(d, path, v) -> None:
+    """d[path] = v, copying every intermediate dict (the caller has copied
+    `d`), so grafting a shared value never mutates the canonical tree."""
+    for k in path[:-1]:
+        d[k] = dict(d.get(k, {}))
+        d = d[k]
+    d[path[-1]] = v
+
+
+def _del_path(d, path) -> None:
+    """Delete d[path], pruning the dicts the deletion empties."""
+    stack = []
+    for k in path[:-1]:
+        stack.append((d, k))
+        d = d[k]
+    del d[path[-1]]
+    for parent, k in reversed(stack):
+        if not parent[k]:
+            del parent[k]
+
+
+def _shapes(tree):
+    return map_leaves(lambda v: tuple(v.shape), tree) if isinstance(tree, dict) else tuple(tree.shape)
+
+
 def _cast_floats(x, dtype):
     """Cast the floating tensors of a SeqTensor or a param dict to `dtype`
     (integer lengths and ids pass)."""
@@ -146,49 +198,88 @@ class CompiledNetwork:
         self._impls = {
             name: get_layer_impl(conf.type) for name, conf in topology.layers.items()
         }
-        for name, conf in topology.layers.items():
-            if conf.attr("_sub_topology") is not None:
-                raise NotImplementedError(
-                    f"layer {name!r}: recurrent_group sub-topologies are not ported yet"
-                )
+        # per-layer plans made once (a recurrent group's compiled sub-network)
+        self._plans = {
+            name: impl.build(topology.layers[name], self.compute_dtype)
+            for name, impl in self._impls.items() if impl.build is not None
+        }
         # name-shared parameters: the first declarer in topology order owns
-        # them.  _param_owner: whole-layer sharer -> owner layer;
-        # _shared_keys: sharer -> {key: (owner layer, owner key)};
-        # _named_params: declared name -> (owner layer, key or None)
+        # them, recurrent-group sub-topologies included.  _param_owner:
+        # whole-layer sharer -> owner layer; _shared_keys: sharer top layer ->
+        # {relpath: (owner top layer, owner relpath)}, a relpath being the
+        # keys into the layer's param subtree (longer inside a group);
+        # _named_params: declared name -> (owner top layer, relpath).
+        # Sharing within one group's subtree is its sub-network's own.
         self._param_owner: Dict[str, str] = {}
-        self._shared_keys: Dict[str, Dict[str, Tuple[str, str]]] = {}
-        self._named_params: Dict[str, Tuple[str, Optional[str]]] = {}
+        self._shared_keys: Dict[str, Dict[tuple, tuple]] = {}
+        self._named_params: Dict[str, tuple] = {}
         owners: Dict[str, str] = {}
-        key_owners: Dict[str, Tuple[str, str]] = {}
-        for name in topology.order:
-            conf = topology.layers[name]
+        key_owners: Dict[str, tuple] = {}
+        inner_seen: set = set()  # (global name, top layer) with an inner declaration
+        for path, conf in _walk_layers(topology):
+            name, rel = path[0], tuple(path[1:])
             pmap = conf.attr("param_names") or {}
             pname = conf.attr("param_name")
             if pname and not pmap:
-                if pname in key_owners:
-                    ol, ok = key_owners[pname]
-                    raise _share_conflict_error(
-                        f"parameter name {pname!r} is declared whole-layer by {name!r} "
-                        f"but per-key by {ol!r}.{ok!r}; sharing across the two forms "
-                        "is not supported — use distinct names", name)
-                if pname in owners:
-                    self._param_owner[name] = owners[pname]
+                if not rel:
+                    if pname in key_owners:
+                        raise _mixed_forms_error(key_owners, pname, path, "whole-layer")
+                    if pname in owners:
+                        self._param_owner[name] = owners[pname]
+                    else:
+                        owners[pname] = name
+                        self._named_params[pname] = (name, ())
                 else:
-                    owners[pname] = name
-                    self._named_params[pname] = (name, None)
+                    # a one-parameter layer inside a group: share its whole
+                    # inner dict at `rel`
+                    if pname in owners:
+                        raise _share_conflict_error(
+                            f"parameter name {pname!r} is declared whole-layer both at top "
+                            f"level ({owners[pname]!r}) and inside a recurrent_group "
+                            f"({'.'.join(path)!r}); use distinct names", ".".join(path))
+                    if pname in key_owners and not key_owners[pname][2]:
+                        raise _mixed_forms_error(
+                            key_owners, pname, path, "whole-layer inside a recurrent_group")
+                    owner = self._inner_key_owner(
+                        key_owners, inner_seen, pname, name, rel, inner=True, whole=True)
+                    if owner is not None:
+                        self._shared_keys.setdefault(name, {})[rel] = owner
+                    else:
+                        self._named_params.setdefault(pname, (name, rel))
             for key, gname in pmap.items():
                 if not gname:
                     continue
                 if gname in owners:
                     raise _share_conflict_error(
-                        f"parameter name {gname!r} is declared per-key by {name!r}.{key!r} "
-                        f"but whole-layer by {owners[gname]!r}; sharing across the two "
-                        "layer kinds is not supported — use distinct names", name)
-                if gname in key_owners:
-                    self._shared_keys.setdefault(name, {})[key] = key_owners[gname]
+                        f"parameter name {gname!r} is declared per-key by "
+                        f"{'.'.join(path)!r}.{key!r} but whole-layer by {owners[gname]!r}; "
+                        "sharing across the two layer kinds is not supported — use "
+                        "distinct names", ".".join(path))
+                if gname in key_owners and key_owners[gname][2]:
+                    raise _mixed_forms_error(key_owners, gname, path, "per-key")
+                kp = rel + (key,)
+                owner = self._inner_key_owner(
+                    key_owners, inner_seen, gname, name, kp, inner=bool(rel), whole=False)
+                if owner is not None:
+                    self._shared_keys.setdefault(name, {})[kp] = owner
                 else:
-                    key_owners[gname] = (name, key)
-                    self._named_params[gname] = (name, key)
+                    self._named_params.setdefault(gname, (name, kp))
+
+    @staticmethod
+    def _inner_key_owner(key_owners, inner_seen, gname, top, relpath, inner, whole):
+        """The first declarer of `gname` owns it; a later declarer gets the
+        owner's address back, except a second declaration inside the same
+        top layer's subtree, which that group's sub-network chains to the
+        subtree's first declarer (None avoids handling it twice)."""
+        if inner:
+            if (gname, top) in inner_seen:
+                return None
+            inner_seen.add((gname, top))
+        if gname not in key_owners:
+            key_owners[gname] = (top, relpath, whole)
+            return None
+        otop, orel, _ = key_owners[gname]
+        return (otop, orel)
 
     # ------------------------------------------------------------------
     def init_params(self, seed: int = 0, device=None) -> Params:
@@ -207,21 +298,21 @@ class CompiledNetwork:
             if owner is not None:
                 # storage lives at the owner: the shapes must agree now, so a
                 # name collision fails at build and not inside a matmul
-                want = {k: tuple(v.shape) for k, v in p.items()}
-                have = {k: tuple(v.shape) for k, v in params.get(owner, {}).items()}
+                want, have = _shapes(p), _shapes(params.get(owner, {}))
                 if want != have:
                     raise _share_conflict_error(
                         f"shares parameter {conf.attr('param_name')!r} with {owner!r} but "
                         f"expects shapes {want} != owner's {have}", name)
                 continue
-            for key, (ol, okey) in self._shared_keys.get(name, {}).items():
-                src = p[okey] if ol == name else params[ol][okey]
-                if p[key].shape != src.shape:
+            for relpath, (ol, orel) in self._shared_keys.get(name, {}).items():
+                src = get_path(p if ol == name else params[ol], orel)
+                mine = get_path(p, relpath)
+                if _shapes(mine) != _shapes(src):
                     raise _share_conflict_error(
-                        f"parameter {key!r} shares storage with {ol!r}.{okey!r} but "
-                        f"expects shape {tuple(p[key].shape)} != owner's "
-                        f"{tuple(src.shape)}", name)
-                del p[key]
+                        f"parameter {'.'.join(relpath)!r} shares storage with "
+                        f"{ol!r}.{'.'.join(orel)!r} but expects shapes {_shapes(mine)} != "
+                        f"owner's {_shapes(src)}", name)
+                _del_path(p, relpath)
             if p:
                 params[name] = p
         return params
@@ -246,22 +337,22 @@ class CompiledNetwork:
 
     def layer_params(self, params: Params, name: str) -> Dict[str, Any]:
         """This layer's param dict: the owner's for a whole-layer sharer, with
-        each shared key grafted from its owner (a copy: the canonical tree
-        is never mutated)."""
+        each shared key grafted from its owner (copy-on-write: the canonical
+        tree is never mutated)."""
         p = params.get(self._param_owner.get(name, name), {})
         shared = self._shared_keys.get(name)
         if shared:
             p = dict(p)
-            for key, (ol, okey) in shared.items():
-                p[key] = p[okey] if ol == name else params[ol][okey]
+            for relpath, (ol, orel) in shared.items():
+                _graft(p, relpath, get_path(p if ol == name else params[ol], orel))
         return p
 
     def named_parameters(self) -> Dict[str, str]:
         """Global parameter table: {declared parameter name: dotted storage
         path into the params tree}."""
         return {
-            gname: top if key is None else f"{top}.{key}"
-            for gname, (top, key) in self._named_params.items()
+            gname: ".".join((top,) + tuple(rel))
+            for gname, (top, rel) in self._named_params.items()
         }
 
     def materialize_shared(self, params: Params) -> Params:
@@ -290,22 +381,33 @@ class CompiledNetwork:
     # ------------------------------------------------------------------
     def apply(
         self, params: Params, batch: Batch, *, state: Optional[NetState] = None,
-        train: bool = True, rng: Optional[int] = None,
+        train: bool = True, rng: Optional[int] = None, only: Optional[set] = None,
+        preset: Optional[Dict[str, SeqTensor]] = None,
     ) -> Tuple[Dict[str, SeqTensor], NetState]:
         """Run the whole graph; returns every layer's output by name and the
         updated state.  `rng` (the step's seed) enables dropout in
-        training."""
+        training.  `only` restricts the run to the named layers, `preset`
+        seeds layer outputs (a recurrent group runs its step, its hoisted
+        prologue and its hoisted epilogue through these)."""
         mixed = self.compute_dtype != torch.float32
-        ctx = ApplyContext(train=train, rng=rng, state=state or {}, dtype=self.compute_dtype)
+        ctx = ApplyContext(train=train, rng=rng, state=state or {}, dtype=self.compute_dtype,
+                           plans=self._plans)
+        if preset:
+            ctx.outputs.update(preset)
         for name in self.topology.order:
+            if (preset and name in preset) or (only is not None and name not in only):
+                continue
             conf = self.topology.layers[name]
             impl = self._impls[name]
-            if conf.type == "data":
+            if conf.type in ("data", "step_input", "memory"):
+                # data: the user's slots; step_input / memory: placeholders
+                # an enclosing recurrent group feeds per step
                 if name not in batch:
                     raise KeyError(f"batch is missing data slot {name!r}")
                 ctx.outputs[name] = _feed_transform(conf, batch[name])
                 continue
             ins = [ctx.outputs[i] for i in conf.inputs]
+            n_before = len(ctx.outputs)
             p, ins = self.resolve_layer_call(name, params, ins)
             try:
                 out = impl.apply(conf, p, ins, ctx)
@@ -319,6 +421,12 @@ class CompiledNetwork:
                 raise
             if mixed and not impl.full_precision:
                 out = _cast_floats(out, self.compute_dtype)
+                # side outputs the layer left in ctx.outputs (a group's
+                # "<name>@logits"; the dict keeps insertion order) get the
+                # compute dtype too
+                if len(ctx.outputs) > n_before:
+                    for k in list(ctx.outputs)[n_before:]:
+                        ctx.outputs[k] = _cast_floats(ctx.outputs[k], self.compute_dtype)
             if impl.auto_activation and conf.act not in ("identity", "linear", ""):
                 if conf.act == "softmax":
                     # pre-activation logits for a fused log-softmax cost

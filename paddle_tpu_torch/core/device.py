@@ -27,6 +27,8 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
 
 
 def tree_to(tree, device: torch.device):
-    """A ``{layer: {key: tensor}}`` tree (parameters or layer state) with
-    every tensor on `device`."""
-    return {layer: {k: v.to(device) for k, v in p.items()} for layer, p in tree.items()}
+    """A tree of tensors (parameters or layer state, nested to any depth)
+    with every tensor on `device`."""
+    from paddle_tpu_torch.utils.tree import map_leaves
+
+    return map_leaves(lambda v: v.to(device), tree)

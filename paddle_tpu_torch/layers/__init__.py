@@ -1,9 +1,13 @@
 """Layer DSL of the port — the part of ``paddle_tpu/layers/__init__.py`` that
-Transformer-base, LeNet and the ResNet family use: ``data`` (:178), ``fc``
-(:215), ``embedding`` (:275), ``addto`` (:306), ``dropout`` (:360), ``img_conv`` (:403),
-``img_pool`` (:484), ``batch_norm`` (:535), ``classification_cost``
-(:1116), ``layer_norm`` (:2414), ``multi_head_attention`` (:2420) and
-``pos_encoding`` (:2450).  Each function returns a :class:`LayerOutput`
+Transformer-base, LeNet, the ResNet family and the attention NMT model use:
+``data`` (:178), ``fc`` (:215), ``embedding`` (:275), ``addto`` (:306),
+``concat`` (:333), ``dropout`` (:360), ``img_conv`` (:403), ``img_pool``
+(:484), ``batch_norm`` (:535), ``scaling`` (:791), ``classification_cost``
+(:1116), ``pooling`` (:1210), ``last_seq`` (:1247), ``first_seq`` (:1260),
+``expand`` (:1273), ``grumemory`` (:1353), ``gru_step`` (:1495),
+``layer_norm`` (:2414), ``multi_head_attention`` (:2420),
+``pos_encoding`` (:2450), and ``memory``, ``recurrent_group`` and
+``StaticInput`` (``layers/recurrent_group.py``).  Each function returns a :class:`LayerOutput`
 handle; the graph is gathered by parent traversal when a Topology is built.
 Output-size bookkeeping (conv arithmetic) mirrors the reference's
 config_parser.py ``cnn_output_size``.
@@ -29,6 +33,33 @@ from paddle_tpu_torch.layers import basic as _basic  # noqa: F401
 from paddle_tpu_torch.layers import conv as _conv  # noqa: F401
 from paddle_tpu_torch.layers import attention as _attention  # noqa: F401
 from paddle_tpu_torch.layers import cost as _cost  # noqa: F401
+from paddle_tpu_torch.layers import sequence as _sequence  # noqa: F401
+from paddle_tpu_torch.layers.recurrent_group import (  # noqa: F401
+    StaticInput,
+    SubsequenceInput,
+    memory,
+    recurrent_group,
+)
+
+
+class AggregateLevel:
+    """Which nesting level a pooling or selection layer collapses
+    (reference layers.py:248); the port runs TO_NO_SEQUENCE."""
+
+    TO_NO_SEQUENCE = 0
+    TO_SEQUENCE = 1
+    EACH_TIMESTEP = 0
+    EACH_SEQUENCE = 1
+
+
+class ExpandLevel:
+    """How expand broadcasts (reference layers.py:1704); the port runs
+    FROM_NO_SEQUENCE."""
+
+    FROM_NO_SEQUENCE = 0
+    FROM_SEQUENCE = 1
+    FROM_TIMESTEP = 0
+
 
 Inputish = Union[LayerOutput, Sequence[LayerOutput]]
 
@@ -245,6 +276,39 @@ def addto(
 
 
 addto_layer = addto
+
+
+def concat(input: Sequence[LayerOutput], name: Optional[str] = None, act=None,
+           bias_attr=False, layer_attr=None) -> LayerOutput:
+    """Feature-axis concat (reference concat_layer)."""
+    ins = _as_list(input)
+    conf = LayerConf(
+        name=name or auto_name("concat"),
+        type="concat",
+        size=sum(i.size for i in ins),
+        inputs=tuple(i.name for i in ins),
+        act=act_name(act),
+        bias=False,
+    )
+    return LayerOutput(conf, ins)
+
+
+concat_layer = concat
+
+
+def scaling(weight: LayerOutput, input: LayerOutput, name=None) -> LayerOutput:
+    """y = w * x, one weight per row (reference scaling_layer)."""
+    conf = LayerConf(
+        name=name or auto_name("scaling"),
+        type="scaling",
+        size=input.size,
+        inputs=(weight.name, input.name),
+        bias=False,
+    )
+    return LayerOutput(conf, [weight, input])
+
+
+scaling_layer = scaling
 
 
 def dropout(input: LayerOutput, dropout_rate: float, name: Optional[str] = None) -> LayerOutput:
@@ -465,6 +529,165 @@ def batch_norm(
 
 
 batch_norm_layer = batch_norm
+
+
+# ---------------------------------------------------------------------------
+# sequence layers
+# ---------------------------------------------------------------------------
+
+
+def pooling(
+    input: LayerOutput,
+    pooling_type=None,
+    agg_level: int = AggregateLevel.TO_NO_SEQUENCE,
+    stride: int = -1,
+    bias_attr=False,
+    name: Optional[str] = None,
+    layer_attr=None,
+) -> LayerOutput:
+    """Pool a sequence over time (reference pooling_layer)."""
+    if stride > 0 and agg_level != AggregateLevel.TO_NO_SEQUENCE:
+        raise ValueError("stride pooling is TO_NO_SEQUENCE only")
+    conf = LayerConf(
+        name=name or auto_name("seqpool"),
+        type="seqpool",
+        size=input.size,
+        inputs=(input.name,),
+        bias=False,
+        attrs={
+            "pool_type": pool_name(pooling_type),
+            "agg_level": agg_level,
+            "stride": stride,
+            "output_max_index": bool(getattr(pooling_type, "output_max_index", False)),
+        },
+    )
+    return LayerOutput(conf, [input])
+
+
+pooling_layer = pooling
+
+
+def last_seq(input: LayerOutput, agg_level: int = AggregateLevel.TO_NO_SEQUENCE,
+             stride: int = -1, name: Optional[str] = None, layer_attr=None) -> LayerOutput:
+    return _unary("seqlastins", input, name=name, select_first=False,
+                  agg_level=agg_level, stride=stride)
+
+
+def first_seq(input: LayerOutput, agg_level: int = AggregateLevel.TO_NO_SEQUENCE,
+              stride: int = -1, name: Optional[str] = None, layer_attr=None) -> LayerOutput:
+    return _unary("seqlastins", input, name=name, select_first=True,
+                  agg_level=agg_level, stride=stride)
+
+
+def expand(input: LayerOutput, expand_as: LayerOutput,
+           expand_level: int = ExpandLevel.FROM_NO_SEQUENCE,
+           name: Optional[str] = None) -> LayerOutput:
+    conf = LayerConf(
+        name=name or auto_name("expand"),
+        type="expand",
+        size=input.size,
+        inputs=(input.name, expand_as.name),
+        bias=False,
+        attrs={"expand_level": expand_level},
+    )
+    return LayerOutput(conf, [input, expand_as])
+
+
+expand_layer = expand
+
+
+def grumemory(
+    input: LayerOutput,
+    size: Optional[int] = None,
+    reverse: bool = False,
+    act=None,
+    gate_act=None,
+    bias_attr=True,
+    param_attr: Optional[ParamAttr] = None,
+    layer_attr: Optional[ExtraAttr] = None,
+    name: Optional[str] = None,
+) -> LayerOutput:
+    """A GRU over a sequence pre-projected to 3 x size (reference
+    grumemory)."""
+    size = size or input.size // 3
+    if input.size != 3 * size:
+        raise ValueError(f"grumemory input size {input.size} != 3 x size {size}")
+    drop, shard = _extra(layer_attr)
+    conf = LayerConf(
+        name=name or auto_name("gru"),
+        type="gru",
+        size=size,
+        inputs=(input.name,),
+        bias=bool(bias_attr),
+        drop_rate=drop,
+        shard_axis=shard,
+        attrs={
+            "reverse": reverse,
+            "active_type": act_name(act if act is not None else _act_mod.Tanh()),
+            "gate_act": act_name(gate_act if gate_act is not None else _act_mod.Sigmoid()),
+            **_param_attrs(param_attr),
+        },
+    )
+    _set_error_clip(conf, layer_attr)
+    return LayerOutput(conf, [input])
+
+
+def _step_param_names(param_attr, bias_attr, weight_keys) -> dict:
+    """param_names of a step cell: one reference parameter name ties every
+    recurrent weight key; a named bias attr ties the bias."""
+    pnames = {}
+    pn = _param_name(param_attr)
+    if pn:
+        for k in weight_keys:
+            pnames[k] = f"{pn}#{k}"
+    if isinstance(bias_attr, ParamAttr) and bias_attr.name:
+        pnames["b"] = bias_attr.name
+    return pnames
+
+
+def gru_step(
+    input: LayerOutput,
+    output_mem: LayerOutput,
+    size: Optional[int] = None,
+    act=None,
+    gate_act=None,
+    bias_attr=True,
+    param_attr: Optional[ParamAttr] = None,
+    layer_attr=None,
+    name: Optional[str] = None,
+    naive: bool = False,
+) -> LayerOutput:
+    """One GRU step (reference gru_step_layer): input pre-projected to 3H,
+    output_mem the previous state (usually a memory).  naive=True with a
+    named param_attr ties the three recurrent blocks to one H x H matrix."""
+    size = size or output_mem.size
+    if input.size != 3 * size:
+        raise ValueError(f"gru_step input size {input.size} != 3 x size {size}")
+    tied = naive and _param_name(param_attr) is not None
+    if tied:
+        pnames = _step_param_names(param_attr, bias_attr, ("w",))
+        pnames["w"] = _param_name(param_attr)
+    else:
+        pnames = _step_param_names(param_attr, bias_attr, ("w_h", "w_c"))
+    conf = LayerConf(
+        name=name or auto_name("gru_step"),
+        type="gru_step",
+        size=size,
+        inputs=(input.name, output_mem.name),
+        bias=bool(bias_attr),
+        attrs={
+            "active_type": act_name(act if act is not None else _act_mod.Tanh()),
+            "gate_act": act_name(gate_act if gate_act is not None else _act_mod.Sigmoid()),
+            "param_std": _param_std(param_attr),
+            **({"naive": True} if naive else {}),
+            **({"tied_weights": True} if tied else {}),
+            **({"param_names": pnames} if pnames else {}),
+        },
+    )
+    return LayerOutput(conf, [input, output_mem])
+
+
+gru_step_layer = gru_step
 
 
 def _cost2(type_: str, input: LayerOutput, label: LayerOutput, name=None, **attrs):

@@ -1,6 +1,9 @@
 """Attention-family layers: layer norm, multi-head attention, positional
 encoding — the counterpart of ``paddle_tpu/layers/attention.py`` (:43,
-:84-214, :433), the building blocks of Transformer-base MT.
+:84-214, :433), the building blocks of Transformer-base MT — and the
+structural matcher of the v1 attention-GRU decoder step
+(``match_attention_gru_step``, JAX :286), which routes the NMT decoder onto
+the fused recurrence of ``ops/rnn.py``.
 
 Under bf16 mixed precision the softmax and layer-norm statistics compute in
 float32 and cast back, as in the JAX package.  Multi-head attention with
@@ -13,7 +16,9 @@ scores.
 
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -151,3 +156,208 @@ def pos_encoding_apply(conf, params, inputs, ctx):
     dt = x.data.dtype
     out = x.data * torch.tensor(scale, dtype=dt, device=dev) + pe.to(dt)
     return x.with_data(out)
+
+
+# ---------------------------------------------------------------------------
+# the v1 attention-GRU decoder step (JAX layers/attention.py:225-420)
+# ---------------------------------------------------------------------------
+#
+#   expand(memory, enc_proj) -> fc(identity) --\
+#                                 enc_proj -----+-> addto(act) -> fc(1,
+#   seq_softmax) -> scaling(scores, enc) -> seqpool(sum) = context
+#   fc([context, scanned...], 3H, identity) -> gru_step(., memory)
+#
+# match_attention_gru_step recognises it structurally (types, wiring, act and
+# bias constraints) so recurrent_group can run the WHOLE step on the fused
+# core (ops/rnn.py AttGruCore) with no config edits.  Anything that does not
+# match keeps the generic per-layer step.
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionGRUMatch:
+    """Layer names of a matched attention-GRU decoder step."""
+
+    gru: str  # gru_step — the memory link
+    in_proj: str  # fc building the 3H gate input from [context, scanned...]
+    pool: str  # seqpool(sum) -> context
+    scale: str  # scaling(scores, enc)
+    scores: str  # fc size-1 sequence_softmax
+    hidden: str  # addto(enc_proj, state_proj)
+    state_proj: str  # fc over the expanded memory
+    expand: str  # expand(memory, enc_proj)
+    mem: str  # memory placeholder name
+    enc_name: str  # static placeholder: encoded sequence (context values)
+    ep_name: str  # static placeholder: encoded projection (score keys)
+    ctx_slot: int  # index of the context input within in_proj.inputs
+    scan_slots: Tuple[Tuple[int, str], ...]  # (in_proj slot, scan placeholder)
+    gate_act: str
+    act: str
+    att_act: str
+    matched: frozenset  # every matched layer name, for body-coverage checks
+
+
+def _clean(c) -> bool:
+    """No dropout / error-clip / dynamic-width on a candidate layer — the
+    fused core implements none of them."""
+    return (
+        c.drop_rate == 0.0
+        and not c.attr("error_clip", 0.0)
+        and not c.attr("dynamic_width_in")
+    )
+
+
+# The fused backward takes the score activation's derivative elementwise
+# (ops/rnn.py AttGruCore.backward), exact ONLY for elementwise
+# activations.  A non-elementwise act (softmax, ...) on the
+# attention hidden layer must fall back to the generic scan, or it would
+# match, run, and train with silently wrong gradients.
+_ELEMENTWISE_ATT_ACTS = frozenset({
+    "", "identity", "linear", "tanh", "sigmoid", "relu", "brelu",
+    "stanh", "softrelu", "abs", "square",
+})
+
+
+def _ident_act(c) -> bool:
+    return c.act in ("identity", "linear", "")
+
+
+def match_attention_gru_step(
+    layers, mem_conf, scan_names, static_seq_names
+) -> Optional[AttentionGRUMatch]:
+    """Match the sub-topology rooted at `mem_conf`'s link against the v1
+    attention-GRU decoder idiom.  `layers` is the step sub-topology's
+    {name: LayerConf}; `scan_names` the scanned placeholder names;
+    `static_seq_names` the sequence-valued static placeholder names.
+    Returns None on any structural mismatch (callers fall back to the
+    generic scan)."""
+    if mem_conf.attrs.get("is_seq") or mem_conf.attrs.get("boot_const_id") is not None:
+        return None
+    link = mem_conf.attrs.get("link") or ""
+    gru = layers.get(link)
+    if (
+        gru is None
+        or gru.type != "gru_step"
+        or gru.attr("tied_weights", False)
+        or not _clean(gru)
+        or len(gru.inputs) != 2
+        or gru.inputs[1] != mem_conf.name
+    ):
+        return None
+    h = gru.size
+    in_proj = layers.get(gru.inputs[0])
+    if (
+        in_proj is None
+        or in_proj.type != "fc"
+        or not _ident_act(in_proj)
+        or not _clean(in_proj)
+        or in_proj.size != 3 * h
+    ):
+        return None
+    # exactly one in_proj input is the pooled context; the rest must be
+    # scanned placeholders (their projections hoist out of the scan)
+    ctx_slot = None
+    scan_slots = []
+    for i, nm in enumerate(in_proj.inputs):
+        c = layers.get(nm)
+        if c is not None and c.type == "seqpool":
+            if ctx_slot is not None:
+                return None
+            ctx_slot = i
+        elif nm in scan_names:
+            scan_slots.append((i, nm))
+        else:
+            return None
+    if ctx_slot is None or not scan_slots:
+        return None
+    pool = layers[in_proj.inputs[ctx_slot]]
+    if (
+        pool.attr("pool_type", "max") != "sum"
+        or pool.attr("agg_level", 0) != 0
+        or pool.attr("stride", -1) > 0
+        or pool.attr("output_max_index", False)
+        or not _ident_act(pool)
+        or not _clean(pool)
+        or len(pool.inputs) != 1
+    ):
+        return None
+    scale = layers.get(pool.inputs[0])
+    if (
+        scale is None
+        or scale.type != "scaling"
+        or not _ident_act(scale)
+        or not _clean(scale)
+        or len(scale.inputs) != 2
+    ):
+        return None
+    scores_name, enc_name = scale.inputs
+    if enc_name not in static_seq_names:
+        return None
+    scores = layers.get(scores_name)
+    if (
+        scores is None
+        or scores.type != "fc"
+        or scores.size != 1
+        or scores.act != "sequence_softmax"
+        or scores.bias
+        or not _clean(scores)
+        or len(scores.inputs) != 1
+    ):
+        return None
+    hidden = layers.get(scores.inputs[0])
+    if (
+        hidden is None
+        or hidden.type != "addto"
+        or hidden.bias
+        or not _clean(hidden)
+        or len(hidden.inputs) != 2
+        or hidden.act not in _ELEMENTWISE_ATT_ACTS
+    ):
+        return None
+    ep_name = state_proj = None
+    for nm in hidden.inputs:
+        if nm in static_seq_names:
+            ep_name = nm
+        else:
+            state_proj = layers.get(nm)
+    if ep_name is None or state_proj is None:
+        return None
+    if (
+        state_proj.type != "fc"
+        or not _ident_act(state_proj)
+        or not _clean(state_proj)
+        or len(state_proj.inputs) != 1
+    ):
+        return None
+    exp = layers.get(state_proj.inputs[0])
+    if (
+        exp is None
+        or exp.type != "expand"
+        or exp.attr("expand_level", 0) != 0
+        or not _ident_act(exp)
+        or not _clean(exp)
+        or tuple(exp.inputs) != (mem_conf.name, ep_name)
+    ):
+        return None
+    matched = frozenset(
+        (gru.name, in_proj.name, pool.name, scale.name, scores.name,
+         hidden.name, state_proj.name, exp.name)
+    )
+    return AttentionGRUMatch(
+        gru=gru.name,
+        in_proj=in_proj.name,
+        pool=pool.name,
+        scale=scale.name,
+        scores=scores.name,
+        hidden=hidden.name,
+        state_proj=state_proj.name,
+        expand=exp.name,
+        mem=mem_conf.name,
+        enc_name=enc_name,
+        ep_name=ep_name,
+        ctx_slot=ctx_slot,
+        scan_slots=tuple(scan_slots),
+        gate_act=gru.attr("gate_act", "sigmoid"),
+        act=gru.attr("active_type", "tanh"),
+        att_act=hidden.act or "identity",
+        matched=matched,
+    )

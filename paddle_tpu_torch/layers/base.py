@@ -5,7 +5,9 @@
     ``torch.Generator``;
   * ``apply(conf, params, inputs, ctx) -> SeqTensor`` runs its forward;
 
-and a layer with non-trainable state (batch norm's moving statistics) also
+a layer that compiles something of its own once (a recurrent group's
+sub-network) has ``build(conf, compute_dtype) -> plan``, and a layer with
+non-trainable state (batch norm's moving statistics) also
 has ``init_state(conf, in_confs, device) -> state``.  Random draws in the
 forward (dropout) come from :meth:`ApplyContext.layer_rng`: a generator
 seeded from the step's seed and the layer's name, as the JAX package folds
@@ -38,6 +40,8 @@ class ApplyContext:
     state: Dict[str, Dict[str, Any]] = dataclasses.field(default_factory=dict)
     new_state: Dict[str, Dict[str, Any]] = dataclasses.field(default_factory=dict)
     dtype: Any = torch.float32
+    # {layer: plan} the compiler made once from the impls' build hooks
+    plans: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     def layer_rng(self, name: str, device) -> Optional[torch.Generator]:
         """A generator on `device` seeded from the step's seed and `name`
@@ -60,6 +64,7 @@ def stable_hash(name: str) -> int:
 InitFn = Callable[[LayerConf, List[LayerConf], torch.Generator, Any], Dict[str, Any]]
 ApplyFn = Callable[[LayerConf, Dict[str, Any], List[SeqTensor], ApplyContext], SeqTensor]
 StateInitFn = Callable[[LayerConf, List[LayerConf], Any], Dict[str, Any]]
+BuildFn = Callable[[LayerConf, Any], Any]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,6 +80,9 @@ class LayerImpl:
     auto_dropout: bool = True
     # the compiler hands this layer f32 inputs under mixed precision
     full_precision: bool = False
+    # build(conf, compute_dtype) -> plan, made once when a network is
+    # compiled and handed to apply in ctx.plans[conf.name]; None = no plan
+    build: Optional[BuildFn] = None
 
 
 _LAYERS: Dict[str, LayerImpl] = {}
@@ -92,6 +100,7 @@ def register_layer(
     auto_activation: bool = True,
     auto_dropout: bool = True,
     full_precision: bool = False,
+    build: Optional[BuildFn] = None,
 ):
     """Decorator over the apply function."""
 
@@ -106,6 +115,7 @@ def register_layer(
             auto_activation=auto_activation,
             auto_dropout=auto_dropout,
             full_precision=full_precision,
+            build=build,
         )
         return apply
 

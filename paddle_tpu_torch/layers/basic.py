@@ -1,5 +1,5 @@
-"""Core layer impls: data, fc, embedding, addto — the counterpart of
-``paddle_tpu/layers/basic.py:38-138``.  Weights keep the JAX layout
+"""Core layer impls: data, fc, embedding, addto, concat and scaling — the
+counterpart of ``paddle_tpu/layers/basic.py:38-168``.  Weights keep the JAX layout
 ([in, out] for fc, [vocab, size] for embedding)."""
 
 from __future__ import annotations
@@ -80,3 +80,27 @@ def addto_apply(conf, params, inputs, ctx):
     if "b" in params:
         acc = acc + params["b"]
     return inputs[0].with_data(acc)
+
+
+@register_layer("concat")
+def concat_apply(conf, params, inputs, ctx):
+    """Feature-axis concat (ConcatenateLayer.cpp); a sequence input's
+    lengths carry over."""
+    datas, lengths = [], None
+    for t in inputs:
+        x = t.data
+        if t.is_nested:
+            raise NotImplementedError(f"{conf.name}: nested concat input is not ported yet")
+        if t.is_seq:
+            lengths = t.lengths
+        elif x.dim() > 2:
+            x = x.reshape(x.shape[0], -1)
+        datas.append(x)
+    return SeqTensor(torch.cat(datas, dim=-1), lengths)
+
+
+@register_layer("scaling")
+def scaling_apply(conf, params, inputs, ctx):
+    """y = w * x with one weight per row (ScalingLayer.cpp): w [..., 1]."""
+    w, x = inputs
+    return x.with_data(x.data * w.data)

@@ -53,8 +53,9 @@ def _sigmoid(x):
 
 @register_activation("softmax")
 def _softmax(x):
-    # f32 statistics inside, result in the input dtype (as jax.nn.softmax)
-    return torch.softmax(x, dim=-1, dtype=torch.float32).to(x.dtype)
+    # f32 (or wider) statistics inside, result in the input dtype (as
+    # jax.nn.softmax)
+    return torch.softmax(x, dim=-1, dtype=torch.promote_types(x.dtype, torch.float32)).to(x.dtype)
 
 
 @register_activation("sequence_softmax")

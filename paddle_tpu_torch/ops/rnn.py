@@ -1,0 +1,433 @@
+"""Recurrent cores — the counterpart of ``paddle_tpu/ops/rnn.py`` for the two
+recurrences the attention NMT model runs: the GRU (``gru_scan``, the
+grumemory layer) and the fused attention-GRU decoder (``attention_gru_scan``,
+what a matched recurrent_group decoder step lowers onto).
+
+As in the JAX package the batch stays padded, [B, T, ...], and the loop runs
+over the time axis with a carry mask: a padded step passes the previous
+state through.  The input projections (x @ W) run once outside the loop.
+Each core is a ``torch.autograd.Function`` with the JAX package's
+hand-written backward (its custom VJPs): the backward loop runs only the
+transposed chain GEMMs of each step, and every weight gradient is one GEMM
+over the saved sequences after the loop.  The elementwise derivatives are
+written out from the saved pre-activations (``_act_vjp``), so a step of
+either loop runs no GEMM beyond its chain.
+
+Early exit (the ``scan_early_exit`` flag): a step at which every row is
+padding changes nothing, so the loops run only the live range of steps,
+taken from the host copy of the lengths (``core.batch.host_lengths``, set by
+the feeder: no step reads the device).  Dead steps emit the carry, as in the
+JAX package, and their gradients are exact zeros.
+
+Not ported yet: the LSTM core (``_lstm_core``, ``lstm_scan``) and the simple
+RNN core (``_rnn_core``, ``simple_rnn_scan``).
+"""
+
+from __future__ import annotations
+
+import collections
+from typing import Optional, Tuple
+
+import torch
+
+from paddle_tpu_torch.core.batch import host_lengths
+from paddle_tpu_torch.ops.activations import get_activation
+from paddle_tpu_torch.utils.flags import get_flag
+
+# steps each loop ran and skipped (early exit), since the last clear()
+counters: collections.Counter = collections.Counter()
+
+# d act(x) / dx from the input x and the output y, per elementwise activation
+_DERIVS = {
+    "": lambda x, y: torch.ones_like(x),
+    "identity": lambda x, y: torch.ones_like(x),
+    "linear": lambda x, y: torch.ones_like(x),
+    "sigmoid": lambda x, y: y * (1.0 - y),
+    "tanh": lambda x, y: 1.0 - y * y,
+    "relu": lambda x, y: (x > 0).to(x.dtype),
+    "brelu": lambda x, y: ((x > 0) & (x < 24.0)).to(x.dtype),
+    "stanh": lambda x, y: (1.7159 * 2.0 / 3.0) * (1.0 - torch.square(y / 1.7159)),
+    "softrelu": lambda x, y: torch.sigmoid(x) * (x.abs() <= 40.0).to(x.dtype),
+    "abs": lambda x, y: torch.sign(x),
+    "square": lambda x, y: 2.0 * x,
+    "exponential": lambda x, y: y,
+    "exp": lambda x, y: y,
+    "reciprocal": lambda x, y: -y * y,
+    "sqrt": lambda x, y: 0.5 / y,
+    "log": lambda x, y: 1.0 / x,
+}
+
+
+def _act_vjp(name: str, x: torch.Tensor, y: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """g times the derivative of activation `name` at x (y = act(x)); an
+    activation outside the elementwise table (softmax) takes its exact VJP
+    by autograd."""
+    deriv = _DERIVS.get(name)
+    if deriv is not None:
+        return g * deriv(x, y)
+    with torch.enable_grad():
+        xx = x.detach().requires_grad_(True)
+        return torch.autograd.grad(get_activation(name)(xx), xx, g)[0]
+
+
+def _mask_seq(lengths: Optional[torch.Tensor], max_len: int, reverse: bool):
+    """[T, B, 1] carry mask; in a reverse scan (inputs flipped) the valid
+    positions are t >= T - len."""
+    if lengths is None:
+        return None
+    t = torch.arange(max_len, device=lengths.device)[:, None]
+    valid = t >= (max_len - lengths[None, :]) if reverse else t < lengths[None, :]
+    return valid[..., None]
+
+
+def live_range(lengths: Optional[torch.Tensor], max_len: int, reverse: bool) -> Tuple[int, int]:
+    """[lo, hi): the loop steps at which some row is valid, under the
+    ``scan_early_exit`` flag; every step otherwise."""
+    if lengths is None or not get_flag("scan_early_exit") or lengths.numel() == 0:
+        return 0, max_len
+    n = min(max(int(host_lengths(lengths).max()), 0), max_len)
+    return (max_len - n, max_len) if reverse else (0, n)
+
+
+def _around(live: torch.Tensor, first: torch.Tensor, last: torch.Tensor, lo: int, t: int):
+    """The [T, B, H] output sequence of a loop that ran steps [lo, lo +
+    len(live)): dead steps before emit `first` (the initial carry), dead
+    steps after emit `last` (the final carry)."""
+    hi = lo + live.shape[0]
+    parts = []
+    if lo:
+        parts.append(first[None].expand(lo, *first.shape))
+    parts.append(live)
+    if hi < t:
+        parts.append(last[None].expand(t - hi, *last.shape))
+    return torch.cat(parts) if len(parts) > 1 else live
+
+
+def _gru_reset(acts, p_r, h_p):
+    """rh = gate(p_r) * h_p (the reference's gru_resetOutput)."""
+    return get_activation(acts[0])(p_r) * h_p
+
+
+def _gru_final(acts, p_u, p_c, h_p, m):
+    """h = (1 - u) * h_p + u * c with carry-through masking
+    (gru_finalOutput)."""
+    u = get_activation(acts[0])(p_u)
+    c = get_activation(acts[1])(p_c)
+    return torch.where(m, torch.lerp(h_p, c, u), h_p)
+
+
+def _gru_final_vjp(acts, p_u, p_c, h_p, m, dh):
+    """(dp_u, dp_c, dh_p) of :func:`_gru_final` at cotangent dh."""
+    u = get_activation(acts[0])(p_u)
+    c = get_activation(acts[1])(p_c)
+    dhm = torch.where(m, dh, 0.0)
+    dp_u = _act_vjp(acts[0], p_u, u, dhm * (c - h_p))
+    dp_c = _act_vjp(acts[1], p_c, c, dhm * u)
+    dh_p = torch.where(m, dh * (1.0 - u), dh)
+    return dp_u, dp_c, dh_p
+
+
+def _gru_reset_vjp(acts, p_r, h_p, drh):
+    """(dp_r, dh_p, rh) of :func:`_gru_reset` at cotangent drh."""
+    r = get_activation(acts[0])(p_r)
+    return _act_vjp(acts[0], p_r, r, drh * h_p), drh * r, r * h_p
+
+
+# ---------------------------------------------------------------------------
+# GRU
+# ---------------------------------------------------------------------------
+
+
+class GruCore(torch.autograd.Function):
+    """Time-major GRU recurrence (JAX ``_gru_core``).  xs: [T, B, 3H] input
+    projections (+ bias) in (u, r, c) order; w_h: [H, 2H]; w_c: [H, H]; h0:
+    [B, H]; mask: [T, B, 1] bool; steps [lo, hi) run.  Returns (hs [T, B, H],
+    h_last).  The forward saves the gate pre-activations and the states; the
+    backward runs the two transposed chain GEMMs per step and takes dW_h and
+    dW_c as two GEMMs over the saved sequences."""
+
+    @staticmethod
+    def forward(ctx, xs, w_h, w_c, h0, mask, acts, lo, hi):
+        h = h0.shape[-1]
+        h_t = h0
+        hs, p_urs, p_cs = [], [], []
+        for t in range(lo, hi):
+            x_t = xs[t]
+            p_ur = torch.addmm(x_t[:, : 2 * h], h_t, w_h)
+            rh = _gru_reset(acts, p_ur[:, h:], h_t)
+            p_c = torch.addmm(x_t[:, 2 * h:], rh, w_c)
+            h_t = _gru_final(acts, p_ur[:, :h], p_c, h_t, mask[t])
+            hs.append(h_t)
+            p_urs.append(p_ur)
+            p_cs.append(p_c)
+        counters["gru_steps"] += hi - lo
+        counters["gru_skipped"] += xs.shape[0] - (hi - lo)
+        live = torch.stack(hs) if hs else h0.new_zeros((0,) + tuple(h0.shape))
+        ctx.acts, ctx.lo, ctx.hi = acts, lo, hi
+        ctx.save_for_backward(
+            torch.stack(p_urs) if p_urs else live, torch.stack(p_cs) if p_cs else live,
+            live, w_h, w_c, h0, mask)
+        return _around(live, h0, h_t, lo, xs.shape[0]), h_t
+
+    @staticmethod
+    def backward(ctx, dhs, dh_last):
+        p_ur_seq, p_c_seq, live, w_h, w_c, h0, mask = ctx.saved_tensors
+        acts, lo, hi = ctx.acts, ctx.lo, ctx.hi
+        h = h0.shape[-1]
+        t_all = dhs.shape[0]
+        dh = dh_last + dhs[hi:].sum(0) if hi < t_all else dh_last
+        h_prev = torch.cat([h0[None], live[:-1]])
+        w_h_t, w_c_t = w_h.t(), w_c.t()
+        dp_urs, dp_cs, rhs = [], [], []
+        for i in reversed(range(hi - lo)):
+            t = lo + i
+            dh = dh + dhs[t]
+            h_p = h_prev[i]
+            dp_u, dp_c, dh_p = _gru_final_vjp(
+                acts, p_ur_seq[i, :, :h], p_c_seq[i], h_p, mask[t], dh)
+            drh = dp_c @ w_c_t  # chain GEMM 1
+            dp_r, dh_p_r, rh = _gru_reset_vjp(acts, p_ur_seq[i, :, h:], h_p, drh)
+            dp_ur = torch.cat([dp_u, dp_r], -1)
+            dh = torch.addmm(dh_p + dh_p_r, dp_ur, w_h_t)  # chain GEMM 2
+            dp_urs.append(dp_ur)
+            dp_cs.append(dp_c)
+            rhs.append(rh)
+        if lo:
+            dh = dh + dhs[:lo].sum(0)
+        dxs = dhs.new_zeros(tuple(dhs.shape[:2]) + (3 * h,))
+        if hi > lo:
+            dp_ur_seq = torch.stack(dp_urs[::-1])
+            dp_c_seq = torch.stack(dp_cs[::-1])
+            dxs[lo:hi] = torch.cat([dp_ur_seq, dp_c_seq], -1)
+            # one GEMM each over the saved sequences: f32 accumulation,
+            # rounded once to the compute dtype
+            dw_h = torch.einsum("tbh,tbg->hg", h_prev, dp_ur_seq)
+            dw_c = torch.einsum("tbh,tbg->hg", torch.stack(rhs[::-1]), dp_c_seq)
+        else:
+            dw_h, dw_c = torch.zeros_like(w_h), torch.zeros_like(w_c)
+        return dxs, dw_h, dw_c, dh, None, None, None, None
+
+
+def gru_scan(
+    gates: torch.Tensor,  # [B, T, 3H] input projections (u, r, c)
+    w_h: torch.Tensor,  # [H, 2H] recurrent weight of the update and reset gates
+    w_c: torch.Tensor,  # [H, H] recurrent weight of the candidate
+    bias: Optional[torch.Tensor],  # [3H]
+    lengths: Optional[torch.Tensor] = None,
+    *,
+    gate_act: str = "sigmoid",
+    act: str = "tanh",
+    reverse: bool = False,
+    h0: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Paddle-v1 GRU (GatedRecurrentLayer.cpp):
+        u = gate(x_u + U_u h_p)   r = gate(x_r + U_r h_p)
+        c = act(x_c + (r * h_p) U_c)
+        h = (1 - u) * h_p + u * c
+    Returns ([B, T, H], h_last)."""
+    b, t, _ = gates.shape
+    h = w_c.shape[0]
+    xs = gates.transpose(0, 1)
+    if bias is not None:
+        xs = xs + bias
+    if reverse:
+        xs = xs.flip(0)
+    mask = _mask_seq(lengths, t, reverse)
+    if mask is None:
+        mask = torch.ones((t, b, 1), dtype=torch.bool, device=gates.device)
+    h_prev = h0 if h0 is not None else gates.new_zeros((b, h))
+    lo, hi = live_range(lengths, t, reverse)
+    hs, h_last = GruCore.apply(xs, w_h, w_c, h_prev, mask, (gate_act, act), lo, hi)
+    if reverse:
+        hs = hs.flip(0)
+    return hs.transpose(0, 1), h_last
+
+
+# ---------------------------------------------------------------------------
+# Fused attention-GRU decoder (JAX ``_attgru_core``)
+# ---------------------------------------------------------------------------
+#
+# One decoder step of the v1 attention decoder (simple_attention + gru_step in
+# a recurrent_group) as its minimal chain of dependent GEMMs:
+#
+#   a1    = h_p @ [W_sp | U_ur]            state projection and GRU u/r gates
+#   alpha = softmax_S(act(ep + sp) . v)    score matvec, static encoder mask
+#   ctx   = alpha . enc                    context reduce
+#   p     = xg_t + ctx @ W_ctx             (the target-embedding half of the
+#                                          input fc runs once for the whole
+#                                          sequence, outside the loop)
+#   c     = act(p_c + (r * h_p) @ W_c)
+#   h     = (1 - u) * h_p + u * c
+#
+# The backward loop runs only the transposed chain GEMMs; dW1, dW_ctx, dW_c,
+# dv and the static inputs' gradients d_enc and d_ep come after the loop.
+
+
+def _att_scores(att_act: str, ep, sp, v):
+    """[B, S] unnormalised scores act(ep + sp[:, None, :]) . v."""
+    return get_activation(att_act)(ep + sp[:, None, :]) @ v
+
+
+def _att_softmax(score, emask):
+    """Masked softmax over S, as the sequence_softmax activation: -1e9
+    fill, softmax, then zero the padding."""
+    if emask is None:
+        return torch.softmax(score, dim=-1)
+    alpha = torch.softmax(score.masked_fill(~emask, -1e9), dim=-1)
+    return alpha * emask.to(alpha.dtype)
+
+
+def _attgru_step(acts, xg_t, h_p, enc, ep, emask, w1, v, w_ctx, w_c, m):
+    """One fused decoder step: (h_t, (sp, alpha, ctx, p_ur, cpre)), the
+    residuals the hand-written backward needs."""
+    p_dim = ep.shape[-1]
+    h = h_p.shape[-1]
+    a1 = h_p @ w1  # [B, P + 2H]: state projection and GRU u/r gates
+    sp = a1[:, :p_dim]
+    alpha = _att_softmax(_att_scores(acts[2], ep, sp, v), emask)
+    ctxv = torch.bmm(alpha[:, None, :], enc)[:, 0]
+    p = torch.addmm(xg_t, ctxv, w_ctx)  # [B, 3H] in (u, r, c) order
+    p_ur = p[:, : 2 * h] + a1[:, p_dim:]
+    rh = _gru_reset(acts, p_ur[:, h:], h_p)
+    cpre = torch.addmm(p[:, 2 * h:], rh, w_c)
+    h_t = _gru_final(acts, p_ur[:, :h], cpre, h_p, m)
+    return h_t, (sp, alpha, ctxv, p_ur, cpre)
+
+
+# rows of the [T, B, S, P] score-key tensors the post-loop dv / d_ep
+# reductions hold at once (in f32)
+_BIG_CHUNK_ELEMS = 1 << 25
+
+
+class AttGruCore(torch.autograd.Function):
+    """Time-major fused attention-GRU recurrence.  acts: (gate_act, act,
+    att_act); xg: [T, B, 3H] target-side gate projections (+ biases); enc:
+    [B, S, E] context values; ep: [B, S, P] score keys (+ biases); emask:
+    [B, S] bool or None; w1: [H, P + 2H] = [W_state_proj | U_ur]; v: [P];
+    w_ctx: [E, 3H]; w_c: [H, H]; h0: [B, H]; mask: [T, B, 1] bool; steps
+    [lo, hi) run.  Returns (hs [T, B, H], h_last)."""
+
+    @staticmethod
+    def forward(ctx, xg, enc, ep, emask, w1, v, w_ctx, w_c, h0, mask, acts, lo, hi):
+        h_t = h0
+        seqs = ([], [], [], [], [], [])  # hs, sp, alpha, ctx, p_ur, cpre
+        for t in range(lo, hi):
+            h_t, saved = _attgru_step(acts, xg[t], h_t, enc, ep, emask, w1, v, w_ctx, w_c,
+                                      mask[t])
+            for acc, x in zip(seqs, (h_t,) + saved):
+                acc.append(x)
+        counters["attgru_steps"] += hi - lo
+        counters["attgru_skipped"] += xg.shape[0] - (hi - lo)
+        if hi > lo:
+            live, sp_seq, alpha_seq, ctx_seq, pur_seq, cpre_seq = (torch.stack(s) for s in seqs)
+        else:
+            live = sp_seq = alpha_seq = ctx_seq = pur_seq = cpre_seq = h0.new_zeros(
+                (0,) + tuple(h0.shape))
+        ctx.acts, ctx.lo, ctx.hi = acts, lo, hi
+        ctx.save_for_backward(sp_seq, alpha_seq, ctx_seq, pur_seq, cpre_seq, live,
+                              enc, ep, w1, v, w_ctx, w_c, h0, mask)
+        return _around(live, h0, h_t, lo, xg.shape[0]), h_t
+
+    @staticmethod
+    def backward(ctx, dhs, dh_last):
+        (sp_seq, alpha_seq, ctx_seq, pur_seq, cpre_seq, live, enc, ep,
+         w1, v, w_ctx, w_c, h0, mask) = ctx.saved_tensors
+        acts, lo, hi = ctx.acts, ctx.lo, ctx.hi
+        h = h0.shape[-1]
+        t_all = dhs.shape[0]
+        f_att = get_activation(acts[2])
+        d_att = _DERIVS[acts[2]]
+        dh = dh_last + dhs[hi:].sum(0) if hi < t_all else dh_last
+        h_prev = torch.cat([h0[None], live[:-1]])
+        w1_t, w_ctx_t, w_c_t = w1.t(), w_ctx.t(), w_c.t()
+        outs = ([], [], [], [], [])  # da1, dxg, dctx, dpre, rh
+        for i in reversed(range(hi - lo)):
+            t = lo + i
+            dh = dh + dhs[t]
+            h_p, sp, alpha = h_prev[i], sp_seq[i], alpha_seq[i]
+            dpu, dcpre, dh_p = _gru_final_vjp(
+                acts, pur_seq[i, :, :h], cpre_seq[i], h_p, mask[t], dh)
+            drh = dcpre @ w_c_t  # chain GEMM 1
+            dpr, dh_p_r, rh = _gru_reset_vjp(acts, pur_seq[i, :, h:], h_p, drh)
+            dxg = torch.cat([dpu, dpr, dcpre], -1)
+            dctx = dxg @ w_ctx_t  # chain GEMM 2
+            dalpha = torch.bmm(enc, dctx[:, :, None])[..., 0]
+            # masked-softmax VJP: padding has alpha == 0 and drops out
+            dpre = alpha * (dalpha - (alpha * dalpha).sum(-1, keepdim=True))
+            x_s = ep + sp[:, None, :]
+            fp = d_att(x_s, f_att(x_s))
+            dsp = torch.bmm(dpre[:, None, :], fp)[:, 0] * v
+            da1 = torch.cat([dsp, dpu, dpr], -1)
+            dh = torch.addmm(dh_p + dh_p_r, da1, w1_t)  # chain GEMM 3 (the h_p link)
+            for acc, x in zip(outs, (da1, dxg, dctx, dpre, rh)):
+                acc.append(x)
+        if lo:
+            dh = dh + dhs[:lo].sum(0)
+        dxg_all = dhs.new_zeros(tuple(dhs.shape[:2]) + (3 * h,))
+        if hi == lo:
+            zeros = [torch.zeros_like(x) for x in (enc, ep, w1, v, w_ctx, w_c)]
+            return (dxg_all, *zeros[:2], None, *zeros[2:], dh, None, None, None, None)
+        da1_seq, dxg_seq, dctx_seq, dpre_seq, rh_seq = (torch.stack(s[::-1]) for s in outs)
+        dxg_all[lo:hi] = dxg_seq
+        # one GEMM each over the saved sequences: f32 accumulation, rounded
+        # once to the compute dtype
+        dw1 = torch.einsum("tbh,tbg->hg", h_prev, da1_seq)
+        dw_ctx = torch.einsum("tbe,tbg->eg", ctx_seq, dxg_seq)
+        dw_c = torch.einsum("tbh,tbg->hg", rh_seq, dxg_seq[..., 2 * h:])
+        d_enc = torch.einsum("tbs,tbe->bse", alpha_seq, dctx_seq)
+        # static score-key gradients over the [T, B, S, P] act / act'
+        # tensors, a few steps at a time, accumulated in f32
+        acc = torch.promote_types(v.dtype, torch.float32)
+        dv = torch.zeros(v.shape, dtype=acc, device=v.device)
+        d_ep = torch.zeros(ep.shape, dtype=acc, device=ep.device)
+        chunk = max(1, _BIG_CHUNK_ELEMS // max(ep.numel(), 1))
+        for s in range(0, hi - lo, chunk):
+            x_big = ep[None] + sp_seq[s:s + chunk, :, None, :]
+            th_big = f_att(x_big)
+            dpre_c = dpre_seq[s:s + chunk].to(acc)
+            dv += torch.einsum("tbs,tbsp->p", dpre_c, th_big.to(acc))
+            d_ep += torch.einsum("tbs,tbsp->bsp", dpre_c, d_att(x_big, th_big).to(acc))
+        d_ep = (d_ep * v.to(acc)).to(ep.dtype)
+        return (dxg_all, d_enc, d_ep, None, dw1, dv.to(v.dtype), dw_ctx, dw_c, dh,
+                None, None, None, None)
+
+
+def attention_gru_scan(
+    gates: torch.Tensor,  # [B, T, 3H] target-side input projections (+ bias)
+    enc: torch.Tensor,  # [B, S, E] encoded sequence (context values)
+    enc_proj: torch.Tensor,  # [B, S, P] projected keys (+ any folded biases)
+    w1: torch.Tensor,  # [H, P + 2H] fused [W_state_proj | U_ur]
+    v: torch.Tensor,  # [P] attention score vector
+    w_ctx: torch.Tensor,  # [E, 3H] context -> gates projection
+    w_c: torch.Tensor,  # [H, H] GRU candidate recurrent weight
+    enc_lengths: Optional[torch.Tensor] = None,
+    lengths: Optional[torch.Tensor] = None,
+    *,
+    gate_act: str = "sigmoid",
+    act: str = "tanh",
+    att_act: str = "tanh",
+    reverse: bool = False,
+    h0: Optional[torch.Tensor] = None,
+    early_exit: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused Bahdanau-attention GRU decoder over a padded batch, the same
+    function as the unfused v1 lowering (simple_attention + gru_step in a
+    recurrent_group).  `early_exit` runs only the live steps (with the
+    ``scan_early_exit`` flag on).  Returns ([B, T, H], h_last)."""
+    b, t, _ = gates.shape
+    xs = gates.transpose(0, 1)
+    if reverse:
+        xs = xs.flip(0)
+    mask = _mask_seq(lengths, t, reverse)
+    if mask is None:
+        mask = torch.ones((t, b, 1), dtype=torch.bool, device=gates.device)
+    emask = None
+    if enc_lengths is not None:
+        emask = torch.arange(enc.shape[1], device=enc.device)[None, :] < enc_lengths[:, None]
+    h_prev = h0 if h0 is not None else gates.new_zeros((b, w_c.shape[0]))
+    lo, hi = live_range(lengths, t, reverse) if early_exit else (0, t)
+    hs, h_last = AttGruCore.apply(xs, enc, enc_proj, emask, w1, v, w_ctx, w_c, h_prev, mask,
+                                  (gate_act, act, att_act), lo, hi)
+    if reverse:
+        hs = hs.flip(0)
+    return hs.transpose(0, 1), h_last

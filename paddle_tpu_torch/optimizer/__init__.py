@@ -20,9 +20,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Iterator, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+
+from paddle_tpu_torch.utils.tree import get_path, leaf_paths, map_leaves
 
 OptState = Dict[str, Any]
 Schedule = Callable[[float], float]  # counter -> lr multiplier
@@ -153,14 +155,8 @@ class ModelAverage:
 # ---------------------------------------------------------------------------
 
 
-def _leaves(tree) -> Iterator[Tuple[str, str]]:
-    for layer, p in tree.items():
-        for key in p:
-            yield layer, key
-
-
 def _zeros_like_tree(params):
-    return {layer: {k: torch.zeros_like(v) for k, v in p.items()} for layer, p in params.items()}
+    return map_leaves(torch.zeros_like, params)
 
 
 class Optimizer:
@@ -205,10 +201,7 @@ class Optimizer:
         for name in self.slot_names():
             state[name] = _zeros_like_tree(params)
         if self.model_average is not None:
-            state["avg"] = {
-                layer: {k: v.detach().float().clone() for k, v in p.items()}
-                for layer, p in params.items()
-            }
+            state["avg"] = map_leaves(lambda v: v.detach().float().clone(), params)
             state["avg_count"] = 0.0
         return state
 
@@ -236,25 +229,24 @@ class Optimizer:
         lr = self.learning_rate_at(state)
         l2 = self.regularization.rate if isinstance(self.regularization, L2Regularization) else 0.0
         names = self.slot_names()
-        for layer, key in _leaves(params):
-            p, g = params[layer][key], grads[layer][key]
+        for path, p in leaf_paths(params):
+            g = get_path(grads, path)
             if self.clip > 0:
                 g = g.clamp(-self.clip, self.clip)
             if l2:
                 g = g + l2 * p
-            self.rule(g, p, lr, tuple(state[n][layer][key] for n in names), step)
+            self.rule(g, p, lr, tuple(get_path(state[n], path) for n in names), step)
         state["step"] = step + 1
 
         if isinstance(self.regularization, L1Regularization) and self.regularization.rate:
             lam = lr * self.regularization.rate
-            for layer, key in _leaves(params):
-                p = params[layer][key]
+            for _, p in leaf_paths(params):
                 p.copy_(torch.sign(p) * torch.clamp(p.abs() - lam, min=0.0))
 
         if self.model_average is not None:
             window = self.model_average.average_window
-            for layer, key in _leaves(params):
-                state["avg"][layer][key].mul_(1.0 - window).add_(params[layer][key], alpha=window)
+            for path, p in leaf_paths(params):
+                get_path(state["avg"], path).mul_(1.0 - window).add_(p, alpha=window)
             state["avg_count"] += 1.0
         return params, state
 

@@ -21,7 +21,7 @@ import io
 import struct
 import tarfile
 import warnings
-from typing import Dict, Iterator, Mapping, Optional
+from typing import Any, Dict, Iterator, Mapping, Optional
 
 import numpy as np
 import torch
@@ -29,11 +29,13 @@ import torch
 from paddle_tpu_torch.core.compiler import CompiledNetwork, NetState, Params
 from paddle_tpu_torch.core.device import resolve_device
 from paddle_tpu_torch.core.topology import Topology
+from paddle_tpu_torch.utils.tree import dotted, get_path, leaf_paths, map_leaves
 
 
 class Parameters:
-    """The parameter tree ``{layer: {key: tensor}}`` of a network and its
-    layer state, a tree of the same form."""
+    """The parameter tree ``{layer: {key: tensor}}`` of a network (a
+    recurrent group's entry nests one level deeper: ``{group: {inner layer:
+    {key: tensor}}}``) and its layer state, a tree of the same form."""
 
     def __init__(self, network: Optional[CompiledNetwork], params: Params,
                  state: Optional[NetState] = None):
@@ -42,8 +44,10 @@ class Parameters:
         self.state = state if state is not None else {}
 
     def names(self):
-        """Dotted parameter names, "<layer>.<key>" (the JAX package's form)."""
-        return [f"{layer}.{key}" for layer, p in self.params.items() for key in p]
+        """Dotted parameter names, "<layer>.<key>", and
+        "<group>.<inner layer>.<key>" inside a recurrent group (the JAX
+        package's form)."""
+        return [dotted(path) for path, _ in leaf_paths(self.params)]
 
     def keys(self):
         return self.names()
@@ -51,23 +55,26 @@ class Parameters:
     def _resolve(self, key: str):
         """(dict, leaf key) holding the parameter `key`: a dotted path, or a
         declared name of the network's global parameter table."""
-        layer, _, leaf = key.rpartition(".")
-        node = self.params.get(layer)
-        if node is not None and leaf in node:
-            return node, leaf
+        parts = key.split(".")
+        node = self.params
+        for part in parts[:-1]:
+            node = node.get(part) if isinstance(node, dict) else None
+        if isinstance(node, dict) and not isinstance(node.get(parts[-1], {}), dict):
+            return node, parts[-1]
         table = self.network.named_parameters() if self.network is not None else {}
-        if key in table:
-            path = table[key]
-            if "." in path:
-                return self._resolve(path)
-            # a whole-layer name addresses the layer's dict: its one leaf
-            node = self.params[path]
-            if len(node) != 1:
+        if key not in table:
+            raise KeyError(key)
+        *up, leaf = table[key].split(".")
+        node = get_path(self.params, up)
+        # a whole-layer name addresses the layer's dict: descend to its one leaf
+        while isinstance(node[leaf], dict):
+            inner = node[leaf]
+            if len(inner) != 1:
                 raise KeyError(
                     f"named parameter {key!r} maps to a multi-key param dict "
-                    f"({sorted(node)}); address a leaf as {path}.<key>")
-            return node, next(iter(node))
-        raise KeyError(key)
+                    f"({sorted(inner)}); address a leaf as {table[key]}.<key>")
+            node, leaf = inner, next(iter(inner))
+        return node, leaf
 
     def get(self, key: str) -> np.ndarray:
         """A float32 copy of the parameter (not a view of a CPU tensor, which
@@ -334,23 +341,19 @@ def create_from_network(network: CompiledNetwork, seed: int = 0, device=None) ->
     return Parameters(network, *network.init(seed, resolve_device(device)))
 
 
-def _tensor_tree(tree: Mapping[str, Mapping[str, np.ndarray]], dev) -> Dict[str, Dict[str, torch.Tensor]]:
-    out: Dict[str, Dict[str, torch.Tensor]] = {}
-    for layer, p in tree.items():
-        if not isinstance(p, Mapping):
-            raise TypeError(f"{layer!r}: expected a {{key: array}} dict, got {type(p).__name__}")
-        out[layer] = {
-            k: torch.from_numpy(np.array(v, dtype=np.float32)).to(dev) for k, v in p.items()
-        }
-    return out
+def _tensor_tree(tree: Mapping[str, Any], dev) -> Dict[str, Any]:
+    for path, v in leaf_paths(dict(tree)):
+        if len(path) < 2:
+            raise TypeError(f"{path[0]!r}: expected a {{key: array}} dict, got {type(v).__name__}")
+    return map_leaves(lambda v: torch.from_numpy(np.array(v, dtype=np.float32)).to(dev), dict(tree))
 
 
-def from_numpy(tree: Mapping[str, Mapping[str, np.ndarray]],
-               state_tree: Optional[Mapping[str, Mapping[str, np.ndarray]]] = None,
+def from_numpy(tree: Mapping[str, Any], state_tree: Optional[Mapping[str, Any]] = None,
                device=None) -> Parameters:
-    """Parameters from ``{layer: {key: array}}`` trees of numpy arrays (the
-    JAX package's ``Parameters.params`` and ``Parameters.state`` passed
-    through ``np.asarray``), as float32 tensors on `device`.  Layouts are the
-    JAX package's, which the port keeps (conv kernels HWIO)."""
+    """Parameters from trees of numpy arrays (the JAX package's
+    ``Parameters.params`` and ``Parameters.state`` passed through
+    ``np.asarray``: ``{layer: {key: array}}``, and one level deeper inside a
+    recurrent group), as float32 tensors on `device`.  Layouts are the JAX
+    package's, which the port keeps (conv kernels HWIO)."""
     dev = resolve_device(device)
     return Parameters(None, _tensor_tree(tree, dev), _tensor_tree(state_tree or {}, dev))

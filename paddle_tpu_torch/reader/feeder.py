@@ -11,7 +11,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from paddle_tpu_torch.core.batch import SeqTensor, ladder_len
+from paddle_tpu_torch.core.batch import SeqTensor, ladder_len, set_host_lengths
 from paddle_tpu_torch.core.data_types import InputType, SeqLevel, SlotKind
 from paddle_tpu_torch.core.device import resolve_device
 
@@ -107,4 +107,5 @@ class DataFeeder:
             for i, s in enumerate(col):
                 if len(s):
                     arr[i, : len(s)] = np.asarray(s, dtype=dtype)
-        return SeqTensor(self._to(arr), self._to(lengths))
+        # the scans read their live range from the host copy, not the device
+        return SeqTensor(self._to(arr), set_host_lengths(self._to(lengths), lengths))

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch import event as v2_event
+from paddle_tpu_torch.core.batch import DEFAULT_LADDER
 from paddle_tpu_torch.core.compiler import CompiledNetwork
 from paddle_tpu_torch.core.device import resolve_device, tree_to
 from paddle_tpu_torch.core.topology import LayerOutput, Topology
@@ -155,9 +156,13 @@ class SGD:
         return finalize_all(self.evaluators, accums) if self.evaluators else {}
 
     def _make_feeder(self, feeding) -> DataFeeder:
+        """Under the ``use_bucketing`` flag, sequence slots pad to the shape
+        ladder: the rung ``reader.bucketing.token_budget_batch`` packed each
+        batch for."""
         return DataFeeder(
             self.topology.data_types(), feeding,
             feed_dtypes=feed_dtypes_of(self.topology), device=self.device,
+            ladder=DEFAULT_LADDER if _flags.get_flag("use_bucketing") else None,
         )
 
     def train(

@@ -29,6 +29,7 @@ import torch
 from paddle_tpu_torch.core.batch import SeqTensor
 from paddle_tpu_torch.core.compiler import CompiledNetwork
 from paddle_tpu_torch.optimizer import Optimizer
+from paddle_tpu_torch.utils.tree import leaf_paths, leaves as tree_leaves, map_leaves, set_path
 
 Metrics = Dict[str, torch.Tensor]
 MetricsFn = Callable[[Dict[str, Any]], Metrics]
@@ -42,7 +43,7 @@ def _global_norm(grads) -> torch.Tensor:
     """float32 L2 norm over every gradient leaf, in one reduction per device
     (``_foreach_norm``) rather than one kernel per leaf: any NaN or Inf leaf
     makes it non-finite, so its finiteness is the whole tree's health."""
-    leaves = [g.float() for p in grads.values() for g in p.values()]
+    leaves = [g.float() for g in tree_leaves(grads)]
     if not leaves:
         return torch.zeros(())
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(leaves)))
@@ -71,22 +72,16 @@ def _train_step_body(network: CompiledNetwork, optimizer: Optimizer, extra_metri
     def step(params, state, opt_state, batch, rng: Optional[int] = None):
         # views of the masters that share their storage: the graph hangs off
         # these, and the in-place update below writes the masters themselves
-        leaves = {
-            layer: {k: v.detach().requires_grad_(True) for k, v in p.items()}
-            for layer, p in params.items()
-        }
+        leaves = map_leaves(lambda v: v.detach().requires_grad_(True), params)
         with torch.enable_grad():
             cost, (outs, new_state) = network.cost(
                 leaves, batch, state=state, train=True, rng=rng)
-            flat = [v for p in leaves.values() for v in p.values()]
-            grads_flat = torch.autograd.grad(cost, flat, allow_unused=True)
-        grads, i = {}, 0
-        for layer, p in leaves.items():
-            grads[layer] = {}
-            for k, v in p.items():
-                g = grads_flat[i]
-                grads[layer][k] = torch.zeros_like(v) if g is None else g
-                i += 1
+            paths = list(leaf_paths(leaves))
+            grads_flat = torch.autograd.grad(
+                cost, [v for _, v in paths], allow_unused=True)
+        grads: Dict[str, Any] = {}
+        for (path, v), g in zip(paths, grads_flat):
+            set_path(grads, path, torch.zeros_like(v) if g is None else g)
         metrics: Metrics = {"cost": cost.detach()}
         healthy = True
         if guard:
@@ -98,9 +93,7 @@ def _train_step_body(network: CompiledNetwork, optimizer: Optimizer, extra_metri
         if healthy:
             params, opt_state = optimizer.update(grads, opt_state, params)
             # the state carries no graph into the next step
-            state = {
-                layer: {k: v.detach() for k, v in s.items()} for layer, s in new_state.items()
-            }
+            state = map_leaves(torch.Tensor.detach, new_state)
         if extra_metrics is not None:
             metrics.update(extra_metrics(outs))
         return params, state, opt_state, metrics

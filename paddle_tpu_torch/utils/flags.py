@@ -85,3 +85,22 @@ define_flag("saving_period", 1,
 define_flag("checkpoint_period_batches", 50,
             "full-state checkpoint cadence in batches of SGD.train with "
             "checkpoint_dir (the recovery plane, not ported yet)")
+define_flag("use_bucketing", False,
+            "length-bucketed feed for variable-length sequence workloads: "
+            "the SGD trainer's DataFeeder pads sequence slots to the "
+            "canonical 16*2^k shape ladder (core.batch.DEFAULT_LADDER), the "
+            "shapes reader.bucketing.token_budget_batch packs batches for")
+define_flag("scan_early_exit", True,
+            "recurrent scans skip dead steps: the steps where every row is "
+            "padding (the batch's longest sequence sits below the padded "
+            "ladder rung) are not run, the carry passes through; the live "
+            "range comes from the host copy of the lengths the feeder made, "
+            "so no step reads the device")
+define_flag("fused_attention_gru", True,
+            "recurrent_group decoder steps that match the v1 attention-GRU "
+            "idiom (simple_attention + gru_step, the NMT decoder) run the "
+            "fused core (ops/rnn.py AttGruCore: the state projection and the "
+            "GRU gates share one GEMM, the target-side input projection runs "
+            "once outside the loop, the weight gradients are post-loop "
+            "einsums) instead of the generic per-layer step; steps that do "
+            "not match always take the generic path")

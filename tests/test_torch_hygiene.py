@@ -41,7 +41,8 @@ def test_every_module_imports_without_jax():
     count, names = proc.stdout.strip().splitlines()
     assert int(count) >= 25  # every module of the package was walked
     for mod in ("layers.conv", "models.lenet", "models.resnet", "pooling", "evaluator",
-                "checkpoint", "trainer.step", "optimizer"):
+                "checkpoint", "trainer.step", "optimizer", "ops.rnn", "layers.recurrent_group",
+                "layers.sequence", "layers.networks", "models.seq2seq", "reader.bucketing"):
         assert f"paddle_tpu_torch.{mod}" in names.split()
 
 

@@ -7,6 +7,8 @@ package's parameters and layer state into the port with
 ``parameters.from_numpy``, feeds both the same numpy batch, and compares
 outputs, gradients and trajectories.
 
+Trees may nest (a recurrent group's parameters sit one level deeper).
+
 Its own tests: parameters carried over are bit-exact by name in both
 directions; with ``train=False`` a topology with dropout and error
 clipping computes the same forward in both packages (f32, atol 1e-5: the
@@ -28,6 +30,7 @@ from paddle_tpu_torch.core.batch import SeqTensor as TSeq
 from paddle_tpu_torch.core.compiler import CompiledNetwork as TNet
 from paddle_tpu_torch.core.topology import Topology as TTopo
 from paddle_tpu_torch.core.topology import reset_auto_names as t_reset
+from paddle_tpu_torch.utils.tree import map_leaves
 
 MLP_FEEDING = {"pixel": 0, "label": 1}
 
@@ -48,14 +51,28 @@ def build_both(fn):
 
 
 def numpy_tree(tree):
-    """{layer: {key: float32 ndarray}} of a JAX or port tree (a copy)."""
+    """A JAX or port tree ({layer: {key: array}}, one level deeper inside a
+    recurrent group) as float32 ndarrays (a copy)."""
     out = {}
     for k, v in tree.items():
-        out[k] = {}
-        for kk, vv in v.items():
-            if torch.is_tensor(vv):
-                vv = vv.detach().float().cpu().numpy()
-            out[k][kk] = np.array(vv, dtype=np.float32)
+        if isinstance(v, dict):
+            out[k] = numpy_tree(v)
+            continue
+        if torch.is_tensor(v):
+            v = v.detach().float().cpu().numpy()
+        out[k] = np.array(v, dtype=np.float32)
+    return out
+
+
+def flat_leaves(tree, prefix=""):
+    """{dotted path: leaf} of a nested tree."""
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}.{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(flat_leaves(v, name))
+        else:
+            out[name] = v
     return out
 
 
@@ -66,26 +83,23 @@ def carry(jparams):
 
 
 def rel_l2(got, want) -> float:
-    """|got - want| / |want| over every leaf of two {layer: {key: array}}
-    trees (or two arrays)."""
+    """|got - want| / |want| over every leaf of two trees (or two
+    arrays)."""
     if not isinstance(want, dict):
-        got, want = {"x": {"x": got}}, {"x": {"x": want}}
-    got, want = numpy_tree(got), numpy_tree(want)
-    assert {(k, kk) for k in got for kk in got[k]} == {(k, kk) for k in want for kk in want[k]}
-    d2 = sum(float(((got[k][kk].astype(np.float64) - want[k][kk]) ** 2).sum())
-             for k in want for kk in want[k])
-    n2 = sum(float((want[k][kk].astype(np.float64) ** 2).sum()) for k in want for kk in want[k])
+        got, want = {"x": got}, {"x": want}
+    got, want = flat_leaves(numpy_tree(got)), flat_leaves(numpy_tree(want))
+    assert set(got) == set(want)
+    d2 = sum(float(((got[k].astype(np.float64) - want[k]) ** 2).sum()) for k in want)
+    n2 = sum(float((want[k].astype(np.float64) ** 2).sum()) for k in want)
     return (d2 / max(n2, 1e-300)) ** 0.5
 
 
 def assert_trees_equal(got, want):
-    """Bit-exact equality of two {layer: {key: array}} trees."""
-    got, want = numpy_tree(got), numpy_tree(want)
+    """Bit-exact equality of two trees."""
+    got, want = flat_leaves(numpy_tree(got)), flat_leaves(numpy_tree(want))
     assert set(got) == set(want)
     for k in want:
-        assert set(got[k]) == set(want[k]), k
-        for kk in want[k]:
-            assert np.array_equal(got[k][kk], want[k][kk]), f"{k}.{kk}"
+        assert np.array_equal(got[k], want[k]), k
 
 
 def batch_both(arrays):
@@ -112,11 +126,10 @@ def grads_both(jcost, tcost, jparams, batch_arrays, *, state=None, train=True):
 
     jc, jg = jax.value_and_grad(loss)(jparams.params)
     carried = carry(jparams)
-    leaves = {k: {kk: v.clone().requires_grad_(True) for kk, v in p.items()}
-              for k, p in carried.params.items()}
+    leaves = map_leaves(lambda v: v.clone().requires_grad_(True), carried.params)
     tc, _ = tnet.cost(leaves, tb, state=carried.state, train=train)
     tc.backward()
-    tg = {k: {kk: v.grad for kk, v in p.items()} for k, p in leaves.items()}
+    tg = map_leaves(lambda v: v.grad, leaves)
     return float(jc), tc.item(), numpy_tree(jg), numpy_tree(tg)
 
 
