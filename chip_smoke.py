@@ -116,11 +116,38 @@ Phases, in order; any failure exits non-zero:
      (busy share, device kernels per step, top kernels), no flash launch
      over the phase; and one step's gradients in f32 at a small width,
      card against CPU and the fused core against the generic loop on the
-     card (relative L2 over every leaf <= 1e-4).
+     card (relative L2 over every leaf <= 1e-4);
+ 12. NMT generation at bench.py's bench_nmt_generate configuration (the
+     same model in f32 with random weights from a seed, B = 64, beam 5,
+     max_length 32, sources of 40 ids from RandomState(0)) through
+     Seq2SeqGenerator.generate and generate_greedy on the card: seconds per
+     call, top-beam tokens/s by bench.py's count, ms per sentence, and
+     torch.profiler over one call of each (device kernels per decode step,
+     busy share, top kernels); it fails unless every decoder step took the
+     fused attention-GRU step.  At vocab 512, width 64 and 8 rows in f32:
+     beam and greedy tokens card == CPU, beam scores within 1e-5 relative,
+     and fused == generic stepping on the card;
+ 13. the ServingEngine at the same width (max_slots 16, block_steps 8,
+     max_new_tokens 32, hbm_budget_mb 64: 682 blocks of 16 tokens x 1536
+     f32 features) serving 64 requests of 4-30 source tokens drawn as
+     bench_serving draws them, admitted as slots free, one preempted after
+     the second dispatch and re-admitted, one cancelled after the third:
+     requests/s, generated tokens/s, p50 and p99 per-token latency
+     ((last token - admission) / tokens, from token_times), decode
+     dispatches and shape variants, torch.profiler's busy share over a
+     second run; that at the engine's row count a row's product does not
+     depend on its position (and which other row counts round it alike);
+     and every served request against reference_decode: where its tokens
+     leave the one-shot path, the one-shot path's top-2 log-prob gap at
+     that step must be below 1e-4 (the count of such requests and the
+     largest |d| of the emitted tokens' log-probs over the matching
+     prefixes are printed), and the engine's own claim, tokens and
+     log-probs bit for bit, must hold.  No flash kernel may launch in
+     phases 12 and 13.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels with their launches on the main path (the timed training steps of
-phase 5; the NMT path of phase 11 runs none of them), errors and times.
+phase 5; the NMT paths of phases 11-13 run none of them), errors and times.
 Without a CUDA device, or without the paddle_tpu_torch package beside it, the script
 exits non-zero and prints no result.
 """
@@ -1617,6 +1644,288 @@ def phase_nmt(torch, P, fa, card):
     P.init(compute_dtype="bfloat16", use_bucketing=False)
 
 
+# ---------------------------------------------------------------------------
+# phases 12 and 13: NMT generation and serving
+# ---------------------------------------------------------------------------
+
+GEN_B, GEN_BEAM, GEN_MAXLEN, GEN_SRC = 64, 5, 32, 40  # bench_nmt_generate
+GEN_TIMED = 4  # timed calls of each search, after one warm-up call
+GEN_SMALL = (512, 64, 8)  # vocab, width, rows of the card-vs-CPU checks
+GEN_SCORE_REL = 1e-5
+SERVE_REQUESTS, SERVE_SLOTS, SERVE_K, SERVE_BUDGET_MB = 64, 16, 8, 64
+NEAR_TIE = 1e-4  # a served token may leave the one-shot path's only where its top-2 gap is below
+
+
+def profile_call(torch, fn):
+    """(wall s, device busy s, device kernels, top kernels) of one call of fn
+    under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in dev)
+    if busy_us <= 0:
+        raise SystemExit("profile: the profiler shows no device time")
+    top = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)[:6]
+    return wall, busy_us / 1e6, sum(e.count for e in dev), [
+        f"{e.self_device_time_total / 1e3:8.3f} ms {e.count:6d} calls  {e.key[:90]}" for e in top]
+
+
+def top_beam_tokens(seqs, eos):
+    """bench_nmt_generate's count: top-beam tokens before the first EOS (the
+    whole row when there is none)."""
+    top = seqs[:, 0, :].cpu().numpy()
+    eos_pos = np.where(top == eos, np.arange(top.shape[1])[None, :], top.shape[1])
+    return int(eos_pos.min(axis=1).sum()) or top.size
+
+
+def phase_generate(torch, P, fa, card):
+    """Phase 12: beam and greedy generation at bench_nmt_generate's
+    configuration through Seq2SeqGenerator on the card; card vs CPU and
+    fused vs generic stepping at a small width."""
+    from paddle_tpu_torch.core.batch import DEFAULT_LADDER, SeqTensor, set_host_lengths
+    from paddle_tpu_torch.models import seq2seq as S
+    from paddle_tpu_torch.reader.feeder import DataFeeder
+
+    P.init(seed=61, compute_dtype="float32")
+    cost, _ = S.seq2seq_cost(NMT_VOCAB, NMT_VOCAB, NMT_WIDTH, NMT_WIDTH)
+    params = P.parameters.create(cost, seed=61)
+    gen = S.Seq2SeqGenerator(params, NMT_VOCAB, NMT_VOCAB, word_dim=NMT_WIDTH,
+                             hidden_dim=NMT_WIDTH, bos_id=0, eos_id=1, max_length=GEN_MAXLEN,
+                             beam_size=GEN_BEAM)
+    ids = np.random.RandomState(0).randint(2, NMT_VOCAB, size=(GEN_B, GEN_SRC)).astype(np.int32)
+    lens = np.full((GEN_B,), GEN_SRC, np.int32)
+    batch = {"src_word": SeqTensor(torch.from_numpy(ids).cuda(),
+                                   set_host_lengths(torch.from_numpy(lens).cuda(), lens))}
+    reset_counts(fa)
+    S.counters.clear()
+    out = {}
+    for name, call in (("beam", lambda: gen.generate(batch)),
+                       ("greedy", lambda: gen.generate_greedy(batch))):
+        res = call()  # warm-up: cuBLAS handles and heuristics
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(GEN_TIMED):
+            res = call()
+        torch.cuda.synchronize()
+        secs = (time.perf_counter() - t0) / GEN_TIMED
+        if name == "beam":
+            n_tok = top_beam_tokens(res[0], gen.eos_id)
+            if not torch.isfinite(res[1]).all() or not (res[1][:, :-1] >= res[1][:, 1:]).all():
+                raise SystemExit("generate: scores not finite or not sorted best first")
+        else:
+            n_tok = int(res[1].sum()) or res[0].numel()
+        wall, busy, kernels, top = profile_call(torch, call)
+        out[name] = secs
+        say(f"generate {name}: {secs:.4f} s per call (mean of {GEN_TIMED}), {n_tok / secs:.1f} "
+            f"{'top-beam ' if name == 'beam' else ''}tokens/s ({n_tok} tokens), "
+            f"{secs / GEN_B * 1e3:.4f} ms per sentence; profiled call {wall:.4f} s, device busy "
+            f"{busy:.4f} s ({busy / wall:.3f} of the window), {kernels} device kernels "
+            f"({kernels / GEN_MAXLEN:.1f} per decode step) on {card}")
+        for line in top:
+            say(f"  {line}")
+    steps = (1 + GEN_TIMED + 1) * GEN_MAXLEN
+    say(f"generate: decoder steps fused {S.counters['fused']}, generic {S.counters['generic']} "
+        f"({steps} beam steps and up to {steps} greedy); flash launches {launch_counts(fa)}")
+    if S.counters["generic"] or S.counters["fused"] <= steps:
+        raise SystemExit("generate: generation did not take the fused attention-GRU step")
+    if launch_counts(fa) != (0, 0, 0):
+        raise SystemExit("generate: the generation path launched a flash kernel")
+    del gen, params
+    torch.cuda.empty_cache()
+
+    # card vs CPU, and fused vs generic on the card, at a small width in f32
+    vocab, width, rows = GEN_SMALL
+    small, _ = S.seq2seq_cost(vocab, vocab, width, width)
+    cpu_params = P.parameters.create(small, seed=63, device="cpu")
+    rng = np.random.RandomState(63)
+    samples = [(rng.randint(2, vocab, size=n).tolist(),) for n in rng.randint(4, 40, size=rows)]
+    got = {}
+    for where in ("card", "CPU", "generic"):
+        dev = "cpu" if where == "CPU" else "cuda"
+        g = S.Seq2SeqGenerator(cpu_params, vocab, vocab, word_dim=width, hidden_dim=width,
+                               bos_id=0, eos_id=1, max_length=GEN_MAXLEN, beam_size=GEN_BEAM,
+                               device=dev)
+        b = DataFeeder(g._enc_net.topology.data_types(), ladder=DEFAULT_LADDER, min_seq_len=1,
+                       device=dev)(samples)
+        P.flags.set_flag("fused_attention_gru", where != "generic")
+        S.counters.clear()
+        try:
+            seqs, scores = g.generate(b)
+            toks, lengths = g.generate_greedy(b, early_exit=False)
+        finally:
+            P.flags.set_flag("fused_attention_gru", True)
+        if S.counters["fused" if where != "generic" else "generic"] != 2 * GEN_MAXLEN:
+            raise SystemExit(f"generate: the {where} run took the other stepping")
+        got[where] = [x.cpu() for x in (seqs, scores, toks, lengths)]
+    rel = float(((got["card"][1] - got["CPU"][1]).abs() / got["CPU"][1].abs()).max())
+    same = {k: all(torch.equal(a, b) for i, (a, b) in enumerate(zip(got["card"], got[k])) if i != 1)
+            for k in ("CPU", "generic")}
+    say(f"generate f32 at vocab {vocab}, width {width}, {rows} rows: beam and greedy tokens card "
+        f"== CPU {same['CPU']}, fused == generic on the card {same['generic']}; beam scores card "
+        f"vs CPU worst relative {rel:.3e} (<= {GEN_SCORE_REL}), fused vs generic "
+        f"{float((got['card'][1] - got['generic'][1]).abs().max()):.3e} absolute")
+    if not (same["CPU"] and same["generic"] and rel <= GEN_SCORE_REL):
+        raise SystemExit("generate: the card's tokens or scores stray from the CPU's or the "
+                         "generic stepping's")
+    return out
+
+
+def oneshot_trace(torch, eng, src, n):
+    """The one-shot greedy path's chosen log-prob and top-2 gap at each of n
+    steps for one request (teacher-forced on its own argmax, so the tokens
+    are reference_decode's), through the same batch of the engine's rows."""
+    from paddle_tpu_torch.core.batch import pad_batch_rows
+
+    gen = eng._gen
+    with torch.no_grad():
+        statics, carry, b, gp = gen._prepare(pad_batch_rows(eng._feeder([(list(src),)]), eng.rows))
+        step = gen._step_fn(statics, gp)
+        ids = torch.full((b,), gen.bos_id, dtype=torch.int32, device=eng.device)
+        toks, chosen, gaps = [], [], []
+        for _ in range(n):
+            logp, carry = step(ids, carry)
+            top2 = torch.topk(logp[0], 2).values
+            ids = torch.argmax(logp, dim=-1).to(torch.int32)
+            toks.append(ids[0])
+            chosen.append(top2[0])
+            gaps.append(top2[0] - top2[1])
+    toks = torch.stack(toks).tolist()
+    n_ok = toks.index(gen.eos_id) if gen.eos_id in toks else n
+    return toks[:n_ok], torch.stack(chosen).tolist(), torch.stack(gaps).tolist()
+
+
+def drive_engine(eng, reqs, drills=False):
+    """Admit as slots free and step until every request is served; with
+    `drills`, preempt the newest request after the second dispatch (it is
+    re-queued first) and cancel one after the third.  Returns (seconds,
+    dispatches, preempted, cancelled)."""
+    import collections
+
+    queue = collections.deque(reqs)
+    preempted = cancelled = None
+    dispatches = 0
+    t0 = time.perf_counter()
+    while queue or eng.n_live:
+        if queue and eng.n_free_slots:
+            for r in eng.admit(list(queue)):
+                queue.remove(r)
+        eng.step()
+        dispatches += 1
+        if drills and dispatches == 2:
+            preempted = eng.preempt()
+            queue.appendleft(preempted)
+        if drills and dispatches == 3:
+            victim = next(r for r in eng.outstanding_requests() if r is not preempted)
+            cancelled = eng.cancel_by_id(victim.req_id)
+    return time.perf_counter() - t0, dispatches, preempted, cancelled
+
+
+def phase_serve(torch, P, fa, card):
+    """Phase 13: the ServingEngine at full width serving bench_serving's
+    request mix, a preemption and a cancel, every request held to
+    reference_decode under the near-tie rule."""
+    from paddle_tpu_torch.models import seq2seq as S
+    from paddle_tpu_torch.serving import Request, ServingEngine
+
+    P.init(seed=61, compute_dtype="float32")
+    cost, _ = S.seq2seq_cost(NMT_VOCAB, NMT_VOCAB, NMT_WIDTH, NMT_WIDTH)
+    params = P.parameters.create(cost, seed=61)
+    gen = S.Seq2SeqGenerator(params, NMT_VOCAB, NMT_VOCAB, word_dim=NMT_WIDTH,
+                             hidden_dim=NMT_WIDTH, bos_id=0, eos_id=1, max_length=GEN_MAXLEN)
+    eng = ServingEngine(gen, max_slots=SERVE_SLOTS, block_steps=SERVE_K,
+                        max_new_tokens=GEN_MAXLEN, hbm_budget_mb=SERVE_BUDGET_MB)
+    pages = eng.pages.summary()
+    rng = np.random.RandomState(0)
+    srcs = [rng.randint(2, NMT_VOCAB, size=rng.randint(4, 31)).tolist()
+            for _ in range(SERVE_REQUESTS)]
+    say(f"serve: {pages['n_blocks']} blocks of {pages['block_tokens']} tokens x "
+        f"{pages['bytes_per_block']} bytes under {SERVE_BUDGET_MB} MB; decode bundle "
+        f"{eng.weight_bytes} bytes; {SERVE_REQUESTS} requests of {min(map(len, srcs))}-"
+        f"{max(map(len, srcs))} source tokens")
+    # warm-up: both page rungs at every slot rung the run can reach
+    for n in (16, 8, 4, 2):
+        drive_engine(eng, [Request([2] * (5 + 20 * (i % 2))) for i in range(n)])
+    eng.decode_shapes.clear()
+    eng.prefill_shapes.clear()
+    reset_counts(fa)
+    reqs = [Request(s) for s in srcs]
+    secs, dispatches, preempted, cancelled = drive_engine(eng, reqs, drills=True)
+    served = [r for r in reqs if r is not cancelled]
+    n_tok = sum(len(r.tokens) for r in served)
+    tpots = sorted((r.token_times[-1] - r.t_admit) / len(r.tokens) for r in served if r.tokens)
+    pct = lambda p: tpots[min(len(tpots) - 1, int(p * len(tpots)))]  # noqa: E731
+    say(f"serve: {len(served)} requests in {secs:.4f} s: {len(served) / secs:.2f} requests/s, "
+        f"{n_tok / secs:.1f} generated tokens/s ({n_tok} tokens); per-token latency p50 "
+        f"{pct(0.5) * 1e3:.4f} ms, p99 {pct(0.99) * 1e3:.4f} ms; {dispatches} decode dispatches, "
+        f"{len(eng.decode_shapes)} decode shape variants {sorted(eng.decode_shapes)}, "
+        f"{len(eng.prefill_shapes)} prefill shapes; preempted {preempted.req_id}, cancelled "
+        f"{cancelled.req_id} on {card}")
+    if cancelled.tokens is not None or eng.pages.n_used or eng.n_free_slots != SERVE_SLOTS:
+        raise SystemExit("serve: the cancel or the drain left pages or slots behind")
+    wall, busy, kernels, top = profile_call(
+        torch, lambda: drive_engine(eng, [Request(s) for s in srcs]))
+    say(f"serve profile: the same {SERVE_REQUESTS} requests in {wall:.4f} s (profiler on), device "
+        f"busy {busy:.4f} s ({busy / wall:.3f} of the window), {kernels} device kernels on "
+        f"{card}; flash launches over the phase {launch_counts(fa)}")
+    for line in top:
+        say(f"  {line}")
+    if launch_counts(fa) != (0, 0, 0):
+        raise SystemExit("serve: the serving path launched a flash kernel")
+
+    # the decode's products at the engine's rows: a row's bits must not
+    # depend on its position, and (for the record) which other row counts
+    # would round it alike
+    w = eng._w
+    x_gen = torch.Generator(device=eng.device).manual_seed(0)
+    moved, alike = [], {}
+    for name in ("w_emb", "w1", "w_ctx", "w_c", "head_w"):
+        wt = w[name]
+        x = torch.randn((eng.rows, wt.shape[0]), generator=x_gen, device=eng.device)
+        perm = torch.randperm(eng.rows, generator=x_gen, device=eng.device)
+        full = x @ wt
+        if not torch.equal(x[perm] @ wt, full[perm]):
+            moved.append(name)
+        alike[name] = [m for m in (1, 2, 4, 8) if torch.equal(x[:m] @ wt, full[:m])]
+    say(f"serve: at M = {eng.rows} rows a row's product depends on its position for {moved}; "
+        "the rows of x[:M] @ W equal to M = " + f"{eng.rows}'s at M = " + "; ".join(
+            f"{n} {tuple(w[n].shape)}: {ms}" for n, ms in alike.items()))
+    if moved:
+        raise SystemExit("serve: a product's row depends on its position at a fixed M")
+
+    diverged, worst_d, gaps = 0, 0.0, []
+    for r in served:
+        ref = eng.reference_decode(r.src_ids, GEN_MAXLEN)
+        toks, chosen, gap = oneshot_trace(torch, eng, r.src_ids, GEN_MAXLEN)
+        if toks != ref:
+            raise SystemExit(f"serve: the one-shot trace of {r.req_id} is not reference_decode's")
+        j = next((i for i, (a, b) in enumerate(zip(r.tokens, ref)) if a != b),
+                 None if len(r.tokens) == len(ref) else min(len(r.tokens), len(ref)))
+        n_match = len(r.tokens) if j is None else j
+        worst_d = max([worst_d] + [abs(a - b) for a, b in zip(r.token_logprobs[:n_match],
+                                                               chosen[:n_match])])
+        if j is not None:
+            diverged += 1
+            gaps.append((r.req_id, j, gap[j]))
+    say(f"serve vs reference_decode: {diverged} of {len(served)} requests diverged "
+        f"{[(rid, j, f'{g:.3e}') for rid, j, g in gaps]}; largest |d| of the emitted tokens' "
+        f"log-probs over the matching prefixes {worst_d:.3e}")
+    if any(g >= NEAR_TIE for _, _, g in gaps):
+        raise SystemExit(f"serve: a request left the one-shot path where its top-2 gap is >= "
+                         f"{NEAR_TIE}")
+    # the engine's own claim is stronger: every product at the one-shot
+    # path's shapes gives each request its tokens and log-probs bit for bit
+    if diverged or worst_d:
+        raise SystemExit("serve: the engine is not bit-identical to reference_decode")
+    return {"requests_per_s": len(served) / secs, "tokens_per_s": n_tok / secs}
+
+
 def main() -> int:
     import torch
 
@@ -1678,6 +1987,13 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_nmt(torch, P, fa, card)
     say(f"nmt: phase 11 took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_generate(torch, P, fa, card)
+    say(f"generate: phase 12 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_serve(torch, P, fa, card)
+    say(f"serve: phase 13 took {time.perf_counter() - t0:.1f} s")
     kernels = [
         {"name": name, "route": "cuda", "source": f"paddle_tpu_torch/csrc/{src}",
          "replaces": f"paddle_tpu/ops/pallas_attention.py:{line}",

@@ -129,7 +129,8 @@ def host_lengths(lengths: torch.Tensor) -> np.ndarray:
 def pad_batch_rows(batch: Batch, to_b: int) -> Batch:
     """Pad every slot's batch axis up to ``to_b`` rows.  Dead rows are zero
     data with length 1 (one valid zero timestep), so per-row normalisers
-    never see 0/0; the live rows are untouched."""
+    never see 0/0; the live rows are untouched.  A host copy of the lengths
+    (``set_host_lengths``) is padded along."""
     out: Batch = {}
     for name, t in batch.items():
         b = t.data.shape[0]
@@ -139,7 +140,10 @@ def pad_batch_rows(batch: Batch, to_b: int) -> Batch:
         data = _pad_axis(t.data, 0, to_b)
         lengths = t.lengths
         if lengths is not None:
+            host = getattr(lengths, "_host_lengths", None)
             lengths = torch.cat([lengths, lengths.new_ones((to_b - b,))])
+            if host is not None:
+                set_host_lengths(lengths, np.concatenate([host, np.ones(to_b - b, host.dtype)]))
         sub_lengths = t.sub_lengths
         if sub_lengths is not None:
             sub_lengths = torch.cat(

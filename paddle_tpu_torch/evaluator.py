@@ -11,8 +11,8 @@ events, per pass for pass events and ``test``) and finalizes them.  Printers
 print from their update and accumulate nothing.
 
 Ported: classification_error, sum, column_sum, auc, precision_recall,
-pnpair and the value, maxid, classification_error and gradient printers.
-Not ported yet: ctc_error, chunk, seq_text_printer, maxframe_printer and
+pnpair and the value, maxid, seq_text, classification_error and gradient
+printers.  Not ported yet: ctc_error, chunk, maxframe_printer and
 detection_map (their layers are not in the port).
 """
 
@@ -247,6 +247,52 @@ def maxid_printer_evaluator(input: LayerOutput, name: Optional[str] = None) -> E
 
     def update(outs):
         print(f"{nm} {torch.argmax(outs[input.name].data, dim=-1).cpu().numpy()}")
+        return {}
+
+    return Evaluator(nm, [input], update, lambda a: {})
+
+
+def seq_text_printer_evaluator(
+    input: LayerOutput,
+    id_to_word=None,
+    result_file: Optional[str] = None,
+    id_input: Optional[LayerOutput] = None,
+    dict_file: Optional[str] = None,
+    name: Optional[str] = None,
+) -> Evaluator:
+    """Print id sequences as text, one line per sample (reference
+    seqtext_printer_evaluator: dict_file + result_file).  `id_to_word` maps
+    id to token (dict, list or callable); None prints the raw ids.
+    `dict_file` loads that mapping, one token per line; `id_input` is
+    accepted for the reference's surface (the ids printed are `input`'s).
+    The JAX package prints through an io_callback under jit; here the
+    update copies the ids to the host and prints."""
+    nm = name or auto_name("seq_text_printer")
+    if id_to_word is None and dict_file:
+        with open(dict_file) as f:
+            id_to_word = [ln.rstrip("\n").split("\t")[0] for ln in f]
+
+    def to_text(ids: np.ndarray, lengths: Optional[np.ndarray]) -> None:
+        lines = []
+        for i in range(ids.shape[0]):
+            row = ids[i][: int(lengths[i])] if lengths is not None else ids[i]
+            if id_to_word is None:
+                toks = [str(int(t)) for t in row.reshape(-1)]
+            elif callable(id_to_word):
+                toks = [str(id_to_word(int(t))) for t in row.reshape(-1)]
+            else:
+                toks = [str(id_to_word[int(t)]) for t in row.reshape(-1)]
+            lines.append(" ".join(toks))
+        text = "\n".join(lines)
+        if result_file:
+            with open(result_file, "a") as f:
+                f.write(text + "\n")
+        else:
+            print(f"{nm}:\n{text}")
+
+    def update(outs):
+        t = outs[input.name]
+        to_text(t.data.cpu().numpy(), t.lengths.cpu().numpy() if t.is_seq else None)
         return {}
 
     return Evaluator(nm, [input], update, lambda a: {})

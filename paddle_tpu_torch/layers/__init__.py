@@ -6,8 +6,9 @@ Transformer-base, LeNet, the ResNet family and the attention NMT model use:
 (:1116), ``pooling`` (:1210), ``last_seq`` (:1247), ``first_seq`` (:1260),
 ``expand`` (:1273), ``grumemory`` (:1353), ``gru_step`` (:1495),
 ``layer_norm`` (:2414), ``multi_head_attention`` (:2420),
-``pos_encoding`` (:2450), and ``memory``, ``recurrent_group`` and
-``StaticInput`` (``layers/recurrent_group.py``).  Each function returns a :class:`LayerOutput`
+``pos_encoding`` (:2450), ``get_output`` (:2512), ``memory``,
+``recurrent_group`` and ``StaticInput`` (``layers/recurrent_group.py``), and
+``beam_search`` and ``GeneratedInput`` (``layers/generation.py``).  Each function returns a :class:`LayerOutput`
 handle; the graph is gathered by parent traversal when a Topology is built.
 Output-size bookkeeping (conv arithmetic) mirrors the reference's
 config_parser.py ``cnn_output_size``.
@@ -34,6 +35,7 @@ from paddle_tpu_torch.layers import conv as _conv  # noqa: F401
 from paddle_tpu_torch.layers import attention as _attention  # noqa: F401
 from paddle_tpu_torch.layers import cost as _cost  # noqa: F401
 from paddle_tpu_torch.layers import sequence as _sequence  # noqa: F401
+from paddle_tpu_torch.layers.generation import GeneratedInput, beam_search  # noqa: F401
 from paddle_tpu_torch.layers.recurrent_group import (  # noqa: F401
     StaticInput,
     SubsequenceInput,
@@ -753,3 +755,21 @@ def pos_encoding(
 ) -> LayerOutput:
     """Add sinusoidal position encodings (input scaled by emb_scale first)."""
     return _unary("pos_encoding", input, name=name, emb_scale=emb_scale)
+
+
+def get_output(input: LayerOutput, arg_name: str, size: Optional[int] = None,
+               name: Optional[str] = None) -> LayerOutput:
+    """A named side output of a layer (reference get_output_layer), e.g.
+    the beam scores ('scores') of a beam_search layer.  `size` overrides
+    the declared width of a side output shaped unlike the main output."""
+    if size is None:
+        if input.conf.type == "beam_search" and arg_name == "scores":
+            size = input.conf.attrs["beam_size"]
+        else:
+            size = input.size
+    conf = LayerConf(name=name or auto_name("get_output"), type="get_output", size=size,
+                     inputs=(input.name,), bias=False, attrs={"arg_name": arg_name})
+    return LayerOutput(conf, [input])
+
+
+get_output_layer = get_output

@@ -1,5 +1,6 @@
 """Core layer impls: data, fc, embedding, addto, concat and scaling — the
-counterpart of ``paddle_tpu/layers/basic.py:38-168``.  Weights keep the JAX layout
+counterpart of ``paddle_tpu/layers/basic.py:38-168`` — and get_output
+(``paddle_tpu/layers/misc.py:245-255``).  Weights keep the JAX layout
 ([in, out] for fc, [vocab, size] for embedding)."""
 
 from __future__ import annotations
@@ -104,3 +105,18 @@ def scaling_apply(conf, params, inputs, ctx):
     """y = w * x with one weight per row (ScalingLayer.cpp): w [..., 1]."""
     w, x = inputs
     return x.with_data(x.data * w.data)
+
+
+@register_layer("get_output", auto_activation=False)
+def get_output_apply(conf, params, inputs, ctx):
+    """A named side output of a layer (GetOutputLayer.cpp); side outputs are
+    stored as "<layer>@<arg>": beam_search's "@scores", a softmax's
+    "@logits"."""
+    arg = conf.attrs["arg_name"]
+    src = conf.inputs[0]
+    key = src if arg in ("", "default") else f"{src}@{arg}"
+    if key not in ctx.outputs:
+        raise KeyError(
+            f"{conf.name}: layer {src!r} has no side output {arg!r} "
+            f"(known: {[k for k in ctx.outputs if k.startswith(src)]})")
+    return ctx.outputs[key]

@@ -1,7 +1,8 @@
 """Recurrent cores — the counterpart of ``paddle_tpu/ops/rnn.py`` for the two
 recurrences the attention NMT model runs: the GRU (``gru_scan``, the
 grumemory layer) and the fused attention-GRU decoder (``attention_gru_scan``,
-what a matched recurrent_group decoder step lowers onto).
+what a matched recurrent_group decoder step lowers onto, and
+``attention_gru_step``, its single step for generation and serving).
 
 As in the JAX package the batch stays padded, [B, T, ...], and the loop runs
 over the time axis with a carry mask: a padded step passes the previous
@@ -277,7 +278,29 @@ def _att_softmax(score, emask):
     return alpha * emask.to(alpha.dtype)
 
 
-def _attgru_step(acts, xg_t, h_p, enc, ep, emask, w1, v, w_ctx, w_c, m):
+def _context_bmm(alpha, enc):
+    """[B, E] context alpha . enc as one batched product (the scan core)."""
+    return torch.bmm(alpha[:, None, :], enc)[:, 0]
+
+
+# positions per partial sum of the generation step's context
+CONTEXT_BLOCK = 16
+
+
+def _context_blocks(alpha, enc):
+    """[B, E] context alpha . enc summed over S in blocks of CONTEXT_BLOCK
+    positions, the blocks' partial sums added in order.  Padding positions
+    (alpha exactly 0) add exact zeros, so at a fixed B a row's context does
+    not depend on how far the batch pads S: a batched product or one sum
+    over S picks its reduction by S, on the CPU and on the card."""
+    ctx = None
+    for s in range(0, enc.shape[1], CONTEXT_BLOCK):
+        part = (alpha[:, s:s + CONTEXT_BLOCK, None] * enc[:, s:s + CONTEXT_BLOCK]).sum(dim=1)
+        ctx = part if ctx is None else ctx + part
+    return ctx
+
+
+def _attgru_step(acts, xg_t, h_p, enc, ep, emask, w1, v, w_ctx, w_c, m, context=_context_bmm):
     """One fused decoder step: (h_t, (sp, alpha, ctx, p_ur, cpre)), the
     residuals the hand-written backward needs."""
     p_dim = ep.shape[-1]
@@ -285,7 +308,7 @@ def _attgru_step(acts, xg_t, h_p, enc, ep, emask, w1, v, w_ctx, w_c, m):
     a1 = h_p @ w1  # [B, P + 2H]: state projection and GRU u/r gates
     sp = a1[:, :p_dim]
     alpha = _att_softmax(_att_scores(acts[2], ep, sp, v), emask)
-    ctxv = torch.bmm(alpha[:, None, :], enc)[:, 0]
+    ctxv = context(alpha, enc)
     p = torch.addmm(xg_t, ctxv, w_ctx)  # [B, 3H] in (u, r, c) order
     p_ur = p[:, : 2 * h] + a1[:, p_dim:]
     rh = _gru_reset(acts, p_ur[:, h:], h_p)
@@ -390,6 +413,22 @@ class AttGruCore(torch.autograd.Function):
         d_ep = (d_ep * v.to(acc)).to(ep.dtype)
         return (dxg_all, d_enc, d_ep, None, dw1, dv.to(v.dtype), dw_ctx, dw_c, dh,
                 None, None, None, None)
+
+
+def attention_gru_step(xg_t, h_p, enc, enc_proj, enc_mask, w1, v, w_ctx, w_c, *,
+                       gate_act: str = "sigmoid", act: str = "tanh",
+                       att_act: str = "tanh") -> torch.Tensor:
+    """One fused decoder step for generation (beam and greedy stepping, the
+    serving engine's decode): the scan core's step with every row live, its
+    context summed in blocks so that a row's result does not depend on the
+    padded extent S (the engine pads each row's memory to the batch's page
+    rung, the one-shot path to its own ladder rung).  xg_t: [B, 3H] this step's
+    target-side gate projections (+ biases); enc_mask: [B, S] bool or None.
+    Returns h_t [B, H]."""
+    m = torch.ones((h_p.shape[0], 1), dtype=torch.bool, device=h_p.device)
+    h_t, _ = _attgru_step((gate_act, act, att_act), xg_t, h_p, enc, enc_proj, enc_mask, w1, v,
+                          w_ctx, w_c, m, context=_context_blocks)
+    return h_t
 
 
 def attention_gru_scan(

@@ -104,3 +104,31 @@ define_flag("fused_attention_gru", True,
             "once outside the loop, the weight gradients are post-loop "
             "einsums) instead of the generic per-layer step; steps that do "
             "not match always take the generic path")
+define_flag("beam_size", 5, "default generation beam width")
+define_flag("serving_max_slots", 8,
+            "in-flight sequence capacity of the serving plane "
+            "(serving/engine.py): the continuous-batching decode step runs "
+            "at a slot-count ladder rung up to this many live sequences; "
+            "requests beyond it queue")
+define_flag("serving_block_tokens", 16,
+            "tokens per block of the block-paged decode-state cache "
+            "(serving/pages.py).  Must divide the base shape-ladder rung "
+            "(16) so every padded source extent splits into whole blocks "
+            "and the gathered attention extent stays a ladder rung")
+define_flag("serving_hbm_budget_mb", 64,
+            "per-device memory budget of the block-paged serving cache: "
+            "capacity = budget // bytes_per_block, and exhaustion is a "
+            "refused admission (the request waits in queue), never an "
+            "out-of-memory error.  Sizing rule: bytes_per_block = "
+            "block_tokens x (enc 2H + proj H) x dtype_bytes; a request of S "
+            "source tokens holds ceil(S/block_tokens) blocks while in flight")
+define_flag("serving_decode_block_steps", 4,
+            "tokens decoded per dispatch in the serving plane: an inner "
+            "loop emits K tokens per host copy of the tokens; admission and "
+            "retirement quantize to K-token boundaries (finished rows "
+            "re-emit EOS, so outputs stay bit-identical to the one-shot "
+            "path).  1 = one host copy per token (lowest time to first token)")
+define_flag("serving_max_new_tokens", 32,
+            "default per-request decode cap of the serving plane (a "
+            "request's own max_new_tokens overrides; the generator's "
+            "max_length stays the ceiling)")

@@ -42,7 +42,9 @@ def test_every_module_imports_without_jax():
     assert int(count) >= 25  # every module of the package was walked
     for mod in ("layers.conv", "models.lenet", "models.resnet", "pooling", "evaluator",
                 "checkpoint", "trainer.step", "optimizer", "ops.rnn", "layers.recurrent_group",
-                "layers.sequence", "layers.networks", "models.seq2seq", "reader.bucketing"):
+                "layers.sequence", "layers.networks", "models.seq2seq", "reader.bucketing",
+                "ops.beam", "layers.generation", "serving", "serving.engine", "serving.pages",
+                "serving.scheduler", "utils.timers"):
         assert f"paddle_tpu_torch.{mod}" in names.split()
 
 
@@ -134,3 +136,28 @@ def test_chip_smoke_fails_without_cuda():
     )
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_generation_and_serving_entry_points_raise_without_cuda():
+    """Seq2SeqGenerator, ServingEngine and Inference over a beam_search
+    layer: the card unless the caller asks for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device; the no-CUDA error cannot show")
+    from paddle_tpu_torch.models import seq2seq
+    from paddle_tpu_torch.serving import ServingEngine
+
+    cost, _ = seq2seq.seq2seq_cost(20, 20, 8, 8)
+    params = paddle_tpu_torch.parameters.create(cost, device="cpu")
+    kw = dict(word_dim=8, hidden_dim=8, max_length=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        seq2seq.Seq2SeqGenerator(params, 20, 20, **kw)
+    gen = seq2seq.Seq2SeqGenerator(params, 20, 20, device="cpu", **kw)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(gen, hbm_budget_mb=1)
+    assert ServingEngine(gen, hbm_budget_mb=1, device="cpu").device == torch.device("cpu")
+    beam = seq2seq.seq2seq_generation(20, 20, 8, 8, beam_size=2, max_length=4)
+    beam_params = paddle_tpu_torch.parameters.create(beam, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        paddle_tpu_torch.infer(beam, beam_params, [([2, 3],)], field="id")
+    assert paddle_tpu_torch.infer(beam, beam_params, [([2, 3],)], field="id",
+                                  device="cpu").shape == (1, 2, 4)

@@ -76,10 +76,16 @@ def flat_leaves(tree, prefix=""):
     return out
 
 
-def carry(jparams):
-    """The port's Parameters holding the JAX Parameters' values and state."""
-    return paddle_tpu_torch.parameters.from_numpy(
+def carry(jparams, output=None):
+    """The port's Parameters holding the JAX Parameters' values and state;
+    with `output` (a port layer), bound to the port's network of that
+    layer's topology, as ``parameters.create`` binds them (the generator
+    and the engine read the network)."""
+    tparams = paddle_tpu_torch.parameters.from_numpy(
         numpy_tree(jparams.params), numpy_tree(jparams.state), device="cpu")
+    if output is not None:
+        tparams.network = TNet(TTopo([output]))
+    return tparams
 
 
 def rel_l2(got, want) -> float:
