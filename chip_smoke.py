@@ -143,11 +143,40 @@ Phases, in order; any failure exits non-zero:
      largest |d| of the emitted tokens' log-probs over the matching
      prefixes are printed), and the engine's own claim, tokens and
      log-probs bit for bit, must hold.  No flash kernel may launch in
-     phases 12 and 13.
+     phases 12 and 13;
+ 14. LSTM text classification at bench.py's bench_lstm_textcls width (the
+     reference's benchmark/paddle/rnn network: embedding 30000 -> 128, two
+     simple_lstm(512), last_seq, fc(2, softmax), classification cost; bf16
+     over f32 masters, Adam(5e-4), reviews of 100 tokens from
+     RandomState(0) in batches of 128) through trainer.SGD(...).train: one
+     warm-up step, 4 timed steps on distinct batches (seconds per step,
+     reviews/s, tokens/s, peak memory, every timestep run by the LSTM core),
+     5 steps on one batch (the cost must fall), torch.profiler over two
+     steps (busy share, device kernels per step and per timestep, top
+     kernels, and the chain GEMMs, which must be 2 layers x 100 steps
+     forward and as many backward), the early exit's steps on a ragged
+     batch of bench.py's beta(2, 3) corpus (lengths 10-100), 256 ragged
+     reviews served through paddle.infer in batches of 128 (every
+     distribution finite and summing to 1), and one step's f32 cost and
+     gradients card vs CPU at vocab 512, width 32, 4 ragged rows for a
+     forward LSTM, a reverse one and lstmemory_group (relative L2 <= 1e-5);
+ 15. the CRF sequence tagger (models/sequence_tagging.py ner_crf_cost:
+     vocab 30000, 23 IOB labels of 11 chunk types, word and hidden width 32,
+     sparse_update=True, f32, Adam(2e-2)) through trainer.SGD(...).train
+     with chunk_evaluator and crf_decoding as an extra layer, 200 fresh
+     batches of 128 sentences from synthetic_tag_reader: the mean of the
+     last 4 costs under half the first 4's, seconds per step, tokens/s,
+     chunk F1, torch.profiler over two steps, then a fresh batch decoded by
+     paddle.infer(field='id') above 0.9 tag accuracy; and at vocab 512 in
+     f32, card vs CPU: the crf cost and gradients (relative L2 <= 1e-5,
+     ragged rows with a length-1 sentence) and crf_decoding's paths equal,
+     on random weights and on a constructed three-way tie (both take the
+     first maximum).  No flash kernel may launch in phases 14 and 15.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels with their launches on the main path (the timed training steps of
-phase 5; the NMT paths of phases 11-13 run none of them), errors and times.
+phase 5; the NMT paths of phases 11-13, the LSTM classifier of phase 14 and
+the tagger of phase 15 run none of them), errors and times.
 Without a CUDA device, or without the paddle_tpu_torch package beside it, the script
 exits non-zero and prints no result.
 """
@@ -1926,6 +1955,323 @@ def phase_serve(torch, P, fa, card):
     return {"requests_per_s": len(served) / secs, "tokens_per_s": n_tok / secs}
 
 
+# ---------------------------------------------------------------------------
+# phases 14 and 15: LSTM text classification and the CRF tagger
+# ---------------------------------------------------------------------------
+
+# bench_lstm_textcls (bench.py:2013): the reference's benchmark/paddle/rnn
+# network at hidden_size=512, lstm_num=2, vocab 30000, reviews of 100
+# tokens, batch 128.  tests/configs/demo_text_lstm.py trains this family
+# with Adam(2e-3).  At width 512, on a fixed batch, Adam overshoots once the
+# cost nears 0.4, not alike from run to run: at 2e-3 the cost rose to 2-6
+# after 3-5 steps, in bf16 and in f32; at 1e-3 it rose at step 5 in one run
+# of two.  At 5e-4 it fell over 7 steps, so the phase takes Adam(5e-4)
+TXT_VOCAB, TXT_EMB, TXT_HIDDEN, TXT_LAYERS = 30000, 128, 512, 2
+TXT_B, TXT_T, TXT_LR = 128, 100, 5e-4
+TXT_TIMED, TXT_FIXED, TXT_PROFILED = 4, 5, 2
+TXT_SERVE = 256  # reviews served through paddle.infer, in batches of TXT_B
+TXT_SMALL = (512, 32, 4)  # vocab, width, rows of the card-vs-CPU checks
+TXT_GRAD_REL = 1e-5
+# the CRF tagger (models/sequence_tagging.py, BASELINE config #4): CoNLL-2000's
+# 11 chunk types in IOB (23 labels), vocab 30000, the function's own widths,
+# Adam(2e-2) as tests/test_demos.py trains it
+TAG_VOCAB, TAG_LABELS, TAG_TYPES, TAG_B, TAG_LR = 30000, 23, 11, 128, 2e-2
+TAG_STEPS = 200  # fresh batches: every word id is seen ~5 times
+TAG_ACC = 0.9
+TAG_GRAD_REL = 1e-5
+
+
+def text_lstm_cost(P, vocab, emb, hidden, layers):
+    """benchmark/paddle/rnn/rnn.py through the v2 DSL: embedding -> `layers`
+    x simple_lstm(hidden) -> last_seq -> fc(2, softmax) -> classification
+    cost.  Returns (cost, probabilities)."""
+    L = P.layer
+    net = L.embedding(L.data("word", P.data_type.integer_value_sequence(vocab)), size=emb)
+    for _ in range(layers):
+        net = P.networks.simple_lstm(net, hidden)
+    probs = L.fc(L.last_seq(net), size=2, act=P.activation.Softmax())
+    label = L.data("label", P.data_type.integer_value(2))
+    return L.classification_cost(input=probs, label=label), probs
+
+
+def text_reviews(rng, n, vocab, ragged):
+    """n (token ids, label) reviews from `rng`: TXT_T tokens each, or (ragged)
+    10-100 tokens drawn beta(2, 3) as bench.py draws its variable-length
+    corpus (bench.py:2089-2096)."""
+    if ragged:
+        lens = (10 + np.floor(91 * rng.beta(2.0, 3.0, size=n))).astype(int)
+    else:
+        lens = np.full(n, TXT_T)
+    return [([int(t) for t in rng.randint(2, vocab, size=int(m))], int(rng.randint(0, 2)))
+            for m in lens]
+
+
+def addmm_counts(run) -> dict:
+    """{input shapes: count} of the aten::addmm calls `run()` makes, from
+    torch.profiler with shapes recorded (a window of its own: recording
+    shapes slows the host)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+        run()
+    return {str(e.input_shapes[:3]): e.count
+            for e in prof.key_averages(group_by_input_shape=True) if e.key == "aten::addmm"}
+
+
+def small_grads_card_cpu(torch, P, cost, samples, feeding):
+    """One step's f32 cost and gradients of `cost` on the card and on the
+    CPU from the same parameters: (card, CPU) pairs of (cost, {name:
+    gradient})."""
+    from paddle_tpu_torch.core.device import tree_to
+    from paddle_tpu_torch.reader.feeder import DataFeeder
+
+    net = P.CompiledNetwork(P.Topology(cost), compute_dtype="float32")
+    cpu_params = net.init_params(71, device="cpu")
+    out = []
+    for dev in (torch.device("cuda"), torch.device("cpu")):
+        batch = DataFeeder(net.topology.data_types(), feeding, device=dev)(samples)
+        out.append(grads_of(torch, net, tree_to(cpu_params, dev), batch))
+    return out
+
+
+def phase_text_lstm(torch, P, fa, card):
+    """Phase 14: LSTM text classification at bench_lstm_textcls's width
+    through SGD.train and paddle.infer, its profile, the early exit on a
+    ragged batch and one step's f32 gradients card vs CPU."""
+    from paddle_tpu_torch.ops.rnn import counters as cores
+    from paddle_tpu_torch.utils.tree import leaves
+
+    feeding = {"word": 0, "label": 1}
+    P.init(seed=81, compute_dtype="bfloat16")
+    cost, probs = text_lstm_cost(P, TXT_VOCAB, TXT_EMB, TXT_HIDDEN, TXT_LAYERS)
+    params = P.parameters.create(cost, seed=81)
+    trainer = P.trainer.SGD(cost, params, P.optimizer.Adam(learning_rate=TXT_LR))
+    rng = np.random.RandomState(0)
+    reviews = text_reviews(rng, TXT_B * (1 + TXT_TIMED + TXT_PROFILED), TXT_VOCAB, False)
+    batches = [reviews[i * TXT_B:(i + 1) * TXT_B] for i in range(1 + TXT_TIMED + TXT_PROFILED)]
+    say(f"text lstm: {sum(v.numel() for v in leaves(params.params))} parameters; batches of "
+        f"{TXT_B} reviews x {TXT_T} tokens, bf16 over f32 masters, Adam({TXT_LR})")
+
+    def train(batch_list, on_event=None):
+        trainer.train(lambda: iter(batch_list), feeding=feeding, event_handler=on_event)
+
+    reset_counts(fa)
+    train(batches[:1])  # first step: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cores.clear()
+    steps, clock = [], [0.0]
+
+    def on_event(e):
+        if isinstance(e, P.event.BeginIteration):
+            torch.cuda.synchronize()
+            clock[0] = time.perf_counter()
+        elif isinstance(e, P.event.EndIteration):
+            # the cost's host copy waits for the whole step, update included
+            steps.append((time.perf_counter() - clock[0], e.cost))
+
+    train(batches[1:1 + TXT_TIMED], on_event)
+    secs, costs = [s[0] for s in steps], [s[1] for s in steps]
+    mean_s = float(np.mean(secs))
+    say(f"text lstm: {len(steps)} timed steps: costs {[round(c, 4) for c in costs]}, seconds per "
+        f"step {[round(x, 4) for x in secs]}; {mean_s:.4f} s per step, {TXT_B / mean_s:.1f} "
+        f"reviews/s, {TXT_B * TXT_T / mean_s:.1f} tokens/s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}")
+    say(f"text lstm: LSTM steps run/skipped over the timed steps {cores['lstm_steps']}/"
+        f"{cores['lstm_skipped']} ({TXT_LAYERS} layers x {TXT_T} steps x {TXT_TIMED})")
+    if len(steps) != TXT_TIMED or not all(np.isfinite(costs)):
+        raise SystemExit("text lstm: training gave a non-finite cost or a missing step")
+    if cores["lstm_steps"] != TXT_LAYERS * TXT_T * TXT_TIMED:
+        raise SystemExit("text lstm: the LSTM cores did not run every timestep")
+
+    fixed = []
+    trainer.train(lambda: iter([batches[1]] * TXT_FIXED), feeding=feeding,
+                  event_handler=lambda e: fixed.append(e.cost)
+                  if isinstance(e, P.event.EndIteration) else None)
+    say(f"text lstm: {TXT_FIXED} steps on one batch: costs {[round(c, 4) for c in fixed]}")
+    if not (np.isfinite(fixed).all() and fixed[-1] < fixed[0]):
+        raise SystemExit("text lstm: the cost did not fall over repeated steps on one batch")
+
+    wall, busy, kernels, top = profile_call(torch, lambda: train(batches[1 + TXT_TIMED:]))
+    kernels /= TXT_PROFILED
+    addmm = addmm_counts(lambda: train(batches[1:2]))
+    h, g = TXT_HIDDEN, 4 * TXT_HIDDEN
+    fwd_chain = addmm.get(str([[TXT_B, g], [TXT_B, h], [h, g]]), 0)
+    bwd_chain = addmm.get(str([[TXT_B, h], [TXT_B, g], [g, h]]), 0)
+    say(f"text lstm profile: {TXT_PROFILED} steps in {wall:.4f} s (profiler on), device busy "
+        f"{busy:.4f} s ({busy / wall:.3f} of the window; {busy / TXT_PROFILED / mean_s:.3f} of a "
+        f"timed step), {kernels:.0f} device kernels per step, {kernels / TXT_T:.1f} per "
+        f"timestep (both layers, forward and backward); chain GEMMs in one step: forward "
+        f"{fwd_chain}, backward {bwd_chain} (expected {TXT_LAYERS * TXT_T} each) on {card}; top "
+        f"device kernels over the {TXT_PROFILED} steps:")
+    for line in top:
+        say(f"  {line}")
+    if fwd_chain != TXT_LAYERS * TXT_T or bwd_chain != TXT_LAYERS * TXT_T:
+        raise SystemExit(f"text lstm: chain GEMMs per step {fwd_chain}/{bwd_chain}, not "
+                         f"{TXT_LAYERS * TXT_T} each")
+
+    # the early exit on a ragged batch of bench.py's variable-length corpus
+    ragged = text_reviews(np.random.RandomState(1), TXT_SERVE, TXT_VOCAB, True)
+    cores.clear()
+    train([ragged[:TXT_B]])
+    longest = max(len(r[0]) for r in ragged[:TXT_B])
+    say(f"text lstm: ragged batch (lengths {min(len(r[0]) for r in ragged[:TXT_B])}-{longest}, "
+        f"mean {np.mean([len(r[0]) for r in ragged[:TXT_B]]):.1f}): LSTM steps run/skipped "
+        f"{cores['lstm_steps']}/{cores['lstm_skipped']}")
+    if cores["lstm_steps"] != TXT_LAYERS * longest:
+        raise SystemExit("text lstm: the early exit did not run exactly the live steps")
+
+    t0 = time.perf_counter()
+    out = P.infer(probs, trainer.parameters, [(r[0],) for r in ragged], batch_size=TXT_B)
+    wall = time.perf_counter() - t0
+    sums = out.sum(axis=1)
+    say(f"text lstm infer: {TXT_SERVE} ragged reviews in batches of {TXT_B}, bf16, in "
+        f"{wall:.4f} s ({TXT_SERVE / wall:.1f} reviews/s) on {card}; row sums in "
+        f"[{sums.min():.6f}, {sums.max():.6f}]")
+    if out.shape != (TXT_SERVE, 2) or not np.isfinite(out).all() or np.abs(sums - 1).max() > 1e-2:
+        raise SystemExit("text lstm infer: a distribution is not finite or does not sum to 1")
+    if launch_counts(fa) != (0, 0, 0):
+        raise SystemExit("text lstm: the LSTM path launched a flash kernel")
+    del trainer, params
+    torch.cuda.empty_cache()
+
+    # one step's f32 gradients at a small width, card vs CPU
+    vocab, width, rows = TXT_SMALL
+    P.init(seed=83, compute_dtype="float32")
+    samples = text_reviews(np.random.RandomState(2), rows, vocab, True)
+    samples = [(s[0][: 5 + 7 * i], s[1]) for i, s in enumerate(samples)]
+
+    def small_net(kind):
+        L = P.layer
+        emb = L.embedding(L.data("word", P.data_type.integer_value_sequence(vocab)), size=width)
+        if kind == "lstm_group":
+            proj = L.fc(emb, size=4 * width, act=P.activation.Identity(), bias_attr=False)
+            seq = P.networks.lstmemory_group(proj, size=width)
+        else:
+            seq = P.networks.simple_lstm(emb, width, reverse=kind == "reverse")
+        probs_ = L.fc(L.last_seq(seq), size=2, act=P.activation.Softmax())
+        return L.classification_cost(input=probs_,
+                                     label=L.data("label", P.data_type.integer_value(2)))
+
+    for kind in ("lstm", "reverse", "lstm_group"):
+        (c_card, g_card), (c_cpu, g_cpu) = small_grads_card_cpu(
+            torch, P, small_net(kind), samples, feeding)
+        err = rel_l2(torch, g_card, g_cpu)
+        say(f"text lstm f32 {kind} at vocab {vocab}, width {width}, {rows} rows (lengths "
+            f"{[len(s[0]) for s in samples]}): cost card {c_card:.7f} CPU {c_cpu:.7f}; gradients "
+            f"relative L2 over {len(g_cpu)} leaves {err:.3e} (<= {TXT_GRAD_REL})")
+        if (set(g_card) != set(g_cpu) or abs(c_card - c_cpu) > TXT_GRAD_REL * abs(c_cpu)
+                or not err <= TXT_GRAD_REL):
+            raise SystemExit(f"text lstm: the card's {kind} gradients stray from the CPU's")
+    P.init(compute_dtype="bfloat16")
+    return {"s_per_step": mean_s}
+
+
+def phase_tagger(torch, P, fa, card):
+    """Phase 15: the CRF tagger (ner_crf_cost) trained through SGD.train with
+    chunk_evaluator, decoded through paddle.infer(field='id'); its profile;
+    crf costs, gradients and paths card vs CPU."""
+    from paddle_tpu_torch.evaluator import chunk_evaluator
+    from paddle_tpu_torch.models.sequence_tagging import ner_crf_cost, synthetic_tag_reader
+
+    P.init(seed=91, compute_dtype="float32")
+    cost, decode = ner_crf_cost(TAG_VOCAB, TAG_LABELS, sparse_update=True)
+    label = cost.parents[1]
+    trainer = P.trainer.SGD(
+        cost, P.parameters.create(cost, seed=91), P.optimizer.Adam(learning_rate=TAG_LR),
+        extra_layers=[decode], evaluators=[chunk_evaluator(decode, label, "IOB", TAG_TYPES,
+                                                           name="chunk")])
+    corpus = list(synthetic_tag_reader(TAG_VOCAB, TAG_LABELS, n=TAG_B * TAG_STEPS, seed=0)())
+    reset_counts(fa)
+    steps, clock = [], [0.0]
+
+    def on_event(e):
+        if isinstance(e, P.event.BeginIteration):
+            torch.cuda.synchronize()
+            clock[0] = time.perf_counter()
+        elif isinstance(e, P.event.EndIteration):
+            steps.append((time.perf_counter() - clock[0], e.cost, e.evaluator["chunk.F1"]))
+
+    trainer.train(P.batch(lambda: iter(corpus), TAG_B), event_handler=on_event)
+    secs = [s[0] for s in steps[1:]]  # the first step builds cuBLAS handles
+    costs = [s[1] for s in steps]
+    tokens = sum(len(w) for w, _ in corpus[TAG_B:])
+    first, last = float(np.mean(costs[:4])), float(np.mean(costs[-4:]))
+    say(f"tagger: {len(steps)} steps of {TAG_B} sentences (vocab {TAG_VOCAB}, {TAG_LABELS} "
+        f"labels, f32, Adam({TAG_LR})): mean cost of the first 4 {first:.4f}, of the last 4 "
+        f"{last:.4f}; {float(np.mean(secs)):.4f} s per step after the first, "
+        f"{tokens / sum(secs):.1f} tokens/s; chunk F1 of the first and last step "
+        f"{steps[0][2]:.4f}, {steps[-1][2]:.4f} on {card}")
+    if not (np.isfinite(costs).all() and last < 0.5 * first):
+        raise SystemExit("tagger: the mean of the last 4 costs is not under half the first 4's")
+
+    wall, busy, kernels, top = profile_call(
+        torch, lambda: trainer.train(P.batch(lambda: iter(corpus[:2 * TAG_B]), TAG_B)))
+    say(f"tagger profile: 2 steps in {wall:.4f} s (profiler on), device busy {busy:.4f} s "
+        f"({busy / wall:.3f} of the window; {busy / 2 / float(np.mean(secs)):.3f} of a timed "
+        f"step), {kernels / 2:.0f} device kernels per step on {card}; top device kernels over "
+        "the 2 steps:")
+    for line in top:
+        say(f"  {line}")
+
+    fresh = list(synthetic_tag_reader(TAG_VOCAB, TAG_LABELS, n=TAG_B, seed=11)())
+    t0 = time.perf_counter()
+    ids = P.infer(output_layer=decode, parameters=trainer.parameters,
+                  input=[(w,) for w, _ in fresh], field="id")
+    wall = time.perf_counter() - t0
+    want = np.concatenate([np.asarray(w) % TAG_LABELS for w, _ in fresh])
+    acc = float((ids == want).mean()) if ids.shape == want.shape else 0.0
+    say(f"tagger infer: {TAG_B} fresh sentences decoded by paddle.infer(field='id') in "
+        f"{wall:.4f} s on {card}: {ids.shape[0]} tags, accuracy {acc:.4f} (> {TAG_ACC})")
+    if not acc > TAG_ACC:
+        raise SystemExit("tagger: the decoded tag accuracy is not above 0.9")
+    if launch_counts(fa) != (0, 0, 0):
+        raise SystemExit("tagger: the tagger's path launched a flash kernel")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # crf costs, gradients and paths in f32, card vs CPU, on ragged rows
+    # with a length-1 sentence, and a constructed Viterbi tie
+    from paddle_tpu_torch.core.device import tree_to
+    from paddle_tpu_torch.reader.feeder import DataFeeder
+
+    P.init(seed=93, compute_dtype="float32")
+    small_cost, small_decode = ner_crf_cost(512, TAG_LABELS)
+    rows = list(synthetic_tag_reader(512, TAG_LABELS, n=8, seed=3)())
+    rows[1] = (rows[1][0][:1], rows[1][1][:1])
+    (c_card, g_card), (c_cpu, g_cpu) = small_grads_card_cpu(torch, P, small_cost, rows, None)
+    err = rel_l2(torch, g_card, g_cpu)
+    say(f"tagger f32 at vocab 512, 8 rows (lengths {[len(r[0]) for r in rows]}): crf cost card "
+        f"{c_card:.7f} CPU {c_cpu:.7f}; gradients relative L2 over {len(g_cpu)} leaves "
+        f"{err:.3e} (<= {TAG_GRAD_REL})")
+    if abs(c_card - c_cpu) > TAG_GRAD_REL * abs(c_cpu) or not err <= TAG_GRAD_REL:
+        raise SystemExit("tagger: the card's crf cost or gradients stray from the CPU's")
+    net = P.CompiledNetwork(P.Topology([small_cost, small_decode]), compute_dtype="float32")
+    cpu_params = net.init_params(95, device="cpu")
+    tied = {k: dict(v) for k, v in cpu_params.items()}
+    tied["crf_cost"]["w"] = torch.zeros_like(tied["crf_cost"]["w"])
+    tied["crf_input"]["w0"] = torch.zeros_like(tied["crf_input"]["w0"])
+    tied["crf_input"]["b"] = torch.zeros_like(tied["crf_input"]["b"]).index_fill_(
+        0, torch.tensor([3, 7, 19]), 2.0)  # labels 3, 7 and 19 tie at every step
+    paths = {}
+    for name, tree in (("random", cpu_params), ("tie", tied)):
+        for where, dev in (("card", torch.device("cuda")), ("CPU", torch.device("cpu"))):
+            batch = DataFeeder(net.topology.data_types(), None, device=dev)(rows)
+            with torch.inference_mode():
+                outs, _ = net.apply(tree_to(tree, dev), batch, train=False)
+            paths[name, where] = outs[small_decode.name].data.cpu()
+        same = torch.equal(paths[name, "card"], paths[name, "CPU"])
+        say(f"tagger crf_decoding {name}: card paths equal the CPU's: {same}")
+        if not same:
+            raise SystemExit(f"tagger: the card's Viterbi paths ({name}) differ from the CPU's")
+    lengths = [len(r[0]) for r in rows]
+    tie_rows = [paths["tie", "card"][i, :n].tolist() for i, n in enumerate(lengths)]
+    if any(set(r) != {3} for r in tie_rows):
+        raise SystemExit(f"tagger: the tie did not take the first maximum: {tie_rows}")
+    P.init(compute_dtype="bfloat16")
+    return {"s_per_step": float(np.mean(secs))}
+
+
 def main() -> int:
     import torch
 
@@ -1994,6 +2340,14 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_serve(torch, P, fa, card)
     say(f"serve: phase 13 took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_text_lstm(torch, P, fa, card)
+    say(f"text lstm: phase 14 took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_tagger(torch, P, fa, card)
+    say(f"tagger: phase 15 took {time.perf_counter() - t0:.1f} s")
     kernels = [
         {"name": name, "route": "cuda", "source": f"paddle_tpu_torch/csrc/{src}",
          "replaces": f"paddle_tpu/ops/pallas_attention.py:{line}",

@@ -12,7 +12,10 @@ full-state checkpoints (``checkpoint.CheckpointManager``).  The attention
 NMT model (``models/seq2seq.py``) trains through recurrent groups
 (``layers/recurrent_group.py``) on the GRU and fused attention-GRU cores of
 ``ops/rnn.py``, fed by the token-budget bucketing reader
-(``reader/bucketing.py``)::
+(``reader/bucketing.py``).  LSTM text classification runs on the LSTM core
+(``networks.simple_lstm``), and the CRF sequence tagger
+(``models/sequence_tagging.py``) on the simple-RNN core under
+``crf``/``crf_decoding``::
 
     import paddle_tpu_torch as paddle
     paddle.init(seed=1, compute_dtype="bfloat16", use_flash_attention=True)
@@ -56,6 +59,7 @@ from paddle_tpu_torch.minibatch import batch  # noqa: F401
 from paddle_tpu_torch.models import lenet as _lenet  # noqa: F401
 from paddle_tpu_torch.models import resnet as _resnet  # noqa: F401
 from paddle_tpu_torch.models import seq2seq as _seq2seq  # noqa: F401
+from paddle_tpu_torch.models import sequence_tagging as _sequence_tagging  # noqa: F401
 from paddle_tpu_torch.models import transformer as _transformer  # noqa: F401
 from paddle_tpu_torch import models  # noqa: F401
 from paddle_tpu_torch.utils import flags  # noqa: F401

@@ -27,7 +27,8 @@ threaded functionally as in the JAX package: ``apply`` reads ``state`` and
 returns ``{**state, **updates}``, leaving its inputs untouched.
 
 Not ported yet: dynamic widths (``resolve_dynamic_widths``; no layer of the
-port's DSL makes them).
+port's DSL makes them) and layers sharded over a device mesh (a layer with
+a ``shard_axis`` raises when the network is built).
 """
 
 from __future__ import annotations
@@ -194,6 +195,11 @@ class CompiledNetwork:
         if compute_dtype is None:
             compute_dtype = _default_compute_dtype or self.dtype
         self.compute_dtype = as_dtype(compute_dtype)
+        sharded = [(n, c.shard_axis) for n, c in topology.layers.items() if c.shard_axis]
+        if sharded:
+            raise NotImplementedError(
+                f"layer {sharded[0][0]!r}: shard_axis={sharded[0][1]!r} (a layer sharded over a "
+                "device mesh) is not ported yet")
         # resolve impls now, so a type the port lacks fails at build
         self._impls = {
             name: get_layer_impl(conf.type) for name, conf in topology.layers.items()
@@ -354,6 +360,27 @@ class CompiledNetwork:
             gname: ".".join((top,) + tuple(rel))
             for gname, (top, rel) in self._named_params.items()
         }
+
+    def adopt_named(self, params: Params, source: "CompiledNetwork") -> Params:
+        """`params` of the network `source` with every parameter shared by
+        name also stored where this network's owner of that name reads it:
+        an inference topology holding only ``crf_decoding`` owns ``crfw`` at
+        the decoding layer, the training topology at the ``crf`` layer.  The
+        input tree is not mutated."""
+        out = dict(params)
+        src = source._named_params
+        for gname, (top, rel) in self._named_params.items():
+            if gname not in src or src[gname] == (top, rel):
+                continue
+            stop, srel = src[gname]
+            if stop not in params:
+                continue
+            value = get_path(params[stop], srel) if srel else params[stop]
+            if rel:
+                _graft(out, (top,) + tuple(rel), value)
+            else:
+                out[top] = value
+        return out
 
     def materialize_shared(self, params: Params) -> Params:
         """Params with every shared key grafted back in place, per layer

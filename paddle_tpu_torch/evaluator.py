@@ -11,9 +11,9 @@ events, per pass for pass events and ``test``) and finalizes them.  Printers
 print from their update and accumulate nothing.
 
 Ported: classification_error, sum, column_sum, auc, precision_recall,
-pnpair and the value, maxid, seq_text, classification_error and gradient
-printers.  Not ported yet: ctc_error, chunk, maxframe_printer and
-detection_map (their layers are not in the port).
+pnpair, chunk and the value, maxid, seq_text, maxframe, classification_error
+and gradient printers.  Not ported yet: ctc_error and detection_map (their
+layers are not in the port).
 """
 
 from __future__ import annotations
@@ -228,6 +228,98 @@ def pnpair_evaluator(
 
 
 # ---------------------------------------------------------------------------
+# chunk: F1 over chunk segmentations (reference ChunkEvaluator.cpp); a label
+# id is chunk_type * tag_num + tag, and O is num_chunk_types * tag_num
+# ---------------------------------------------------------------------------
+
+_SCHEMES = {
+    # tag ids within a type
+    "plain": {"num": 1},
+    "IOB": {"num": 2, "B": 0, "I": 1},
+    "IOE": {"num": 2, "I": 0, "E": 1},
+    "IOBES": {"num": 4, "B": 0, "I": 1, "E": 2, "S": 3},
+}
+
+
+def _shift(x: torch.Tensor, k: int) -> torch.Tensor:
+    """x [B, T] moved k steps later along T (k < 0: earlier), -1 filled."""
+    fill = torch.full_like(x[:, : abs(k)], -1)
+    return torch.cat([fill, x[:, :-k]], 1) if k > 0 else torch.cat([x[:, -k:], fill], 1)
+
+
+def _chunk_bounds(ids, lengths, scheme: str, num_types: int):
+    """(start [B, T] bool, end [B, T] bool, type [B, T]) per position."""
+    sc = _SCHEMES[scheme]
+    tag_num = sc["num"]
+    is_o = ids >= num_types * tag_num
+    typ = torch.where(is_o, -1, ids // tag_num)
+    tag = torch.where(is_o, -1, ids % tag_num)
+    tpos = torch.arange(ids.shape[1], device=ids.device)[None, :]
+    lengths = lengths.to(ids.device)
+    valid = tpos < lengths[:, None]
+    prev_typ, prev_tag = _shift(typ, 1), _shift(tag, 1)
+    last_pos = tpos == (lengths[:, None] - 1)
+    next_typ = torch.where(last_pos, -1, _shift(typ, -1))
+    next_tag = torch.where(last_pos, -1, _shift(tag, -1))
+    first_pos = tpos == 0
+    in_chunk = ~is_o & valid
+    if scheme == "plain":
+        start = in_chunk & (typ != prev_typ)
+        end = in_chunk & (typ != next_typ)
+    elif scheme == "IOB":
+        start = in_chunk & ((tag == sc["B"]) | ((tag == sc["I"]) & ((prev_typ != typ) | first_pos)))
+        end = in_chunk & ((next_typ != typ) | (next_tag == sc["B"]) | last_pos)
+    elif scheme == "IOE":
+        start = in_chunk & ((prev_typ != typ) | (prev_tag == sc["E"]) | first_pos)
+        end = in_chunk & ((tag == sc["E"]) | (next_typ != typ) | last_pos)
+    else:  # IOBES
+        start = in_chunk & ((tag == sc["B"]) | (tag == sc["S"]))
+        end = in_chunk & ((tag == sc["E"]) | (tag == sc["S"]))
+    return start & valid, end & valid, typ
+
+
+def _next_end_pos(end: torch.Tensor) -> torch.Tensor:
+    """[B, T]: each position's next end at or after it (T if none)."""
+    t_ = end.shape[1]
+    idx = torch.where(end, torch.arange(t_, device=end.device)[None, :], t_)
+    return idx.flip(1).cummin(dim=1).values.flip(1)
+
+
+def chunk_evaluator(
+    input: LayerOutput, label: LayerOutput,
+    chunk_scheme: str = "IOB", num_chunk_types: int = 1,
+    name: Optional[str] = None,
+) -> Evaluator:
+    """Chunk precision, recall and F1 of predicted label ids (a
+    crf_decoding output) against the gold ids, by `chunk_scheme` (plain,
+    IOB, IOE or IOBES): a chunk is right when its start, end and type all
+    match.  The counts sum beside the step; the ratios finalize on the
+    host."""
+    nm = name or auto_name("chunk")
+    if chunk_scheme not in _SCHEMES:
+        raise ValueError(f"chunk_scheme {chunk_scheme!r}; known: {sorted(_SCHEMES)}")
+
+    def update(outs):
+        lab_t = outs[label.name]
+        lengths = lab_t.lengths
+        ps, pe, pt = _chunk_bounds(_ids_of(outs[input.name]), lengths, chunk_scheme,
+                                   num_chunk_types)
+        gs, ge, gt = _chunk_bounds(_ids_of(lab_t), lengths, chunk_scheme, num_chunk_types)
+        correct = ps & gs & (pt == gt) & (_next_end_pos(pe) == _next_end_pos(ge))
+        return {"correct": correct.sum().float(), "pred": ps.sum().float(),
+                "gold": gs.sum().float()}
+
+    def finalize(acc):
+        c, p, g = float(acc["correct"]), float(acc["pred"]), float(acc["gold"])
+        prec = c / p if p else 0.0
+        rec = c / g if g else 0.0
+        f1 = 2 * prec * rec / (prec + rec) if prec + rec else 0.0
+        return {f"{nm}.precision": prec, f"{nm}.recall": rec, f"{nm}.F1": f1}
+
+    return Evaluator(nm, [input, label], update, finalize)
+
+
+# ---------------------------------------------------------------------------
 # printers: side-effect evaluators
 # ---------------------------------------------------------------------------
 
@@ -293,6 +385,32 @@ def seq_text_printer_evaluator(
     def update(outs):
         t = outs[input.name]
         to_text(t.data.cpu().numpy(), t.lengths.cpu().numpy() if t.is_seq else None)
+        return {}
+
+    return Evaluator(nm, [input], update, lambda a: {})
+
+
+def maxframe_printer_evaluator(input: LayerOutput, name: Optional[str] = None) -> Evaluator:
+    """Print, per sample, the frame (timestep) holding the largest activation
+    and that value (reference MaxFramePrinter); a non-sequence input gives
+    the sample's largest feature.  The JAX package prints through an
+    io_callback under jit; here the update copies the values to the host."""
+    nm = name or auto_name("maxframe_printer")
+
+    def update(outs):
+        t = outs[input.name]
+        data = t.data.float().cpu().numpy()
+        lengths = t.lengths.cpu().numpy() if t.is_seq else None
+        lines = []
+        for i in range(data.shape[0]):
+            row = data[i]
+            if lengths is not None:
+                row = row[: max(int(lengths[i]), 1)]
+            flat = row.reshape(row.shape[0], -1) if row.ndim > 1 else row.reshape(-1, 1)
+            per_frame = flat.max(axis=-1)
+            frame = int(np.argmax(per_frame))
+            lines.append(f"sample {i}: frame {frame} value {float(per_frame[frame]):.6g}")
+        print(f"{nm}:\n" + "\n".join(lines))
         return {}
 
     return Evaluator(nm, [input], update, lambda a: {})

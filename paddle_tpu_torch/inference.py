@@ -78,8 +78,12 @@ class Inference:
             parameters = create_from_network(self.network, seed=0, device=self.device)
             detached.merge_into(parameters)
         # parameters may come from a larger (training) topology: apply()
-        # looks layers up by name, so the superset carries unused entries
+        # looks layers up by name, so the superset carries unused entries,
+        # and a parameter shared by name moves to this topology's owner
         tree = getattr(parameters, "params", parameters)
+        source = getattr(parameters, "network", None)
+        if source is not None and source is not self.network:
+            tree = self.network.adopt_named(tree, source)
         self._params = tree_to(tree, self.device)
         # layer state (batch norm's moving statistics) serves as the global
         # statistics of inference

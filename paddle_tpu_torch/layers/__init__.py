@@ -5,13 +5,21 @@ Transformer-base, LeNet, the ResNet family and the attention NMT model use:
 (:484), ``batch_norm`` (:535), ``scaling`` (:791), ``classification_cost``
 (:1116), ``pooling`` (:1210), ``last_seq`` (:1247), ``first_seq`` (:1260),
 ``expand`` (:1273), ``grumemory`` (:1353), ``gru_step`` (:1495),
+``lstmemory`` (:1314), ``recurrent`` (:1387), ``lstm_step`` (:1543),
+``crf`` (:1888), ``crf_decoding`` (:1912), the projections
+``full_matrix_projection`` (:2002), ``trans_full_matrix_projection``
+(:2012), ``table_projection`` (:2022), ``identity_projection`` (:2031),
+``slice_projection`` (:2037), ``scaling_projection`` (:2041) and
+``dotmul_projection`` (:2045) with ``mixed`` (:2137, also as the
+``with mixed() as m: m += ...`` builder),
 ``layer_norm`` (:2414), ``multi_head_attention`` (:2420),
 ``pos_encoding`` (:2450), ``get_output`` (:2512), ``memory``,
 ``recurrent_group`` and ``StaticInput`` (``layers/recurrent_group.py``), and
 ``beam_search`` and ``GeneratedInput`` (``layers/generation.py``).  Each function returns a :class:`LayerOutput`
 handle; the graph is gathered by parent traversal when a Topology is built.
 Output-size bookkeeping (conv arithmetic) mirrors the reference's
-config_parser.py ``cnn_output_size``.
+config_parser.py ``cnn_output_size``.  Not ported yet: ``context_projection``,
+``conv_projection`` and ``conv_operator``.
 """
 
 from __future__ import annotations
@@ -34,7 +42,9 @@ from paddle_tpu_torch.layers import basic as _basic  # noqa: F401
 from paddle_tpu_torch.layers import conv as _conv  # noqa: F401
 from paddle_tpu_torch.layers import attention as _attention  # noqa: F401
 from paddle_tpu_torch.layers import cost as _cost  # noqa: F401
+from paddle_tpu_torch.layers import mixed as _mixed  # noqa: F401
 from paddle_tpu_torch.layers import sequence as _sequence  # noqa: F401
+from paddle_tpu_torch.layers import structured as _structured  # noqa: F401
 from paddle_tpu_torch.layers.generation import GeneratedInput, beam_search  # noqa: F401
 from paddle_tpu_torch.layers.recurrent_group import (  # noqa: F401
     StaticInput,
@@ -634,6 +644,87 @@ def grumemory(
     return LayerOutput(conf, [input])
 
 
+def lstmemory(
+    input: LayerOutput,
+    size: Optional[int] = None,
+    reverse: bool = False,
+    act=None,
+    gate_act=None,
+    state_act=None,
+    bias_attr=True,
+    param_attr: Optional[ParamAttr] = None,
+    layer_attr: Optional[ExtraAttr] = None,
+    name: Optional[str] = None,
+) -> LayerOutput:
+    """An LSTM over a sequence pre-projected to 4 x size (reference
+    lstmemory); with a bias it has the three peepholes."""
+    size = size or input.size // 4
+    if input.size != 4 * size:
+        raise ValueError(f"lstmemory input size {input.size} must be 4*size ({4 * size})")
+    drop, shard = _extra(layer_attr)
+    conf = LayerConf(
+        name=name or auto_name("lstmemory"),
+        type="lstmemory",
+        size=size,
+        inputs=(input.name,),
+        bias=bool(bias_attr),
+        drop_rate=drop,
+        shard_axis=shard,
+        attrs={
+            "reverse": reverse,
+            "active_type": act_name(act if act is not None else _act_mod.Tanh()),
+            "gate_act": act_name(gate_act if gate_act is not None else _act_mod.Sigmoid()),
+            "state_act": act_name(state_act if state_act is not None else _act_mod.Tanh()),
+            **_param_attrs(param_attr),
+        },
+    )
+    _set_error_clip(conf, layer_attr)
+    return LayerOutput(conf, [input])
+
+
+def recurrent(
+    input: LayerOutput,
+    act=None,
+    reverse: bool = False,
+    bias_attr=True,
+    param_attr: Optional[ParamAttr] = None,
+    layer_attr: Optional[ExtraAttr] = None,
+    name: Optional[str] = None,
+) -> LayerOutput:
+    """The simple recurrence h_t = act(x_t + h_p W) over a sequence of the
+    layer's width (reference recurrent_layer).  A named param_attr shares
+    the recurrent weight and a named bias_attr the bias, each under its own
+    name."""
+    drop, shard = _extra(layer_attr)
+    pnames = {}
+    pn = _param_name(param_attr)
+    if pn:
+        pnames["w_h"] = pn
+    if isinstance(bias_attr, ParamAttr) and bias_attr.name:
+        pnames["b"] = bias_attr.name
+    conf = LayerConf(
+        name=name or auto_name("recurrent"),
+        type="recurrent",
+        size=input.size,
+        inputs=(input.name,),
+        act=act_name(act if act is not None else _act_mod.Tanh()),
+        bias=bool(bias_attr),
+        drop_rate=drop,
+        shard_axis=shard,
+        attrs={
+            "reverse": reverse,
+            "param_std": _param_std(param_attr),
+            "prune_sparsity": _prune_ratio(param_attr),
+            **({"param_names": pnames} if pnames else {}),
+        },
+    )
+    _set_error_clip(conf, layer_attr)
+    return LayerOutput(conf, [input])
+
+
+recurrent_layer = recurrent
+
+
 def _step_param_names(param_attr, bias_attr, weight_keys) -> dict:
     """param_names of a step cell: one reference parameter name ties every
     recurrent weight key; a named bias attr ties the bias."""
@@ -692,6 +783,47 @@ def gru_step(
 gru_step_layer = gru_step
 
 
+def lstm_step(
+    input: LayerOutput,
+    output_mem: LayerOutput,
+    state_mem: LayerOutput,
+    size: Optional[int] = None,
+    act=None,
+    gate_act=None,
+    state_act=None,
+    bias_attr=True,
+    recurrent_weight: bool = True,
+    layer_attr=None,
+    name: Optional[str] = None,
+) -> LayerOutput:
+    """One LSTM step (reference lstm_step_layer); the cell is the side output
+    ``<name>@cell`` for a second memory link.  recurrent_weight=False is the
+    reference's form (the recurrence enters through the input, as
+    lstmemory_unit's mixed projection); True keeps W_h inside the step."""
+    size = size or output_mem.size
+    if input.size != 4 * size:
+        raise ValueError(f"lstm_step input size {input.size} != 4 x size {size}")
+    pnames = _step_param_names(None, bias_attr, ())
+    conf = LayerConf(
+        name=name or auto_name("lstm_step"),
+        type="lstm_step",
+        size=size,
+        inputs=(input.name, output_mem.name, state_mem.name),
+        bias=bool(bias_attr),
+        attrs={
+            "active_type": act_name(act if act is not None else _act_mod.Tanh()),
+            "gate_act": act_name(gate_act if gate_act is not None else _act_mod.Sigmoid()),
+            "state_act": act_name(state_act if state_act is not None else _act_mod.Tanh()),
+            "recurrent_weight": recurrent_weight,
+            **({"param_names": pnames} if pnames else {}),
+        },
+    )
+    return LayerOutput(conf, [input, output_mem, state_mem])
+
+
+lstm_step_layer = lstm_step
+
+
 def _cost2(type_: str, input: LayerOutput, label: LayerOutput, name=None, **attrs):
     conf = LayerConf(
         name=name or auto_name(type_),
@@ -714,6 +846,213 @@ def classification_cost(
     if weight is not None:
         raise NotImplementedError("weighted classification_cost is not ported yet")
     return _cost2("cross_entropy", input, label, name=name)
+
+
+# ---------------------------------------------------------------------------
+# structured prediction: crf / crf_decoding
+# ---------------------------------------------------------------------------
+
+
+def crf(
+    input: LayerOutput,
+    label: LayerOutput,
+    size: Optional[int] = None,
+    param_attr: Optional[ParamAttr] = None,
+    layer_attr: Optional[ExtraAttr] = None,
+    name: Optional[str] = None,
+) -> LayerOutput:
+    """Linear-chain CRF cost (reference crf_layer)."""
+    n = size or input.size
+    conf = LayerConf(
+        name=name or auto_name("crf"),
+        type="crf",
+        size=1,
+        inputs=(input.name, label.name),
+        bias=False,
+        attrs={"num_classes": n, **_param_attrs(param_attr)},
+    )
+    return LayerOutput(conf, [input, label])
+
+
+crf_layer = crf
+
+
+def crf_decoding(
+    input: LayerOutput,
+    size: Optional[int] = None,
+    label: Optional[LayerOutput] = None,
+    param_attr: Optional[ParamAttr] = None,
+    layer_attr: Optional[ExtraAttr] = None,
+    name: Optional[str] = None,
+) -> LayerOutput:
+    """Viterbi decoding (reference crf_decoding_layer); with `label`, the
+    per-position mismatch map."""
+    n = size or input.size
+    parents = [input] + ([label] if label is not None else [])
+    conf = LayerConf(
+        name=name or auto_name("crf_decoding"),
+        type="crf_decoding",
+        size=n,
+        inputs=tuple(p.name for p in parents),
+        bias=False,
+        attrs={"num_classes": n, **_param_attrs(param_attr)},
+    )
+    return LayerOutput(conf, parents)
+
+
+crf_decoding_layer = crf_decoding
+
+
+# ---------------------------------------------------------------------------
+# mixed and its projections
+# ---------------------------------------------------------------------------
+
+
+class Projection:
+    """One term of a mixed layer.  Not a graph node: the enclosing mixed
+    layer owns its parameters (the reference's Projection objects live
+    inside MixedLayer)."""
+
+    def __init__(self, kind: str, input: LayerOutput, **attrs):
+        self.kind = kind
+        self.input = input
+        self.attrs = attrs
+
+
+def _weighted_projection(kind: str, input: LayerOutput, size: int = 0,
+                         param_attr: Optional[ParamAttr] = None) -> Projection:
+    return Projection(kind, input, size=size, param_std=_param_std(param_attr),
+                      param_name=_param_name(param_attr))
+
+
+def full_matrix_projection(input: LayerOutput, size: int = 0,
+                           param_attr: Optional[ParamAttr] = None) -> Projection:
+    return _weighted_projection("full_matrix", input, size, param_attr)
+
+
+def trans_full_matrix_projection(input: LayerOutput, size: int = 0,
+                                 param_attr: Optional[ParamAttr] = None) -> Projection:
+    return _weighted_projection("trans_full_matrix", input, size, param_attr)
+
+
+def table_projection(input: LayerOutput, size: int = 0,
+                     param_attr: Optional[ParamAttr] = None) -> Projection:
+    return _weighted_projection("table", input, size, param_attr)
+
+
+def identity_projection(input: LayerOutput, offset: Optional[int] = None,
+                        size: int = 0) -> Projection:
+    if offset is None:
+        return Projection("identity", input)
+    return Projection("identity_offset", input, offset=offset, size=size)
+
+
+def slice_projection(input: LayerOutput, slices: Sequence[tuple]) -> Projection:
+    return Projection("slice", input, slices=tuple(tuple(s) for s in slices))
+
+
+def scaling_projection(input: LayerOutput) -> Projection:
+    return Projection("scaling", input)
+
+
+def dotmul_projection(input: LayerOutput, param_attr: Optional[ParamAttr] = None) -> Projection:
+    return Projection("dotmul", input, param_std=_param_std(param_attr),
+                      param_name=_param_name(param_attr))
+
+
+def mixed(
+    size: int = 0,
+    input=None,
+    name: Optional[str] = None,
+    act=None,
+    bias_attr: Union[bool, ParamAttr, None] = False,
+    layer_attr: Optional[ExtraAttr] = None,
+) -> LayerOutput:
+    """The sum of projections (reference mixed_layer); a plain layer given
+    as input enters as an identity term.  Projection j's weight is
+    ``p{j}_w``, shared by its param_attr's name.  With no input, returns
+    the v1 builder::
+
+        with mixed(size=...) as m:
+            m += full_matrix_projection(x)
+    """
+    if input is None:
+        return _MixedBuilder(size=size, name=name, act=act, bias_attr=bias_attr,
+                             layer_attr=layer_attr)
+    items = [input] if isinstance(input, (Projection, LayerOutput)) else list(input)
+    parents: list = []
+    specs: list = []
+    for item in items:
+        if isinstance(item, Projection):
+            lo, kind, attrs = item.input, item.kind, dict(item.attrs)
+        else:
+            lo, kind, attrs = item, "identity", {}
+        names = [p.name for p in parents]
+        if lo.name not in names:
+            parents.append(lo)
+            names.append(lo.name)
+        specs.append({"kind": kind, "in": names.index(lo.name), **attrs})
+    if size == 0:
+        inferred = [
+            parents[s["in"]].size for s in specs
+            if s["kind"] in ("identity", "dotmul", "scaling")
+        ] + [s["size"] for s in specs if s.get("size")] + [
+            sum(e - b for b, e in s["slices"]) for s in specs if s["kind"] == "slice"
+        ]
+        if not inferred:
+            raise ValueError("mixed() needs an explicit size")
+        size = inferred[0]
+    pnames = {f"p{j}_w": s["param_name"] for j, s in enumerate(specs) if s.get("param_name")}
+    if isinstance(bias_attr, ParamAttr) and bias_attr.name:
+        pnames["b"] = bias_attr.name
+    drop, shard = _extra(layer_attr)
+    conf = LayerConf(
+        name=name or auto_name("mixed"),
+        type="mixed",
+        size=size,
+        inputs=tuple(p.name for p in parents),
+        act=act_name(act),
+        bias=bool(bias_attr),
+        drop_rate=drop,
+        shard_axis=shard,
+        attrs={
+            "projections": tuple(specs),
+            **({"param_names": pnames} if pnames else {}),
+        },
+    )
+    _set_error_clip(conf, layer_attr)
+    return LayerOutput(conf, parents)
+
+
+class _MixedBuilder(LayerOutput):
+    """``with mixed() as m: m += projection`` (reference MixedLayerType):
+    the object becomes the mixed layer's LayerOutput when the block exits."""
+
+    def __init__(self, **kw):
+        self._kw = kw
+        self._terms: list = []
+        self.conf = None  # set on __exit__
+        self.parents = ()
+
+    def __enter__(self):
+        return self
+
+    def __iadd__(self, term):
+        self._terms.append(term)
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if exc_type is not None:
+            return False
+        if not self._terms:
+            raise ValueError("mixed() block added no projections")
+        built = mixed(input=self._terms, **self._kw)
+        self.conf = built.conf
+        self.parents = built.parents
+        return False
+
+
+mixed_layer = mixed
 
 
 def layer_norm(

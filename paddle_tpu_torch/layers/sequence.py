@@ -1,14 +1,15 @@
 """Sequence layers — the counterpart of the part of
-``paddle_tpu/layers/sequence.py`` the attention NMT model uses: sequence
-pooling (``seqpool`` :63), first / last instance (``seqlastins`` :133),
-``expand`` (:171), the GRU over a whole sequence (``gru``, grumemory,
-:293-326) and one GRU step inside a recurrent group (``gru_step``,
-:356-408).
+``paddle_tpu/layers/sequence.py`` the ported models use: sequence pooling
+(``seqpool`` :63), first / last instance (``seqlastins`` :133), ``expand``
+(:171), the LSTM over a whole sequence (``lstmemory``, :254-290), the GRU
+over a whole sequence (``gru``, grumemory, :293-326), the simple recurrence
+(``recurrent``, :327-353) and one GRU or LSTM step inside a recurrent group
+(``gru_step`` :356-408, ``lstm_step`` :409-445).
 
 All work on padded [B, T, ...] SeqTensors with length masks.  Not ported
 yet: nested (sub-sequence) inputs and stride windows of the pooling and
 selection layers (these raise), and the other sequence layers of the JAX
-module (lstmemory, recurrent, lstm_step, seqreshape, seqconcat, ...).
+module (seqreshape, seqconcat, sampling_id, eos_id, ...).
 """
 
 from __future__ import annotations
@@ -81,6 +82,36 @@ def expand_apply(conf, params, inputs, ctx):
     return SeqTensor(x.data[:, None, :].expand(b, t, x.data.shape[-1]), pattern.lengths)
 
 
+def lstmemory_init(conf, in_confs, gen, device):
+    h = conf.size
+    p = {"w_h": init.normal(gen, (h, 4 * h), conf.attr("param_std"), device)}
+    if conf.bias:
+        # the reference packs the gate bias and the three peepholes into one
+        # 7H bias (LstmLayer.cpp); they stay named, as in the JAX package
+        p["b"] = init.zeros((4 * h,), device)
+        for k in ("w_ci", "w_cf", "w_co"):
+            p[k] = init.normal(gen, (h,), 1.0, device)
+    return p
+
+
+@register_layer("lstmemory", init=lstmemory_init, auto_activation=False)
+def lstmemory_apply(conf, params, inputs, ctx):
+    """LstmLayer over an input pre-projected to 4H, through the LSTM core
+    of ``ops/rnn.py``; without a bias the layer has no peepholes."""
+    x = inputs[0]
+    if not x.is_seq or x.is_nested:
+        raise ValueError(f"{conf.name}: lstmemory input must be a plain sequence")
+    hs, _ = rnn_ops.lstm_scan(
+        x.data, params["w_h"], params.get("b"),
+        params.get("w_ci"), params.get("w_cf"), params.get("w_co"), x.lengths,
+        gate_act=conf.attr("gate_act", "sigmoid"),
+        act=conf.attr("active_type", conf.act or "tanh"),
+        state_act=conf.attr("state_act", "tanh"),
+        reverse=conf.attr("reverse", False),
+    )
+    return SeqTensor(hs, x.lengths)
+
+
 def gru_init(conf, in_confs, gen, device):
     h = conf.size
     p = {
@@ -104,6 +135,28 @@ def gru_apply(conf, params, inputs, ctx):
         gate_act=conf.attr("gate_act", "sigmoid"),
         act=conf.attr("active_type", conf.act or "tanh"),
         reverse=conf.attr("reverse", False),
+    )
+    return SeqTensor(hs, x.lengths)
+
+
+def recurrent_init(conf, in_confs, gen, device):
+    h = conf.size
+    p = {"w_h": init.normal(gen, (h, h), conf.attr("param_std"), device)}
+    if conf.bias:
+        p["b"] = init.zeros((h,), device)
+    return p
+
+
+@register_layer("recurrent", init=recurrent_init, auto_activation=False)
+def recurrent_apply(conf, params, inputs, ctx):
+    """RecurrentLayer: h_t = act(x_t + h_p W_h), through the simple-RNN core
+    of ``ops/rnn.py``; `reverse` runs it from the last valid step."""
+    x = inputs[0]
+    if not x.is_seq or x.is_nested:
+        raise ValueError(f"{conf.name}: recurrent input must be a plain sequence")
+    hs, _ = rnn_ops.simple_rnn_scan(
+        x.data, params["w_h"], params.get("b"), x.lengths,
+        act=conf.act or "tanh", reverse=conf.attr("reverse", False),
     )
     return SeqTensor(hs, x.lengths)
 
@@ -147,3 +200,36 @@ def gru_step_apply(conf, params, inputs, ctx):
         u_t, r_t = f_gate(x_u + ur[:, :h]), f_gate(x_r + ur[:, h:])
     c_t = f_act(x_c + (r_t * h_p) @ w_c)
     return SeqTensor((1.0 - u_t) * h_p + u_t * c_t)
+
+
+def lstm_step_init(conf, in_confs, gen, device):
+    h = conf.size
+    p = {}
+    if conf.attr("recurrent_weight", True):
+        p["w_h"] = init.normal(gen, (h, 4 * h), None, device)
+    if conf.bias:
+        p["b"] = init.zeros((4 * h,), device)
+    return p
+
+
+@register_layer("lstm_step", init=lstm_step_init, auto_activation=False)
+def lstm_step_apply(conf, params, inputs, ctx):
+    """One LSTM step (LstmStepLayer.cpp): inputs (gates [B, 4H], h_p [B, H],
+    c_p [B, H]); returns h and writes the cell as the side output
+    ``<name>@cell``, which a ``memory(name=<name>@cell)`` links to (the
+    reference reaches it by get_output_layer on the step's second output).
+    The step has no peepholes; without ``recurrent_weight`` the recurrence
+    enters through the gates input (lstmemory_unit's mixed projection)."""
+    x, h_p, c_p = (t.data for t in inputs)
+    h = conf.size
+    f_gate = get_activation(conf.attr("gate_act", "sigmoid"))
+    f_act = get_activation(conf.attr("active_type", "tanh"))
+    f_state = get_activation(conf.attr("state_act", "tanh"))
+    a = x + h_p @ params["w_h"] if "w_h" in params else x
+    if "b" in params:
+        a = a + params["b"]
+    a_i, a_f, a_g, a_o = a.split(h, dim=-1)
+    c_t = f_gate(a_f) * c_p + f_gate(a_i) * f_act(a_g)
+    h_t = f_gate(a_o) * f_state(c_t)
+    ctx.outputs[conf.name + "@cell"] = SeqTensor(c_t)
+    return SeqTensor(h_t)

@@ -1,8 +1,10 @@
-"""Recurrent cores — the counterpart of ``paddle_tpu/ops/rnn.py`` for the two
-recurrences the attention NMT model runs: the GRU (``gru_scan``, the
-grumemory layer) and the fused attention-GRU decoder (``attention_gru_scan``,
-what a matched recurrent_group decoder step lowers onto, and
-``attention_gru_step``, its single step for generation and serving).
+"""Recurrent cores — the counterpart of ``paddle_tpu/ops/rnn.py``: the LSTM
+with peepholes (``lstm_scan``, the lstmemory layer), the GRU (``gru_scan``,
+the grumemory layer), the simple recurrence (``simple_rnn_scan``, the
+recurrent layer) and the fused attention-GRU decoder
+(``attention_gru_scan``, what a matched recurrent_group decoder step lowers
+onto, and ``attention_gru_step``, its single step for generation and
+serving).
 
 As in the JAX package the batch stays padded, [B, T, ...], and the loop runs
 over the time axis with a carry mask: a padded step passes the previous
@@ -19,9 +21,6 @@ padding changes nothing, so the loops run only the live range of steps,
 taken from the host copy of the lengths (``core.batch.host_lengths``, set by
 the feeder: no step reads the device).  Dead steps emit the carry, as in the
 JAX package, and their gradients are exact zeros.
-
-Not ported yet: the LSTM core (``_lstm_core``, ``lstm_scan``) and the simple
-RNN core (``_rnn_core``, ``simple_rnn_scan``).
 """
 
 from __future__ import annotations
@@ -135,6 +134,164 @@ def _gru_reset_vjp(acts, p_r, h_p, drh):
 
 
 # ---------------------------------------------------------------------------
+# LSTM with peepholes (JAX ``_lstm_core``)
+# ---------------------------------------------------------------------------
+#
+# One step, a = x_t + h_p @ W_h (+ bias, folded into x_t), gates (i, f, g, o):
+#
+#   i = gate(a_i + w_ci * c_p)     f = gate(a_f + w_cf * c_p)
+#   c = f * c_p + i * act(a_g)     o = gate(a_o + w_co * c)     h = o * state_act(c)
+#
+# The output gate reads the NEW cell, the input and forget gates the old one,
+# so dc collects a term through o and dc_p terms through i and f.  A masked
+# step passes both h and c through.
+
+
+class LstmCore(torch.autograd.Function):
+    """Time-major LSTM recurrence (JAX ``_lstm_core``).  xs: [T, B, 4H] input
+    projections (+ bias) in (i, f, g, o) order; w_h: [H, 4H]; w_ci, w_cf,
+    w_co: [H] peepholes; h0, c0: [B, H]; mask: [T, B, 1] bool; acts: (gate,
+    act, state_act); steps [lo, hi) run.  Returns (hs [T, B, H], h_last,
+    c_last).  The forward saves each step's activation inputs and outputs and
+    the cell; the backward runs one transposed chain GEMM per step, takes
+    dW_h as one GEMM over the saved sequences after the loop and the three
+    peephole gradients as f32 reductions over all steps."""
+
+    @staticmethod
+    def forward(ctx, xs, w_h, w_ci, w_cf, w_co, h0, c0, mask, acts, lo, hi):
+        f_gate, f_act, f_state = (get_activation(a) for a in acts)
+        b, h = h0.shape
+        w_cif = torch.stack([w_ci, w_cf])  # [2, H]: the old-cell peepholes
+        h_t, c_t = h0, c0
+        seqs = ([], [], [], [], [], [], [], [], [])  # hs, cs, p_if, y_if, p_g, g, p_o, o, s
+        for t in range(lo, hi):
+            a = torch.addmm(xs[t], h_t, w_h)  # the chain GEMM
+            p_if = torch.addcmul(a[:, : 2 * h].view(b, 2, h), w_cif, c_t[:, None])
+            y_if = f_gate(p_if)
+            p_g = a[:, 2 * h: 3 * h]
+            g = f_act(p_g)
+            c_new = torch.addcmul(y_if[:, 1] * c_t, y_if[:, 0], g)
+            p_o = torch.addcmul(a[:, 3 * h:], w_co, c_new)
+            o = f_gate(p_o)
+            s = f_state(c_new)
+            m = mask[t]
+            h_t = torch.where(m, o * s, h_t)
+            c_t = torch.where(m, c_new, c_t)
+            for acc, x in zip(seqs, (h_t, c_t, p_if, y_if, p_g, g, p_o, o, s)):
+                acc.append(x)
+        counters["lstm_steps"] += hi - lo
+        counters["lstm_skipped"] += xs.shape[0] - (hi - lo)
+        if hi > lo:
+            saved = [torch.stack(x) for x in seqs]
+        else:
+            saved = [h0.new_zeros((0, b, h))] * len(seqs)
+        ctx.acts, ctx.lo, ctx.hi = acts, lo, hi
+        ctx.save_for_backward(*saved, w_h, w_ci, w_cf, w_co, h0, c0, mask)
+        return _around(saved[0], h0, h_t, lo, xs.shape[0]), h_t, c_t
+
+    @staticmethod
+    def backward(ctx, dhs, dh_last, dc_last):
+        (live, c_seq, p_if_seq, y_if_seq, p_g_seq, g_seq, p_o_seq, o_seq, s_seq,
+         w_h, w_ci, w_cf, w_co, h0, c0, mask) = ctx.saved_tensors
+        acts, lo, hi = ctx.acts, ctx.lo, ctx.hi
+        b, h = h0.shape
+        t_all = dhs.shape[0]
+        dh = dh_last + dhs[hi:].sum(0) if hi < t_all else dh_last
+        dc = dc_last
+        h_prev = torch.cat([h0[None], live[:-1]])
+        c_prev = torch.cat([c0[None], c_seq[:-1]])
+        w_h_t = w_h.t()
+        das = []
+        for i in reversed(range(hi - lo)):
+            t = lo + i
+            dh = dh + dhs[t]
+            m = mask[t]
+            dhm = torch.where(m, dh, 0.0)
+            dcm = torch.where(m, dc, 0.0)
+            y_if, c_p, c_new = y_if_seq[i], c_prev[i], c_seq[i]
+            dp_o = _act_vjp(acts[0], p_o_seq[i], o_seq[i], dhm * s_seq[i])
+            dct = torch.addcmul(
+                dcm + _act_vjp(acts[2], c_new, s_seq[i], dhm * o_seq[i]), dp_o, w_co)
+            g = g_seq[i]
+            dp_if = _act_vjp(acts[0], p_if_seq[i], y_if,
+                             dct[:, None] * torch.stack([g, c_p], 1))
+            da_g = _act_vjp(acts[1], p_g_seq[i], g, dct * y_if[:, 0])
+            da = torch.cat([dp_if.reshape(b, 2 * h), da_g, dp_o], -1)
+            # dc_p: the carry where masked, else through f and both peepholes
+            dc = (dc - dcm) + dct * y_if[:, 1] + dp_if[:, 0] * w_ci + dp_if[:, 1] * w_cf
+            dh = torch.addmm(dh - dhm, da, w_h_t)  # the chain GEMM
+            das.append(da)
+        if lo:
+            dh = dh + dhs[:lo].sum(0)
+        dxs = dhs.new_zeros(tuple(dhs.shape[:2]) + (4 * h,))
+        need = ctx.needs_input_grad
+        dw_h = dw_ci = dw_cf = dw_co = None
+        if hi > lo:
+            da_seq = torch.stack(das[::-1])
+            dxs[lo:hi] = da_seq
+            # one GEMM over the saved sequences: f32 accumulation, rounded
+            # once to the compute dtype
+            dw_h = torch.einsum("tbh,tbg->hg", h_prev, da_seq)
+            # the peephole sums run over all T steps: reduce at f32 or wider
+            # (a bf16 running sum over 100 steps loses low bits)
+            acc = torch.promote_types(w_ci.dtype, torch.float32)
+            if need[2] or need[3]:
+                dcif = (da_seq[..., : 2 * h].reshape(-1, b, 2, h).to(acc)
+                        * c_prev[:, :, None].to(acc)).sum((0, 1))
+                dw_ci, dw_cf = dcif[0].to(w_ci.dtype), dcif[1].to(w_cf.dtype)
+            if need[4]:
+                dw_co = (da_seq[..., 3 * h:].to(acc) * c_seq.to(acc)).sum((0, 1)).to(w_co.dtype)
+        else:
+            dw_h = torch.zeros_like(w_h)
+            dw_ci, dw_cf, dw_co = (torch.zeros_like(w) for w in (w_ci, w_cf, w_co))
+        return (dxs, dw_h, dw_ci if need[2] else None, dw_cf if need[3] else None,
+                dw_co if need[4] else None, dh, dc, None, None, None, None)
+
+
+def lstm_scan(
+    gates: torch.Tensor,  # [B, T, 4H] input projections (i, f, g, o)
+    w_h: torch.Tensor,  # [H, 4H] recurrent weight
+    bias: Optional[torch.Tensor],  # [4H]
+    w_ci: Optional[torch.Tensor],  # [H] input-gate peephole
+    w_cf: Optional[torch.Tensor],  # [H] forget-gate peephole
+    w_co: Optional[torch.Tensor],  # [H] output-gate peephole
+    lengths: Optional[torch.Tensor] = None,
+    *,
+    gate_act: str = "sigmoid",
+    act: str = "tanh",
+    state_act: str = "tanh",
+    reverse: bool = False,
+    h0: Optional[torch.Tensor] = None,
+    c0: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Paddle-v1 LSTM with peepholes (LstmLayer.cpp forwardSequence):
+        i = gate(a_i + w_ci * c_p)   f = gate(a_f + w_cf * c_p)
+        c = f * c_p + i * act(a_g)   o = gate(a_o + w_co * c)   h = o * state_act(c)
+    Absent peepholes are zeros (and get no gradient).  Returns ([B, T, H]
+    hidden sequence, (h_last, c_last))."""
+    b, t, g4 = gates.shape
+    h = g4 // 4
+    xs = gates.transpose(0, 1)
+    if bias is not None:
+        xs = xs + bias  # the gate bias adds in the compute dtype, as in the JAX package
+    if reverse:
+        xs = xs.flip(0)
+    mask = _mask_seq(lengths, t, reverse)
+    if mask is None:
+        mask = torch.ones((t, b, 1), dtype=torch.bool, device=gates.device)
+    h_prev = h0 if h0 is not None else gates.new_zeros((b, h))
+    c_prev = c0 if c0 is not None else gates.new_zeros((b, h))
+    zeros_h = gates.new_zeros((h,))
+    peep = [w if w is not None else zeros_h for w in (w_ci, w_cf, w_co)]
+    lo, hi = live_range(lengths, t, reverse)
+    hs, h_last, c_last = LstmCore.apply(
+        xs.contiguous(), w_h, *peep, h_prev, c_prev, mask, (gate_act, act, state_act), lo, hi)
+    if reverse:
+        hs = hs.flip(0)
+    return hs.transpose(0, 1), (h_last, c_last)
+
+
+# ---------------------------------------------------------------------------
 # GRU
 # ---------------------------------------------------------------------------
 
@@ -239,6 +396,96 @@ def gru_scan(
     h_prev = h0 if h0 is not None else gates.new_zeros((b, h))
     lo, hi = live_range(lengths, t, reverse)
     hs, h_last = GruCore.apply(xs, w_h, w_c, h_prev, mask, (gate_act, act), lo, hi)
+    if reverse:
+        hs = hs.flip(0)
+    return hs.transpose(0, 1), h_last
+
+
+# ---------------------------------------------------------------------------
+# Simple recurrence (JAX ``_rnn_core``): h = act(x_t + h_p @ W_h)
+# ---------------------------------------------------------------------------
+
+
+class RnnCore(torch.autograd.Function):
+    """Time-major plain recurrence (JAX ``_rnn_core``).  xs: [T, B, H] input
+    projections (+ bias); w_h: [H, H]; h0: [B, H]; mask: [T, B, 1] bool;
+    acts: (act,); steps [lo, hi) run.  Returns (hs [T, B, H], h_last), with
+    the same deferred weight gradient as :class:`LstmCore`."""
+
+    @staticmethod
+    def forward(ctx, xs, w_h, h0, mask, acts, lo, hi):
+        f_act = get_activation(acts[0])
+        h_t = h0
+        hs, pres, ys = [], [], []
+        for t in range(lo, hi):
+            a = torch.addmm(xs[t], h_t, w_h)  # the chain GEMM
+            y = f_act(a)
+            h_t = torch.where(mask[t], y, h_t)
+            hs.append(h_t)
+            pres.append(a)
+            ys.append(y)
+        counters["rnn_steps"] += hi - lo
+        counters["rnn_skipped"] += xs.shape[0] - (hi - lo)
+        if hs:
+            live, a_seq, y_seq = torch.stack(hs), torch.stack(pres), torch.stack(ys)
+        else:
+            live = a_seq = y_seq = h0.new_zeros((0,) + tuple(h0.shape))
+        ctx.acts, ctx.lo, ctx.hi = acts, lo, hi
+        ctx.save_for_backward(a_seq, y_seq, live, w_h, h0, mask)
+        return _around(live, h0, h_t, lo, xs.shape[0]), h_t
+
+    @staticmethod
+    def backward(ctx, dhs, dh_last):
+        a_seq, y_seq, live, w_h, h0, mask = ctx.saved_tensors
+        acts, lo, hi = ctx.acts, ctx.lo, ctx.hi
+        t_all = dhs.shape[0]
+        dh = dh_last + dhs[hi:].sum(0) if hi < t_all else dh_last
+        w_h_t = w_h.t()
+        das = []
+        for i in reversed(range(hi - lo)):
+            t = lo + i
+            dh = dh + dhs[t]
+            dhm = torch.where(mask[t], dh, 0.0)
+            da = _act_vjp(acts[0], a_seq[i], y_seq[i], dhm)
+            dh = torch.addmm(dh - dhm, da, w_h_t)  # the chain GEMM
+            das.append(da)
+        if lo:
+            dh = dh + dhs[:lo].sum(0)
+        dxs = torch.zeros_like(dhs)
+        if hi > lo:
+            da_seq = torch.stack(das[::-1])
+            dxs[lo:hi] = da_seq
+            h_prev = torch.cat([h0[None], live[:-1]])
+            dw_h = torch.einsum("tbh,tbg->hg", h_prev, da_seq)
+        else:
+            dw_h = torch.zeros_like(w_h)
+        return dxs, dw_h, dh, None, None, None, None
+
+
+def simple_rnn_scan(
+    x: torch.Tensor,  # [B, T, H] input projections
+    w_h: torch.Tensor,  # [H, H]
+    bias: Optional[torch.Tensor],
+    lengths: Optional[torch.Tensor] = None,
+    *,
+    act: str = "tanh",
+    reverse: bool = False,
+    h0: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain recurrence h_t = act(x_t + h_p W) (RecurrentLayer.cpp).
+    Returns ([B, T, H], h_last)."""
+    b, t, h = x.shape
+    xs = x.transpose(0, 1)
+    if bias is not None:
+        xs = xs + bias
+    if reverse:
+        xs = xs.flip(0)
+    mask = _mask_seq(lengths, t, reverse)
+    if mask is None:
+        mask = torch.ones((t, b, 1), dtype=torch.bool, device=x.device)
+    h_prev = h0 if h0 is not None else x.new_zeros((b, h))
+    lo, hi = live_range(lengths, t, reverse)
+    hs, h_last = RnnCore.apply(xs.contiguous(), w_h, h_prev, mask, (act,), lo, hi)
     if reverse:
         hs = hs.flip(0)
     return hs.transpose(0, 1), h_last

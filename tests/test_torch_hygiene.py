@@ -44,7 +44,8 @@ def test_every_module_imports_without_jax():
                 "checkpoint", "trainer.step", "optimizer", "ops.rnn", "layers.recurrent_group",
                 "layers.sequence", "layers.networks", "models.seq2seq", "reader.bucketing",
                 "ops.beam", "layers.generation", "serving", "serving.engine", "serving.pages",
-                "serving.scheduler", "utils.timers"):
+                "serving.scheduler", "utils.timers", "layers.mixed", "layers.structured",
+                "models.sequence_tagging"):
         assert f"paddle_tpu_torch.{mod}" in names.split()
 
 
@@ -161,3 +162,46 @@ def test_generation_and_serving_entry_points_raise_without_cuda():
         paddle_tpu_torch.infer(beam, beam_params, [([2, 3],)], field="id")
     assert paddle_tpu_torch.infer(beam, beam_params, [([2, 3],)], field="id",
                                   device="cpu").shape == (1, 2, 4)
+
+
+def test_lstm_and_tagger_entry_points_raise_without_cuda():
+    """SGD.train's trainer and paddle.infer over the LSTM text classifier
+    and the CRF tagger: the card unless the caller asks for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device; the no-CUDA error cannot show")
+    P = paddle_tpu_torch
+    from paddle_tpu_torch.models.sequence_tagging import ner_crf_cost
+
+    L = P.layer
+    words = L.data(name="word", type=P.data_type.integer_value_sequence(50))
+    lstm = P.networks.simple_lstm(L.embedding(words, size=8), 8)
+    probs = L.fc(L.last_seq(lstm), size=2, act=P.activation.Softmax())
+    text_cost = L.classification_cost(
+        input=probs, label=L.data(name="label", type=P.data_type.integer_value(2)))
+    tag_cost, decode = ner_crf_cost(50, 5, word_dim=8, hidden_dim=8)
+    for cost, out in ((text_cost, probs), (tag_cost, decode)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            P.trainer.SGD(cost, update_equation=P.optimizer.Adam(learning_rate=1e-3))
+        params = P.parameters.create(cost, device="cpu")
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            P.infer(out, params, [([1, 2, 3],)])
+        trainer = P.trainer.SGD(cost, params, P.optimizer.Adam(learning_rate=1e-3), device="cpu")
+        assert trainer.device == torch.device("cpu")
+        assert P.infer(out, params, [([1, 2, 3],)], device="cpu").shape[0] in (1, 3)
+
+
+# the port's layer types: the 24 of the Transformer, image, spine, NMT and
+# generation slices, then the six of the LSTM, simple-RNN and CRF slice
+_EARLIER_TYPES = {
+    "addto", "batch_norm", "beam_search", "concat", "conv", "cross_entropy", "data",
+    "embedding", "expand", "fc", "get_output", "gru", "gru_step", "layer_norm", "memory",
+    "multi_head_attention", "pool", "pos_encoding", "recurrent_group", "scaling",
+    "seqlastins", "seqpool", "softmax_with_cost", "step_input"}
+_SLICE_TYPES = {"lstmemory", "recurrent", "lstm_step", "mixed", "crf", "crf_decoding"}
+
+
+def test_registered_layer_types_grow_by_the_slice():
+    from paddle_tpu_torch.layers.base import registered_layer_types
+
+    assert set(registered_layer_types()) == _EARLIER_TYPES | _SLICE_TYPES
+    assert len(registered_layer_types()) == 30
