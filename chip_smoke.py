@@ -171,12 +171,33 @@ Phases, in order; any failure exits non-zero:
      f32, card vs CPU: the crf cost and gradients (relative L2 <= 1e-5,
      ragged rows with a length-1 sentence) and crf_decoding's paths equal,
      on random weights and on a constructed three-way tie (both take the
-     first maximum).  No flash kernel may launch in phases 14 and 15.
+     first maximum).  No flash kernel may launch in phases 14 and 15;
+ 16. bench_lstm_textcls as bench.py runs it, through the v1 front end: a v1
+     config (phase 14's network, widths through get_config_arg parsed from
+     "hidden_size=512,lstm_num=2,batch_size=128") and a @provider over a
+     pickle in the rnn benchmark's schema (512 reviews of 100 tokens from
+     RandomState(0)), written to a temporary directory that is removed
+     afterwards; parse_config, make_optimizer, make_provider_reader,
+     DataFeeder(p.topology.data_types()) and SGD.train in bf16 over f32
+     masters: one warm-up step and 4 timed steps (seconds per step,
+     reviews/s, tokens/s, peak memory beside phase 14's, every timestep on
+     the LSTM core), torch.profiler over two steps; make_batched_reader with
+     use_bucketing and a 12800-token budget over 512 reviews of 10-100
+     tokens drawn beta(2, 3) (no batch may pad past the budget; rungs and
+     valid share printed); card against CPU in f32 at vocab 512, width 32,
+     4 ragged rows: the v1-parsed network's cost and gradients, a nested
+     batch (4 paragraphs of 1-5 sentences of 2-12 ids) through the feeder
+     (its tensors equal on both sides), fc and mixed, and a
+     sparse_binary_vector(512) slot through fc(32) as a multi-hot product
+     and as the gather-sum of its padded ids (relative L2 <= 1e-5); and the
+     pruning hook on the card: fc(2048 -> 512) with HookAttr("pruning",
+     0.75) after 5 steps has exactly 0.75 of w0 at zero, at the smallest
+     initial magnitudes.  No flash kernel may launch in phase 16.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels with their launches on the main path (the timed training steps of
-phase 5; the NMT paths of phases 11-13, the LSTM classifier of phase 14 and
-the tagger of phase 15 run none of them), errors and times.
+phase 5; the NMT paths of phases 11-13, the LSTM classifier of phases 14
+and 16 and the tagger of phase 15 run none of them), errors and times.
 Without a CUDA device, or without the paddle_tpu_torch package beside it, the script
 exits non-zero and prints no result.
 """
@@ -2272,6 +2293,345 @@ def phase_tagger(torch, P, fa, card):
     return {"s_per_step": float(np.mean(secs))}
 
 
+# phase 16: bench_lstm_textcls as bench.py runs it, through the port's v1
+# front end: a v1 config (the network of bench.py:2013-2020, widths through
+# get_config_arg) and a @provider over a pickle in the rnn benchmark's
+# schema, (token lists, labels)
+V1_CONFIG = """
+from paddle.trainer_config_helpers import *
+
+vocab = get_config_arg("vocab", int, 30000)
+hidden_size = get_config_arg("hidden_size", int, 128)
+lstm_num = get_config_arg("lstm_num", int, 1)
+batch_size = get_config_arg("batch_size", int, 128)
+settings(batch_size=batch_size, learning_rate=5e-4, learning_method=AdamOptimizer())
+define_py_data_sources2("train.list", None, module="provider", obj="process",
+                        args={"vocab": vocab})
+net = data_layer("data", vocab)
+net = embedding_layer(input=net, size=128)
+for i in range(lstm_num):
+    net = simple_lstm(input=net, size=hidden_size)
+net = last_seq(input=net)
+net = fc_layer(input=net, size=2, act=SoftmaxActivation())
+lab = data_layer("label", 2)
+outputs(classification_cost(input=net, label=lab))
+"""
+V1_PROVIDER = """
+import pickle
+from paddle.trainer.PyDataProvider2 import *
+
+@provider(input_types=[integer_value_sequence(30000), integer_value(2)], should_shuffle=False)
+def process(settings, path, vocab=30000):
+    with open(path, "rb") as f:
+        x, y = pickle.load(f)
+    for ids, label in zip(x, y):
+        yield [int(t) % vocab for t in ids], int(label)
+"""
+V1_ARGS = "hidden_size=512,lstm_num=2,batch_size=128"
+V1_REVIEWS = 512
+V1_BUDGET = 12800  # bucketing_token_budget of the ragged corpus
+V1_PRUNE = (2048, 512, 0.75, 5)  # fc in, out, sparsity ratio, steps
+V1_TURNS = 4  # rounds of the in-turns v1 / v2 comparison
+
+
+def v1_stage(d, name, reviews):
+    """Write the reviews as the rnn benchmark's pickle `name` and point
+    train.list at it."""
+    import pickle
+
+    with open(os.path.join(d, name), "wb") as f:
+        pickle.dump(([r[0] for r in reviews], [r[1] for r in reviews]), f, protocol=2)
+    with open(os.path.join(d, "train.list"), "w") as f:
+        f.write(os.path.join(d, name) + "\n")
+
+
+def phase_v1(torch, P, fa, card, lstm14):
+    """Phase 16: bench_lstm_textcls through the v1 front end at full width
+    (parse_config -> make_optimizer -> make_provider_reader -> DataFeeder ->
+    SGD.train), token-budget bucketing through make_batched_reader, card
+    against CPU for the v1-parsed network, a nested batch and a sparse slot,
+    and the pruning hook."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import v1_compat
+    from paddle_tpu_torch.core.batch import ladder_len
+    from paddle_tpu_torch.ops.rnn import counters as cores
+    from paddle_tpu_torch.reader import feeder as feeder_mod
+    from paddle_tpu_torch.utils.tree import leaves
+
+    d = tempfile.mkdtemp(prefix="v1_textcls_")
+    try:
+        with open(os.path.join(d, "textcls.py"), "w") as f:
+            f.write(V1_CONFIG)
+        with open(os.path.join(d, "provider.py"), "w") as f:
+            f.write(V1_PROVIDER)
+        v1_stage(d, "reviews.pkl", text_reviews(np.random.RandomState(0), V1_REVIEWS, TXT_VOCAB,
+                                                False))
+        reset_counts(fa)
+        # the reference's init arguments: use_gpu=False does not move the port
+        # off the card
+        P.init(seed=91, compute_dtype="bfloat16", use_gpu=False, trainer_count=1)
+        from paddle_tpu_torch.core.device import resolve_device
+
+        if resolve_device(None).type != "cuda":
+            raise SystemExit("v1: init(use_gpu=False) moved the port off the card")
+        parsed = v1_compat.parse_config(os.path.join(d, "textcls.py"), V1_ARGS)
+        st = parsed.settings
+        opt = v1_compat.make_optimizer(st)
+        types = parsed.topology.data_types()
+        say(f"v1: parse_config(textcls.py, {V1_ARGS!r}): {len(parsed.topology.layers)} layers, "
+            f"outputs {parsed.output_layers}, slots {[(n, t.kind.value, t.seq.name, t.dim) for n, t in types]}, "
+            f"batch_size {st.batch_size}, {type(opt).__name__}({st.learning_rate})")
+        if st.batch_size != TXT_B or type(opt).__name__ != "Adam" or st.learning_rate != TXT_LR:
+            raise SystemExit("v1: the settings did not parse as written")
+        reader = v1_compat.make_provider_reader(parsed, d)
+        first = list(P.reader.firstn(reader, TXT_B)())
+        fed = P.reader.DataFeeder(types, parsed.feeding)(first)
+        say(f"v1: DataFeeder(p.topology.data_types()) on the first {TXT_B} reviews: "
+            f"{ {k: (tuple(v.data.shape), str(v.data.device)) for k, v in fed.items()} }")
+        params = P.parameters.create(parsed.topology.outputs, seed=91)
+        trainer = P.trainer.SGD(parsed.topology, params, opt)
+        batched = P.batch(reader, st.batch_size)
+        trainer.train(P.batch(P.reader.firstn(reader, TXT_B), TXT_B),
+                      feeding=parsed.feeding)  # warm-up step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cores.clear()
+        steps, clock = [], [0.0]
+
+        def on_event(e):
+            if isinstance(e, P.event.BeginIteration):
+                torch.cuda.synchronize()
+                clock[0] = time.perf_counter()
+            elif isinstance(e, P.event.EndIteration):
+                steps.append((time.perf_counter() - clock[0], e.cost))
+
+        trainer.train(batched, feeding=parsed.feeding, event_handler=on_event)
+        secs, costs = [s[0] for s in steps], [s[1] for s in steps]
+        mean_s = float(np.mean(secs))
+        n_timed = V1_REVIEWS // TXT_B
+        say(f"v1 text lstm: {sum(v.numel() for v in leaves(params.params))} parameters; "
+            f"{len(steps)} timed steps: costs {[round(c, 4) for c in costs]}, seconds per step "
+            f"{[round(x, 4) for x in secs]}; {mean_s:.4f} s per step, {TXT_B / mean_s:.1f} "
+            f"reviews/s, {TXT_B * TXT_T / mean_s:.1f} tokens/s, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}; phase 14 (the same "
+            f"network through the v2 DSL): {lstm14['s_per_step']:.4f} s per step, "
+            f"{TXT_B / lstm14['s_per_step']:.1f} reviews/s, "
+            f"{TXT_B * TXT_T / lstm14['s_per_step']:.1f} tokens/s")
+        say(f"v1 text lstm: LSTM steps run/skipped over the timed steps {cores['lstm_steps']}/"
+            f"{cores['lstm_skipped']} ({TXT_LAYERS} layers x {TXT_T} steps x {n_timed})")
+        if len(steps) != n_timed or not all(np.isfinite(costs)):
+            raise SystemExit("v1: training gave a non-finite cost or a missing step")
+        if cores["lstm_steps"] != TXT_LAYERS * TXT_T * n_timed:
+            raise SystemExit("v1: the LSTM cores did not run every timestep")
+        two = list(P.reader.firstn(batched, 2)())  # read before the window opens
+        wall, busy, kernels, _ = profile_call(
+            torch, lambda: trainer.train(lambda: iter(two), feeding=parsed.feeding))
+        say(f"v1 text lstm profile: 2 steps in {wall:.4f} s (profiler on), device busy "
+            f"{busy:.4f} s ({busy / wall:.3f} of the window), {kernels / 2:.0f} device kernels "
+            f"per step")
+        v1_against_v2(torch, P, trainer, parsed.feeding, two)
+        del trainer, params
+        torch.cuda.empty_cache()
+
+        # token-budget bucketing over a ragged corpus through make_batched_reader
+        ragged = text_reviews(np.random.RandomState(3), V1_REVIEWS, TXT_VOCAB, True)
+        v1_stage(d, "ragged.pkl", ragged)
+        saved = {k: P.flags.get_flag(k) for k in ("use_bucketing", "bucketing_token_budget")}
+        P.flags.set_flag("use_bucketing", True)
+        P.flags.set_flag("bucketing_token_budget", V1_BUDGET)
+        try:
+            buckets = list(v1_compat.make_batched_reader(parsed, d, st.batch_size)())
+        finally:
+            for k, v in saved.items():
+                P.flags.set_flag(k, v)
+        rungs, valid, padded, worst = {}, 0, 0, 0
+        for b in buckets:
+            rung = ladder_len(max(8, max(len(s[0]) for s in b)))
+            rungs[rung] = rungs.get(rung, 0) + 1
+            valid += sum(len(s[0]) for s in b)
+            padded += rung * len(b)
+            worst = max(worst, rung * len(b))
+        say(f"v1 bucketing (budget {V1_BUDGET} tokens, {V1_REVIEWS} reviews of 10-100 tokens "
+            f"drawn beta(2, 3)): {len(buckets)} batches, {{rung: batches}} {dict(sorted(rungs.items()))}, "
+            f"largest padded batch {worst} tokens, valid share {valid / padded:.4f}")
+        if sum(len(b) for b in buckets) != V1_REVIEWS or worst > V1_BUDGET:
+            raise SystemExit("v1: a bucketed batch padded past the token budget or lost a review")
+
+        # card against CPU in f32 at a small width
+        vocab, width, rows = TXT_SMALL
+        P.init(seed=93, compute_dtype="float32")
+        small = v1_compat.parse_config(os.path.join(d, "textcls.py"),
+                                       f"vocab={vocab},hidden_size={width},lstm_num=2,batch_size={rows}")
+        samples = text_reviews(np.random.RandomState(2), rows, vocab, True)
+        samples = [(s[0][: 5 + 7 * i], s[1]) for i, s in enumerate(samples)]
+        net = P.CompiledNetwork(small.topology, compute_dtype="float32")
+        from paddle_tpu_torch.core.device import tree_to
+
+        cpu_params = net.init_params(95, device="cpu")
+        got = []
+        for dev in (torch.device("cuda"), torch.device("cpu")):
+            batch = P.reader.DataFeeder(small.topology.data_types(), small.feeding,
+                                        device=dev)(samples)
+            got.append(grads_of(torch, net, tree_to(cpu_params, dev), batch))
+        (c_card, g_card), (c_cpu, g_cpu) = got
+        err = rel_l2(torch, g_card, g_cpu)
+        say(f"v1 f32 at vocab {vocab}, width {width}, {rows} rows (lengths "
+            f"{[len(s[0]) for s in samples]}): cost card {c_card:.7f} CPU {c_cpu:.7f}; gradients "
+            f"relative L2 over {len(g_cpu)} leaves {err:.3e} (<= {TXT_GRAD_REL})")
+        if (set(g_card) != set(g_cpu) or abs(c_card - c_cpu) > TXT_GRAD_REL * abs(c_cpu)
+                or not err <= TXT_GRAD_REL):
+            raise SystemExit("v1: the card's gradients of the v1-parsed network stray from the CPU's")
+        phase_v1_nested_sparse(torch, P, feeder_mod, vocab, width)
+        phase_v1_prune(torch, P, card)
+        if launch_counts(fa) != (0, 0, 0):
+            raise SystemExit("v1: the v1 path launched a flash kernel")
+        P.init(compute_dtype="bfloat16")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def v1_against_v2(torch, P, trainer, feeding, batches, rounds=V1_TURNS):
+    """Seconds per step of the v1-parsed trainer and of phase 14's network
+    built through the v2 DSL, in turns (v2, v1, v1, v2, then v1 first) on
+    the same batches: the host's clock drifts between phases, so only steps
+    taken in turns compare."""
+    cost, _ = text_lstm_cost(P, TXT_VOCAB, TXT_EMB, TXT_HIDDEN, TXT_LAYERS)
+    v2 = P.trainer.SGD(cost, P.parameters.create(cost, seed=91),
+                       P.optimizer.Adam(learning_rate=TXT_LR))
+    runs = {"v2": (v2, {"word": 0, "label": 1}), "v1": (trainer, feeding)}
+
+    def step(name, batch):
+        t, feed = runs[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t.train(lambda: iter([batch]), feeding=feed)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    step("v2", batches[0])  # v2's first step: allocator, handles
+    times = {"v2": [], "v1": []}
+    for r in range(rounds):
+        order = ("v2", "v1", "v1", "v2") if r % 2 == 0 else ("v1", "v2", "v2", "v1")
+        for i, name in enumerate(order):
+            times[name].append(step(name, batches[(r + i) % len(batches)]))
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    say(f"v1 against the v2 DSL in turns ({rounds} rounds, {len(times['v1'])} steps each, same "
+        f"batches): median s per step v1 {med['v1']:.4f} v2 {med['v2']:.4f} (v1/v2 "
+        f"{med['v1'] / med['v2']:.3f}); v1 {[round(x, 4) for x in times['v1']]}, v2 "
+        f"{[round(x, 4) for x in times['v2']]}")
+    del v2, runs
+
+
+def _card_cpu(torch, P, out, feed, seed):
+    """f32 outputs and gradients (of the sum of squares of the valid
+    outputs) of `out`'s network on the card and on the CPU from the same
+    parameters and samples: ((card out, grads), (CPU out, grads))."""
+    from paddle_tpu_torch.core.device import tree_to
+    from paddle_tpu_torch.utils.tree import leaf_paths, map_leaves
+
+    net = P.CompiledNetwork(P.Topology(out), compute_dtype="float32")
+    cpu_params = net.init_params(seed, device="cpu")
+    res = []
+    for dev in (torch.device("cuda"), torch.device("cpu")):
+        batch = feed(dev)
+        leaves_ = map_leaves(lambda v: v.detach().requires_grad_(True), tree_to(cpu_params, dev))
+        outs, _ = net.apply(leaves_, batch, train=True)
+        y = outs[out.name].masked_data()
+        paths = list(leaf_paths(leaves_))
+        gs = torch.autograd.grad((y.float() ** 2).sum(), [v for _, v in paths])
+        res.append((y.detach().cpu(), {".".join(p): g for (p, _), g in zip(paths, gs)}, batch))
+    return res
+
+
+def phase_v1_nested_sparse(torch, P, feeder_mod, vocab, width):
+    """A nested batch through the feeder, embedding, fc and mixed, and a
+    sparse_binary slot through fc's multi-hot product and its gather-sum,
+    card against CPU in f32."""
+    L, dt, A = P.layer, P.data_type, P.activation
+    rng = np.random.RandomState(5)
+    paras = [([[int(t) for t in rng.randint(0, vocab, size=rng.randint(2, 13))]
+               for _ in range(rng.randint(1, 6))],) for _ in range(4)]
+    words = L.data("para", dt.integer_value_sub_sequence(vocab))
+    h = L.fc(L.embedding(words, size=width), size=width, act=A.Tanh())
+    out = L.mixed(size=width, input=[L.full_matrix_projection(h), L.identity_projection(h)],
+                  act=A.Tanh())
+
+    def feed(dev):
+        return P.reader.DataFeeder([("para", dt.integer_value_sub_sequence(vocab))],
+                                   device=dev)(paras)
+
+    (y_card, g_card, b_card), (y_cpu, g_cpu, b_cpu) = _card_cpu(torch, P, out, feed, 97)
+    same = all(torch.equal(getattr(b_card["para"], k).cpu(), getattr(b_cpu["para"], k))
+               for k in ("data", "lengths", "sub_lengths"))
+    err_y = rel_l2(torch, {"y": y_card}, {"y": y_cpu})
+    err_g = rel_l2(torch, g_card, g_cpu)
+    say(f"v1 nested: 4 paragraphs of {[len(p[0]) for p in paras]} sentences of 2-12 ids, fed "
+        f"{tuple(b_card['para'].data.shape)} with sub-lengths "
+        f"{b_card['para'].sub_lengths.cpu().tolist()}; feeder tensors card == CPU: {same}; "
+        f"fc + mixed output relative L2 {err_y:.3e}, gradients {err_g:.3e} (<= {TXT_GRAD_REL})")
+    if not (same and err_y <= TXT_GRAD_REL and err_g <= TXT_GRAD_REL and y_card.dim() == 4):
+        raise SystemExit("v1: the nested batch strays between the card and the CPU")
+
+    docs = [(sorted(rng.choice(vocab, size=rng.randint(3, 20), replace=False).tolist()),)
+            for _ in range(16)]
+    sparse = L.data("doc", dt.sparse_binary_vector(vocab))
+    sfc = L.fc(sparse, size=width, act=A.Tanh())
+    outs = {}
+    saved = feeder_mod.SPARSE_IDS_THRESHOLD
+    for form, threshold in (("multi-hot", saved), ("padded ids", vocab // 2)):
+        feeder_mod.SPARSE_IDS_THRESHOLD = threshold
+        try:
+            def feed_s(dev):
+                return P.reader.DataFeeder([("doc", dt.sparse_binary_vector(vocab))],
+                                           device=dev)(docs)
+
+            outs[form] = _card_cpu(torch, P, sfc, feed_s, 99)
+        finally:
+            feeder_mod.SPARSE_IDS_THRESHOLD = saved
+    for form, ((y_card, g_card, b_card), (y_cpu, g_cpu, _)) in outs.items():
+        err_y = rel_l2(torch, {"y": y_card}, {"y": y_cpu})
+        err_g = rel_l2(torch, g_card, g_cpu)
+        say(f"v1 sparse_binary_vector({vocab}) through fc({width}), {form} "
+            f"{tuple(b_card['doc'].data.shape)}: output relative L2 card vs CPU {err_y:.3e}, "
+            f"gradients {err_g:.3e} (<= {TXT_GRAD_REL})")
+        if not (err_y <= TXT_GRAD_REL and err_g <= TXT_GRAD_REL):
+            raise SystemExit(f"v1: the sparse slot's {form} path strays between card and CPU")
+    forms = rel_l2(torch, {"y": outs["padded ids"][0][0]}, {"y": outs["multi-hot"][0][0]})
+    say(f"v1 sparse: gather-sum against the multi-hot product on the card: relative L2 {forms:.3e}")
+    if not outs["padded ids"][0][2]["doc"].sparse_ids or forms > TXT_GRAD_REL:
+        raise SystemExit("v1: the gather-sum path did not run or disagrees with the product")
+
+
+def phase_v1_prune(torch, P, card):
+    """The pruning hook on the card: after the steps, exactly the ratio of
+    w0 is zero, at the smallest initial magnitudes."""
+    n_in, n_out, ratio, n_steps = V1_PRUNE
+    L, dt, A = P.layer, P.data_type, P.activation
+    x = L.data("x", dt.dense_vector(n_in))
+    h = L.fc(x, size=n_out, act=A.Tanh(), name="pruned",
+             param_attr=P.attr.ParamAttr(update_hooks=P.attr.HookAttr("pruning", ratio)))
+    cost = L.classification_cost(input=L.fc(h, size=2, act=A.Softmax()),
+                                 label=L.data("y", dt.integer_value(2)))
+    params = P.parameters.create(cost, seed=101)
+    w_init = params.params["pruned"]["w0"].detach().clone()
+    trainer = P.trainer.SGD(cost, params, P.optimizer.Momentum(learning_rate=0.01, momentum=0.9))
+    rng = np.random.RandomState(7)
+    data = [(rng.randn(n_in).astype(np.float32), int(rng.randint(0, 2))) for _ in range(64 * n_steps)]
+    trainer.train(P.batch(lambda: iter(data), 64), feeding={"x": 0, "y": 1})
+    w = trainer.parameters.params["pruned"]["w0"]
+    k = int(w.numel() * (1 - ratio))
+    keep = torch.zeros(w.numel(), dtype=torch.bool, device=w.device)
+    keep[torch.topk(w_init.abs().reshape(-1), k).indices] = True
+    zero = (w == 0).reshape(-1)
+    say(f"v1 pruning: fc({n_in} -> {n_out}) with HookAttr('pruning', {ratio}) after {n_steps} "
+        f"steps on {card}: zero share {zero.float().mean().item():.6f}, zeros at the smallest "
+        f"initial magnitudes: {bool(torch.equal(zero, ~keep))}")
+    if zero.float().mean().item() != ratio or not torch.equal(zero, ~keep):
+        raise SystemExit("v1: the pruning hook did not hold on the card")
+
+
 def main() -> int:
     import torch
 
@@ -2342,12 +2702,16 @@ def main() -> int:
     say(f"serve: phase 13 took {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    phase_text_lstm(torch, P, fa, card)
+    lstm14 = phase_text_lstm(torch, P, fa, card)
     say(f"text lstm: phase 14 took {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     phase_tagger(torch, P, fa, card)
     say(f"tagger: phase 15 took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_v1(torch, P, fa, card, lstm14)
+    say(f"v1: phase 16 took {time.perf_counter() - t0:.1f} s")
     kernels = [
         {"name": name, "route": "cuda", "source": f"paddle_tpu_torch/csrc/{src}",
          "replaces": f"paddle_tpu/ops/pallas_attention.py:{line}",

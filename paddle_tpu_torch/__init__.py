@@ -67,13 +67,19 @@ from paddle_tpu_torch.utils import flags  # noqa: F401
 __version__ = "0.1.0"
 
 
-def init(seed=None, compute_dtype=None, device=None, **kwargs) -> None:
+def init(seed=None, compute_dtype=None, device=None, *, use_gpu=None, use_tpu=None,
+         trainer_count=None, **kwargs) -> None:
     """paddle.init for the port: seeds numpy, python and torch, sets the
     compute dtype ('bfloat16' enables mixed precision for networks built
     after this call) and the default device of the entry points (the card
     unless ``device="cpu"``; raises when CUDA is asked for and absent).
-    Remaining keyword arguments set flags (e.g. use_flash_attention=True);
-    unknown names raise."""
+
+    ``use_gpu``, ``use_tpu`` and ``trainer_count`` are accepted for the
+    reference's and the JAX package's surface and recorded as flags; they
+    choose nothing: the device comes from ``device=`` alone, so
+    ``init(use_gpu=False)`` still runs on the card.  Remaining keyword
+    arguments set flags (e.g. use_flash_attention=True); unknown names are
+    accepted and ignored, as the JAX package's init does."""
     import random
 
     import numpy as np
@@ -83,13 +89,22 @@ def init(seed=None, compute_dtype=None, device=None, **kwargs) -> None:
     from paddle_tpu_torch.core.device import set_default_device
 
     set_default_device(device if device is not None else "cuda")
-    if seed is not None:
-        flags.set_flag("seed", seed)
+    explicit = {
+        k: v
+        for k, v in dict(use_gpu=use_gpu, use_tpu=use_tpu, trainer_count=trainer_count,
+                         seed=seed).items()
+        if v is not None
+    }
+    flags.set_flags(**explicit)
     seed_val = flags.get_flag("seed")
     random.seed(seed_val)
     np.random.seed(seed_val)
     torch.manual_seed(seed_val)
-    flags.set_flags(**kwargs)
+    for k, v in kwargs.items():
+        try:
+            flags.set_flag(k, v)
+        except KeyError:
+            pass  # v1 configs pass flags of other builds; accepted and ignored
     dtype_src = compute_dtype if compute_dtype is not None else flags.get_flag("compute_dtype")
     if dtype_src:
         set_default_compute_dtype(dtype_src)

@@ -13,7 +13,7 @@ print from their update and accumulate nothing.
 Ported: classification_error, sum, column_sum, auc, precision_recall,
 pnpair, chunk and the value, maxid, seq_text, maxframe, classification_error
 and gradient printers.  Not ported yet: ctc_error and detection_map (their
-layers are not in the port).
+layers are not in the port); calling either raises.
 """
 
 from __future__ import annotations
@@ -450,6 +450,20 @@ def gradient_printer_evaluator(input: LayerOutput, name: Optional[str] = None) -
 # ---------------------------------------------------------------------------
 # combination helpers (used by the trainer)
 # ---------------------------------------------------------------------------
+
+
+def _not_ported(name: str):
+    def build(*args, **kwargs):
+        raise NotImplementedError(
+            f"{name} is not ported yet: its layers are not in the port "
+            "(ROADMAP Queue 1 item 3)")
+
+    build.__name__ = name
+    return build
+
+
+ctc_error_evaluator = _not_ported("ctc_error_evaluator")
+detection_map_evaluator = _not_ported("detection_map_evaluator")
 
 
 def combined_update(evaluators: Sequence[Evaluator]):

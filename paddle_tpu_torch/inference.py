@@ -20,6 +20,7 @@ from paddle_tpu_torch.core.batch import (
     DEFAULT_BATCH_LADDER,
     DEFAULT_LADDER,
     SeqTensor,
+    host_lengths,
     ladder_len,
     pad_batch_rows,
     slice_batch_rows,
@@ -33,8 +34,9 @@ __all__ = ["infer", "Inference"]
 
 def _extract_field(out: SeqTensor, field: str) -> np.ndarray:
     """'value' (activations / scores) or 'id' (integer outputs); sequence
-    outputs are unpadded to the concatenated valid rows.  Floating outputs
-    come back as float32 (numpy has no bfloat16)."""
+    outputs are unpadded to the concatenated valid rows, nested outputs over
+    both levels.  Floating outputs come back as float32 (numpy has no
+    bfloat16)."""
     data = out.data.detach()
     if data.is_floating_point():
         data = data.float()
@@ -43,10 +45,15 @@ def _extract_field(out: SeqTensor, field: str) -> np.ndarray:
         data = data.astype(np.int64)
     if not out.is_seq:
         return data
+    lengths = host_lengths(out.lengths)
+    rows: List[np.ndarray] = []
     if out.is_nested:
-        raise NotImplementedError("nested sequence outputs are not ported yet")
-    lengths = out.lengths.cpu().numpy()
-    rows: List[np.ndarray] = [data[i, : int(lengths[i])] for i in range(data.shape[0])]
+        sub_lengths = host_lengths(out.sub_lengths)
+        for i in range(data.shape[0]):
+            for j in range(int(lengths[i])):
+                rows.append(data[i, j, : int(sub_lengths[i, j])])
+    else:
+        rows = [data[i, : int(lengths[i])] for i in range(data.shape[0])]
     return np.concatenate(rows, axis=0) if rows else data[:0].reshape(0, *data.shape[2:])
 
 

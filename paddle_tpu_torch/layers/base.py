@@ -142,3 +142,19 @@ def take_rows_or_zero(w: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     valid = (idx >= 0) & (idx < w.shape[0])
     out = w[torch.where(valid, idx, torch.zeros_like(idx)).long()]
     return out * valid[..., None].to(out.dtype)
+
+
+def is_sparse_ids(t, declared_size: int) -> bool:
+    """True when a batch SeqTensor is the padded-id form of a sparse_binary
+    slot ([..., max_nnz] int32 ids, sentinel == vocab), which the feeder
+    marks when it builds it.  Dispatch is exact: an ordinary integer tensor
+    reaching a projection is never bag-summed."""
+    return bool(getattr(t, "sparse_ids", False))
+
+
+def gather_sum_rows(w: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Bag-of-ids contraction: the sum of w's rows per padded id list
+    ([..., nnz] -> [..., w.shape[1]]); the sentinel ids (== w.shape[0])
+    contribute zero.  This is the multi-hot product (multi-hot @ W) with
+    only the touched rows read."""
+    return take_rows_or_zero(w, ids.to(torch.int64)).sum(dim=-2)

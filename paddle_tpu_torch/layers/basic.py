@@ -12,7 +12,13 @@ import torch
 from paddle_tpu_torch.core import initializers as init
 from paddle_tpu_torch.core.batch import SeqTensor
 from paddle_tpu_torch.core.topology import LayerConf
-from paddle_tpu_torch.layers.base import ApplyContext, register_layer, take_rows_or_zero
+from paddle_tpu_torch.layers.base import (
+    ApplyContext,
+    gather_sum_rows,
+    is_sparse_ids,
+    register_layer,
+    take_rows_or_zero,
+)
 from paddle_tpu_torch.ops import acc_matmul
 
 
@@ -34,23 +40,33 @@ def fc_init(conf: LayerConf, in_confs: List[LayerConf], gen, device) -> Dict[str
 
 @register_layer("fc", init=fc_init)
 def fc_apply(conf, params, inputs: List[SeqTensor], ctx: ApplyContext) -> SeqTensor:
+    """One product per input plus the shared bias.  A nested input
+    ([B, S, T, D]) keeps its shape and lengths; a big-vocabulary sparse slot
+    in padded-id form is a gather-sum of the touched rows."""
     acc = None
-    lengths = None
+    lengths = sub_lengths = None
     for i, t in enumerate(inputs):
         x = t.data
+        w = params[f"w{i}"]
+        if is_sparse_ids(t, int(w.shape[0])):
+            if t.is_seq:
+                lengths, sub_lengths = t.lengths, t.sub_lengths
+            y = gather_sum_rows(w, x)
+            acc = y if acc is None else acc + y
+            continue
         if t.is_nested:
-            raise NotImplementedError(f"{conf.name}: nested fc input is not ported yet")
-        if t.is_seq:
+            lengths, sub_lengths = t.lengths, t.sub_lengths
+        elif t.is_seq:
             lengths = t.lengths
             if x.dim() > 3:
                 x = x.reshape(x.shape[0], x.shape[1], -1)
         elif x.dim() != 2:
             x = x.reshape(x.shape[0], -1)
-        y = acc_matmul(x, params[f"w{i}"])
+        y = acc_matmul(x, w)
         acc = y if acc is None else acc + y
     if "b" in params:
         acc = acc + params["b"]
-    return SeqTensor(acc, lengths)
+    return SeqTensor(acc, lengths, sub_lengths)
 
 
 def embedding_init(conf, in_confs, gen, device):
@@ -86,18 +102,16 @@ def addto_apply(conf, params, inputs, ctx):
 @register_layer("concat")
 def concat_apply(conf, params, inputs, ctx):
     """Feature-axis concat (ConcatenateLayer.cpp); a sequence input's
-    lengths carry over."""
-    datas, lengths = [], None
+    lengths (and a nested input's sub-lengths) carry over."""
+    datas, lengths, sub_lengths = [], None, None
     for t in inputs:
         x = t.data
-        if t.is_nested:
-            raise NotImplementedError(f"{conf.name}: nested concat input is not ported yet")
         if t.is_seq:
-            lengths = t.lengths
+            lengths, sub_lengths = t.lengths, t.sub_lengths
         elif x.dim() > 2:
             x = x.reshape(x.shape[0], -1)
         datas.append(x)
-    return SeqTensor(torch.cat(datas, dim=-1), lengths)
+    return SeqTensor(torch.cat(datas, dim=-1), lengths, sub_lengths)
 
 
 @register_layer("scaling")

@@ -29,6 +29,13 @@ from paddle_tpu_torch.core.batch import SeqTensor
 from paddle_tpu_torch.layers.base import register_layer
 
 
+def convt_output_size(in_size: int, filter_size: int, padding: int, stride: int) -> int:
+    """Transposed-conv spatial output, (in - 1) * s + k - 2p: the DSL sizes
+    ``conv_operator(trans=True)`` and ``conv_projection(trans=True)`` with
+    it, as the JAX package does."""
+    return (in_size - 1) * stride + filter_size - 2 * padding
+
+
 def to_nhwc(x: torch.Tensor, h: int, w: int, c: int) -> torch.Tensor:
     """Accept [B, C*H*W] flat (CHW order) or 4-D NHWC; return contiguous
     NHWC (a no-op on a contiguous NHWC tensor)."""

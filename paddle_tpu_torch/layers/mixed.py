@@ -10,9 +10,11 @@ enters as an ``identity`` term.  Projection j's weight is the parameter
 ``p{j}_w``, as the JAX package names it, so parameters carry over by path
 and a named projection shares through ``param_names``.
 
-Not ported yet: ``conv_op`` (the conv operator; a network that uses it fails
-when it is compiled) and the padded-id form of sparse slots (the port's
-feeder has no sparse slots).
+A nested input ([B, S, T, D]) keeps its lengths and sub-lengths (the JAX
+package's mixed drops the sub-lengths of its output); a big-vocabulary
+sparse slot in padded-id form is a gather-sum of the touched rows in the
+full-matrix and table projections.  Not ported yet: ``conv_op`` (the conv
+operator; a network that uses it fails when it is compiled).
 """
 
 from __future__ import annotations
@@ -24,7 +26,13 @@ import torch
 from paddle_tpu_torch.core import initializers as init
 from paddle_tpu_torch.core.batch import SeqTensor
 from paddle_tpu_torch.core.topology import LayerConf
-from paddle_tpu_torch.layers.base import ApplyContext, register_layer, take_rows_or_zero
+from paddle_tpu_torch.layers.base import (
+    ApplyContext,
+    gather_sum_rows,
+    is_sparse_ids,
+    register_layer,
+    take_rows_or_zero,
+)
 
 
 def _proj_params(kind: str, spec: Dict[str, Any], in_size: int, out_size: int,
@@ -59,12 +67,18 @@ def _apply_proj(spec: Dict[str, Any], p: Dict[str, Any], t: SeqTensor,
     kind = spec["kind"]
     x = t.data
     if kind == "full_matrix":
+        if is_sparse_ids(t, int(p["w"].shape[0])):
+            return gather_sum_rows(p["w"], x)
         if not t.is_seq and x.dim() > 2:
             x = x.reshape(x.shape[0], -1)
         return x @ p["w"]
     if kind == "trans_full_matrix":
         return x @ p["w"].t()
     if kind == "table":
+        if is_sparse_ids(t, int(p["w"].shape[0])) and x.shape[-1] != 1:
+            # a multi-id slot: the bag-of-rows sum (TableProjection's
+            # sparse-row path)
+            return gather_sum_rows(p["w"], x)
         idx = x.to(torch.int64)
         if idx.dim() >= 2 and idx.shape[-1] == 1:
             idx = idx[..., 0]
@@ -87,17 +101,15 @@ def _apply_proj(spec: Dict[str, Any], p: Dict[str, Any], t: SeqTensor,
 @register_layer("mixed", init=mixed_init)
 def mixed_apply(conf, params, inputs: List[SeqTensor], ctx: ApplyContext) -> SeqTensor:
     acc = None
-    lengths = None
+    lengths = sub_lengths = None
     for j, spec in enumerate(conf.attrs["projections"]):
         t = inputs[spec["in"]]
-        if t.is_nested:
-            raise NotImplementedError(f"{conf.name}: nested mixed input is not ported yet")
         if t.is_seq:
-            lengths = t.lengths
+            lengths, sub_lengths = t.lengths, t.sub_lengths
         prefix = f"p{j}_"
         p = {k[len(prefix):]: v for k, v in params.items() if k.startswith(prefix)}
         y = _apply_proj(spec, p, t, conf.size)
         acc = y if acc is None else acc + y
     if "b" in params:
         acc = acc + params["b"]
-    return SeqTensor(acc, lengths)
+    return SeqTensor(acc, lengths, sub_lengths)

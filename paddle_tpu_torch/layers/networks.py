@@ -1,11 +1,11 @@
-"""Prebuilt network compositions — the part of ``paddle_tpu/layers/networks.py``
-(the ``trainer_config_helpers.networks`` surface) of the recurrent models:
-``simple_lstm`` (:174), ``gru_unit`` (:212), ``gru_group`` (:242),
-``lstmemory_unit`` (:277), ``lstmemory_group`` (:330), ``simple_gru``
-(:366), ``simple_gru2`` (:401), ``bidirectional_lstm`` (:435),
-``bidirectional_gru`` (:469) and ``simple_attention`` (:521).  Not ported
-yet: the image networks and ``sequence_conv_pool`` (it needs
-``context_projection``)."""
+"""Prebuilt network compositions — a copy of ``paddle_tpu/layers/networks.py``,
+the ``trainer_config_helpers.networks`` surface (reference:
+python/paddle/trainer_config_helpers/networks.py: simple_img_conv_pool,
+vgg_16_network, simple_lstm, lstmemory_group, simple_gru,
+bidirectional_lstm, simple_attention, sequence_conv_pool).  Auto names
+follow the JAX package's exactly, so the Topologies serialize alike; a
+composition over an unported layer type (``sequence_conv_pool`` needs
+``context_projection``) fails when its network is compiled."""
 
 from __future__ import annotations
 
@@ -15,10 +15,167 @@ from paddle_tpu_torch import activation as A
 from paddle_tpu_torch import pooling as P
 from paddle_tpu_torch.core.topology import LayerOutput, auto_name
 from paddle_tpu_torch.layers import (
-    addto, concat, expand, fc, first_seq, full_matrix_projection, grumemory, gru_step,
-    identity_projection, last_seq, lstm_step, lstmemory, memory, mixed, pooling,
-    recurrent_group, scaling,
+    addto,
+    concat,
+    data,
+    expand,
+    fc,
+    first_seq,
+    full_matrix_projection,
+    gru_step,
+    grumemory,
+    identity_projection,
+    img_conv,
+    img_pool,
+    last_seq,
+    lstm_step,
+    lstmemory,
+    mixed,
+    pooling,
+    recurrent_group,
+    scaling,
+    seq_reshape,
 )
+from paddle_tpu_torch.layers import StaticInput, memory
+from paddle_tpu_torch.layers import sequence  # noqa: F401
+from paddle_tpu_torch.core.topology import LayerConf
+
+
+def simple_img_conv_pool(
+    input: LayerOutput,
+    filter_size: int,
+    num_filters: int,
+    pool_size: int,
+    pool_stride: Optional[int] = None,
+    num_channel: Optional[int] = None,
+    act=None,
+    padding: int = 0,
+    pool_type=None,
+    name: Optional[str] = None,
+) -> LayerOutput:
+    conv = img_conv(
+        input,
+        filter_size=filter_size,
+        num_filters=num_filters,
+        num_channels=num_channel,
+        padding=padding,
+        act=act,
+        name=(name + "_conv") if name else None,
+    )
+    return img_pool(
+        conv,
+        pool_size=pool_size,
+        stride=pool_stride or pool_size,
+        pool_type=pool_type,
+        name=(name + "_pool") if name else None,
+    )
+
+
+def img_conv_group(
+    input: LayerOutput,
+    conv_num_filter,
+    pool_size: int,
+    num_channels: Optional[int] = None,
+    conv_padding=1,
+    conv_filter_size=3,
+    conv_act=None,
+    conv_with_batchnorm=False,
+    conv_batchnorm_drop_rate=0,
+    pool_stride: int = 1,
+    pool_type=None,
+    param_attr=None,
+) -> LayerOutput:
+    """Image convolution group — [conv (+bn +dropout)]×N then one pool
+    (reference networks.py:333 img_conv_group, the VGG building block).
+    Scalar conv_* arguments broadcast across the group like the reference."""
+    from paddle_tpu_torch.layers import batch_norm, dropout
+
+    n = len(conv_num_filter)
+
+    def bcast(v):
+        return list(v) if isinstance(v, (list, tuple)) else [v] * n
+
+    paddings = bcast(conv_padding)
+    fsizes = bcast(conv_filter_size)
+    acts = bcast(conv_act)
+    with_bn = bcast(conv_with_batchnorm)
+    bn_drop = bcast(conv_batchnorm_drop_rate)
+
+    tmp = input
+    for i in range(n):
+        tmp = img_conv(
+            tmp,
+            filter_size=fsizes[i],
+            num_filters=conv_num_filter[i],
+            num_channels=num_channels if i == 0 else None,
+            padding=paddings[i],
+            act=A.Identity() if with_bn[i] else acts[i],
+            param_attr=param_attr,
+        )
+        if with_bn[i]:
+            tmp = batch_norm(tmp, act=acts[i])
+            if bn_drop[i] > 0:
+                tmp = dropout(tmp, bn_drop[i])
+    return img_pool(tmp, pool_size=pool_size, stride=pool_stride, pool_type=pool_type)
+
+
+def small_vgg(input_image: LayerOutput, num_channels: int, num_classes: int):
+    """reference networks.py:435 small_vgg — 4 bn-conv groups + pool +
+    dropout + fc."""
+    from paddle_tpu_torch.layers import dropout
+
+    def block(ipt, num_filter, times, dropouts, ch_in=None):
+        return img_conv_group(
+            ipt,
+            num_channels=ch_in,
+            pool_size=2,
+            pool_stride=2,
+            conv_num_filter=[num_filter] * times,
+            conv_filter_size=3,
+            conv_act=A.Relu(),
+            conv_with_batchnorm=True,
+            conv_batchnorm_drop_rate=dropouts,
+            pool_type=P.Max(),
+        )
+
+    tmp = block(input_image, 64, 2, [0.3, 0], num_channels)
+    tmp = block(tmp, 128, 2, [0.4, 0])
+    tmp = block(tmp, 256, 3, [0.4, 0.4, 0])
+    tmp = block(tmp, 512, 3, [0.4, 0.4, 0])
+    from paddle_tpu_torch.attr import ExtraAttr
+    from paddle_tpu_torch.layers import batch_norm
+
+    tmp = img_pool(tmp, stride=2, pool_size=2, pool_type=P.Max())
+    tmp = dropout(tmp, 0.5)
+    tmp = fc(tmp, size=512, act=A.Linear(), layer_attr=ExtraAttr(drop_rate=0.5))
+    tmp = batch_norm(tmp, act=A.Relu())
+    return fc(tmp, size=num_classes, act=A.Softmax())
+
+
+def vgg_16_network(input_image: LayerOutput, num_channels: int, num_classes: int = 1000):
+    """reference vgg_16_network (networks.py)."""
+
+    def block(ipt, num_filter, groups, ch_in=None):
+        out = ipt
+        for i in range(groups):
+            out = img_conv(
+                out,
+                filter_size=3,
+                num_filters=num_filter,
+                num_channels=ch_in if i == 0 else None,
+                padding=1,
+                act=A.Relu(),
+            )
+        return img_pool(out, pool_size=2, stride=2)
+
+    t = block(input_image, 64, 2, num_channels)
+    t = block(t, 128, 2)
+    t = block(t, 256, 3)
+    t = block(t, 512, 3)
+    t = block(t, 512, 3)
+    t = fc(t, size=4096, act=A.Relu(), layer_attr=None)
+    t = fc(t, size=4096, act=A.Relu())
+    return fc(t, size=num_classes, act=A.Softmax())
 
 
 def simple_lstm(
@@ -293,6 +450,24 @@ def bidirectional_gru(
     bwd = simple_gru2(input, size, reverse=True, name=(name + "_bw") if name else None,
                       **bwd_kw)
     return _bidirectional(fwd, bwd, name, return_seq, return_concat)
+
+
+def sequence_conv_pool(
+    input: LayerOutput,
+    context_len: int,
+    hidden_size: int,
+    pool_type=None,
+    act=None,
+    name: Optional[str] = None,
+) -> LayerOutput:
+    """Text conv (context window projection + fc) then seq pooling
+    (reference sequence_conv_pool / context_projection path)."""
+    from paddle_tpu_torch.layers import context_projection
+
+    ctxp = context_projection(input, context_len=context_len)
+    h = fc(ctxp, size=hidden_size, act=act or A.Tanh(),
+           name=(name + "_conv") if name else None)
+    return pooling(h, pool_type or P.Max(), name=(name + "_pool") if name else None)
 
 
 def simple_attention(

@@ -1,1 +1,21 @@
-"""Data feeding of the PyTorch/CUDA port."""
+"""Data feeding of the PyTorch/CUDA port: the reader decorators and creators,
+token-budget bucketing and the DataFeeder (the JAX package's
+``reader/__init__`` exports, less the load generator and the device pass
+cache, which are not ported yet)."""
+
+from paddle_tpu_torch.reader import bucketing  # noqa: F401
+from paddle_tpu_torch.reader.bucketing import (  # noqa: F401
+    sort_within_window,
+    token_budget_batch,
+)
+from paddle_tpu_torch.reader.decorator import (  # noqa: F401
+    buffered,
+    cache,
+    chain,
+    compose,
+    firstn,
+    map_readers,
+    shuffle,
+    xmap_readers,
+)
+from paddle_tpu_torch.reader.feeder import DataFeeder  # noqa: F401

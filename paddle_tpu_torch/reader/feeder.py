@@ -1,8 +1,14 @@
 """DataFeeder — python samples → padded torch batches on a device; the
-counterpart of ``paddle_tpu/reader/feeder.py`` for dense and integer slots
-(plain and sequence).  Sequence slots pad to a ladder rung (or a multiple of
-``seq_multiple``) and carry int32 lengths beside the data.  Sparse and
-nested slots are not ported yet and raise."""
+counterpart of ``paddle_tpu/reader/feeder.py`` for every slot kind (dense,
+index, sparse binary and sparse float) at every sequence level (plain,
+sequence and nested).  Sequence slots pad to a ladder rung (or a multiple of
+``seq_multiple``) and carry int32 lengths beside the data; a nested slot is
+a doubly padded [B, S, T, ...] block with n_sub[B] and sub_lengths[B, S].
+The host copies of the lengths and sub-lengths ride their tensors
+(``core.batch.set_host_lengths``), so nothing reads them back from the card.
+Sparse slots are densified to multi-hot rows, except a sparse_binary slot
+above SPARSE_IDS_THRESHOLD, which feeds as padded ids (the sentinel is the
+vocabulary size) for the consumers' gather-sum."""
 
 from __future__ import annotations
 
@@ -11,13 +17,29 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from paddle_tpu_torch.core.batch import SeqTensor, ladder_len, set_host_lengths
+from paddle_tpu_torch.core.batch import (
+    DEFAULT_SUB_LADDER,
+    SeqTensor,
+    ladder_len,
+    set_host_lengths,
+)
 from paddle_tpu_torch.core.data_types import InputType, SeqLevel, SlotKind
 from paddle_tpu_torch.core.device import resolve_device
 
 
 def _round_up(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
+
+
+# Above this vocabulary size a sparse_binary slot feeds as padded ids
+# (sentinel = dim) instead of a dense multi-hot row: the multi-hot form is
+# O(B*T*vocab) memory, the id form O(B*T*max_nnz), and consumers gather-sum
+# the touched rows (layers/base.py gather_sum_rows).  Read at every call.
+SPARSE_IDS_THRESHOLD = 65536
+
+
+def _ids_form(itype: InputType) -> bool:
+    return itype.kind == SlotKind.SPARSE_BINARY and itype.dim > SPARSE_IDS_THRESHOLD
 
 
 def feed_dtypes_of(topology) -> Dict[str, str]:
@@ -85,27 +107,118 @@ class DataFeeder:
     def _to(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(arr).to(self.device)
 
+    def _lengths(self, host: np.ndarray) -> torch.Tensor:
+        """A lengths or sub-lengths tensor on the device, its host copy
+        attached."""
+        return set_host_lengths(self._to(host), host)
+
     def _convert_slot(self, col, itype: InputType, dtype) -> SeqTensor:
-        if itype.kind not in (SlotKind.DENSE, SlotKind.INDEX) or itype.seq == SeqLevel.SUB_SEQ:
-            raise NotImplementedError(
-                f"{itype.kind.value} slots at sequence level {itype.seq.name} "
-                "are not ported yet"
-            )
-        b = len(col)
         if itype.seq == SeqLevel.NONE:
-            if itype.kind == SlotKind.DENSE:
-                return SeqTensor(self._to(np.asarray(col, dtype=dtype).reshape(b, itype.dim)))
+            return self._convert_plain(col, itype, dtype)
+        if itype.seq == SeqLevel.SEQ:
+            return self._convert_seq(col, itype, dtype)
+        return self._convert_sub_seq(col, itype, dtype)
+
+    @staticmethod
+    def _nnz(id_lists) -> int:
+        return max(_round_up(max((len(ids) for ids in id_lists), default=1), 8), 8)
+
+    def _multi_hot(self, arr: np.ndarray, idx: tuple, ids, itype: InputType) -> None:
+        """Write one sparse sample's ids (binary) or (id, value) pairs
+        (float) into the dense row arr[idx]."""
+        if itype.kind == SlotKind.SPARSE_BINARY:
+            arr[idx + (np.asarray(ids, dtype=np.int64),)] = 1.0
+        else:
+            pos, vals = zip(*ids) if ids else ((), ())
+            arr[idx + (np.asarray(pos, dtype=np.int64),)] = np.asarray(vals, self.dtype)
+
+    def _convert_plain(self, col, itype: InputType, dtype) -> SeqTensor:
+        b = len(col)
+        if itype.kind == SlotKind.DENSE:
+            return SeqTensor(self._to(np.asarray(col, dtype=dtype).reshape(b, itype.dim)))
+        if itype.kind == SlotKind.INDEX:
             return SeqTensor(self._to(np.asarray(col, dtype=np.int32).reshape(b)))
+        if _ids_form(itype):
+            arr = np.full((b, self._nnz(col)), itype.dim, dtype=np.int32)  # sentinel pad
+            for i, ids in enumerate(col):
+                arr[i, : len(ids)] = np.asarray(ids, dtype=np.int32)
+            return SeqTensor(self._to(arr), sparse_ids=True)
+        arr = np.zeros((b, itype.dim), dtype=self.dtype)
+        for i, ids in enumerate(col):
+            self._multi_hot(arr, (i,), ids, itype)
+        return SeqTensor(self._to(arr))
+
+    def _convert_seq(self, col, itype: InputType, dtype) -> SeqTensor:
+        b = len(col)
         lengths = np.asarray([len(s) for s in col], dtype=np.int32)
         t = self._bucket_len(int(lengths.max()) if b else 1)
+        sparse_ids = False
         if itype.kind == SlotKind.INDEX:
             arr = np.zeros((b, t), dtype=np.int32)
             for i, s in enumerate(col):
                 arr[i, : len(s)] = np.asarray(s, dtype=np.int32)
-        else:
+        elif itype.kind == SlotKind.DENSE:
             arr = np.zeros((b, t, itype.dim), dtype=dtype)
             for i, s in enumerate(col):
                 if len(s):
                     arr[i, : len(s)] = np.asarray(s, dtype=dtype)
+        elif _ids_form(itype):
+            arr = np.full((b, t, self._nnz(ids for s in col for ids in s)), itype.dim,
+                          dtype=np.int32)
+            for i, s in enumerate(col):
+                for j, ids in enumerate(s):
+                    arr[i, j, : len(ids)] = np.asarray(ids, dtype=np.int32)
+            sparse_ids = True
+        else:
+            arr = np.zeros((b, t, itype.dim), dtype=self.dtype)
+            for i, s in enumerate(col):
+                for j, ids in enumerate(s):
+                    self._multi_hot(arr, (i, j), ids, itype)
         # the scans read their live range from the host copy, not the device
-        return SeqTensor(self._to(arr), set_host_lengths(self._to(lengths), lengths))
+        return SeqTensor(self._to(arr), self._lengths(lengths), sparse_ids=sparse_ids)
+
+    def _convert_sub_seq(self, col, itype: InputType, dtype) -> SeqTensor:
+        """Nested sequences: each sample is a list of subsequences, fed as a
+        doubly padded [B, S, T, ...] block with n_sub[B] and
+        sub_lengths[B, S] (the reference's two-level CSR, Argument.h:84-93).
+        S pads to a multiple of 4, or on DEFAULT_SUB_LADDER with a ladder."""
+        b = len(col)
+        n_sub = np.asarray([len(s) for s in col], dtype=np.int32)
+        raw_s = int(n_sub.max()) if b else 1
+        if self.ladder:
+            s_max = ladder_len(max(raw_s, 1), DEFAULT_SUB_LADDER)
+        else:
+            s_max = max(_round_up(raw_s, 4), 4)
+        sub_lengths = np.zeros((b, s_max), dtype=np.int32)
+        for i, sample in enumerate(col):
+            for j, sub in enumerate(sample):
+                sub_lengths[i, j] = len(sub)
+        t = self._bucket_len(max(int(sub_lengths.max()) if b else 1, 1))
+        sparse_ids = False
+        if itype.kind == SlotKind.INDEX:
+            arr = np.zeros((b, s_max, t), dtype=np.int32)
+            for i, sample in enumerate(col):
+                for j, sub in enumerate(sample):
+                    arr[i, j, : len(sub)] = np.asarray(sub, dtype=np.int32)
+        elif _ids_form(itype):
+            nnz = self._nnz(ids for s in col for sub in s for ids in sub)
+            arr = np.full((b, s_max, t, nnz), itype.dim, dtype=np.int32)
+            for i, sample in enumerate(col):
+                for j, sub in enumerate(sample):
+                    for k, ids in enumerate(sub):
+                        arr[i, j, k, : len(ids)] = np.asarray(ids, np.int32)
+            sparse_ids = True
+        elif itype.kind == SlotKind.DENSE:
+            arr = np.zeros((b, s_max, t, itype.dim), dtype=dtype)
+            for i, sample in enumerate(col):
+                for j, sub in enumerate(sample):
+                    if len(sub):
+                        arr[i, j, : len(sub)] = np.asarray(sub, dtype=dtype)
+        else:
+            arr = np.zeros((b, s_max, t, itype.dim), dtype=self.dtype)
+            for i, sample in enumerate(col):
+                for j, sub in enumerate(sample):
+                    for k, ids in enumerate(sub):
+                        self._multi_hot(arr, (i, j, k), ids, itype)
+        return SeqTensor(self._to(arr), self._lengths(n_sub), self._lengths(sub_lengths),
+                         sparse_ids=sparse_ids)

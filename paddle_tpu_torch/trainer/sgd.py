@@ -22,10 +22,15 @@ write and read the full training state (parameters, layer state,
 optimizer state, the generator and the step count) through a
 ``checkpoint.CheckpointManager``.
 
+A ``HookAttr("pruning", r)`` on a layer's ParamAttr builds static pruning
+masks from the initial parameters, applied to them at construction and
+after every update, as the JAX package's ``SGD`` does.
+``show_parameter_stats_period`` logs per-parameter statistics.
+
 Not ported yet: ``checkpoint_dir``/``resume`` (the recovery plane with
 rollback and preemption), the device-resident pass cache, the
-ahead-of-time executable cache, asynchronous feeding, elastic training and
-device meshes.
+ahead-of-time executable cache, asynchronous feeding
+(``async_load_data=True`` raises), elastic training and device meshes.
 """
 
 from __future__ import annotations
@@ -46,7 +51,13 @@ from paddle_tpu_torch.optimizer import Optimizer
 from paddle_tpu_torch.parameters import create_from_network
 from paddle_tpu_torch.reader.feeder import DataFeeder, feed_dtypes_of
 from paddle_tpu_torch.trainer.evaluators import default_metrics_fn
-from paddle_tpu_torch.trainer.step import draw_seed, make_eval_step, make_train_step
+from paddle_tpu_torch.trainer.step import (
+    apply_prune_masks,
+    build_prune_masks,
+    draw_seed,
+    make_eval_step,
+    make_train_step,
+)
 from paddle_tpu_torch.utils import flags as _flags
 
 _log = logging.getLogger("paddle_tpu_torch.trainer")
@@ -60,6 +71,13 @@ def _batch_rows(batch) -> int:
     return 1
 
 
+def _no_async_feed(async_load_data: bool) -> None:
+    if async_load_data:
+        raise NotImplementedError(
+            "async_load_data=True (feeding on a prefetch thread) is not ported "
+            "yet (ROADMAP Queue 1 item 5); the port feeds inline")
+
+
 class SGD:
     """paddle.v2.trainer.SGD(cost, parameters, update_equation, ...).
 
@@ -67,7 +85,8 @@ class SGD:
     tree from ``parameters.from_numpy``, which the trainer adopts, or a
     topology-free ``DetachedParameters`` from ``Parameters.from_tar(f)``,
     merged by name into parameters built for this topology; None creates
-    them from `seed`."""
+    them from `seed`.  ``is_local`` is accepted for the reference's surface
+    and ignored, as the JAX package ignores it: training is always local."""
 
     def __init__(
         self,
@@ -75,6 +94,7 @@ class SGD:
         parameters=None,
         update_equation: Optional[Optimizer] = None,
         extra_layers: Optional[Sequence[LayerOutput]] = None,
+        is_local: bool = True,
         seed: int = 0,
         evaluators: Optional[Sequence] = None,
         device=None,
@@ -114,8 +134,13 @@ class SGD:
         self.parameters = parameters
         self.optimizer = update_equation
         self._metrics_fn = self._build_metrics_fn()
+        # static pruning hooks: masks from the initial magnitudes, applied to
+        # the initial values and after every update (StaticPruningHook)
+        self._prune_masks = build_prune_masks(self.network, self.parameters.params)
+        apply_prune_masks(self.parameters.params, self._prune_masks)
         self._train_step = make_train_step(
-            self.network, self.optimizer, extra_metrics=self._metrics_fn
+            self.network, self.optimizer, extra_metrics=self._metrics_fn,
+            prune_masks=self._prune_masks,
         )
         self._eval_step = make_eval_step(self.network, extra_metrics=self._metrics_fn)
         self._opt_state = self.optimizer.init(self.parameters.params)
@@ -175,6 +200,8 @@ class SGD:
         saving_period: Optional[int] = None,
         saving_period_by_batches: Optional[int] = None,
         start_pass: int = 0,
+        show_parameter_stats_period: Optional[int] = None,
+        async_load_data: bool = False,
         checkpoint_dir: Optional[str] = None,
         checkpoint_period_batches: Optional[int] = None,
         resume: bool = False,
@@ -186,7 +213,12 @@ class SGD:
         reports its (non-finite) cost in EndIteration, and counts in no pass
         mean.  With `save_dir`, pass-%05d is written every `saving_period`
         passes (None: the flag) and every `saving_period_by_batches`
-        batches (the reference trainer's cadence)."""
+        batches (the reference trainer's cadence).  Every
+        `show_parameter_stats_period` steps (None: the flag; 0: off) the
+        per-parameter statistics are logged.  Feeding runs inline:
+        ``async_load_data=True`` (a prefetch thread) is not ported yet and
+        raises."""
+        _no_async_feed(async_load_data)
         if checkpoint_dir is not None:
             raise NotImplementedError(
                 "checkpoint_dir (periodic full-state checkpoints with rollback, "
@@ -199,6 +231,8 @@ class SGD:
         if saving_period is None:
             saving_period = _flags.get_flag("saving_period")
         log_period = _flags.get_flag("log_period")
+        if show_parameter_stats_period is None:  # an explicit 0 disables too
+            show_parameter_stats_period = _flags.get_flag("show_parameter_stats_period")
         feeder = self._make_feeder(feeding)
         params, state, opt_state = (
             self.parameters.params, self.parameters.state, self._opt_state
@@ -222,6 +256,16 @@ class SGD:
                 cost = float(metrics["cost"])
                 if log_period and self._step_count % log_period == 0:
                     _log.info("pass %d batch %d cost %.6f", pass_id, batch_id, cost)
+                if (show_parameter_stats_period
+                        and self._step_count % show_parameter_stats_period == 0):
+                    # reference TrainerInternal.cpp:83-110 per-parameter stats
+                    from paddle_tpu_torch.utils.debug import (
+                        format_parameter_stats,
+                        parameter_stats,
+                    )
+
+                    _log.info("parameter stats @ step %d:\n%s", self._step_count,
+                              format_parameter_stats(parameter_stats(params)))
                 evaluator: Dict[str, float] = {}
                 if health is None or float(health) >= 0.5:
                     costs.append(cost)
@@ -252,10 +296,12 @@ class SGD:
             if save_dir and (pass_id + 1 - start_pass) % saving_period == 0:
                 self.save_pass(save_dir, pass_id)
 
-    def test(self, reader: Callable, feeding=None) -> v2_event.TestResult:
+    def test(self, reader: Callable, feeding=None,
+             async_load_data: bool = False) -> v2_event.TestResult:
         """Cost and metrics over `reader`, averaged per sample, with the
         layer state as global statistics; evaluators finalize over the
-        whole reader."""
+        whole reader.  ``async_load_data=True`` raises (not ported yet)."""
+        _no_async_feed(async_load_data)
         feeder = self._make_feeder(feeding)
         costs: List[float] = []
         weights: List[int] = []

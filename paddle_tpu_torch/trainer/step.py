@@ -16,8 +16,13 @@ skips the update and returns the parameters, the layer state and the
 optimizer state as they were, bit for bit.  ``health`` and ``grad_norm``
 ride the metrics.
 
-Not ported yet: a device mesh (data or model parallelism), static pruning
-masks and the quantized gradient reduction.
+Static pruning (a ``HookAttr("pruning", r)`` on a layer's ParamAttr):
+:func:`build_prune_masks` keeps the largest (1 - r) fraction of each weight
+by initial magnitude, and the step masks the weights in place after every
+update (reference StaticPruningHook), as the JAX package does.
+
+Not ported yet: a device mesh (data or model parallelism) and the quantized
+gradient reduction.
 """
 
 from __future__ import annotations
@@ -37,6 +42,47 @@ MetricsFn = Callable[[Dict[str, Any]], Metrics]
 
 def _not_ported(what: str):
     raise NotImplementedError(f"{what} is not ported yet")
+
+
+def build_prune_masks(network: CompiledNetwork, params) -> Optional[Dict[str, Any]]:
+    """Static pruning masks (reference StaticPruningHook,
+    ParameterUpdaterHook.cpp:39), as the JAX package builds them: for every
+    layer whose ParamAttr declared a 'pruning' hook, each weight (``w*``
+    leaf) keeps its largest (1 - sparsity_ratio) fraction by initial
+    magnitude (ties at the threshold are kept); other leaves get all-ones
+    masks.  None when nothing prunes."""
+    masks: Dict[str, Any] = {}
+    for name, conf in network.topology.layers.items():
+        ratio = conf.attr("prune_sparsity")
+        if not ratio:
+            continue
+        # a layer sharing parameters by name stores them under the owner
+        name = network._param_owner.get(name, name)
+        if name not in params or name in masks:
+            continue
+
+        def mask_leaf(v, r=ratio):
+            flat = v.detach().abs().reshape(-1)
+            k = max(int(flat.shape[0] * (1.0 - r)), 1)
+            thresh = torch.topk(flat, k).values[-1]
+            return (v.detach().abs() >= thresh).to(v.dtype)
+
+        masks[name] = {
+            k: (mask_leaf(v) if k.startswith("w") else torch.ones_like(v))
+            for k, v in params[name].items()
+        }
+    return masks or None
+
+
+@torch.no_grad()
+def apply_prune_masks(params, masks: Optional[Dict[str, Any]]):
+    """Multiply the masked layers' parameters by their masks, in place;
+    returns `params`."""
+    if masks:
+        for name, m in masks.items():
+            for k, mk in m.items():
+                params[name][k].mul_(mk.to(params[name][k].dtype))
+    return params
 
 
 def _global_norm(grads) -> torch.Tensor:
@@ -63,10 +109,11 @@ def draw_seed(gen: torch.Generator) -> int:
 
 
 def _train_step_body(network: CompiledNetwork, optimizer: Optimizer, extra_metrics=None,
-                     sentinel: Optional[bool] = None):
+                     sentinel: Optional[bool] = None, prune_masks=None):
     """(params, state, opt_state, batch, rng=None) -> (params, state,
     opt_state, metrics), with the parameter and optimizer tensors updated in
-    place and the layer state replaced; `rng` is the step's seed (dropout)."""
+    place (and masked by `prune_masks`) and the layer state replaced; `rng`
+    is the step's seed (dropout)."""
     guard = _sentinel_enabled(sentinel)
 
     def step(params, state, opt_state, batch, rng: Optional[int] = None):
@@ -92,6 +139,7 @@ def _train_step_body(network: CompiledNetwork, optimizer: Optimizer, extra_metri
             metrics["grad_norm"] = grad_norm
         if healthy:
             params, opt_state = optimizer.update(grads, opt_state, params)
+            params = apply_prune_masks(params, prune_masks)
             # the state carries no graph into the next step
             state = map_leaves(torch.Tensor.detach, new_state)
         if extra_metrics is not None:
@@ -112,14 +160,13 @@ def make_train_step(
 ):
     """The train step ``(params, state, opt_state, batch, rng=None) ->
     (params, state, opt_state, metrics)``; see :func:`_train_step_body`.
-    `sentinel` None reads the ``divergence_sentinel`` flag."""
+    `sentinel` None reads the ``divergence_sentinel`` flag; `prune_masks`
+    (from :func:`build_prune_masks`) are applied after every update."""
     if mesh is not None:
         _not_ported("training over a device mesh")
-    if prune_masks:
-        _not_ported("static pruning")
     if quantized:
         _not_ported("the quantized gradient reduction")
-    return _train_step_body(network, optimizer, extra_metrics, sentinel)
+    return _train_step_body(network, optimizer, extra_metrics, sentinel, prune_masks)
 
 
 def _step_slice(batches, i: int):

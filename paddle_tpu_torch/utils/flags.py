@@ -1,7 +1,10 @@
 """Global flags plane of the port — the counterpart of
 ``paddle_tpu/utils/flags.py``, with the same three override layers, strongest
 last: defaults < environment (``PADDLE_TPU_TORCH_<NAME>``) < explicit
-``set_flag`` / ``paddle_tpu_torch.init(**kwargs)``.  Unknown names raise."""
+``set_flag`` / ``paddle_tpu_torch.init(**kwargs)``.  Unknown names raise
+here (``init`` ignores them, as the JAX package's does).  An alias
+(``use_pallas_attention``, the JAX package's name) reads and writes its
+target flag."""
 
 from __future__ import annotations
 
@@ -12,6 +15,9 @@ _DEFS: Dict[str, tuple] = {}  # name -> (type, default, help)
 _VALUES: Dict[str, Any] = {}
 
 _ENV_PREFIX = "PADDLE_TPU_TORCH_"
+
+# alias -> flag: the JAX package's names for flags the port renamed
+_ALIASES: Dict[str, str] = {"use_pallas_attention": "use_flash_attention"}
 
 
 def define_flag(name: str, default, help_: str = "") -> None:
@@ -37,6 +43,7 @@ def _coerce(name: str, value):
 
 
 def get_flag(name: str):
+    name = _ALIASES.get(name, name)
     if name not in _DEFS:
         raise KeyError(f"unknown flag {name!r}; defined: {sorted(_DEFS)}")
     if name in _VALUES:
@@ -48,6 +55,7 @@ def get_flag(name: str):
 
 
 def set_flag(name: str, value) -> None:
+    name = _ALIASES.get(name, name)
     if name not in _DEFS:
         raise KeyError(f"unknown flag {name!r}; defined: {sorted(_DEFS)}")
     _VALUES[name] = _coerce(name, value)
@@ -62,8 +70,21 @@ def reset_flags() -> None:
     _VALUES.clear()
 
 
+define_flag("use_tpu", True,
+            "accepted for the JAX package's surface (init(use_tpu=...)); the "
+            "device comes from the entry points' device= argument")
+define_flag("use_gpu", True,
+            "accepted for the reference's surface (init(use_gpu=...)); the "
+            "device comes from the entry points' device= argument, so "
+            "use_gpu=False does not move the port to the CPU")
+define_flag("trainer_count", 1,
+            "accepted for the reference's surface; the port trains on one "
+            "device")
 define_flag("seed", 0, "global RNG seed")
 define_flag("log_period", 100, "log training stats every N batches")
+define_flag("show_parameter_stats_period", 0,
+            "log per-parameter stats (size, mean, mean |x|, min, max) every "
+            "N batches of SGD.train (0 = off)")
 define_flag("compute_dtype", "", "bfloat16 enables mixed precision")
 define_flag("use_flash_attention", False,
             "hand-written flash-attention kernels (ops/flash_attention.py: "
@@ -90,6 +111,11 @@ define_flag("use_bucketing", False,
             "the SGD trainer's DataFeeder pads sequence slots to the "
             "canonical 16*2^k shape ladder (core.batch.DEFAULT_LADDER), the "
             "shapes reader.bucketing.token_budget_batch packs batches for")
+define_flag("bucketing_token_budget", 0,
+            "padded tokens per step for use_bucketing in v1_compat's "
+            "make_batched_reader (0 = derive from the config batch size x "
+            "the tallest ladder rung of the first window, the padded token "
+            "count the unbucketed feed would spend per step)")
 define_flag("scan_early_exit", True,
             "recurrent scans skip dead steps: the steps where every row is "
             "padding (the batch's longest sequence sits below the padded "

@@ -8,6 +8,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -45,7 +46,10 @@ def test_every_module_imports_without_jax():
                 "layers.sequence", "layers.networks", "models.seq2seq", "reader.bucketing",
                 "ops.beam", "layers.generation", "serving", "serving.engine", "serving.pages",
                 "serving.scheduler", "utils.timers", "layers.mixed", "layers.structured",
-                "models.sequence_tagging"):
+                "models.sequence_tagging", "v1_compat", "v1_compat.config_helpers",
+                "v1_compat.raw_face", "data_provider", "io.protodata", "io.recordio",
+                "reader.creator", "reader.decorator", "layers.layer_math", "dataset.imdb",
+                "image", "utils.queues", "utils.debug", "ops.detection"):
         assert f"paddle_tpu_torch.{mod}" in names.split()
 
 
@@ -198,10 +202,46 @@ _EARLIER_TYPES = {
     "multi_head_attention", "pool", "pos_encoding", "recurrent_group", "scaling",
     "seqlastins", "seqpool", "softmax_with_cost", "step_input"}
 _SLICE_TYPES = {"lstmemory", "recurrent", "lstm_step", "mixed", "crf", "crf_decoding"}
+# the two costs that take the sparse-label form, with the batch contract
+_BATCH_SLICE_TYPES = {"square_error", "multi_binary_label_cross_entropy"}
 
 
 def test_registered_layer_types_grow_by_the_slice():
     from paddle_tpu_torch.layers.base import registered_layer_types
 
-    assert set(registered_layer_types()) == _EARLIER_TYPES | _SLICE_TYPES
-    assert len(registered_layer_types()) == 30
+    assert set(registered_layer_types()) == _EARLIER_TYPES | _SLICE_TYPES | _BATCH_SLICE_TYPES
+    assert len(registered_layer_types()) == 32
+
+
+def test_v1_front_end_entry_points_raise_without_cuda():
+    """The feeder of nested and sparse slots, DataProviderConverter, and
+    SGD and Inference over a v1-parsed topology: the card unless the caller
+    asks for the CPU, where every tensor (lengths and sub-lengths included)
+    lies on it."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device; the no-CUDA error cannot show")
+    P = paddle_tpu_torch
+    from paddle_tpu_torch import data_provider, v1_compat
+
+    dt = P.data_type
+    types = [("n", dt.integer_value_sub_sequence(10)), ("s", dt.sparse_binary_vector(70000)),
+             ("f", dt.sparse_float_vector_sequence(6))]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DataFeeder(types)
+    batch = DataFeeder(types, device="cpu")([([[1, 2], [3]], [5, 69999], [[(1, 0.5)], []])])
+    tensors = [t for v in batch.values() for t in (v.data, v.lengths, v.sub_lengths)
+               if t is not None]
+    assert len(tensors) == 6 and all(t.device.type == "cpu" for t in tensors)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        data_provider.DataProviderConverter([dt.dense_vector(2)])
+    parsed = v1_compat.parse_config(os.path.join(ROOT, "tests", "configs", "demo_mnist_mlp.py"),
+                                    "is_predict=1")
+    params = P.parameters.create(parsed.topology.outputs, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        P.Inference(parsed.topology.outputs, params)
+    probs = P.Inference(parsed.topology.outputs, params, device="cpu").infer(
+        [(np.zeros(784, np.float32),)])
+    assert probs.shape == (1, 10)
+    train = v1_compat.parse_config(os.path.join(ROOT, "tests", "configs", "demo_mnist_mlp.py"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        P.trainer.SGD(train.topology, update_equation=v1_compat.make_optimizer(train.settings))

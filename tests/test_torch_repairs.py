@@ -1,0 +1,145 @@
+"""Repairs of the port's user surface against the JAX package on the CPU (f32):
+
+- static pruning: an fc(16 -> 4) whose ParamAttr carries
+  ``HookAttr("pruning", 0.75)``, trained for one pass of 4 batches with
+  Momentum(0.1, 0.9) from the JAX package's parameters, leaves the JAX
+  package's zero pattern in ``w0`` (0.75 of it) and its parameters (relative
+  L2 1e-5); ``build_prune_masks`` keeps the largest magnitudes;
+- ``init`` takes the reference's ``use_gpu``, ``use_tpu`` and
+  ``trainer_count`` and records them, ignores unknown names, and keeps the
+  card as the device; ``use_pallas_attention`` is an alias of
+  ``use_flash_attention``;
+- ``SGD(is_local=...)`` (ignored, as in the JAX package),
+  ``SGD.train(show_parameter_stats_period=..., async_load_data=...)`` and
+  ``SGD.test(async_load_data=...)`` are accepted; ``async_load_data=True``,
+  which is not ported, raises ``NotImplementedError`` naming it.
+"""
+
+import logging
+
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu
+import paddle_tpu_torch
+from paddle_tpu_torch.core.compiler import CompiledNetwork as TNet
+from paddle_tpu_torch.core.topology import Topology as TTopo
+from paddle_tpu_torch.trainer import step as tstep
+from test_torch_parity import build_both, carry, numpy_tree, rel_l2
+
+RATIO = 0.75
+
+
+def _pruned_net(pkg):
+    L, A, dt = pkg.layer, pkg.activation, pkg.data_type
+    x = L.data(name="x", type=dt.dense_vector(16))
+    y = L.fc(input=x, size=4, act=A.Softmax(), name="pruned",
+             param_attr=pkg.attr.ParamAttr(update_hooks=pkg.attr.HookAttr("pruning", RATIO)))
+    label = L.data(name="label", type=dt.integer_value(4))
+    return L.classification_cost(input=y, label=label)
+
+
+def _samples(n=32, seed=7):
+    rs = np.random.RandomState(seed)
+    x = rs.randn(n, 16).astype(np.float32)
+    return [(x[i], int(rs.randint(0, 4))) for i in range(n)]
+
+
+def test_pruning_matches_the_jax_package():
+    jcost, tcost = build_both(_pruned_net)
+    jparams = paddle_tpu.parameters.create(jcost, seed=3)
+    samples = _samples()
+    reader = lambda: iter(samples)  # noqa: E731
+    trained = []
+    for pkg, cost, params, kw in ((paddle_tpu, jcost, jparams, {}),
+                                  (paddle_tpu_torch, tcost, carry(jparams), {"device": "cpu"})):
+        trainer = pkg.trainer.SGD(cost=cost, parameters=params, update_equation=pkg.optimizer
+                                  .Momentum(learning_rate=0.1, momentum=0.9), **kw)
+        trainer.train(pkg.batch(reader, 8), num_passes=1, feeding={"x": 0, "label": 1})
+        trained.append(numpy_tree(trainer.parameters.params))
+    jp, tp = trained
+    jzero, tzero = jp["pruned"]["w0"] == 0, tp["pruned"]["w0"] == 0
+    assert jzero.mean() == RATIO and np.array_equal(tzero, jzero)
+    err = rel_l2(tp, jp)
+    print(f"pruned fc after 4 steps: zero share {tzero.mean()}, relative L2 {err:.3g}")
+    assert err <= 1e-5
+
+
+def test_prune_masks_keep_the_largest_initial_magnitudes():
+    cost = _pruned_net(paddle_tpu_torch)
+    net = TNet(TTopo([cost]))
+    params = net.init_params(seed=0, device="cpu")
+    masks = tstep.build_prune_masks(net, params)
+    w = params["pruned"]["w0"]
+    keep = masks["pruned"]["w0"].bool()
+    assert keep.float().mean().item() == 1 - RATIO
+    assert w.abs()[keep].min() >= w.abs()[~keep].max()
+    assert bool(masks["pruned"]["b"].eq(1).all())  # biases are not pruned
+    tstep.apply_prune_masks(params, masks)
+    assert (params["pruned"]["w0"] == 0).float().mean().item() == RATIO
+    assert tstep.build_prune_masks(TNet(TTopo([paddle_tpu_torch.layer.fc(
+        input=paddle_tpu_torch.layer.data(
+            name="z", type=paddle_tpu_torch.data_type.dense_vector(3)), size=2)])),
+        {}) is None
+
+
+def test_init_takes_the_reference_arguments():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device; the no-CUDA error cannot show")
+    from paddle_tpu_torch.core import device as tdevice
+
+    flags = paddle_tpu_torch.flags
+    saved = dict(flags._VALUES)
+    try:
+        # use_gpu=False does not move the port to the CPU: the default device
+        # stays the card, which this machine lacks
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            paddle_tpu_torch.init(use_gpu=False, trainer_count=1)
+        paddle_tpu_torch.init(device="cpu", use_gpu=False, use_tpu=True, trainer_count=2,
+                              no_such_flag=3)
+        assert flags.get_flag("use_gpu") is False and flags.get_flag("trainer_count") == 2
+        assert flags.get_flag("use_tpu") is True
+        with pytest.raises(KeyError):
+            flags.get_flag("no_such_flag")
+    finally:
+        tdevice._default_device = "cuda"
+        flags._VALUES.clear()
+        flags._VALUES.update(saved)
+
+
+def test_pallas_attention_alias():
+    flags = paddle_tpu_torch.flags
+    saved = dict(flags._VALUES)
+    try:
+        flags.set_flag("use_pallas_attention", True)
+        assert flags.get_flag("use_flash_attention") is True
+        assert flags.get_flag("use_pallas_attention") is True
+        flags.set_flag("use_flash_attention", False)
+        assert flags.get_flag("use_pallas_attention") is False
+    finally:
+        flags._VALUES.clear()
+        flags._VALUES.update(saved)
+
+
+def test_sgd_takes_the_reference_arguments(caplog):
+    cost = _pruned_net(paddle_tpu_torch)
+    opt = paddle_tpu_torch.optimizer.Momentum(learning_rate=0.1)
+    samples = _samples(16)
+    reader = paddle_tpu_torch.batch(lambda: iter(samples), 8)
+    trainer = paddle_tpu_torch.trainer.SGD(cost, update_equation=opt, is_local=True,
+                                           device="cpu")
+    with caplog.at_level(logging.INFO, logger="paddle_tpu_torch.trainer"):
+        trainer.train(reader, feeding={"x": 0, "label": 1}, show_parameter_stats_period=1,
+                      async_load_data=False)
+    stats = [r.getMessage() for r in caplog.records if "parameter stats" in r.getMessage()]
+    assert len(stats) == 2 and "pruned.w0" in stats[0]
+    assert np.isfinite(trainer.test(reader, feeding={"x": 0, "label": 1},
+                                    async_load_data=False).cost)
+    with pytest.raises(NotImplementedError, match="async_load_data"):
+        trainer.train(reader, feeding={"x": 0, "label": 1}, async_load_data=True)
+    with pytest.raises(NotImplementedError, match="async_load_data"):
+        trainer.test(reader, feeding={"x": 0, "label": 1}, async_load_data=True)
+    # training is always local, as in the JAX package
+    assert paddle_tpu_torch.trainer.SGD(cost, update_equation=opt, is_local=False,
+                                        device="cpu").device.type == "cpu"
