@@ -192,12 +192,39 @@ Phases, in order; any failure exits non-zero:
      and as the gather-sum of its padded ids (relative L2 <= 1e-5); and the
      pruning hook on the card: fc(2048 -> 512) with HookAttr("pruning",
      0.75) after 5 steps has exactly 0.75 of w0 at zero, at the smallest
-     initial magnitudes.  No flash kernel may launch in phase 16.
+     initial magnitudes.  No flash kernel may launch in phase 16;
+ 17. nested sequences: (a) the reference's hierarchical RNN
+     (paddle/gserver/tests/sequence_nest_rnn.conf: an outer recurrent_group
+     over SubsequenceInput(embedding) whose step runs an inner group over
+     the words, the inner memory booted from the outer memory, which links
+     last_seq of the inner sequence; last_seq, fc(2, softmax),
+     classification cost) at bench_lstm_textcls's widths (vocab 30000,
+     embedding 128, hidden 512), on 128 reviews of 100 tokens from
+     RandomState(0) split into sentences of 5-25 tokens, against its flat
+     twin (sequence_rnn.conf: one group over the same words, the same
+     parameters moved by path): in f32 the cost per row nested == flat
+     (rtol 1e-5, atol 1e-6), the gradients nested vs flat and card vs CPU
+     (relative L2 <= 1e-5); then bf16 over f32 masters, Adam(5e-4), 8
+     steps of each form in turns on the same batches (median s per step,
+     reviews/s, nested/flat), and one step of each with its host syncs by
+     file:line (torch.cuda's sync debug mode; none may come from the
+     layers or the loops), the outer and inner loop steps run and skipped
+     (exactly the live ones), peak memory, device kernels and busy share;
+     (b) quick_start's trainer_config.cnn.py (embedding 128,
+     sequence_conv_pool(context_len=3, hidden_size=512), fc(2, softmax);
+     Adam(2e-3) with L2 8e-4 and clipping 25, its settings) on phase 14's
+     batches: card vs CPU in f32 at full width, 8 bf16 steps (s per step,
+     reviews/s) and a profile of two; (c) each of the 13 new layer types,
+     nested and stride pooling and selection, and a sequence memory's
+     running sum, card vs CPU in f32 (relative L2 <= 1e-5, ids equal), and
+     sampling_id's frequencies over 20,000 draws within 0.02.  No flash
+     kernel may launch in phase 17.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels with their launches on the main path (the timed training steps of
 phase 5; the NMT paths of phases 11-13, the LSTM classifier of phases 14
-and 16 and the tagger of phase 15 run none of them), errors and times.
+and 16, the tagger of phase 15 and the nested networks of phase 17 run
+none of them), errors and times.
 Without a CUDA device, or without the paddle_tpu_torch package beside it, the script
 exits non-zero and prints no result.
 """
@@ -2632,6 +2659,490 @@ def phase_v1_prune(torch, P, card):
         raise SystemExit("v1: the pruning hook did not hold on the card")
 
 
+# phase 17: nested sequences.  The hierarchical RNN is the reference's
+# paddle/gserver/tests/sequence_nest_rnn.conf (its flat twin
+# sequence_rnn.conf) at bench_lstm_textcls's widths; the text CNN is
+# v1_api_demo/quick_start/trainer_config.cnn.py with its settings
+HIER_VOCAB, HIER_EMB, HIER_HIDDEN, HIER_LABELS = 30000, 128, 512, 2
+HIER_SENT = (5, 25)  # sentence lengths, uniform; the last takes the remainder
+HIER_STEPS = 8  # training steps of each form, taken in turns
+HIER_LR = 5e-4
+HIER_RTOL, HIER_ATOL = 1e-5, 1e-6  # nested == flat per row (tests/test_network_compare.py:256)
+HIER_REL = 1e-5  # gradients nested vs flat, card vs CPU (relative L2)
+CNN_CTX, CNN_HIDDEN, CNN_LR, CNN_L2, CNN_CLIP = 3, 512, 2e-3, 8e-4, 25.0
+CNN_STEPS = 8
+SMALL_REL = 1e-5
+
+
+def hier_cost(P, nested, vocab=HIER_VOCAB, emb=HIER_EMB, hidden=HIER_HIDDEN,
+              labels=HIER_LABELS):
+    """sequence_nest_rnn.conf (nested: an outer group over the sentences
+    whose step runs an inner group over the words, the inner memory booted
+    from the outer one, which links the last state of the previous
+    sentence) or sequence_rnn.conf (flat: one group over the words), then
+    last_seq, fc(softmax) and the classification cost."""
+    L, A, dt = P.layer, P.activation, P.data_type
+    word_t = dt.integer_value_sub_sequence(vocab) if nested else dt.integer_value_sequence(vocab)
+    emb_l = L.embedding(L.data("word", word_t), size=emb, name="emb")
+    if nested:
+        def outer_step(x):
+            outer_mem = L.memory(name="outer_rnn_state", size=hidden)
+
+            def inner_step(y):
+                inner_mem = L.memory(name="inner_rnn_state", size=hidden, boot_layer=outer_mem)
+                return L.fc([y, inner_mem], size=hidden, act=A.Tanh(), bias_attr=True,
+                            name="inner_rnn_state")
+
+            inner = L.recurrent_group(step=inner_step, name="inner", input=x)
+            L.last_seq(inner, name="outer_rnn_state")
+            return inner
+
+        out = L.recurrent_group(name="outer", step=outer_step, input=L.SubsequenceInput(emb_l))
+    else:
+        def step(y):
+            mem = L.memory(name="rnn_state", size=hidden)
+            return L.fc([y, mem], size=hidden, act=A.Tanh(), bias_attr=True, name="rnn_state")
+
+        out = L.recurrent_group(name="rnn", step=step, input=emb_l)
+    prob = L.fc(L.last_seq(out), size=labels, act=A.Softmax(), bias_attr=True, name="prob")
+    return L.classification_cost(input=prob, label=L.data("label", dt.integer_value(labels)))
+
+
+def hier_from_flat(flat):
+    """The nested network's parameter tree from the flat one's, moved by
+    path (rnn.rnn_state -> outer.inner.inner_rnn_state)."""
+    out = {k: v for k, v in flat.items() if k != "rnn"}
+    out["outer"] = {"inner": {"inner_rnn_state": flat["rnn"]["rnn_state"]}}
+    return out
+
+
+def hier_name(flat_name: str) -> str:
+    return flat_name.replace("rnn.rnn_state.", "outer.inner.inner_rnn_state.", 1)
+
+
+def hier_reviews(rng, n, vocab=HIER_VOCAB):
+    """n (sentences, words, label): TXT_T token ids each, split into
+    sentences of 5-25 tokens drawn uniformly, the last taking the
+    remainder."""
+    out = []
+    for _ in range(n):
+        ids = [int(t) for t in rng.randint(2, vocab, size=TXT_T)]
+        sents, i = [], 0
+        while i < TXT_T:
+            k = int(rng.randint(HIER_SENT[0], HIER_SENT[1] + 1))
+            sents.append(ids[i:i + k])
+            i += k
+        out.append((sents, ids, int(rng.randint(0, 2))))
+    return out
+
+
+def count_syncs(torch, fn) -> list:
+    """The host synchronisations `fn()` makes (a device value read, a
+    synchronous copy either way, a stream wait), as torch.cuda's sync debug
+    mode reports them: one "file:line" per sync, the innermost frame of
+    this repository's code that made it."""
+    import traceback
+    import warnings
+
+    sites = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        frames = [f for f in traceback.extract_stack()[:-1] if f.filename.startswith(HERE)]
+        sites.append(f"{os.path.relpath(frames[-1].filename, HERE)}:{frames[-1].lineno}"
+                     if frames else "outside the repository")
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sites
+
+
+def phase_hier(torch, P, fa, card):
+    """Phase 17a: the hierarchical RNN against its flat twin at full width:
+    f32 checks on the card (costs per row, gradients) and card vs CPU, then
+    bf16 training of both forms in turns."""
+    from paddle_tpu_torch.core.device import tree_to
+    from paddle_tpu_torch.layers.recurrent_group import counters as groups
+    from paddle_tpu_torch.utils.tree import leaves, map_leaves
+
+    feeding = {"word": 0, "label": 1}
+    P.init(seed=111, compute_dtype="float32")
+    nested, flat = hier_cost(P, True), hier_cost(P, False)
+    nets = {"nested": P.CompiledNetwork(P.Topology(nested), compute_dtype="float32"),
+            "flat": P.CompiledNetwork(P.Topology(flat), compute_dtype="float32")}
+    flat_cpu = nets["flat"].init_params(113, device="cpu")
+    params_cpu = {"flat": flat_cpu, "nested": hier_from_flat(flat_cpu)}
+    # batches: the first, HIER_STEPS timed, one for the sync count and profile
+    rows = hier_reviews(np.random.RandomState(0), TXT_B * (2 + HIER_STEPS))
+    samples = {"nested": [(r[0], r[2]) for r in rows], "flat": [(r[1], r[2]) for r in rows]}
+
+    def feed(form, dev, lo=0, n=TXT_B):
+        return P.reader.DataFeeder(nets[form].topology.data_types(), feeding,
+                                   device=dev)(samples[form][lo:lo + n])
+
+    nb = feed("nested", torch.device("cuda"))
+    n_sub = nb["word"].lengths.cpu()
+    say(f"hier: {TXT_B} reviews of {TXT_T} tokens in {int(n_sub.min())}-{int(n_sub.max())} "
+        f"sentences of {HIER_SENT[0]}-{HIER_SENT[1]} tokens; the nested batch pads to "
+        f"{tuple(nb['word'].data.shape)}, the flat one to "
+        f"{tuple(feed('flat', torch.device('cuda'))['word'].data.shape)}")
+    res = {}
+    for side, dev in (("card", torch.device("cuda")), ("cpu", torch.device("cpu"))):
+        for form in ("nested", "flat"):
+            batch = feed(form, dev)
+            prm = tree_to(params_cpu[form], dev)
+            cost_rows = nets[form].apply(prm, batch, train=False)[0][
+                (nested if form == "nested" else flat).name].data.detach()
+            mean, grads = grads_of(torch, nets[form], prm, batch)
+            if form == "flat":
+                grads = {hier_name(k): v for k, v in grads.items()}
+            res[(side, form)] = (cost_rows.cpu(), mean, grads)
+    cn, cf = res[("card", "nested")][0], res[("card", "flat")][0]
+    worst = float((cn - cf).abs().max())
+    g_nf = rel_l2(torch, res[("card", "nested")][2], res[("card", "flat")][2])
+    c_cc = float(((cn - res[("cpu", "nested")][0]).abs() / res[("cpu", "nested")][0].abs()).max())
+    g_cc = rel_l2(torch, res[("card", "nested")][2], res[("cpu", "nested")][2])
+    say(f"hier f32 on {card}: cost per row nested vs flat worst |d| {worst:.3e} (rtol "
+        f"{HIER_RTOL}, atol {HIER_ATOL}); mean cost nested {res[('card', 'nested')][1]:.7f} flat "
+        f"{res[('card', 'flat')][1]:.7f}; gradients nested vs flat relative L2 over "
+        f"{len(res[('card', 'flat')][2])} leaves {g_nf:.3e} (<= {HIER_REL}); card vs CPU "
+        f"(nested): cost per row worst relative {c_cc:.3e}, gradients {g_cc:.3e} (<= {HIER_REL})")
+    if not torch.allclose(cn, cf, rtol=HIER_RTOL, atol=HIER_ATOL):
+        raise SystemExit("hier: the nested cost strays from the flat one on the card")
+    if not (g_nf <= HIER_REL and c_cc <= HIER_REL and g_cc <= HIER_REL):
+        raise SystemExit("hier: gradients or the card-vs-CPU check strayed")
+    del res
+    torch.cuda.empty_cache()
+
+    # bf16 training of both forms in turns, from the same parameters
+    P.init(compute_dtype="bfloat16")
+    pf = P.parameters.create(flat, seed=113)
+    pn = P.parameters.create(nested, seed=113)
+    pn.params = hier_from_flat(map_leaves(lambda v: v.detach().clone(), pf.params))
+    trainers = {form: P.trainer.SGD(c, p, P.optimizer.Adam(learning_rate=HIER_LR))
+                for form, c, p in (("nested", nested, pn), ("flat", flat, pf))}
+    say(f"hier: {sum(v.numel() for v in leaves(pf.params))} parameters in each form; bf16 over "
+        f"f32 masters, Adam({HIER_LR})")
+
+    def step(form, k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = []
+        trainers[form].train(lambda: iter([samples[form][k * TXT_B:(k + 1) * TXT_B]]),
+                             feeding=feeding, event_handler=lambda e: got.append(e.cost)
+                             if isinstance(e, P.event.EndIteration) else None)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, got[0]
+
+    for form in ("nested", "flat"):
+        step(form, 0)  # first step: allocator, handles
+    times = {"nested": [], "flat": []}
+    costs = {"nested": [], "flat": []}
+    for r in range(HIER_STEPS // 2):
+        order = ("nested", "flat", "flat", "nested") if r % 2 == 0 else (
+            "flat", "nested", "nested", "flat")
+        for form in order:
+            k = 1 + len(times[form])
+            secs, cost = step(form, k)
+            times[form].append(secs)
+            costs[form].append(cost)
+    med = {f: float(np.median(v)) for f, v in times.items()}
+    say(f"hier training in turns on {card} ({HIER_STEPS} steps each, the same batches): median "
+        f"s per step nested {med['nested']:.4f} flat {med['flat']:.4f} (nested/flat "
+        f"{med['nested'] / med['flat']:.3f}); reviews/s nested {TXT_B / med['nested']:.1f} flat "
+        f"{TXT_B / med['flat']:.1f}; nested {[round(x, 4) for x in times['nested']]}, flat "
+        f"{[round(x, 4) for x in times['flat']]}")
+    d_cost = max(abs(a - b) for a, b in zip(costs["nested"], costs["flat"]))
+    say(f"hier training costs: nested {[round(c, 4) for c in costs['nested']]}, flat "
+        f"{[round(c, 4) for c in costs['flat']]} (worst |d| {d_cost:.4f}, bf16)")
+    if not (np.isfinite(costs["nested"]).all() and np.isfinite(costs["flat"]).all()):
+        raise SystemExit("hier: training gave a non-finite cost")
+    if d_cost > 0.1 * max(abs(c) for c in costs["flat"]):
+        raise SystemExit("hier: the nested form trains away from the flat one")
+
+    # one step of each form: syncs, steps run and skipped, peak memory
+    for form in ("nested", "flat"):
+        k = 1 + HIER_STEPS
+        groups.clear()
+        torch.cuda.reset_peak_memory_stats()
+        sites = count_syncs(torch, lambda f=form, kk=k: step(f, kk))
+        syncs = len(sites)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        loops = groups.copy()
+        rb = feed(form, torch.device("cpu"), k * TXT_B)["word"]
+        wall, busy, kernels, top = profile_call(torch, lambda f=form, kk=k: step(f, kk))
+        by_site = {x: sites.count(x) for x in sorted(set(sites))}
+        say(f"hier {form} step on {card}: {syncs} host syncs by site {by_site}, peak memory {peak:.2f} GiB, {kernels:.0f} device kernels, device busy "
+            f"{busy:.4f} s of {wall:.4f} s ({busy / wall:.3f}; {busy / med[form]:.3f} of the "
+            f"median step); group loop steps run/skipped {loops['steps']}/{loops['skipped']}, "
+            f"outer {loops['outer_steps']}/{loops['outer_skipped']}, inner "
+            f"{loops['inner_steps']}/{loops['inner_skipped']} (batch padded to "
+            f"{tuple(rb.data.shape)}); top device kernels:")
+        for line in top[:4]:
+            say(f"  {line}")
+        if form == "nested":
+            sub = rb.sub_lengths.numpy()
+            want_inner = sum(int(sub[:, s].max()) for s in range(int(rb.lengths.max())))
+            if (loops["outer_steps"] != int(rb.lengths.max())
+                    or loops["inner_steps"] != want_inner):
+                raise SystemExit("hier: the loops did not run exactly the live steps")
+        else:
+            if loops["steps"] != TXT_T or loops["outer_steps"] or loops["inner_steps"]:
+                raise SystemExit("hier: the flat loop did not run its 100 steps")
+        # a sync inside the layers or the loops would come once per (outer)
+        # step: the host copies of the lengths must spare every one
+        inside = [x for x in sites if x.startswith(("paddle_tpu_torch/layers/",
+                                                    "paddle_tpu_torch/ops/"))]
+        if inside:
+            raise SystemExit(f"hier: the {form} step reads the device inside its layers: {inside}")
+    if launch_counts(fa) != (0, 0, 0):
+        raise SystemExit("hier: the nested path launched a flash kernel")
+    del trainers, pf, pn
+    torch.cuda.empty_cache()
+    return med
+
+
+def text_cnn_cost(P, vocab=TXT_VOCAB):
+    """quick_start's trainer_config.cnn.py: embedding 128,
+    sequence_conv_pool(context_len=3, hidden_size=512), fc(2, softmax),
+    classification cost.  Returns (cost, probabilities)."""
+    L = P.layer
+    emb = L.embedding(L.data("word", P.data_type.integer_value_sequence(vocab)), size=TXT_EMB)
+    conv = P.networks.sequence_conv_pool(input=emb, context_len=CNN_CTX, hidden_size=CNN_HIDDEN)
+    probs = L.fc(conv, size=2, act=P.activation.Softmax())
+    label = L.data("label", P.data_type.integer_value(2))
+    return L.classification_cost(input=probs, label=label), probs
+
+
+def phase_text_cnn(torch, P, fa, card):
+    """Phase 17b: the quick_start text CNN on phase 14's batches, bf16
+    training and its profile; card vs CPU in f32."""
+    from paddle_tpu_torch.core.device import tree_to
+
+    feeding = {"word": 0, "label": 1}
+    reviews = text_reviews(np.random.RandomState(0), TXT_B * (1 + CNN_STEPS), TXT_VOCAB, False)
+    batches = [reviews[i * TXT_B:(i + 1) * TXT_B] for i in range(1 + CNN_STEPS)]
+    P.init(seed=121, compute_dtype="float32")
+    cost, _ = text_cnn_cost(P)
+    net = P.CompiledNetwork(P.Topology(cost), compute_dtype="float32")
+    cpu_params = net.init_params(123, device="cpu")
+    got = []
+    for dev in (torch.device("cuda"), torch.device("cpu")):
+        batch = P.reader.DataFeeder(net.topology.data_types(), feeding, device=dev)(batches[0])
+        got.append(grads_of(torch, net, tree_to(cpu_params, dev), batch))
+    (c_card, g_card), (c_cpu, g_cpu) = got
+    err = rel_l2(torch, g_card, g_cpu)
+    say(f"text cnn f32 at full width ({TXT_B} x {TXT_T}): cost card {c_card:.7f} CPU "
+        f"{c_cpu:.7f}; gradients relative L2 over {len(g_cpu)} leaves {err:.3e} (<= {HIER_REL})")
+    if abs(c_card - c_cpu) > HIER_REL * abs(c_cpu) or not err <= HIER_REL:
+        raise SystemExit("text cnn: the card strays from the CPU")
+
+    P.init(compute_dtype="bfloat16")
+    params = P.parameters.create(cost, seed=123)
+    opt = P.optimizer.Adam(learning_rate=CNN_LR,
+                           regularization=P.optimizer.L2Regularization(CNN_L2),
+                           gradient_clipping_threshold=CNN_CLIP)
+    trainer = P.trainer.SGD(cost, params, opt)
+    trainer.train(lambda: iter(batches[:1]), feeding=feeding)  # first step
+    steps, clock = [], [0.0]
+
+    def on_event(e):
+        if isinstance(e, P.event.BeginIteration):
+            torch.cuda.synchronize()
+            clock[0] = time.perf_counter()
+        elif isinstance(e, P.event.EndIteration):
+            steps.append((time.perf_counter() - clock[0], e.cost))
+
+    trainer.train(lambda: iter(batches[1:]), feeding=feeding, event_handler=on_event)
+    secs, costs = [x[0] for x in steps], [x[1] for x in steps]
+    mean_s = float(np.mean(secs))
+    wall, busy, kernels, top = profile_call(
+        torch, lambda: trainer.train(lambda: iter(batches[1:3]), feeding=feeding))
+    say(f"text cnn on {card}: {len(steps)} steps, costs {[round(c, 4) for c in costs]}, s per "
+        f"step {[round(x, 4) for x in secs]}; {mean_s:.4f} s per step, {TXT_B / mean_s:.1f} "
+        f"reviews/s; profile 2 steps: device busy {busy:.4f} s of {wall:.4f} s "
+        f"({busy / wall:.3f}), {kernels / 2:.0f} device kernels per step; top:")
+    for line in top[:4]:
+        say(f"  {line}")
+    if len(steps) != CNN_STEPS or not np.isfinite(costs).all():
+        raise SystemExit("text cnn: training gave a non-finite cost or a missing step")
+    if launch_counts(fa) != (0, 0, 0):
+        raise SystemExit("text cnn: the path launched a flash kernel")
+    del trainer, params
+    torch.cuda.empty_cache()
+    return mean_s
+
+
+def small_card_cpu(torch, P, out, types, samples, seed):
+    """f32 outputs of `out`'s network on the card and on the CPU from the
+    same parameters and samples, and for a float output the gradients of
+    the sum of squares of its valid part with respect to the parameters
+    and the float slots: (output |d| or relative L2, gradient relative L2
+    or None)."""
+    from paddle_tpu_torch.core.device import tree_to
+    from paddle_tpu_torch.utils.tree import leaf_paths, map_leaves
+
+    net = P.CompiledNetwork(P.Topology(out), compute_dtype="float32")
+    cpu_params = net.init_params(seed, device="cpu")
+    res = []
+    for dev in (torch.device("cuda"), torch.device("cpu")):
+        batch = P.reader.DataFeeder(types, device=dev)(samples)
+        xs = {}
+        for k, t in batch.items():
+            if t.data.is_floating_point():
+                t.data = t.data.detach().requires_grad_(True)
+                xs[k] = t.data
+        prm = map_leaves(lambda v: v.detach().requires_grad_(True), tree_to(cpu_params, dev))
+        y = net.apply(prm, batch, train=False)[0][out.name]
+        data = y.masked_data() if y.is_seq else y.data
+        grads = {}
+        wrt = [(".".join(p), v) for p, v in leaf_paths(prm)] + list(xs.items())
+        if data.is_floating_point() and wrt:
+            gs = torch.autograd.grad((data ** 2).sum(), [v for _, v in wrt], allow_unused=True)
+            grads = {n: g for (n, _), g in zip(wrt, gs) if g is not None}
+        res.append((data.detach().cpu(), grads))
+    (y_card, g_card), (y_cpu, g_cpu) = res
+    if not y_cpu.is_floating_point() or not g_cpu:
+        return float((y_card != y_cpu).sum()), None
+    return rel_l2(torch, {"y": y_card}, {"y": y_cpu}), rel_l2(torch, g_card, g_cpu)
+
+
+def phase_sequence_small(torch, P, card):
+    """Phase 17c: each of the slice's 13 types, nested and stride pooling
+    and a sequence memory's running sum, card vs CPU in f32; sampling_id's
+    frequencies on the card."""
+    L, A, dt = P.layer, P.activation, P.data_type
+    rng = np.random.RandomState(17)
+
+    def vecs(n, d):
+        return [rng.randn(d).astype(np.float32).tolist() for _ in range(n)]
+
+    def seqs(d, lens):
+        return [vecs(n, d) for n in lens]
+
+    def nested(d, shape):
+        return [[vecs(n, d) for n in sub] for sub in shape]
+
+    lens = [5, 2, 7, 1]
+    shape = [[3, 1], [4, 4, 2], [1], [2, 5]]
+    P.init(seed=125, compute_dtype="float32")
+    ds = lambda n, d: L.data(n, dt.dense_vector_sequence(d))  # noqa: E731
+    st = P.core.topology
+    s4 = ds("s", 4)
+    cases = [
+        ("seqreshape", L.seq_reshape(ds("s", 4), reshape_size=8), [("s", dt.dense_vector_sequence(4))],
+         [(x,) for x in seqs(4, lens)]),
+        ("seqconcat", L.seq_concat(ds("a", 4), ds("b", 4)),
+         [("a", dt.dense_vector_sequence(4)), ("b", dt.dense_vector_sequence(4))],
+         list(zip(seqs(4, lens), seqs(4, lens[::-1])))),
+        ("context_projection(start -1)", L.mixed(size=12, input=L.context_projection(
+            ds("s", 4), context_len=3, context_start=-1)), [("s", dt.dense_vector_sequence(4))],
+         [(x,) for x in seqs(4, lens)]),
+        ("context_projection(start +1)", L.mixed(size=12, input=L.context_projection(
+            ds("s", 4), context_len=3, context_start=1)), [("s", dt.dense_vector_sequence(4))],
+         [(x,) for x in seqs(4, lens)]),
+        ("row_conv", L.row_conv(ds("s", 4), context_len=3), [("s", dt.dense_vector_sequence(4))],
+         [(x,) for x in seqs(4, lens)]),
+        ("conv_shift", L.conv_shift(L.data("a", dt.dense_vector(8)), L.data("b", dt.dense_vector(3))),
+         [("a", dt.dense_vector(8)), ("b", dt.dense_vector(3))], list(zip(vecs(4, 8), vecs(4, 3)))),
+        ("slice_time", st.LayerOutput(st.LayerConf(
+            name="st", type="slice_time", size=4, inputs=(s4.name,), act="identity", bias=False,
+            attrs={"offset": 1}), [s4]), [("s", dt.dense_vector_sequence(4))],
+         [(x,) for x in seqs(4, [3, 2, 4, 2])]),
+        ("sub_seq", L.sub_seq(ds("s", 3), L.data("off", dt.integer_value(8)),
+                              L.data("sz", dt.integer_value(8))),
+         [("s", dt.dense_vector_sequence(3)), ("off", dt.integer_value(8)),
+          ("sz", dt.integer_value(8))], [(x, 1, 2) for x in seqs(3, [5, 4, 7, 3])]),
+        ("agent", L.agent(L.fc(ds("s", 4), size=5)), [("s", dt.dense_vector_sequence(4))],
+         [(x,) for x in seqs(4, lens)]),
+        ("scatter_agent", L.scatter_agent(L.fc(ds("s", 4), size=5), L.data("ids", dt.integer_value(4))),
+         [("s", dt.dense_vector_sequence(4)), ("ids", dt.integer_value(4))],
+         [(x, i) for x, i in zip(seqs(4, lens), [3, 0, 0, 2])]),
+        ("gather_agent", L.gather_agent([ds("a", 4), ds("b", 4)]),
+         [("a", dt.dense_vector_sequence(4)), ("b", dt.dense_vector_sequence(4))],
+         list(zip(seqs(4, lens), seqs(4, lens)))),
+        ("eos_id", L.eos(L.data("ids", dt.integer_value_sequence(6)), 2),
+         [("ids", dt.integer_value_sequence(6))],
+         [([int(t) for t in rng.randint(0, 6, size=n)],) for n in lens]),
+        ("kmax_seq_score", L.kmax_seq_score(L.fc(ds("s", 4), size=1), beam_size=2),
+         [("s", dt.dense_vector_sequence(4))], [(x,) for x in seqs(4, lens)]),
+        ("sampling_id (no seed: argmax)", L.sampling_id(L.fc(L.data("x", dt.dense_vector(6)), size=5,
+                                                             act=A.Softmax())),
+         [("x", dt.dense_vector(6))], [(x,) for x in vecs(8, 6)]),
+        ("seqpool nested TO_SEQUENCE", L.pooling(
+            L.data("n", dt.dense_vector_sub_sequence(4)), pooling_type=P.pooling.Max(),
+            agg_level=L.AggregateLevel.TO_SEQUENCE), [("n", dt.dense_vector_sub_sequence(4))],
+         [(x,) for x in nested(4, shape)]),
+        ("seqpool nested TO_NO_SEQUENCE", L.pooling(
+            L.data("n", dt.dense_vector_sub_sequence(4)), pooling_type=P.pooling.Avg()),
+         [("n", dt.dense_vector_sub_sequence(4))], [(x,) for x in nested(4, shape)]),
+        ("last_seq nested TO_SEQUENCE", L.last_seq(L.data("n", dt.dense_vector_sub_sequence(4)),
+                                                   agg_level=L.AggregateLevel.TO_SEQUENCE),
+         [("n", dt.dense_vector_sub_sequence(4))], [(x,) for x in nested(4, shape)]),
+        ("seqpool stride 2", L.pooling(ds("s", 4), pooling_type=P.pooling.Sum(), stride=2),
+         [("s", dt.dense_vector_sequence(4))], [(x,) for x in seqs(4, lens)]),
+        ("first_seq stride 3", L.first_seq(ds("s", 4), stride=3),
+         [("s", dt.dense_vector_sequence(4))], [(x,) for x in seqs(4, lens)]),
+    ]
+
+    def running_sum(sub):
+        prev = L.memory(name="acc", size=4, is_seq=True)
+        return L.addto([L.fc(sub, size=4, act=A.Tanh()), prev], name="acc")
+
+    cases.append(("memory(is_seq=True) running sum", L.recurrent_group(
+        step=running_sum, input=L.SubsequenceInput(L.data("n", dt.dense_vector_sub_sequence(4)))),
+        [("n", dt.dense_vector_sub_sequence(4))], [(x,) for x in nested(4, shape)]))
+    worst = 0.0
+    for k, (name, out, types, samples) in enumerate(cases):
+        err_y, err_g = small_card_cpu(torch, P, out, types, samples, 127 + k)
+        kind = "values off" if err_g is None else "relative L2"
+        say(f"seq small f32 on {card}: {name}: output card vs CPU {kind} {err_y:.3e}"
+            + ("" if err_g is None else f", gradients {err_g:.3e}") + f" (<= {SMALL_REL})")
+        worst = max(worst, err_y, err_g or 0.0)
+        if err_y > (0 if err_g is None else SMALL_REL) or (err_g or 0.0) > SMALL_REL:
+            raise SystemExit(f"seq small: {name} strays between the card and the CPU")
+
+    # sampling_id with a step seed: 20,000 draws from one distribution
+    out = L.sampling_id(L.data("p", dt.dense_vector(4)))
+    p = torch.tensor([[0.1, 0.2, 0.3, 0.4]], device="cuda").expand(20000, 4).contiguous()
+    net = P.CompiledNetwork(P.Topology(out), compute_dtype="float32")
+    ids = net.apply({}, {"p": P.core.batch.SeqTensor(p)}, train=True, rng=5)[0][out.name].data
+    freq = torch.bincount(ids.long(), minlength=4).double().cpu() / 20000
+    say(f"seq small: sampling_id on {card}, 20,000 draws of [0.1, 0.2, 0.3, 0.4]: frequencies "
+        f"{[round(x, 4) for x in freq.tolist()]} (within 0.02)")
+    if not torch.allclose(freq, p[0].double().cpu(), atol=0.02):
+        raise SystemExit("seq small: sampling_id's draws do not follow the distribution")
+    return worst
+
+
+def phase_nested(torch, P, fa, card):
+    """Phase 17: the hierarchical RNN and its flat twin, the quick_start
+    text CNN, and the slice's layer types card vs CPU."""
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    med = phase_hier(torch, P, fa, card)
+    t1 = time.perf_counter()
+    cnn_s = phase_text_cnn(torch, P, fa, card)
+    t2 = time.perf_counter()
+    phase_sequence_small(torch, P, card)
+    t3 = time.perf_counter()
+    if launch_counts(fa) != (0, 0, 0):
+        raise SystemExit("nested: phase 17 launched a flash kernel")
+    say(f"nested: phase 17 split: hierarchical RNN {t1 - t0:.1f} s, text CNN {t2 - t1:.1f} s, "
+        f"small checks {t3 - t2:.1f} s; flash launches (fwd, dq, dkv) over it "
+        f"{launch_counts(fa)}; nested/flat {med['nested'] / med['flat']:.3f}, text cnn "
+        f"{cnn_s:.4f} s per step")
+    P.init(compute_dtype="bfloat16")
+
+
 def main() -> int:
     import torch
 
@@ -2712,6 +3223,10 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_v1(torch, P, fa, card, lstm14)
     say(f"v1: phase 16 took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_nested(torch, P, fa, card)
+    say(f"nested: phase 17 took {time.perf_counter() - t0:.1f} s")
     kernels = [
         {"name": name, "route": "cuda", "source": f"paddle_tpu_torch/csrc/{src}",
          "replaces": f"paddle_tpu/ops/pallas_attention.py:{line}",

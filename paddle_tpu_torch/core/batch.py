@@ -174,6 +174,16 @@ def host_lengths(lengths: torch.Tensor) -> np.ndarray:
     return host
 
 
+def sub_length_columns(sub_lengths: torch.Tensor, reverse: bool = False):
+    """The [B] sub-lengths of each outer step of a nested batch: column s of
+    [B, S], carrying its host column ``host[:, s]`` (reversed order for a
+    reverse scan), so the scan of a subsequence reads its live range from
+    the host.  Costs one device read when `sub_lengths` has no host copy."""
+    host = host_lengths(sub_lengths)
+    cols = [set_host_lengths(sub_lengths[:, s], host[:, s]) for s in range(sub_lengths.shape[1])]
+    return cols[::-1] if reverse else cols
+
+
 def pad_batch_rows(batch: Batch, to_b: int) -> Batch:
     """Pad every slot's batch axis up to ``to_b`` rows.  Dead rows are zero
     data with length 1 (one valid zero timestep), so per-row normalisers

@@ -38,6 +38,7 @@ from paddle_tpu_torch.layers import cost as _cost  # noqa: F401
 from paddle_tpu_torch.layers import mixed as _mixed_impl  # noqa: F401
 from paddle_tpu_torch.layers import structured as _structured  # noqa: F401
 from paddle_tpu_torch.layers import sequence as _sequence  # noqa: F401
+from paddle_tpu_torch.layers import misc as _misc  # noqa: F401
 from paddle_tpu_torch.layers.recurrent_group import (  # noqa: F401
     StaticInput,
     SubsequenceInput,

@@ -25,30 +25,43 @@ through the loop.  Around the loop:
 * early exit (``scan_early_exit``): the loop runs only the steps at which
   some row is live, a range read from the host copy of the lengths.
 
-``counters`` counts the runs of each path and the steps the generic loop
-ran and skipped.
+Nested sequences (the reference's hasSubseq frames): a ``SubsequenceInput``
+scans the outer S axis of a [B, S, T, ...] block, and each step sees the
+[B, T, ...] subsequence with its lengths (their host column attached, so an
+inner scan reads no device value), so a step may hold sequence layers or a
+recurrent group of its own (the hierarchical RNN).  ``memory(is_seq=True)``
+carries a whole [B, W, size] sequence between steps.  A step that emits a
+sequence gives a nested [B, S, T, ...] output whose padding subsequences are
+zero.  Hoisting and the fused lowering stay off for a group with a nested
+input or a sequence memory; the plan decides this once.
 
-Not ported yet: ``SubsequenceInput`` (nested input) and sequence-valued
-memories (``memory(is_seq=True)``); both raise ``NotImplementedError``.
+``counters`` counts the runs of each lowering, the steps the generic loops
+ran and skipped, and of these the steps of loops over subsequences
+(``outer_*``) and of loops inside another group's step (``inner_*``).
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import warnings
 from typing import Dict, List, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
-from paddle_tpu_torch.core.batch import SeqTensor
+from paddle_tpu_torch.core.batch import (
+    SeqTensor, host_lengths, set_host_lengths, sub_length_columns)
 from paddle_tpu_torch.core.topology import LayerConf, LayerOutput, Topology, auto_name
 from paddle_tpu_torch.layers.base import (
     ApplyContext, get_layer_impl, mix_seed, register_layer)
 from paddle_tpu_torch.ops.rnn import attention_gru_scan, live_range
 from paddle_tpu_torch.utils.flags import get_flag
 
-# runs of each lowering ("fused", "generic") and the generic loop's steps
-# ("steps", "skipped"), since the last clear()
+# runs of each lowering ("fused", "generic") and the generic loops' steps
+# ("steps", "skipped"; of these "outer_steps", "outer_skipped" over
+# subsequences and "inner_steps", "inner_skipped" inside another group's
+# step), since the last clear()
 counters: collections.Counter = collections.Counter()
 
 
@@ -65,7 +78,8 @@ class StaticInput:
 
 class SubsequenceInput:
     """A nested outer layer whose subsequences are the scan unit (reference
-    SubsequenceInput).  Not ported yet: a group given one raises."""
+    SubsequenceInput): the group scans the outer S axis, and each step sees
+    an ordinary [B, T, ...] sequence."""
 
     def __init__(self, input: LayerOutput):
         self.input = input
@@ -113,15 +127,20 @@ def memory(
     """The previous step's output of the in-group layer called `name`
     (reference memory()); `boot_layer` gives the first step's value ([B,
     size]), else it is zeros.  name=None defers the link to
-    ``.set_input(layer)``."""
+    ``.set_input(layer)``.
+
+    is_seq=True carries the linked layer's whole [B, W, size] sequence (and
+    its lengths) between steps (the reference's sequence-memory frames); it
+    boots from a sequence layer (a non-sequence boot is a length-1
+    sequence) or as an empty sequence, never from a constant id."""
     if _current_build is None:
         raise RuntimeError("memory() must be called inside a recurrent_group step")
-    conf_name = auto_name(f"memory_{name or memory_name or 'deferred'}")
-    if is_seq:
-        raise NotImplementedError(
-            f"memory {conf_name!r}: sequence-valued memories (is_seq=True) are not ported yet")
+    if is_seq and boot_with_const_id is not None:
+        raise ValueError(
+            "memory(is_seq=True) cannot boot with a constant id: a sequence memory boots "
+            "from a sequence boot_layer or as an empty sequence")
     conf = LayerConf(
-        name=conf_name,
+        name=auto_name(f"memory_{name or memory_name or 'deferred'}"),
         type="memory",
         size=size,
         bias=False,
@@ -129,6 +148,7 @@ def memory(
             "link": name,
             "boot": boot_layer.name if boot_layer is not None else None,
             "boot_const_id": boot_with_const_id,
+            **({"is_seq": True} if is_seq else {}),
         },
     )
     _current_build.memories.append(conf)
@@ -158,24 +178,26 @@ def recurrent_group(
     ins = input if isinstance(input, (list, tuple)) else [input]
     gname = name or auto_name("recurrent_group")
     scanned: List[LayerOutput] = []
+    sub_scanned: List[bool] = []  # parallel: the scan unit is a subsequence
     statics: List[StaticInput] = []
     for i in ins:
-        if isinstance(i, SubsequenceInput):
-            raise NotImplementedError(
-                f"recurrent_group {gname!r}: SubsequenceInput (nested input) is not ported yet")
         if isinstance(i, StaticInput):
             statics.append(i)
+        elif isinstance(i, SubsequenceInput):
+            scanned.append(i.input)
+            sub_scanned.append(True)
         else:
             scanned.append(i)
+            sub_scanned.append(False)
     if not scanned:
         raise ValueError("recurrent_group needs at least one sequence input to scan")
     step_args, scan_placeholders, static_placeholders = _make_placeholders(
-        gname, scanned, statics)
+        gname, scanned, sub_scanned, statics)
     with _trace_capture() as (gb, created):
         out = step(*step_args)
     step_outputs = list(out) if isinstance(out, (list, tuple)) else [out]
-    return _finalize_group(gname, scanned, statics, scan_placeholders, static_placeholders,
-                           gb, created, step_outputs, reverse)
+    return _finalize_group(gname, scanned, sub_scanned, statics, scan_placeholders,
+                           static_placeholders, gb, created, step_outputs, reverse)
 
 
 @contextlib.contextmanager
@@ -200,14 +222,14 @@ def _trace_capture():
             set_layer_sink(prev_sink)
 
 
-def _make_placeholders(gname, scanned, statics):
+def _make_placeholders(gname, scanned, sub_scanned, statics):
     """The scanned and static step-input placeholders of a group."""
     step_args: List[LayerOutput] = []
     scan_placeholders: List[LayerConf] = []
     static_placeholders: List[LayerConf] = []
     for k, lo in enumerate(scanned):
         conf = LayerConf(name=f"{gname}@in{k}", type="step_input", size=lo.size, bias=False,
-                         attrs={"step_seq": False})
+                         attrs={"step_seq": sub_scanned[k]})
         scan_placeholders.append(conf)
         step_args.append(LayerOutput(conf))
     for k, st in enumerate(statics):
@@ -218,8 +240,8 @@ def _make_placeholders(gname, scanned, statics):
     return step_args, scan_placeholders, static_placeholders
 
 
-def _finalize_group(gname, scanned, statics, scan_placeholders, static_placeholders, gb,
-                    created, step_outputs, reverse) -> LayerOutput:
+def _finalize_group(gname, scanned, sub_scanned, statics, scan_placeholders,
+                    static_placeholders, gb, created, step_outputs, reverse) -> LayerOutput:
     """The recurrent_group LayerConf of a traced step body."""
     unset = [m.name for m in gb.memories if m.attrs["link"] is None]
     if unset:
@@ -250,7 +272,7 @@ def _finalize_group(gname, scanned, statics, scan_placeholders, static_placehold
             "_sub_topology": sub_topo,
             "_memories": tuple(gb.memories),
             "_scan_placeholders": tuple(c.name for c in scan_placeholders),
-            "_sub_scanned": (False,) * len(scanned),
+            "_sub_scanned": tuple(sub_scanned),
             "_static_placeholders": tuple(
                 (c.name, c.attrs.get("static_seq", False)) for c in static_placeholders),
             "_output": step_outputs[0].name,
@@ -397,45 +419,48 @@ def _split_epilogue(sub_topo, memories, out_name, static_seq):
 class GroupPlan:
     """What a recurrent group compiles once: its sub-network (at the
     enclosing network's compute dtype), the hoisted prologue and epilogue,
-    and the fused attention-GRU match."""
+    and the fused attention-GRU match.  A group with a nested input or a
+    sequence memory hoists nothing and fuses nothing: its step values are
+    no plain [B, D] rows (the JAX package's ``rows_hoistable``)."""
 
     def __init__(self, conf: LayerConf, compute_dtype):
         from paddle_tpu_torch.core.compiler import CompiledNetwork
         from paddle_tpu_torch.layers.attention import match_attention_gru_step
 
         a = conf.attrs
-        if any(a.get("_sub_scanned", ())):
-            raise NotImplementedError(
-                f"recurrent_group {conf.name!r}: SubsequenceInput is not ported yet")
         self.memories: Sequence[LayerConf] = a["_memories"]
-        for m in self.memories:
-            if m.attrs.get("is_seq"):
-                raise NotImplementedError(
-                    f"recurrent_group {conf.name!r}: sequence-valued memory {m.name!r} is "
-                    "not ported yet")
         self.sub_topo: Topology = a["_sub_topology"]
         self.subnet = CompiledNetwork(self.sub_topo, compute_dtype=compute_dtype)
         self.scan_names: Sequence[str] = a["_scan_placeholders"]
+        self.sub_scanned = tuple(a.get("_sub_scanned", (False,) * len(self.scan_names)))
         self.static_info = a["_static_placeholders"]
         self.static_names = {p for (p, _s) in self.static_info}
         self.out_name: str = a["_output"]
         self.reverse: bool = a["reverse"]
         self.producer = _producer_resolver(self.sub_topo.layers)
+        self.seq_memories = [m for m in self.memories if m.attrs.get("is_seq")]
+        self.rows = not any(self.sub_scanned) and not self.seq_memories
+        self._nest(0)
+        self.epilogue, self.frontier = None, (self.out_name,)
+        self.prologue: set = set()
+        self.match = None
         static_seq = {p for (p, is_seq) in self.static_info if is_seq}
-        shape = _step_shapes(self.sub_topo, static_seq)
-        if shape.get(self.producer(self.out_name)) == "seq":
-            raise NotImplementedError(
-                f"recurrent_group {conf.name!r}: a step that emits a sequence (nested "
-                "output) is not ported yet")
-        self.epilogue, self.frontier = _split_epilogue(
-            self.sub_topo, self.memories, self.out_name, static_seq)
-        # the epilogue folds time into the rows of each value the loop
-        # emits: every one must be a plain [B, D] row
-        if self.epilogue is not None and not all(
-                shape.get(self.producer(n)) == "row" for n in self.frontier):
-            self.epilogue, self.frontier = None, (self.out_name,)
+        if self.rows:
+            shape = _step_shapes(self.sub_topo, static_seq)
+            self.epilogue, self.frontier = _split_epilogue(
+                self.sub_topo, self.memories, self.out_name, static_seq)
+            # the epilogue folds time into the rows of each value the loop
+            # emits: every one must be a plain [B, D] row (a step that emits
+            # a sequence gives a nested output instead)
+            if self.epilogue is not None and not all(
+                    shape.get(self.producer(n)) == "row" for n in self.frontier):
+                self.epilogue, self.frontier = None, (self.out_name,)
+            self.prologue = _split_prologue(
+                self.sub_topo, self.scan_names, self.static_info, self.epilogue or set())
+            if len(self.memories) == 1:
+                self.match = match_attention_gru_step(
+                    self.sub_topo.layers, self.memories[0], set(self.scan_names), static_seq)
         epi = self.epilogue or set()
-        self.prologue = _split_prologue(self.sub_topo, self.scan_names, self.static_info, epi)
         self.body_only = set(self.sub_topo.order) - epi - self.prologue
         self.loop_only = None if self.epilogue is None and not self.prologue else self.body_only
         self.frontier_scan = tuple(
@@ -443,10 +468,14 @@ class GroupPlan:
             if self.epilogue is None or (
                 n not in self.static_names and n not in self.scan_names
                 and self.producer(n) not in self.prologue))
-        self.match = None
-        if len(self.memories) == 1:
-            self.match = match_attention_gru_step(
-                self.sub_topo.layers, self.memories[0], set(self.scan_names), static_seq)
+
+    def _nest(self, depth: int) -> None:
+        """Record how deep this group sits inside other groups' steps (its
+        own sub-network's groups sit one deeper)."""
+        self.depth = depth
+        for p in self.subnet._plans.values():
+            if isinstance(p, GroupPlan):
+                p._nest(depth + 1)
 
     def fusable(self) -> bool:
         """The matched attention-GRU step IS the whole loop: the loop emits
@@ -503,39 +532,52 @@ def recurrent_group_apply(conf, params, inputs, ctx: ApplyContext) -> SeqTensor:
     lengths = scanned[0].lengths
     if lengths is None:
         raise ValueError(f"{conf.name}: recurrent_group inputs must be sequences")
-    t_max, b = scanned[0].max_len, scanned[0].data.shape[0]
+    t_max, b = scanned[0].max_len, scanned[0].data.shape[0]  # t_max: T, or S when nested
     reverse = plan.reverse
 
-    xs = []  # time-major scanned inputs, flipped for a reverse group
-    for s_in in scanned:
-        if s_in.is_nested:
-            raise NotImplementedError(f"{conf.name}: nested scanned inputs are not ported yet")
+    # outer-axis-major scanned inputs, flipped for a reverse group; a
+    # SubsequenceInput keeps its [S, B, T, ...] block beside the sub-lengths
+    # of each outer step (host columns attached)
+    xs, sub_cols = [], []
+    for s_in, is_sub in zip(scanned, plan.sub_scanned):
         x = s_in.data.transpose(0, 1)
         xs.append(x.flip(0) if reverse else x)
+        if is_sub and not s_in.is_nested:
+            raise ValueError(f"{conf.name}: SubsequenceInput requires a nested input")
+        sub_cols.append(sub_length_columns(s_in.sub_lengths, reverse) if is_sub else None)
     static_batch = {
         pname: (st if is_seq else SeqTensor(st.data))
         for (pname, is_seq), st in zip(static_info, statics)
     }
     sub_state0 = ctx.state.get(conf.name, {})
 
+    def step_inputs(t: int) -> Dict[str, SeqTensor]:
+        return {pname: SeqTensor(x[t], None if cols is None else cols[t])
+                for pname, x, cols in zip(scan_names, xs, sub_cols)}
+
+    device = scanned[0].data.device
+    seq_widths = _seq_memory_widths(conf, plan, params, static_batch, step_inputs(0), ctx,
+                                    sub_state0, b)
     init_carry = {}
     for m in memories:
         boot, boot_const = m.attrs.get("boot"), m.attrs.get("boot_const_id")
-        if boot is not None:
+        if m.attrs.get("is_seq"):
+            init_carry[m.name] = _seq_memory_boot(m, ctx.outputs.get(boot), seq_widths[m.name],
+                                                  b, ctx.dtype, device)
+        elif boot is not None:
             init_carry[m.name] = ctx.outputs[boot].data
         elif boot_const is not None:
             init_carry[m.name] = torch.full((b, m.size), boot_const, dtype=scanned[0].data.dtype,
-                                            device=scanned[0].data.device)
+                                            device=device)
         else:
-            init_carry[m.name] = torch.zeros((b, m.size), dtype=ctx.dtype,
-                                             device=scanned[0].data.device)
+            init_carry[m.name] = torch.zeros((b, m.size), dtype=ctx.dtype, device=device)
 
     def step_batch(t: int, carry) -> Dict[str, SeqTensor]:
         sub_batch = dict(static_batch)
-        for pname, x in zip(scan_names, xs):
-            sub_batch[pname] = SeqTensor(x[t])
+        sub_batch.update(step_inputs(t))
         for m in memories:
-            sub_batch[m.name] = SeqTensor(carry[m.name])
+            c = carry[m.name]
+            sub_batch[m.name] = c if isinstance(c, SeqTensor) else SeqTensor(c)
         return sub_batch
 
     prologue, frontier, frontier_scan = plan.prologue, plan.frontier, plan.frontier_scan
@@ -557,6 +599,7 @@ def recurrent_group_apply(conf, params, inputs, ctx: ApplyContext) -> SeqTensor:
     if (plan.fusable() and not sub_state0 and get_flag("fused_attention_gru")):
         fused_hs = _try_fused_attention_gru(plan, params, scanned, static_batch, init_carry,
                                             ctx)
+    ys_lengths = None  # [T, B] lengths of a step that emits a sequence
     if fused_hs is not None:
         counters["fused"] += 1
         # time-major, in loop order, as the generic loop stacks its steps
@@ -570,8 +613,8 @@ def recurrent_group_apply(conf, params, inputs, ctx: ApplyContext) -> SeqTensor:
         lo, hi = live_range(lengths, t_max, reverse)
         if hi == lo:  # no live step: run them all (every row carries through)
             lo, hi = 0, t_max
-        counters["steps"] += hi - lo
-        counters["skipped"] += t_max - (hi - lo)
+        _count_steps(plan, hi - lo, t_max - (hi - lo))
+        valid_host = _host_valid(lengths, t_max, reverse) if plan.seq_memories else None
         carry, sub_state = dict(init_carry), sub_state0
         ys_steps = []
         for t in range(lo, hi):
@@ -581,18 +624,23 @@ def recurrent_group_apply(conf, params, inputs, ctx: ApplyContext) -> SeqTensor:
                 params, step_batch(t, carry), state=sub_state, train=ctx.train, rng=rng_t,
                 only=plan.loop_only, preset=preset or None)
             for m in memories:
-                upd = outs[m.attrs["link"]].data
-                carry[m.name] = torch.where(mask_seq[t], upd, carry[m.name].to(upd.dtype))
-            ys_steps.append(tuple(outs[n].data for n in frontier_scan))
+                upd = outs[m.attrs["link"]]
+                if m.attrs.get("is_seq"):
+                    carry[m.name] = _seq_carry(conf, m, upd, carry[m.name], mask_seq[t],
+                                               valid_host[t])
+                else:
+                    carry[m.name] = torch.where(mask_seq[t], upd.data,
+                                                carry[m.name].to(upd.data.dtype))
+            ys_steps.append(tuple(outs[n] for n in frontier_scan))
         if sub_state0:
             ctx.new_state[conf.name] = sub_state
-        # dead steps emit zeros, as the JAX package's early exit does
+        # dead steps emit zeros (and empty sequences), as the JAX package's
+        # early exit does
         ys_stacked = []
         for k in range(len(frontier_scan)):
-            live = torch.stack([y[k] for y in ys_steps])
-            pad = lambda n: live.new_zeros((n,) + tuple(live.shape[1:]))  # noqa: E731
-            parts = ([pad(lo)] if lo else []) + [live] + ([pad(t_max - hi)] if hi < t_max else [])
-            ys_stacked.append(torch.cat(parts) if len(parts) > 1 else live)
+            ys_stacked.append(_pad_steps([y[k].data for y in ys_steps], lo, t_max))
+        if ys_steps and ys_steps[0][0].lengths is not None and plan.epilogue is None:
+            ys_lengths = _pad_steps([y[0].lengths for y in ys_steps], lo, t_max)
 
     group_logits = None
     if plan.epilogue is not None:
@@ -617,6 +665,8 @@ def recurrent_group_apply(conf, params, inputs, ctx: ApplyContext) -> SeqTensor:
             group_logits = lg.data.reshape((t_max, b) + tuple(lg.data.shape[1:]))
     else:
         ys = ys_stacked[0]
+    if ys_lengths is not None:
+        return _nested_output(ys, ys_lengths, lengths, reverse)
     if reverse:
         ys = ys.flip(0)
     ys = ys.transpose(0, 1)  # [B, T, D]
@@ -628,6 +678,164 @@ def recurrent_group_apply(conf, params, inputs, ctx: ApplyContext) -> SeqTensor:
             group_logits = group_logits.flip(0)
         ctx.outputs[conf.name + "@logits"] = SeqTensor(group_logits.transpose(0, 1), lengths)
     return SeqTensor(ys, lengths)
+
+
+def _count_steps(plan: GroupPlan, run: int, skipped: int) -> None:
+    counters["steps"] += run
+    counters["skipped"] += skipped
+    for kind, on in (("outer", any(plan.sub_scanned)), ("inner", plan.depth > 0)):
+        if on:
+            counters[f"{kind}_steps"] += run
+            counters[f"{kind}_skipped"] += skipped
+
+
+def _pad_steps(live: List[torch.Tensor], lo: int, t_max: int) -> torch.Tensor:
+    """The [T, ...] stack of the steps [lo, lo + len(live)) with zeros at
+    the dead steps."""
+    x = torch.stack(live)
+    hi = lo + x.shape[0]
+    pad = lambda n: x.new_zeros((n,) + tuple(x.shape[1:]))  # noqa: E731
+    parts = ([pad(lo)] if lo else []) + [x] + ([pad(t_max - hi)] if hi < t_max else [])
+    return torch.cat(parts) if len(parts) > 1 else x
+
+
+def _nested_output(ys, ys_lengths, lengths, reverse) -> SeqTensor:
+    """The [B, S, T, ...] output of a step that emits sequences: the group's
+    lengths outside, each step's lengths inside, padding zeroed (the
+    padding subsequences whole)."""
+    if reverse:
+        ys, ys_lengths = ys.flip(0), ys_lengths.flip(0)
+    out = SeqTensor(ys.transpose(0, 1), lengths, ys_lengths.transpose(0, 1))
+    return out.with_data(out.masked_data())
+
+
+def _host_valid(lengths, t_max: int, reverse: bool) -> np.ndarray:
+    """[T, B] host validity of each row at each loop step, from the host
+    copy of the outer lengths."""
+    h = host_lengths(lengths)
+    t = np.arange(t_max)[:, None]
+    return t >= (t_max - h[None, :]) if reverse else t < h[None, :]
+
+
+def _seq_carry(conf, m, upd: SeqTensor, old: SeqTensor, valid, valid_host) -> SeqTensor:
+    """A sequence memory's next carry: the linked sequence where the row is
+    live, the old one where it is not; its lengths' host copy follows when
+    both sides have one."""
+    if upd.lengths is None:
+        raise ValueError(f"{conf.name}: seq memory {m.name} links {m.attrs['link']!r}, which is "
+                         "not a sequence")
+    if upd.data.shape != old.data.shape:
+        raise ValueError(f"{conf.name}: seq memory {m.name} carries {tuple(old.data.shape)} but "
+                         f"its link {m.attrs['link']!r} gives {tuple(upd.data.shape)}")
+    data = torch.where(valid[..., None], upd.data, old.data.to(upd.data.dtype))
+    new_len = torch.where(valid[:, 0], upd.lengths, old.lengths)
+    hu = getattr(upd.lengths, "_host_lengths", None)
+    ho = getattr(old.lengths, "_host_lengths", None)
+    if hu is not None and ho is not None:
+        set_host_lengths(new_len, np.where(valid_host, hu, ho).astype(np.int32))
+    return SeqTensor(data, new_len)
+
+
+def _seq_memory_boot(m, bt: Optional[SeqTensor], w: int, b: int, dtype, device) -> SeqTensor:
+    """A sequence memory's first carry at width `w`: the boot layer's
+    sequence (cut or padded to w), a non-sequence boot as a length-1
+    sequence, or an empty sequence."""
+    if bt is None:
+        lens = torch.zeros((b,), dtype=torch.int32, device=device)
+        return SeqTensor(torch.zeros((b, w, m.size), dtype=dtype, device=device),
+                         set_host_lengths(lens, np.zeros((b,), np.int32)))
+    if not bt.is_seq:
+        d = torch.cat([bt.data[:, None], bt.data.new_zeros((b, w - 1) + tuple(bt.data.shape[1:]))],
+                      dim=1)
+        lens = torch.ones((b,), dtype=torch.int32, device=device)
+        return SeqTensor(d, set_host_lengths(lens, np.ones((b,), np.int32)))
+    if bt.data.shape[1] > w:
+        # lengths are data: whether real steps (not padding) are cut cannot
+        # be told without reading them, so say so with both widths
+        warnings.warn(
+            f"seq memory '{m.name}': boot layer '{m.attrs['boot']}' is padded to "
+            f"{bt.data.shape[1]} steps but the linked layer's fixed-point width is {w}; boot "
+            f"sequences longer than {w} steps will be truncated before the first outer step",
+            stacklevel=3)
+    d = bt.data[:, :w]
+    if d.shape[1] < w:
+        d = torch.cat([d, d.new_zeros((b, w - d.shape[1]) + tuple(d.shape[2:]))], dim=1)
+    lens = torch.clamp(bt.lengths, max=w).to(torch.int32)
+    host = getattr(bt.lengths, "_host_lengths", None)
+    if host is not None:
+        set_host_lengths(lens, np.minimum(host, w).astype(np.int32))
+    return SeqTensor(d, lens)
+
+
+def _to_meta(t: SeqTensor) -> SeqTensor:
+    """A SeqTensor of meta tensors of the same shapes; lengths keep (or
+    take, by one read) their host copy, which the scans' live range reads."""
+
+    def meta(x):
+        return None if x is None else torch.empty_like(x, device="meta")
+
+    def meta_len(x):
+        return None if x is None else set_host_lengths(meta(x), host_lengths(x))
+
+    return SeqTensor(meta(t.data), meta_len(t.lengths), meta_len(t.sub_lengths),
+                     sparse_ids=t.sparse_ids)
+
+
+def _seq_memory_widths(conf, plan: GroupPlan, params, static_batch, first_inputs, ctx,
+                       sub_state0, b) -> Dict[str, int]:
+    """The padded width of each sequence memory: the linked layer's padded
+    width at a step.  The JAX package finds it by abstract evaluation
+    (``jax.eval_shape``); here the step body runs once on
+    ``torch.device("meta")`` (shapes only, no arithmetic, no device
+    value read), seeded as the JAX package seeds it (the boot sequence's
+    width, else the nested input's T) and iterated to a fixed point, since
+    a link's width may follow the memory's own."""
+    if not plan.seq_memories:
+        return {}
+    from paddle_tpu_torch.ops import rnn as rnn_ops
+    from paddle_tpu_torch.utils.tree import map_leaves
+
+    nested_w = next((x.data.shape[1] for x in first_inputs.values() if x.lengths is not None), 1)
+    widths: Dict[str, int] = {}
+    for m in plan.seq_memories:
+        bt = ctx.outputs.get(m.attrs.get("boot"))
+        widths[m.name] = bt.max_len if bt is not None and bt.is_seq else nested_w
+    meta_params = map_leaves(lambda v: torch.empty_like(v, device="meta"), params)
+    meta_state = map_leaves(lambda v: torch.empty_like(v, device="meta"), sub_state0)
+    fixed = {n: _to_meta(t) for n, t in {**static_batch, **first_inputs}.items()}
+    saved = (counters.copy(), rnn_ops.counters.copy())
+    try:
+        for _ in range(3):
+            pb = dict(fixed)
+            for m in plan.memories:
+                if m.attrs.get("is_seq"):
+                    pb[m.name] = SeqTensor(
+                        torch.empty((b, widths[m.name], m.size), device="meta"),
+                        set_host_lengths(torch.empty((b,), dtype=torch.int32, device="meta"),
+                                         np.zeros((b,), np.int32)))
+                else:
+                    pb[m.name] = SeqTensor(torch.empty((b, m.size), device="meta"))
+            with torch.no_grad():
+                outs, _ = plan.subnet.apply(meta_params, pb, state=meta_state, train=ctx.train,
+                                            rng=None)
+            new_widths: Dict[str, int] = {}
+            for m in plan.seq_memories:
+                out = outs[m.attrs["link"]]
+                if out.lengths is None:
+                    raise ValueError(
+                        f"{conf.name}: memory(is_seq=True) {m.name} links {m.attrs['link']!r}, "
+                        "which is not a sequence layer")
+                new_widths[m.name] = out.data.shape[1]
+            if new_widths == widths:
+                return widths
+            widths = new_widths
+    finally:
+        for c, old in zip((counters, rnn_ops.counters), saved):
+            c.clear()
+            c.update(old)
+    raise ValueError(
+        f"{conf.name}: sequence-memory padded width did not reach a fixed point (last "
+        f"{widths}); a step whose linked sequence grows every iteration cannot be carried")
 
 
 def _try_fused_attention_gru(plan: GroupPlan, params, scanned, static_batch, init_carry, ctx):

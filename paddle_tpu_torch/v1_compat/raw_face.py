@@ -248,7 +248,8 @@ def RecurrentLayerGroupBegin(name: str, in_links, out_links,
     )
     in_names = list(in_links) if isinstance(in_links, (list, tuple)) else [in_links]
     scanned = [_resolve(n) for n in in_names]
-    step_args, scan_ph, _ = _rg._make_placeholders(name, scanned, [])
+    sub_scanned = [False] * len(scanned)
+    step_args, scan_ph, _ = _rg._make_placeholders(name, scanned, sub_scanned, [])
 
     g = _RawGroup(
         name=name, scanned=scanned,
@@ -284,7 +285,7 @@ def RecurrentLayerGroupEnd(name: str) -> None:
         f"group {name!r} never built its out_link layer {out_name!r}"
     )
     group = _rg._finalize_group(
-        name, g.scanned, [], g.placeholders, [], g.gb,
+        name, g.scanned, [False] * len(g.scanned), [], g.placeholders, [], g.gb,
         g.created, [step_out], g.reverse,
     )
     # The outer network references the result by the OUT-LINK name

@@ -204,13 +204,19 @@ _EARLIER_TYPES = {
 _SLICE_TYPES = {"lstmemory", "recurrent", "lstm_step", "mixed", "crf", "crf_decoding"}
 # the two costs that take the sparse-label form, with the batch contract
 _BATCH_SLICE_TYPES = {"square_error", "multi_binary_label_cross_entropy"}
+# the 13 sequence types of the nested-sequence slice
+_SEQUENCE_SLICE_TYPES = {
+    "seqreshape", "seqconcat", "sampling_id", "eos_id", "context_projection", "row_conv",
+    "conv_shift", "slice_time", "sub_seq", "kmax_seq_score", "agent", "scatter_agent",
+    "gather_agent"}
 
 
 def test_registered_layer_types_grow_by_the_slice():
     from paddle_tpu_torch.layers.base import registered_layer_types
 
-    assert set(registered_layer_types()) == _EARLIER_TYPES | _SLICE_TYPES | _BATCH_SLICE_TYPES
-    assert len(registered_layer_types()) == 32
+    assert set(registered_layer_types()) == (
+        _EARLIER_TYPES | _SLICE_TYPES | _BATCH_SLICE_TYPES | _SEQUENCE_SLICE_TYPES)
+    assert len(registered_layer_types()) == 45
 
 
 def test_v1_front_end_entry_points_raise_without_cuda():

@@ -5,7 +5,8 @@ Other ``tests/test_torch_*.py`` files import it (``tests/`` has no
 path).  The helper builds one topology in both packages, carries the JAX
 package's parameters and layer state into the port with
 ``parameters.from_numpy``, feeds both the same numpy batch, and compares
-outputs, gradients and trajectories.
+outputs, gradients and trajectories (``outputs_both`` takes any JAX batch,
+nested ones included, and the gradients of float input slots too).
 
 Trees may nest (a recurrent group's parameters sit one level deeper).
 
@@ -137,6 +138,82 @@ def grads_both(jcost, tcost, jparams, batch_arrays, *, state=None, train=True):
     tc.backward()
     tg = map_leaves(lambda v: v.grad, leaves)
     return float(jc), tc.item(), numpy_tree(jg), numpy_tree(tg)
+
+
+def to_port(jbatch):
+    """A JAX batch ({slot: SeqTensor}) as a port batch of CPU tensors
+    (data, lengths and sub-lengths copied)."""
+
+    def t(x):
+        return None if x is None else torch.from_numpy(np.array(x))
+
+    return {k: TSeq(t(v.data), t(v.lengths), t(v.sub_lengths)) for k, v in jbatch.items()}
+
+
+def outputs_both(jout, tout, jbatch, *, seed=0, names=None, grads=True, input_grads=()):
+    """The named outputs (default: jout's) of one topology in both packages
+    on the same batch and parameters (f32, train=False), and, with
+    `grads`, the gradients of sum(output * w) over every output (w a fixed
+    cosine pattern) with respect to the parameters and the float slots in
+    `input_grads`, the JAX side's op by op.  Returns (JAX outputs, port
+    outputs, JAX gradients, port gradients): outputs as {name: SeqTensor}
+    of numpy arrays, gradients as {"params": tree, slot: array}."""
+    names = names or [jout.name]
+    jnet = JNet(JTopo([jout]), compute_dtype=jnp.float32)
+    tnet = TNet(TTopo([tout]), compute_dtype=torch.float32)
+    jparams = paddle_tpu.parameters.create(jout, seed=seed)
+    tb = to_port(jbatch)
+    jouts = jnet.apply(jparams.params, jbatch, state=jparams.state, train=False)[0]
+
+    def np_seq(s):
+        def a(x):
+            if x is None:
+                return None
+            return x.detach().numpy() if torch.is_tensor(x) else np.asarray(x)
+        return JSeq(a(s.data), a(s.lengths), a(s.sub_lengths))
+
+    jo = {n: np_seq(jouts[n]) for n in names}
+    carried = carry(jparams)
+    if not grads:
+        touts = tnet.apply(carried.params, tb, state=carried.state, train=False)[0]
+        return jo, {n: np_seq(touts[n]) for n in names}, None, None
+    ws = {n: np.cos(np.arange(jo[n].data.size)).reshape(jo[n].data.shape).astype(np.float32)
+          for n in names}
+
+    def jloss(p, xs):
+        b = dict(jbatch)
+        for k, x in xs.items():
+            b[k] = JSeq(x, jbatch[k].lengths, jbatch[k].sub_lengths)
+        o = jnet.apply(p, b, state=jparams.state, train=False)[0]
+        return sum(jnp.sum(o[n].data * ws[n]) for n in names)
+
+    jxs = {k: jbatch[k].data for k in input_grads}
+    jgp, jgx = jax.grad(jloss, argnums=(0, 1))(jparams.params, jxs)
+    leaves = map_leaves(lambda v: v.clone().requires_grad_(True), carried.params)
+    for k in input_grads:
+        tb[k].data.requires_grad_(True)
+    touts = tnet.apply(leaves, tb, state=carried.state, train=False)[0]
+    loss = sum((touts[n].data * torch.from_numpy(ws[n])).sum() for n in names)
+    loss.backward()
+    tg = {"params": map_leaves(lambda v: torch.zeros_like(v) if v.grad is None else v.grad,
+                               leaves)}
+    jg = {"params": numpy_tree(jgp)}
+    for k in input_grads:
+        tg[k] = tb[k].data.grad
+        jg[k] = np.asarray(jgx[k])
+    return jo, {n: np_seq(touts[n]) for n in names}, jg, tg
+
+
+def assert_outputs_close(jo, to, atol=1e-5, rtol=1e-5):
+    """Port outputs against the JAX package's: data within atol + rtol,
+    lengths and sub-lengths equal."""
+    for n in jo:
+        np.testing.assert_allclose(to[n].data, jo[n].data, atol=atol, rtol=rtol, err_msg=n)
+        for f in ("lengths", "sub_lengths"):
+            a, b = getattr(to[n], f), getattr(jo[n], f)
+            assert (a is None) == (b is None), (n, f)
+            if a is not None:
+                np.testing.assert_array_equal(a, b, err_msg=f"{n} {f}")
 
 
 def demo_mlp(pkg, hidden=(128, 64), classes=10, pixels=784):

@@ -12,8 +12,9 @@ pattern, a non-elementwise score activation does not, fused against generic
 on seq2seq (outputs, gradients, a 4-step trajectory), a non-matching step
 falls back to the generic loop, a reverse decoder on the fused core.  Also:
 the hoisted prologue, parameters shared by name into a group, the early
-exit of the generic loop, and the parts of the group that are not ported
-yet raise (a step that emits a sequence among them)."""
+exit of the generic loop, and the parts that raised before the nested
+slice: a step that emits a sequence, a SubsequenceInput and a sequence
+memory (their full cases are ``tests/test_torch_nested_seq.py``)."""
 
 import dataclasses
 import importlib
@@ -33,7 +34,9 @@ from paddle_tpu_torch.core.topology import Topology as TTopo
 from paddle_tpu_torch.layers.recurrent_group import counters
 from paddle_tpu_torch.utils.flags import reset_flags, set_flag
 from paddle_tpu_torch.utils.tree import map_leaves
-from test_torch_parity import batch_both, build_both, carry, numpy_tree, rel_l2
+from paddle_tpu.core.batch import SeqTensor as JSeq
+from test_torch_parity import (
+    assert_outputs_close, batch_both, build_both, carry, numpy_tree, outputs_both, rel_l2)
 
 H = 6
 
@@ -183,13 +186,23 @@ def _seq_output_group(pkg):
 
 
 def test_step_emitting_a_sequence_raises_at_build():
-    """The JAX package returns a nested output here; the port does not carry
-    nested sequences yet, and says so when the network is built (the plan
-    reads the step's layer types) instead of returning the inner padding
-    unmasked."""
-    _, tout = build_both(_seq_output_group)
-    with pytest.raises(NotImplementedError, match="grp.*emits a sequence"):
-        TNet(TTopo([tout]))
+    """A step that emits a sequence: the network builds (nothing raises any
+    more), the plan hoists no epilogue over the sequence, and the group
+    returns the JAX package's nested output ([B, T, S, 3], the group's
+    lengths outside, the static's inside, padding zero) and gradients."""
+    jout, tout = build_both(_seq_output_group)
+    plan = TNet(TTopo([tout]))._plans["grp"]
+    assert plan.epilogue is None and plan.frontier == ("out",)
+    src = _seq(6, 3, 4, 4, [4, 2, 3])
+    jo, to, jg, tg = outputs_both(
+        jout, tout, {"x": JSeq(*map(jnp.asarray, _seq(5, 3, 5, H, [5, 2, 4]))),
+                     "src": JSeq(*map(jnp.asarray, src))})
+    assert_outputs_close(jo, to)
+    assert rel_l2(tg, jg) <= 1e-5
+    o = to["grp"]
+    assert o.data.shape == (3, 5, 4, 3)
+    np.testing.assert_array_equal(o.sub_lengths[:, :2], np.stack([src[1]] * 2, axis=1))
+    np.testing.assert_array_equal(o.data[1, 2:], 0.0)
 
 
 def _attention_decoder(pkg):
@@ -429,15 +442,38 @@ def test_parameters_shared_by_name_into_a_group():
     assert np.array_equal(p.get("shared_w"), p.get("outer.w0"))
 
 
-def test_parts_not_ported_yet_raise():
-    L, dt = paddle_tpu_torch.layer, paddle_tpu_torch.data_type
-    x = L.data("xs", dt.dense_vector_sequence(H))
-    with pytest.raises(NotImplementedError, match="SubsequenceInput"):
-        L.recurrent_group(lambda t: t, L.SubsequenceInput(x), name="nested")
+def _nested_parts(pkg):
+    L, dt = pkg.layer, pkg.data_type
+    x = L.data("xs", dt.dense_vector_sub_sequence(H))
+    nested = L.recurrent_group(lambda t: t, L.SubsequenceInput(x), name="nested")
 
     def step(x_t):
-        L.memory("m", H, is_seq=True)
-        return x_t
+        prev = L.memory("seqmem_out", H, is_seq=True)
+        return L.addto([x_t, prev], name="seqmem_out")
 
-    with pytest.raises(NotImplementedError, match="is_seq"):
-        L.recurrent_group(step, x, name="seqmem")
+    seqmem = L.recurrent_group(step, L.SubsequenceInput(x), name="seqmem")
+    return L.addto([nested, seqmem], name="both")
+
+
+def test_parts_not_ported_yet_raise():
+    """The parts that raised before the nested slice now run as in the JAX
+    package: a SubsequenceInput (its identity step gives back the nested
+    input, padding zeroed) and a sequence memory (a running sum of the
+    subsequences), neither hoisted nor fused."""
+    jout, tout = build_both(_nested_parts)
+    net = TNet(TTopo([tout]))
+    for g in ("nested", "seqmem"):
+        plan = net._plans[g]
+        assert not plan.rows and not plan.prologue and plan.epilogue is None
+        assert plan.match is None
+    rs = np.random.RandomState(9)
+    data = rs.randn(3, 4, 5, H).astype(np.float32)
+    n_sub, sub_len = np.array([4, 1, 2], np.int32), rs.randint(1, 6, size=(3, 4)).astype(np.int32)
+    xs = JSeq(jnp.asarray(data), jnp.asarray(n_sub), jnp.asarray(sub_len))
+    jo, to, jg, tg = outputs_both(jout, tout, {"xs": xs}, names=["nested", "both"],
+                                  input_grads=("xs",))
+    assert_outputs_close(jo, to)
+    assert rel_l2(tg, jg) <= 1e-5
+    mask = (np.arange(5)[None, None, :] < sub_len[:, :, None]) & (
+        np.arange(4)[None, :, None] < n_sub[:, None, None])
+    np.testing.assert_allclose(to["nested"].data, data * mask[..., None], atol=0)
