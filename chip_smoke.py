@@ -218,13 +218,41 @@ Phases, in order; any failure exits non-zero:
      nested and stride pooling and selection, and a sequence memory's
      running sum, card vs CPU in f32 (relative L2 <= 1e-5, ids equal), and
      sampling_id's frequencies over 20,000 draws within 0.02.  No flash
-     kernel may launch in phase 17.
+     kernel may launch in phase 17;
+ 18. the costs, the sampled output layers and the elementwise layers:
+     (a) the word2vec N-gram language model of the PaddlePaddle book (4
+     context words through one shared embedding of width 32, concat,
+     fc(256, sigmoid)) over a dictionary of 10,000 words (the PTB
+     vocabulary imikolov ships), through fc(10000, softmax) with
+     classification_cost, hsigmoid(num_classes=10000) and nce at 10
+     negative samples, uniform and with a Zipf neg_distribution, on batches
+     of 256 five-word windows of a Markov stream of Zipf-distributed ids
+     from RandomState(0): card vs CPU in f32 (cost relative and gradients
+     relative L2 <= 1e-5; nce with a one-hot neg_distribution, so both
+     draw the same ids), then 8 bf16 steps of each head in turns with Adam
+     over f32 masters (median s per step, windows/s; the cost must fall),
+     and for each head one step's host syncs by file:line (none may come
+     from the layers), peak memory and a profile of one more (device
+     kernels, busy share); (b) nce's sampler on the card: 200,000 draws
+     from a 20-class non-uniform distribution, each frequency within 0.005
+     of its probability, and no host sync; (c) RankNet (a scoring network
+     fc(10, tanh), fc(1) shared by name between the two documents, and
+     rank_cost) and LambdaRank (fc(128, tanh), fc(10, tanh), fc(1) over a
+     query list, lambda_cost(NDCG_num=6)) over MQ2007's 46 features and
+     grades 0-2 on lists of 8-64 documents from RandomState(0): card vs
+     CPU in f32 within 1e-5 and 8 bf16 steps each (s per step); (d) every
+     type of the slice on the networks of tests/test_layer_grad_sweep.py,
+     card vs CPU in f32 (relative L2 <= 1e-5, ids equal), with
+     data_norm's three strategies on random statistics, and print's line
+     once, outside any timed step.  No flash kernel may launch in phase
+     18.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels with their launches on the main path (the timed training steps of
 phase 5; the NMT paths of phases 11-13, the LSTM classifier of phases 14
-and 16, the tagger of phase 15 and the nested networks of phase 17 run
-none of them), errors and times.
+and 16, the tagger of phase 15, the nested networks of phase 17 and the
+N-gram and ranking networks of phase 18 run none of them), errors and
+times.
 Without a CUDA device, or without the paddle_tpu_torch package beside it, the script
 exits non-zero and prints no result.
 """
@@ -2981,19 +3009,19 @@ def phase_text_cnn(torch, P, fa, card):
     return mean_s
 
 
-def small_card_cpu(torch, P, out, types, samples, seed):
-    """f32 outputs of `out`'s network on the card and on the CPU from the
-    same parameters and samples, and for a float output the gradients of
-    the sum of squares of its valid part with respect to the parameters
-    and the float slots: (output |d| or relative L2, gradient relative L2
-    or None)."""
+def small_card_cpu(torch, P, out, types, samples, seed, state=None, dev=None):
+    """f32 outputs of `out`'s network on the card (`dev`) and on the CPU
+    from the same parameters, layer state (a CPU tree, else none) and
+    samples, and for a float output the gradients of the sum of squares of
+    its valid part with respect to the parameters and the float slots:
+    (output |d| or relative L2, gradient relative L2 or None)."""
     from paddle_tpu_torch.core.device import tree_to
     from paddle_tpu_torch.utils.tree import leaf_paths, map_leaves
 
     net = P.CompiledNetwork(P.Topology(out), compute_dtype="float32")
     cpu_params = net.init_params(seed, device="cpu")
     res = []
-    for dev in (torch.device("cuda"), torch.device("cpu")):
+    for dev in (dev or torch.device("cuda"), torch.device("cpu")):
         batch = P.reader.DataFeeder(types, device=dev)(samples)
         xs = {}
         for k, t in batch.items():
@@ -3001,7 +3029,8 @@ def small_card_cpu(torch, P, out, types, samples, seed):
                 t.data = t.data.detach().requires_grad_(True)
                 xs[k] = t.data
         prm = map_leaves(lambda v: v.detach().requires_grad_(True), tree_to(cpu_params, dev))
-        y = net.apply(prm, batch, train=False)[0][out.name]
+        st = None if state is None else tree_to(state, dev)
+        y = net.apply(prm, batch, state=st, train=False)[0][out.name]
         data = y.masked_data() if y.is_seq else y.data
         grads = {}
         wrt = [(".".join(p), v) for p, v in leaf_paths(prm)] + list(xs.items())
@@ -3143,6 +3172,498 @@ def phase_nested(torch, P, fa, card):
     P.init(compute_dtype="bfloat16")
 
 
+# phase 18: the word2vec N-gram language model (the PaddlePaddle book's
+# word2vec chapter) through three output heads, RankNet and LambdaRank (the
+# ltr example of PaddlePaddle's models repository over MQ2007), and every
+# cost, sampled-output and elementwise type card vs CPU
+NGRAM_VOCAB = 10000  # the PTB vocabulary imikolov ships
+NGRAM_CTX, NGRAM_EMB, NGRAM_HIDDEN = 4, 32, 256
+NGRAM_B = 256  # five-word windows per batch
+NGRAM_STEPS = 8  # bf16 steps of each head, taken in turns
+NGRAM_LR = 2e-3
+NGRAM_ZIPF = 1.0  # word frequency ~ rank^-s, as in natural text
+NGRAM_FEEDING = {"w0": 0, "w1": 1, "w2": 2, "w3": 3, "next": 4}
+SAMPLER_DRAWS = (20000, 10)  # nce's sampler on the card: 200,000 draws
+SAMPLER_TOL = 0.005  # about 10 sigma at these counts
+LTR_DIM = 46  # MQ2007's features per document
+LTR_DOCS = (8, 64)  # documents per query list
+LTR_PAIRS = 256  # RankNet pairs per batch
+LTR_LISTS = 32  # LambdaRank query lists per batch
+LTR_STEPS = 8
+LTR_LR = 1e-3
+LTR_NDCG = 6
+CARD_REL = 1e-5  # card vs CPU in f32: costs (relative) and gradients (relative L2)
+
+
+def zipf(n, s=NGRAM_ZIPF):
+    p = 1.0 / np.arange(1, n + 1) ** s
+    return p / p.sum()
+
+
+def ngram_stream(rng, n, vocab=NGRAM_VOCAB):
+    """n word ids of a first-order Markov chain, as dataset/imikolov.py's
+    synthetic corpus draws it (each word goes on to one of 4 fixed
+    successors with probability 0.85, else to any word), with successors
+    and jumps drawn by Zipf frequency so the ids follow a natural text's
+    rank-frequency law."""
+    p = zipf(vocab)
+    succ = rng.choice(vocab, size=(vocab, 4), p=p)
+    jump = rng.choice(vocab, size=n, p=p)
+    stay = rng.rand(n) < 0.85
+    pick = rng.randint(4, size=n)
+    out = np.empty(n, np.int64)
+    w = int(jump[0])
+    for i in range(n):
+        w = int(succ[w, pick[i]]) if stay[i] else int(jump[i])
+        out[i] = w
+    return out
+
+
+def ngram_cost(P, head, dist=None):
+    """The book's N-gram model: NGRAM_CTX context words through one shared
+    embedding ("_proj"), concat, fc(NGRAM_HIDDEN, sigmoid), then the head:
+    fc(softmax) with classification_cost, hsigmoid, or nce (10 negative
+    samples from `dist`, uniform when None)."""
+    L, A, dt = P.layer, P.activation, P.data_type
+    words = [L.data(f"w{i}", dt.integer_value(NGRAM_VOCAB)) for i in range(NGRAM_CTX)]
+    nxt = L.data("next", dt.integer_value(NGRAM_VOCAB))
+    embs = [L.embedding(w, size=NGRAM_EMB, param_attr=P.attr.ParamAttr(name="_proj"))
+            for w in words]
+    hidden = L.fc(L.concat(embs), size=NGRAM_HIDDEN, act=A.Sigmoid())
+    if head == "softmax":
+        return L.classification_cost(L.fc(hidden, size=NGRAM_VOCAB, act=A.Softmax()), nxt)
+    if head == "hsigmoid":
+        return L.hsigmoid(hidden, nxt, num_classes=NGRAM_VOCAB)
+    return L.nce(hidden, nxt, num_classes=NGRAM_VOCAB,
+                 neg_distribution=None if dist is None else [float(x) for x in dist])
+
+
+def card_cpu_grads(torch, P, cost, feeding, samples, seed, dev):
+    """f32 mean cost and gradients of `cost`'s network on `samples`, on
+    `dev` and on the CPU from the same parameters: (cost on dev, cost on
+    the CPU, relative L2 of the gradients, leaves)."""
+    from paddle_tpu_torch.core.device import tree_to
+
+    net = P.CompiledNetwork(P.Topology(cost), compute_dtype="float32")
+    cpu_params = net.init_params(seed, device="cpu")
+    got = []
+    for d in (dev, torch.device("cpu")):
+        batch = P.reader.DataFeeder(net.topology.data_types(), feeding, device=d)(samples)
+        got.append(grads_of(torch, net, tree_to(cpu_params, d), batch))
+    (c_dev, g_dev), (c_cpu, g_cpu) = got
+    return c_dev, c_cpu, rel_l2(torch, g_dev, g_cpu), len(g_cpu)
+
+
+def one_step(torch, P, trainer, feeding, samples):
+    """(seconds, cost) of one trainer step on `samples`, synchronised."""
+    got = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train(lambda: iter([samples]), feeding=feeding,
+                  event_handler=lambda e: got.append(e.cost)
+                  if isinstance(e, P.event.EndIteration) else None)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, got[0]
+
+
+def step_report(torch, P, trainer, feeding, samples, name, card, med):
+    """One step's host syncs by file:line (none may come from the layers)
+    and peak memory, and a profile of one more step: device kernels and
+    the busy share."""
+    torch.cuda.reset_peak_memory_stats()
+    sites = count_syncs(torch, lambda: one_step(torch, P, trainer, feeding, samples[0]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    wall, busy, kernels, top = profile_call(
+        torch, lambda: one_step(torch, P, trainer, feeding, samples[1]))
+    by_site = {x: sites.count(x) for x in sorted(set(sites))}
+    say(f"{name} step on {card}: {len(sites)} host syncs by site {by_site}, peak memory "
+        f"{peak:.3f} GiB, {kernels:.0f} device kernels, device busy {busy:.4f} s of "
+        f"{wall:.4f} s ({busy / wall:.3f}; {busy / med:.3f} of the median step); top:")
+    for line in top[:3]:
+        say(f"  {line}")
+    inside = [x for x in sites if x.startswith("paddle_tpu_torch/layers/")]
+    if inside:
+        raise SystemExit(f"{name}: the step reads the device inside its layers: {inside}")
+
+
+def phase_ngram(torch, P, card, dev):
+    """Phase 18a: the N-gram LM at full width through each head: f32 card
+    vs CPU, then bf16 training of the four heads in turns."""
+    from paddle_tpu_torch.utils.tree import leaves
+
+    per_head = 2 + NGRAM_STEPS + 2  # first step, timed steps, syncs, profile
+    n_batches = 1 + per_head * 4
+    stream = ngram_stream(np.random.RandomState(0), NGRAM_B * n_batches + NGRAM_CTX)
+    win = np.lib.stride_tricks.sliding_window_view(stream, NGRAM_CTX + 1)
+    batches = [[tuple(int(v) for v in row) for row in win[i * NGRAM_B:(i + 1) * NGRAM_B]]
+               for i in range(n_batches)]
+    say(f"ngram: {NGRAM_CTX} context words, embedding {NGRAM_EMB}, hidden {NGRAM_HIDDEN}, "
+        f"dictionary {NGRAM_VOCAB}; {n_batches} batches of {NGRAM_B} windows from a Markov "
+        f"stream of Zipf({NGRAM_ZIPF}) ids ({len(set(stream.tolist()))} distinct ids)")
+
+    P.init(seed=181, compute_dtype="float32")
+    one_hot = np.zeros(NGRAM_VOCAB)
+    one_hot[1] = 1.0
+    for head, dist in (("softmax", None), ("hsigmoid", None), ("nce", one_hot)):
+        c_dev, c_cpu, err, n = card_cpu_grads(torch, P, ngram_cost(P, head, dist),
+                                              NGRAM_FEEDING, batches[0], 183, dev)
+        c_err = abs(c_dev - c_cpu) / abs(c_cpu)
+        say(f"ngram {head} f32 on {card}: cost card {c_dev:.7f} CPU {c_cpu:.7f} (relative "
+            f"{c_err:.3e}), gradients relative L2 over {n} leaves {err:.3e} (<= {CARD_REL})"
+            + ("; one-hot neg_distribution, both draw the same ids" if dist is not None
+               else ""))
+        if not (c_err <= CARD_REL and err <= CARD_REL):
+            raise SystemExit(f"ngram: the {head} head strays between the card and the CPU")
+
+    P.init(compute_dtype="bfloat16")
+    heads = {"softmax": ngram_cost(P, "softmax"), "hsigmoid": ngram_cost(P, "hsigmoid"),
+             "nce uniform": ngram_cost(P, "nce"),
+             "nce zipf": ngram_cost(P, "nce", zipf(NGRAM_VOCAB))}
+    trainers = {h: P.trainer.SGD(c, P.parameters.create(c, seed=185),
+                                 P.optimizer.Adam(learning_rate=NGRAM_LR))
+                for h, c in heads.items()}
+    say(f"ngram training: bf16 over f32 masters, Adam({NGRAM_LR}), {NGRAM_STEPS} steps of "
+        f"each head in turns; parameters: "
+        + ", ".join(f"{h} {sum(v.numel() for v in leaves(t.parameters.params))}"
+                    for h, t in trainers.items()))
+    names = list(heads)
+    cursor = {h: 1 + k * per_head for k, h in enumerate(names)}
+
+    def take(h):
+        cursor[h] += 1
+        return batches[cursor[h] - 1]
+
+    for h in names:
+        one_step(torch, P, trainers[h], NGRAM_FEEDING, take(h))  # first step: allocator
+    times = {h: [] for h in names}
+    costs = {h: [] for h in names}
+    for r in range(NGRAM_STEPS):
+        for h in (names if r % 2 == 0 else names[::-1]):
+            secs, cost = one_step(torch, P, trainers[h], NGRAM_FEEDING, take(h))
+            times[h].append(secs)
+            costs[h].append(cost)
+    med = {h: float(np.median(v)) for h, v in times.items()}
+    for h in names:
+        say(f"ngram {h} on {card}: median {med[h]:.4f} s per step, "
+            f"{NGRAM_B / med[h]:.0f} windows/s; s per step "
+            f"{[round(x, 4) for x in times[h]]}; costs {[round(c, 4) for c in costs[h]]}")
+        if not np.isfinite(costs[h]).all():
+            raise SystemExit(f"ngram: the {h} head gave a non-finite cost")
+        if not np.mean(costs[h][-3:]) < np.mean(costs[h][:3]):
+            raise SystemExit(f"ngram: the {h} head's cost did not fall")
+    say("ngram: median s per step relative to the softmax head: "
+        + ", ".join(f"{h} {med[h] / med['softmax']:.3f}" for h in names))
+    for h in names:
+        step_report(torch, P, trainers[h], NGRAM_FEEDING, [take(h), take(h)], f"ngram {h}",
+                    card, med[h])
+    del trainers
+    torch.cuda.empty_cache()
+    return med
+
+
+def phase_sampler(torch, P, card, dev):
+    """Phase 18b: nce's sampler on the card, 200,000 draws from a 20-class
+    non-uniform distribution by inverse CDF, and its host syncs."""
+    from paddle_tpu_torch.layers import sampled
+
+    q = np.random.RandomState(18).uniform(0.1, 1.0, 20)
+    q /= q.sum()
+    L, dt = P.layer, P.data_type
+    conf = L.nce(L.data("x", dt.dense_vector(4)), L.data("y", dt.integer_value(20)),
+                 num_classes=20, neg_distribution=q.tolist()).conf
+    _, cdf = sampled.noise_tables(conf, {}, dev)
+    gen = torch.Generator(device=dev).manual_seed(18)
+    sites = count_syncs(torch, lambda: sampled.draw_noise(cdf, 20, SAMPLER_DRAWS, gen, dev))
+    ids = sampled.draw_noise(cdf, 20, SAMPLER_DRAWS, gen, dev)
+    n = SAMPLER_DRAWS[0] * SAMPLER_DRAWS[1]
+    freq = torch.bincount(ids.reshape(-1), minlength=20).double().cpu().numpy() / n
+    worst = float(np.abs(freq - q).max())
+    say(f"nce sampler on {card}: {n} draws from 20 classes (probabilities "
+        f"{q.min():.4f}-{q.max():.4f}): worst |frequency - probability| {worst:.5f} (<= "
+        f"{SAMPLER_TOL}); host syncs of one draw {len(sites)}")
+    if worst > SAMPLER_TOL or sites:
+        raise SystemExit("nce sampler: the draws stray from the distribution or sync")
+
+
+def ltr_lists(rng, n, w):
+    """n query lists of LTR_DOCS documents: LTR_DIM features uniform in
+    [0, 1) (MQ2007's are normalised per query), relevance 0-2 from a fixed
+    linear score of the features, as dataset/mq2007.py's synthetic lists
+    grade them."""
+    out = []
+    for _ in range(n):
+        feats = rng.rand(rng.randint(LTR_DOCS[0], LTR_DOCS[1] + 1), LTR_DIM).astype(np.float32)
+        z = (feats - 0.5) @ w / np.sqrt((w ** 2).sum() / 12.0)
+        out.append((feats, np.digitize(z, [-0.3, 0.9]).astype(np.float32)))
+    return out
+
+
+def ltr_pairs(rng, lists, n):
+    """n (left, right, [label]) pairs of documents of one query with
+    different grades, label 1 where the left one is better."""
+    out = []
+    while len(out) < n:
+        feats, grades = lists[rng.randint(len(lists))]
+        i, j = rng.randint(len(grades), size=2)
+        if grades[i] != grades[j]:
+            out.append((feats[i].tolist(), feats[j].tolist(), [float(grades[i] > grades[j])]))
+    return out
+
+
+def ranknet_cost(P):
+    """RankNet: one scoring network, fc(10, tanh) then fc(1, linear), shared
+    by name between the two documents of a pair, and rank_cost."""
+    L, A, dt, attr = P.layer, P.activation, P.data_type, P.attr
+
+    def score(x):
+        h = L.fc(x, size=10, act=A.Tanh(), param_attr=attr.ParamAttr(name="_rank_h.w"),
+                 bias_attr=attr.ParamAttr(name="_rank_h.b"))
+        return L.fc(h, size=1, act=A.Identity(), param_attr=attr.ParamAttr(name="_rank_o.w"),
+                    bias_attr=attr.ParamAttr(name="_rank_o.b"))
+
+    return L.rank_cost(score(L.data("left", dt.dense_vector(LTR_DIM))),
+                       score(L.data("right", dt.dense_vector(LTR_DIM))),
+                       L.data("label", dt.dense_vector(1)))
+
+
+def lambdarank_cost(P):
+    """LambdaRank: per document fc(128, tanh), fc(10, tanh), fc(1, linear)
+    over the list as a sequence, and lambda_cost(NDCG_num=6)."""
+    L, A, dt = P.layer, P.activation, P.data_type
+    x = L.data("docs", dt.dense_vector_sequence(LTR_DIM))
+    h = L.fc(L.fc(x, size=128, act=A.Tanh()), size=10, act=A.Tanh())
+    return L.lambda_cost(L.fc(h, size=1, act=A.Identity()),
+                         L.data("grades", dt.dense_vector_sequence(1)), NDCG_num=LTR_NDCG)
+
+
+def phase_ltr(torch, P, card, dev):
+    """Phase 18c: RankNet and LambdaRank, f32 card vs CPU and 8 bf16 steps
+    of each."""
+    rng = np.random.RandomState(0)
+    w = rng.randn(LTR_DIM)
+    lists = ltr_lists(rng, LTR_LISTS * (2 + LTR_STEPS), w)
+    grades = np.concatenate([g for _, g in lists])
+    say(f"ltr: {len(lists)} query lists of {LTR_DOCS[0]}-{LTR_DOCS[1]} documents, "
+        f"{LTR_DIM} features, grades 0/1/2 in shares "
+        f"{[round(float((grades == k).mean()), 3) for k in range(3)]}")
+    nets = {
+        "ranknet": (ranknet_cost, {"left": 0, "right": 1, "label": 2},
+                    [ltr_pairs(rng, lists, LTR_PAIRS) for _ in range(2 + LTR_STEPS)]),
+        "lambdarank": (lambdarank_cost, {"docs": 0, "grades": 1},
+                       [[(f.tolist(), [[g] for g in gs.tolist()])
+                         for f, gs in lists[k * LTR_LISTS:(k + 1) * LTR_LISTS]]
+                        for k in range(2 + LTR_STEPS)]),
+    }
+    med = {}
+    for name, (build, feeding, batches) in nets.items():
+        P.init(seed=187, compute_dtype="float32")
+        c_dev, c_cpu, err, n = card_cpu_grads(torch, P, build(P), feeding, batches[0], 189, dev)
+        c_err = abs(c_dev - c_cpu) / abs(c_cpu)
+        say(f"{name} f32 on {card}: cost card {c_dev:.7f} CPU {c_cpu:.7f} (relative "
+            f"{c_err:.3e}), gradients relative L2 over {n} leaves {err:.3e} (<= {CARD_REL})")
+        if not (c_err <= CARD_REL and err <= CARD_REL):
+            raise SystemExit(f"{name}: the card strays from the CPU")
+        P.init(compute_dtype="bfloat16")
+        cost = build(P)
+        trainer = P.trainer.SGD(cost, P.parameters.create(cost, seed=189),
+                                P.optimizer.Adam(learning_rate=LTR_LR))
+        one_step(torch, P, trainer, feeding, batches[1])  # first step
+        steps = [one_step(torch, P, trainer, feeding, b) for b in batches[2:]]
+        med[name] = float(np.median([s for s, _ in steps]))
+        costs = [c for _, c in steps]
+        say(f"{name} on {card}: {LTR_STEPS} bf16 steps, median {med[name]:.4f} s per step; s "
+            f"per step {[round(s, 4) for s, _ in steps]}; costs {[round(c, 4) for c in costs]}")
+        if not np.isfinite(costs).all():
+            raise SystemExit(f"{name}: training gave a non-finite cost")
+        del trainer
+    return med
+
+
+def elementwise_cases(P, rng):
+    """(name, network, slot types, samples, CPU state or None) for each
+    type ported with the costs, the sampled outputs and the elementwise
+    layers, on the networks of tests/test_layer_grad_sweep.py."""
+    L, A, dt = P.layer, P.activation, P.data_type
+    st = P.core.topology
+    lens = [5, 2, 7, 1, 4, 3]
+    kinds = {"d": dt.dense_vector, "p": dt.dense_vector, "u": dt.dense_vector,
+             "i": dt.integer_value, "s": dt.dense_vector_sequence,
+             "g": dt.dense_vector_sequence}
+
+    def sample(kind, n, b):
+        if kind == "d":
+            return rng.randn(n).tolist()
+        if kind == "p":
+            return (np.abs(rng.randn(n)) + 0.5).tolist()
+        if kind == "u":
+            return rng.uniform(0.05, 0.95, n).tolist()
+        if kind == "i":
+            return int(rng.randint(n))
+        if kind == "s":
+            return [rng.randn(n).tolist() for _ in range(lens[b])]
+        return [[float(rng.randint(3))] for _ in range(lens[b])]
+
+    def cols(*specs):
+        """Slot types and 6 samples from specs of (name, kind, width): kind
+        "d" dense, "p" dense positive, "u" dense in (0, 1), "i" ids, "s" a
+        dense sequence, "g" a sequence of grades 0-2."""
+        types = [(name, kinds[kind](n)) for name, kind, n in specs]
+        return types, [tuple(sample(kind, n, b) for _, kind, n in specs)
+                       for b in range(len(lens))]
+
+    def d(name, n):
+        return L.data(name, dt.dense_vector(n))
+
+    def fc(x, n, act):
+        return L.fc(x, size=n, act=act)
+
+    def conf_out(name, type_, size, parents, **attrs):
+        return st.LayerOutput(st.LayerConf(name=name, type=type_, size=size,
+                                           inputs=tuple(p.name for p in parents), bias=False,
+                                           attrs=attrs), parents)
+
+    one_hot = [0.0] * 10
+    one_hot[3] = 1.0
+    multi = [L.classification_cost(fc(d("xa", 6), 3, A.Softmax()),
+                                   L.data("la", dt.integer_value(3))),
+             L.square_error_cost(fc(d("xb", 4), 2, A.Identity()), d("lb", 2))]
+    cases = [
+        ("soft_binary_class_cross_entropy", L.soft_binary_class_cross_entropy_cost(
+            fc(d("x", 6), 6, A.Sigmoid()), d("t", 6)), cols(("x", "d", 6), ("t", "u", 6))),
+        ("smooth_l1", L.smooth_l1_cost(fc(d("x", 8), 3, A.Identity()), d("y", 3)),
+         cols(("x", "d", 8), ("y", "d", 3))),
+        ("huber_regression", L.huber_regression_cost(fc(d("x", 8), 3, A.Identity()), d("y", 3)),
+         cols(("x", "d", 8), ("y", "d", 3))),
+        ("huber_classification", L.huber_classification_cost(
+            fc(d("x", 8), 1, A.Identity()), L.data("y", dt.integer_value(2))),
+         cols(("x", "d", 8), ("y", "i", 2))),
+        ("rank_cost", L.rank_cost(fc(d("a", 4), 1, A.Identity()), fc(d("b", 4), 1, A.Identity()),
+                                  L.data("y", dt.integer_value(2))),
+         cols(("a", "d", 4), ("b", "d", 4), ("y", "i", 2))),
+        ("sum_cost", L.sum_cost(fc(d("x", 8), 4, A.Tanh())), cols(("x", "d", 8))),
+        ("cross_entropy_with_selfnorm", L.cross_entropy_with_selfnorm_cost(
+            fc(d("x", 8), 5, A.Softmax()), L.data("y", dt.integer_value(5))),
+         cols(("x", "d", 8), ("y", "i", 5))),
+        ("multi_nn_cost", conf_out("__multi_nn_cost__", "multi_nn_cost", 1, multi),
+         cols(("xa", "d", 6), ("la", "i", 3), ("xb", "d", 4), ("lb", "d", 2))),
+        ("nce (one-hot neg_distribution)", L.nce(d("x", 8), L.data("y", dt.integer_value(10)),
+                                                 num_neg_samples=4, neg_distribution=one_hot),
+         cols(("x", "d", 8), ("y", "i", 10))),
+        ("hsigmoid", L.hsigmoid(d("x", 8), L.data("y", dt.integer_value(9)), num_classes=9),
+         cols(("x", "d", 8), ("y", "i", 9))),
+        ("selective_fc", L.selective_fc(d("x", 8), d("sel", 9), size=9),
+         cols(("x", "d", 8), ("sel", "d", 9))),
+        ("lambda_cost", L.lambda_cost(fc(L.data("s", dt.dense_vector_sequence(4)), 1,
+                                         A.Identity()), L.data("g", dt.dense_vector_sequence(1))),
+         cols(("s", "s", 4), ("g", "g", 1))),
+        ("slope_intercept", L.slope_intercept(d("x", 8), slope=2.0, intercept=0.5),
+         cols(("x", "d", 8))),
+        ("interpolation", L.interpolation(d("w", 1), d("a", 8), d("b", 8)),
+         cols(("w", "d", 1), ("a", "d", 8), ("b", "d", 8))),
+        ("sum_to_one_norm", L.sum_to_one_norm(d("x", 8)), cols(("x", "p", 8))),
+        # a unit row's sum of squares is constant: an fc after the norm
+        # gives the gradient something to carry
+        ("row_l2_norm (then fc)", fc(L.row_l2_norm(d("x", 8)), 3, A.Identity()),
+         cols(("x", "d", 8))),
+        ("maxid", L.maxid(d("x", 8)), cols(("x", "d", 8))),
+        ("multiplex", L.multiplex([L.data("sel", dt.integer_value(2)), d("a", 6), d("b", 6)]),
+         cols(("sel", "i", 2), ("a", "d", 6), ("b", "d", 6))),
+        ("trans", L.trans(d("x", 12), height=3), cols(("x", "d", 12))),
+        ("trans (whole batch)", L.trans(d("x", 12)), cols(("x", "d", 12))),
+        ("repeat", L.repeat(d("x", 6), num_repeats=2), cols(("x", "d", 6))),
+        ("resize", L.resize(d("x", 12), size=6), cols(("x", "d", 12))),
+        ("clip", L.clip(d("x", 8), min=-0.4, max=0.4), cols(("x", "d", 8))),
+        ("dotmul", L.dotmul_operator(d("a", 8), d("b", 8)), cols(("a", "d", 8), ("b", "d", 8))),
+        ("dotmul projection", conf_out("dm", "dotmul", 8, [d("x", 8)], projection=True),
+         cols(("x", "d", 8))),
+        ("out_prod", L.out_prod(d("a", 4), d("b", 3)), cols(("a", "d", 4), ("b", "d", 3))),
+        ("cos", L.cos_sim(d("a", 8), d("b", 8), scale=5.0), cols(("a", "d", 8), ("b", "d", 8))),
+        ("cos (cos_n 3)", L.cos_sim(d("a", 4), d("b", 12), scale=2.0, size=3),
+         cols(("a", "d", 4), ("b", "d", 12))),
+        ("tensor", L.tensor(d("a", 4), d("b", 3), size=5, act=A.Tanh()),
+         cols(("a", "d", 4), ("b", "d", 3))),
+        ("prelu (partial_sum 4)", L.prelu(d("x", 8), partial_sum=4), cols(("x", "d", 8))),
+        ("power", L.power(d("w", 1), d("x", 8)), cols(("w", "p", 1), ("x", "p", 8))),
+        ("rotate", L.rotate(d("x", 12), height=3, width=4), cols(("x", "d", 12))),
+        ("linear_comb", L.linear_comb(d("w", 3), d("x", 12), size=4),
+         cols(("w", "d", 3), ("x", "d", 12))),
+        ("cos_vm", L.cos_sim_vec_mat(d("v", 3), d("m", 12), size=4),
+         cols(("v", "d", 3), ("m", "d", 12))),
+        ("scale_shift", L.scale_shift(d("x", 8)), cols(("x", "d", 8))),
+    ]
+    out = [(name, net, types, samples, None) for name, net, (types, samples) in cases]
+    for strategy in ("z-score", "min-max", "decimal-scaling"):
+        lo = rng.randn(8)
+        hi = (rng.uniform(0.03, 700.0, 8) * rng.choice([-1.0, 1.0], 8)
+              if strategy == "decimal-scaling" else lo + rng.uniform(0.5, 3.0, 8))
+        stats = {"mean": rng.randn(8), "std": rng.uniform(0.5, 2.0, 8), "min": lo, "max": hi}
+        out.append((f"data_norm {strategy}", L.data_norm(d("x", 8), strategy=strategy,
+                                                         name="dn"),
+                    *cols(("x", "d", 8)),
+                    {"dn": {k: np.asarray(v, np.float32) for k, v in stats.items()}}))
+    return out
+
+
+def phase_elementwise_small(torch, P, card, dev):
+    """Phase 18d: each type ported with the costs, the sampled outputs and
+    the elementwise layers, card vs CPU in f32, and print's line."""
+    import contextlib
+    import io
+
+    P.init(seed=191, compute_dtype="float32")
+    worst = 0.0
+    cases = elementwise_cases(P, np.random.RandomState(18))
+    for k, (name, out, types, samples, state) in enumerate(cases):
+        if state is not None:
+            state = {n: {kk: torch.from_numpy(v) for kk, v in s.items()} for n, s in state.items()}
+        err_y, err_g = small_card_cpu(torch, P, out, types, samples, 193 + k, state=state,
+                                      dev=dev)
+        kind = "values off" if err_g is None else "relative L2"
+        say(f"elementwise f32 on {card}: {name}: output card vs CPU {kind} {err_y:.3e}"
+            + ("" if err_g is None else f", gradients {err_g:.3e}") + f" (<= {CARD_REL})")
+        worst = max(worst, err_y, err_g or 0.0)
+        if err_y > (0 if err_g is None else CARD_REL) or (err_g or 0.0) > CARD_REL:
+            raise SystemExit(f"elementwise: {name} strays between the card and the CPU")
+    # print: once, outside any timed step; its line and its pass-through
+    L, dt = P.layer, P.data_type
+    out = L.print_layer(L.data("x", dt.dense_vector(4)), name="print18")
+    net = P.CompiledNetwork(P.Topology(out), compute_dtype="float32")
+    x = torch.arange(8, dtype=torch.float32, device=dev).reshape(2, 4)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        y = net.apply({}, {"x": P.core.batch.SeqTensor(x)}, train=False)[0][out.name].data
+    line = buf.getvalue()
+    say(f"elementwise: print on {card} printed {line.strip()!r}")
+    if line != f"print18: {x.cpu().numpy()}\n" or not torch.equal(y, x):
+        raise SystemExit("elementwise: print's line or its pass-through is wrong")
+    say(f"elementwise: {len(cases) + 1} cases, worst card vs CPU {worst:.3e}")
+    return worst
+
+
+def phase_costs(torch, P, fa, card):
+    """Phase 18: the N-gram LM through its three heads, nce's sampler,
+    RankNet and LambdaRank, and every type ported with them, card vs CPU."""
+    dev = torch.device("cuda")
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    med = phase_ngram(torch, P, card, dev)
+    t1 = time.perf_counter()
+    phase_sampler(torch, P, card, dev)
+    t2 = time.perf_counter()
+    ltr = phase_ltr(torch, P, card, dev)
+    t3 = time.perf_counter()
+    phase_elementwise_small(torch, P, card, dev)
+    t4 = time.perf_counter()
+    if launch_counts(fa) != (0, 0, 0):
+        raise SystemExit("costs: phase 18 launched a flash kernel")
+    say(f"costs: phase 18 split: ngram {t1 - t0:.1f} s, sampler {t2 - t1:.1f} s, ltr "
+        f"{t3 - t2:.1f} s, small checks {t4 - t3:.1f} s; flash launches (fwd, dq, dkv) over "
+        f"it {launch_counts(fa)}; ngram median s per step "
+        + ", ".join(f"{h} {s:.4f}" for h, s in med.items())
+        + "; " + ", ".join(f"{h} {s:.4f} s per step" for h, s in ltr.items()))
+    P.init(compute_dtype="bfloat16")
+
+
 def main() -> int:
     import torch
 
@@ -3227,6 +3748,10 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_nested(torch, P, fa, card)
     say(f"nested: phase 17 took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_costs(torch, P, fa, card)
+    say(f"costs: phase 18 took {time.perf_counter() - t0:.1f} s")
     kernels = [
         {"name": name, "route": "cuda", "source": f"paddle_tpu_torch/csrc/{src}",
          "replaces": f"paddle_tpu/ops/pallas_attention.py:{line}",

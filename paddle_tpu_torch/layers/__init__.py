@@ -28,9 +28,9 @@ from paddle_tpu_torch.core.data_types import InputType
 from paddle_tpu_torch.core.topology import LayerConf, LayerOutput, Topology, auto_name
 from paddle_tpu_torch.pooling import pool_name
 
-# register the layer impls; the JAX package's misc, sampled, detection,
-# mdlstm and moe impls are not ported, and their DSL callables fail at
-# compile time
+# register the layer impls; 16 of the JAX package's types are not ported
+# (the rest of the image layers, conv_op, ctc, detection, mdlstm and moe),
+# and their DSL callables fail at compile time
 from paddle_tpu_torch.layers import base as _base  # noqa: F401
 from paddle_tpu_torch.layers import basic as _basic  # noqa: F401
 from paddle_tpu_torch.layers import conv as _conv  # noqa: F401
@@ -39,6 +39,7 @@ from paddle_tpu_torch.layers import mixed as _mixed_impl  # noqa: F401
 from paddle_tpu_torch.layers import structured as _structured  # noqa: F401
 from paddle_tpu_torch.layers import sequence as _sequence  # noqa: F401
 from paddle_tpu_torch.layers import misc as _misc  # noqa: F401
+from paddle_tpu_torch.layers import sampled as _sampled  # noqa: F401
 from paddle_tpu_torch.layers.recurrent_group import (  # noqa: F401
     StaticInput,
     SubsequenceInput,

@@ -1,7 +1,10 @@
-"""Core layer impls: data, fc, embedding, addto, concat and scaling — the
-counterpart of ``paddle_tpu/layers/basic.py:38-168`` — and get_output
-(``paddle_tpu/layers/misc.py:245-255``).  Weights keep the JAX layout
-([in, out] for fc, [vocab, size] for embedding)."""
+"""Core layer impls — the counterpart of ``paddle_tpu/layers/basic.py``:
+data, fc, embedding, addto, concat and scaling, the elementwise and row
+types (slope_intercept, interpolation, sum_to_one_norm, row_l2_norm, maxid,
+multiplex, trans, repeat, resize, clip, dotmul, out_prod, cos, tensor) —
+and get_output (``paddle_tpu/layers/misc.py:245-255``).  Weights keep the
+JAX layout ([in, out] for fc, [vocab, size] for embedding, [K, d1, d2] for
+tensor)."""
 
 from __future__ import annotations
 
@@ -134,3 +137,145 @@ def get_output_apply(conf, params, inputs, ctx):
             f"{conf.name}: layer {src!r} has no side output {arg!r} "
             f"(known: {[k for k in ctx.outputs if k.startswith(src)]})")
     return ctx.outputs[key]
+
+
+@register_layer("slope_intercept")
+def slope_intercept_apply(conf, params, inputs, ctx):
+    """SlopeInterceptLayer: y = slope x + intercept."""
+    x = inputs[0]
+    return x.with_data(conf.attr("slope", 1.0) * x.data + conf.attr("intercept", 0.0))
+
+
+@register_layer("interpolation")
+def interpolation_apply(conf, params, inputs, ctx):
+    """InterpolationLayer: y = w x1 + (1 - w) x2, w [B, 1]."""
+    w, x1, x2 = inputs
+    return x1.with_data(w.data * x1.data + (1.0 - w.data) * x2.data)
+
+
+@register_layer("sum_to_one_norm")
+def sum_to_one_norm_apply(conf, params, inputs, ctx):
+    x = inputs[0]
+    s = x.data.sum(dim=-1, keepdim=True)
+    return x.with_data(x.data / torch.where(s == 0, torch.ones_like(s), s))
+
+
+@register_layer("row_l2_norm")
+def row_l2_norm_apply(conf, params, inputs, ctx):
+    x = inputs[0]
+    n = torch.linalg.vector_norm(x.data, dim=-1, keepdim=True)
+    return x.with_data(x.data / torch.clamp(n, min=1e-12))
+
+
+@register_layer("maxid")
+def maxid_apply(conf, params, inputs, ctx):
+    """MaxIdLayer: the argmax over the features as int32 ids (the first
+    maximum on a tie)."""
+    x = inputs[0]
+    return SeqTensor(torch.argmax(x.data, dim=-1).to(torch.int32), x.lengths)
+
+
+@register_layer("multiplex")
+def multiplex_apply(conf, params, inputs, ctx):
+    """MultiplexLayer: row b of the input the index input names (an index
+    out of range takes the nearest input, as a JAX gather clamps)."""
+    sel = inputs[0].data.to(torch.int64).reshape(-1)
+    stacked = torch.stack([t.data for t in inputs[1:]], dim=0)  # [K, B, D]
+    sel = torch.clamp(sel, 0, stacked.shape[0] - 1)
+    rows = torch.arange(sel.shape[0], device=sel.device)
+    return SeqTensor(stacked[sel, rows], inputs[1].lengths)
+
+
+@register_layer("trans")
+def trans_apply(conf, params, inputs, ctx):
+    """TransLayer: with no height, the transpose of the whole [B, D] batch
+    ([D, B], no lengths); with one, of each row as a [height, D / height]
+    matrix."""
+    x = inputs[0]
+    h = conf.attr("height")
+    if h is None:
+        return SeqTensor(x.data.reshape(x.data.shape[0], -1).transpose(0, 1))
+    b = x.data.shape[0]
+    return SeqTensor(x.data.reshape(b, h, -1).transpose(1, 2).reshape(b, -1), x.lengths)
+
+
+@register_layer("repeat")
+def repeat_apply(conf, params, inputs, ctx):
+    """The feature vector tiled num_repeats times: [x, x, ...] as a row
+    vector, else each feature repeated in place."""
+    x = inputs[0]
+    n = conf.attr("num_repeats")
+    if conf.attr("as_row_vector", True):
+        return x.with_data(torch.cat([x.data] * n, dim=-1))
+    return x.with_data(torch.repeat_interleave(x.data, n, dim=-1))
+
+
+@register_layer("resize")
+def resize_apply(conf, params, inputs, ctx):
+    """ResizeLayer: the rows reshaped to width conf.size."""
+    x = inputs[0]
+    return SeqTensor(x.data.reshape(-1, conf.size), x.lengths)
+
+
+@register_layer("clip")
+def clip_apply(conf, params, inputs, ctx):
+    x = inputs[0]
+    return x.with_data(torch.clamp(x.data, conf.attr("min", -1.0), conf.attr("max", 1.0)))
+
+
+def dotmul_init(conf, in_confs, gen, device):
+    """A dotmul projection owns a [size] scale vector."""
+    if conf.attr("projection", False):
+        return {"w": init.normal(gen, (conf.size,), 1.0 / max(conf.size, 1), device)}
+    return {}
+
+
+@register_layer("dotmul", init=dotmul_init)
+def dotmul_apply(conf, params, inputs, ctx):
+    """The elementwise product of two inputs (DotMulOperator), or of one
+    input and the scale vector (DotMulProjection)."""
+    if "w" in params:
+        x = inputs[0]
+        return x.with_data(x.data * params["w"])
+    a, b = inputs
+    return a.with_data(a.data * b.data)
+
+
+@register_layer("out_prod")
+def out_prod_apply(conf, params, inputs, ctx):
+    """OuterProdLayer: each row's outer product, flattened."""
+    a, b = inputs
+    out = a.data[:, :, None] * b.data[:, None, :]
+    return SeqTensor(out.reshape(out.shape[0], -1), a.lengths)
+
+
+@register_layer("cos")
+def cos_apply(conf, params, inputs, ctx):
+    """CosSimLayer: scale x the cosine of the two rows; with cos_n > 1 the
+    second input holds cos_n vectors of the first's width, one cosine
+    each ([B, cos_n])."""
+    a, b = inputs
+    n = conf.attr("cos_n", 1)
+    bm = b.data.reshape(b.data.shape[0], n, -1) if n > 1 else b.data[:, None, :]
+    av = a.data[:, None, :]
+    num = (av * bm).sum(dim=-1)
+    den = torch.linalg.vector_norm(av, dim=-1) * torch.linalg.vector_norm(bm, dim=-1)
+    return SeqTensor(conf.attr("scale", 1.0) * num / torch.clamp(den, min=1e-12), a.lengths)
+
+
+def tensor_init(conf, in_confs, gen, device):
+    d1, d2 = in_confs[0].size, in_confs[1].size
+    p = {"w": init.normal(gen, (conf.size, d1, d2), init.default_std(d1), device)}
+    if conf.bias:
+        p["b"] = init.zeros((conf.size,), device)
+    return p
+
+
+@register_layer("tensor", init=tensor_init)
+def tensor_apply(conf, params, inputs, ctx):
+    """TensorLayer: y_k = x1 W_k x2^T, one bilinear form per output."""
+    a, b = inputs
+    out = torch.einsum("bi,kij,bj->bk", a.data, params["w"], b.data)
+    if "b" in params:
+        out = out + params["b"]
+    return SeqTensor(out, a.lengths)

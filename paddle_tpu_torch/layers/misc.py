@@ -1,16 +1,20 @@
-"""Sequence-side layers of ``paddle_tpu/layers/misc.py``: ``sub_seq``
-(:139), ``kmax_seq_score`` (:225) and the agents (``agent``,
-``scatter_agent``, ``gather_agent``, :267-289).  The reference's agents wire
-values across the frames of its recurrent machine; here, as in the JAX
-package, they keep their data semantics: an identity view, a row selection
-by ids and a concatenation of sequences along time."""
+"""The layers of ``paddle_tpu/layers/misc.py`` but ``block_expand``:
+``sub_seq`` (:139), ``kmax_seq_score`` (:225), the agents (``agent``,
+``scatter_agent``, ``gather_agent``, :267-289), and ``prelu``, ``power``,
+``data_norm``, ``rotate``, ``linear_comb``, ``cos_vm``, ``print`` and
+``scale_shift``.  The reference's agents wire values across the frames of
+its recurrent machine; here, as in the JAX package, they keep their data
+semantics: an identity view, a row selection by ids and a concatenation of
+sequences along time."""
 
 from __future__ import annotations
 
 import torch
 
+from paddle_tpu_torch.core import initializers as init
 from paddle_tpu_torch.core.batch import SeqTensor
 from paddle_tpu_torch.layers.base import register_layer
+from paddle_tpu_torch.layers.conv import to_nhwc
 from paddle_tpu_torch.layers.sequence import _seqconcat
 from paddle_tpu_torch.ops.beam import top_k
 
@@ -72,3 +76,114 @@ def gather_agent_apply(conf, params, inputs, ctx):
         out = _seqconcat(conf, out, nxt)
     return out
 
+
+
+# ---------------------------------------------------------------------------
+# the elementwise and misc types of paddle_tpu/layers/misc.py
+# ---------------------------------------------------------------------------
+
+
+def prelu_init(conf, in_confs, gen, device):
+    """One negative slope (0.25) per group of partial_sum features."""
+    partial = conf.attrs.get("partial_sum", 1)
+    return {"a": torch.full((in_confs[0].size // partial,), 0.25, device=device)}
+
+
+@register_layer("prelu", init=prelu_init)
+def prelu_apply(conf, params, inputs, ctx):
+    """ParameterReluLayer: x where x > 0, else a x, a shared over groups of
+    partial_sum consecutive features."""
+    x = inputs[0]
+    slope = torch.repeat_interleave(params["a"], conf.attrs.get("partial_sum", 1))
+    return x.with_data(torch.where(x.data > 0, x.data, slope * x.data))
+
+
+@register_layer("power")
+def power_apply(conf, params, inputs, ctx):
+    """PowerLayer: y = x ^ w, w [B, 1] a per-sample exponent."""
+    w, x = inputs
+    return x.with_data(torch.pow(x.data, w.data))
+
+
+def data_norm_state(conf, in_confs, device):
+    """The fixed statistics, layer state and not parameters (the reference
+    loads them precomputed): mean, std, min and max per feature."""
+    d = in_confs[0].size
+    return {"mean": init.zeros((d,), device), "std": init.ones((d,), device),
+            "min": init.zeros((d,), device), "max": init.ones((d,), device)}
+
+
+@register_layer("data_norm", init_state=data_norm_state)
+def data_norm_apply(conf, params, inputs, ctx):
+    """DataNormLayer: z-score, min-max or decimal-scaling normalisation by
+    the layer's fixed statistics."""
+    x = inputs[0]
+    st = ctx.state.get(conf.name, {})
+    strategy = conf.attrs.get("strategy", "z-score")
+    if strategy == "z-score":
+        out = (x.data - st["mean"]) / torch.clamp(st["std"], min=1e-12)
+    elif strategy == "min-max":
+        out = (x.data - st["min"]) / torch.clamp(st["max"] - st["min"], min=1e-12)
+    else:  # decimal-scaling
+        mag = torch.clamp(st["max"].abs(), min=1e-12)
+        out = x.data / torch.pow(10.0, torch.ceil(torch.log10(mag)))
+    return x.with_data(out)
+
+
+@register_layer("rotate")
+def rotate_apply(conf, params, inputs, ctx):
+    """RotateLayer: each feature map turned 90 degrees counter-clockwise,
+    NHWC [B, W, H, C] out."""
+    a = conf.attrs
+    x = to_nhwc(inputs[0].data, a["in_h"], a["in_w"], a["in_c"])
+    return SeqTensor(torch.flip(x.transpose(1, 2), dims=(1,)), inputs[0].lengths)
+
+
+@register_layer("linear_comb")
+def linear_comb_apply(conf, params, inputs, ctx):
+    """LinearCombinationLayer (convex_comb): y[d] = sum_m w[m] x[m, d], x
+    given flat as [B, M*D]."""
+    w, x = inputs
+    mat = x.data.reshape(w.data.shape[0], w.data.shape[-1], -1)
+    return SeqTensor(torch.einsum("bm,bmd->bd", w.data, mat), x.lengths)
+
+
+@register_layer("cos_vm")
+def cos_vm_apply(conf, params, inputs, ctx):
+    """CosSimVecMatLayer: scale x the cosine of a vector [B, D] with each
+    row of a matrix given flat as [B, M*D]."""
+    v, m = inputs
+    mat = m.data.reshape(v.data.shape[0], -1, v.data.shape[-1])
+    num = torch.einsum("bd,bmd->bm", v.data, mat)
+    den = (torch.linalg.vector_norm(v.data, dim=-1, keepdim=True)
+           * torch.linalg.vector_norm(mat, dim=-1))
+    return SeqTensor(conf.attrs.get("scale", 1.0) * num / torch.clamp(den, min=1e-12),
+                     v.lengths)
+
+
+@register_layer("print")
+def print_apply(conf, params, inputs, ctx):
+    """PrintLayer: prints its input on the host ("{name}: {val}") and passes
+    it through.  On the card the print reads the device, so it never
+    belongs inside a timed step."""
+    x = inputs[0]
+    print(conf.attrs.get("format", "{name}: {val}").format(
+        name=conf.name, val=x.data.detach().cpu().numpy()), flush=True)
+    return x
+
+
+def scale_shift_init(conf, in_confs, gen, device):
+    p = {"scale": init.ones((1,), device)}
+    if conf.bias:
+        p["shift"] = init.zeros((1,), device)
+    return p
+
+
+@register_layer("scale_shift", init=scale_shift_init)
+def scale_shift_apply(conf, params, inputs, ctx):
+    """ScaleShiftLayer: y = scale x + shift, two learned scalars."""
+    x = inputs[0]
+    out = params["scale"][0] * x.data
+    if "shift" in params:
+        out = out + params["shift"][0]
+    return x.with_data(out)

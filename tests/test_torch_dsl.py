@@ -7,7 +7,9 @@
   byte-identically, and compile when every type has a torch impl;
 - a layer type with no torch impl fails when its network is compiled,
   with an error that names the type (each of the JAX package's registered
-  types the port lacks)."""
+  types the port lacks: the 16 of ROADMAP Queue 1 item 3);
+- the v1 names of the costs, the sampled outputs and the elementwise types
+  build the JAX package's Topology and compile in the port."""
 
 import pytest
 
@@ -34,7 +36,11 @@ _UNPORTED = sorted(set(jbase.registered_layer_types()) - set(tbase.registered_la
 
 
 def test_the_unported_types_are_the_roadmaps():
-    assert len(_UNPORTED) == 50  # 95 - 45 (ROADMAP Queue 1 item 3)
+    assert len(_UNPORTED) == 16  # 95 - 79 (ROADMAP Queue 1 item 3)
+    assert _UNPORTED == [
+        "bilinear_interp", "block_expand", "conv_op", "convt", "crop", "ctc", "detection_output",
+        "featmap_expand", "maxout", "mdlstmemory", "moe", "multibox_loss", "norm", "pad",
+        "priorbox", "spp"]
 
 
 @pytest.mark.parametrize("type_name", _UNPORTED)
@@ -58,22 +64,22 @@ def _inputs(pkg):
 
 # name -> (builder, the unported type its network fails on, or None)
 PROGRAMS = {
-    "maxid": (lambda L, i, pkg: L.maxid(i["x"]), "maxid"),
-    "power": (lambda L, i, pkg: L.power(i["x"], i["w"]), "power"),
-    "scale_shift": (lambda L, i, pkg: L.scale_shift(i["x"]), "scale_shift"),
-    "prelu": (lambda L, i, pkg: L.prelu(i["x"]), "prelu"),
-    "trans": (lambda L, i, pkg: L.trans(i["x"]), "trans"),
-    "repeat": (lambda L, i, pkg: L.repeat(i["x"], 3), "repeat"),
-    "clip": (lambda L, i, pkg: L.clip(i["x"], -0.5, 0.5), "clip"),
-    "cos_sim": (lambda L, i, pkg: L.cos_sim(i["x"], i["y"]), "cos"),
+    "maxid": (lambda L, i, pkg: L.maxid(i["x"]), None),
+    "power": (lambda L, i, pkg: L.power(i["x"], i["w"]), None),
+    "scale_shift": (lambda L, i, pkg: L.scale_shift(i["x"]), None),
+    "prelu": (lambda L, i, pkg: L.prelu(i["x"]), None),
+    "trans": (lambda L, i, pkg: L.trans(i["x"]), None),
+    "repeat": (lambda L, i, pkg: L.repeat(i["x"], 3), None),
+    "clip": (lambda L, i, pkg: L.clip(i["x"], -0.5, 0.5), None),
+    "cos_sim": (lambda L, i, pkg: L.cos_sim(i["x"], i["y"]), None),
     "interpolation": (lambda L, i, pkg: L.interpolation(input=[i["x"], i["y"]], weight=i["w"]),
-                      "interpolation"),
-    "slope_intercept": (lambda L, i, pkg: L.slope_intercept(i["x"], 2.0, 1.0), "slope_intercept"),
-    "row_l2_norm": (lambda L, i, pkg: L.row_l2_norm(i["x"]), "row_l2_norm"),
-    "sum_to_one_norm": (lambda L, i, pkg: L.sum_to_one_norm(i["x"]), "sum_to_one_norm"),
-    "out_prod": (lambda L, i, pkg: L.out_prod(i["x"], i["y"]), "out_prod"),
-    "multiplex": (lambda L, i, pkg: L.multiplex([i["lab"], i["x"], i["y"]]), "multiplex"),
-    "linear_comb": (lambda L, i, pkg: L.linear_comb(i["w"], i["x"], size=8), "linear_comb"),
+                      None),
+    "slope_intercept": (lambda L, i, pkg: L.slope_intercept(i["x"], 2.0, 1.0), None),
+    "row_l2_norm": (lambda L, i, pkg: L.row_l2_norm(i["x"]), None),
+    "sum_to_one_norm": (lambda L, i, pkg: L.sum_to_one_norm(i["x"]), None),
+    "out_prod": (lambda L, i, pkg: L.out_prod(i["x"], i["y"]), None),
+    "multiplex": (lambda L, i, pkg: L.multiplex([i["lab"], i["x"], i["y"]]), None),
+    "linear_comb": (lambda L, i, pkg: L.linear_comb(i["w"], i["x"], size=8), None),
     "seq_reshape": (lambda L, i, pkg: L.seq_reshape(i["s"], 4), None),
     "seq_concat": (lambda L, i, pkg: L.seq_concat(i["s"], i["s"]), None),
     "img_cmrnorm": (lambda L, i, pkg: L.img_cmrnorm(i["img"], 3, num_channels=3), "norm"),
@@ -84,23 +90,22 @@ PROGRAMS = {
     "img_pad": (lambda L, i, pkg: L.img_pad(i["img"], pad_h=(1, 1), num_channels=3), "pad"),
     "block_expand": (lambda L, i, pkg: L.block_expand(i["img"], 2, 2, num_channels=3),
                      "block_expand"),
-    "nce": (lambda L, i, pkg: L.nce(i["x"], i["lab"], num_classes=8), "nce"),
-    "hsigmoid": (lambda L, i, pkg: L.hsigmoid(i["x"], i["lab"], num_classes=8), "hsigmoid"),
+    "nce": (lambda L, i, pkg: L.nce(i["x"], i["lab"], num_classes=8), None),
+    "hsigmoid": (lambda L, i, pkg: L.hsigmoid(i["x"], i["lab"], num_classes=8), None),
     "ctc": (lambda L, i, pkg: L.ctc(L.fc(i["s"], size=21), i["ids"], size=21), "ctc"),
-    "rank_cost": (lambda L, i, pkg: L.rank_cost(i["w"], i["w"], i["w"]), "rank_cost"),
-    "huber": (lambda L, i, pkg: L.huber_regression_cost(i["x"], i["y"]), "huber_regression"),
-    "smooth_l1": (lambda L, i, pkg: L.smooth_l1_cost(i["x"], i["y"]), "smooth_l1"),
-    "sum_cost": (lambda L, i, pkg: L.sum_cost(i["x"]), "sum_cost"),
+    "rank_cost": (lambda L, i, pkg: L.rank_cost(i["w"], i["w"], i["w"]), None),
+    "huber": (lambda L, i, pkg: L.huber_regression_cost(i["x"], i["y"]), None),
+    "smooth_l1": (lambda L, i, pkg: L.smooth_l1_cost(i["x"], i["y"]), None),
+    "sum_cost": (lambda L, i, pkg: L.sum_cost(i["x"]), None),
     "selfnorm": (lambda L, i, pkg: L.cross_entropy_with_selfnorm_cost(
-        L.fc(i["x"], size=8, act=pkg.activation.Softmax()), i["lab"]),
-        "cross_entropy_with_selfnorm"),
+        L.fc(i["x"], size=8, act=pkg.activation.Softmax()), i["lab"]), None),
     "eos": (lambda L, i, pkg: L.eos(i["ids"], 1), None),
     "kmax_seq_score": (lambda L, i, pkg: L.kmax_seq_score(L.fc(i["s"], size=1), 2), None),
     "row_conv": (lambda L, i, pkg: L.row_conv(i["s"], 3), None),
     "conv_shift": (lambda L, i, pkg: L.conv_shift(i["x"], L.fc(i["x"], size=3)), None),
-    "gated_unit": (lambda L, i, pkg: L.gated_unit(i["x"], 4), "dotmul"),
-    "selective_fc": (lambda L, i, pkg: L.selective_fc(i["x"], None, 4), "selective_fc"),
-    "data_norm": (lambda L, i, pkg: L.data_norm(i["x"]), "data_norm"),
+    "gated_unit": (lambda L, i, pkg: L.gated_unit(i["x"], 4), None),
+    "selective_fc": (lambda L, i, pkg: L.selective_fc(i["x"], None, 4), None),
+    "data_norm": (lambda L, i, pkg: L.data_norm(i["x"]), None),
     "context_projection": (lambda L, i, pkg: L.mixed(
         size=24, input=[L.context_projection(i["s"], 3)]), None),
     "conv_projection": (lambda L, i, pkg: L.mixed(
@@ -110,7 +115,7 @@ PROGRAMS = {
     "weighted_square_error": (lambda L, i, pkg: L.square_error_cost(i["x"], i["y"],
                                                                      weight=i["w"]), None),
     "dotmul_operator": (lambda L, i, pkg: L.mixed(
-        size=8, input=[L.dotmul_operator(i["x"], i["y"])]), "dotmul"),
+        size=8, input=[L.dotmul_operator(i["x"], i["y"])]), None),
     "sequence_conv_pool": (lambda L, i, pkg: pkg.networks.sequence_conv_pool(
         L.embedding(i["ids"], size=8), context_len=3, hidden_size=6), None),
     "img_conv_group": (lambda L, i, pkg: pkg.networks.img_conv_group(
@@ -119,7 +124,7 @@ PROGRAMS = {
     "math": (lambda L, i, pkg: L.layer_math.exp(i["x"]) * 0.5 + L.layer_math.log(
         L.layer_math.sqrt(L.layer_math.square(i["y"]))) - 2 * i["x"] + L.layer_math.relu(
         L.layer_math.abs(i["x"])) * i["y"] + L.layer_math.sigmoid(L.layer_math.tanh(
-            L.layer_math.reciprocal(1.0 - i["y"]))), "slope_intercept"),
+            L.layer_math.reciprocal(1.0 - i["y"]))), None),
 }
 
 
@@ -134,3 +139,73 @@ def test_programs_serialize_identically(name):
     else:
         with pytest.raises(NotImplementedError, match=repr(missing)):
             TNet(tt)
+
+
+# the v1 names (``paddle.trainer_config_helpers``) of the types ported with
+# the costs, the sampled outputs and the elementwise layers: name -> network
+# over (v1 module, inputs, package)
+V1_PROGRAMS = {
+    "nce_layer": lambda v, i, pkg: v.nce_layer(input=i["x"], label=i["lab"], num_classes=8,
+                                               neg_distribution=[1.0 / 8] * 8),
+    "hsigmoid": lambda v, i, pkg: v.hsigmoid(input=i["x"], label=i["lab"], num_classes=8),
+    "selective_fc_layer": lambda v, i, pkg: v.selective_fc_layer(input=i["x"], select=i["y"],
+                                                                 size=8),
+    "lambda_cost": lambda v, i, pkg: v.lambda_cost(input=v.fc_layer(i["s"], size=1),
+                                                   score=v.fc_layer(i["s"], size=1),
+                                                   NDCG_num=3),
+    "rank_cost": lambda v, i, pkg: v.rank_cost(left=i["w"], right=i["w"], label=i["w"]),
+    "cos_sim": lambda v, i, pkg: v.cos_sim(a=i["x"], b=i["y"], scale=2.0),
+    "cos_sim_vec_mat": lambda v, i, pkg: v.cos_sim_vec_mat(i["w"], i["x"], size=8),
+    "huber_cost": lambda v, i, pkg: v.huber_cost(input=v.fc_layer(i["x"], size=1),
+                                                 label=i["lab"]),
+    "huber_regression_cost": lambda v, i, pkg: v.huber_regression_cost(i["x"], i["y"]),
+    "smooth_l1_cost": lambda v, i, pkg: v.smooth_l1_cost(i["x"], i["y"]),
+    "sum_cost": lambda v, i, pkg: v.sum_cost(input=i["x"]),
+    "cross_entropy_with_selfnorm_cost": lambda v, i, pkg: v.cross_entropy_with_selfnorm_cost(
+        input=v.fc_layer(i["x"], size=8, act=v.SoftmaxActivation()), label=i["lab"]),
+    "soft_binary_class_cross_entropy_cost": lambda v, i, pkg: (
+        v.soft_binary_class_cross_entropy_cost(
+            input=v.fc_layer(i["x"], size=8, act=v.SigmoidActivation()), label=i["y"])),
+    "maxid_layer": lambda v, i, pkg: v.maxid_layer(input=i["x"]),
+    "multiplex_layer": lambda v, i, pkg: v.multiplex_layer(input=[i["lab"], i["x"], i["y"]]),
+    "trans_layer": lambda v, i, pkg: v.trans_layer(input=i["x"]),
+    "repeat_layer": lambda v, i, pkg: v.repeat_layer(input=i["x"], num_repeats=2),
+    "resize_layer": lambda v, i, pkg: v.resize_layer(input=i["x"], size=4),
+    "clip_layer": lambda v, i, pkg: v.clip_layer(input=i["x"], min=-0.5, max=0.5),
+    "out_prod_layer": lambda v, i, pkg: v.out_prod_layer(input1=i["x"], input2=i["y"]),
+    "tensor_layer": lambda v, i, pkg: v.tensor_layer(a=i["x"], b=i["y"], size=3),
+    "dotmul_operator": lambda v, i, pkg: v.mixed_layer(
+        size=8, input=[v.dotmul_operator(a=i["x"], b=i["y"])]),
+    "prelu_layer": lambda v, i, pkg: v.prelu_layer(input=i["x"], partial_sum=2),
+    "power_layer": lambda v, i, pkg: v.power_layer(input=i["x"], weight=i["w"]),
+    "data_norm": lambda v, i, pkg: v.data_norm(input=i["x"], strategy="min-max"),
+    "rotate_layer": lambda v, i, pkg: v.rotate_layer(input=i["x"], height=2, width=4),
+    "linear_comb_layer": lambda v, i, pkg: v.linear_comb_layer(weights=i["w"], vectors=i["x"],
+                                                               size=8),
+    "convex_comb_layer": lambda v, i, pkg: v.convex_comb_layer(weights=i["w"], vectors=i["x"],
+                                                               size=8),
+    "print_layer": lambda v, i, pkg: v.print_layer(input=i["x"]),
+    "scale_shift_layer": lambda v, i, pkg: v.scale_shift_layer(input=i["x"]),
+    "slope_intercept_layer": lambda v, i, pkg: v.slope_intercept_layer(input=i["x"], slope=2.0,
+                                                                       intercept=1.0),
+    "interpolation_layer": lambda v, i, pkg: v.interpolation_layer(input=[i["x"], i["y"]],
+                                                                   weight=i["w"]),
+    "sum_to_one_norm_layer": lambda v, i, pkg: v.sum_to_one_norm_layer(input=i["x"]),
+    "row_l2_norm_layer": lambda v, i, pkg: v.row_l2_norm_layer(input=i["x"]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(V1_PROGRAMS))
+def test_v1_names_build_the_jax_topology(name):
+    """Through the v1 config surface each name builds the JAX package's
+    Topology byte for byte, and the port compiles it."""
+    import importlib
+
+    def build(pkg):
+        v1 = importlib.import_module(pkg.__name__ + ".v1_compat.config_helpers")
+        return V1_PROGRAMS[name](v1, _inputs(pkg), pkg)
+
+    jout, tout = build_both(build)
+    tt = paddle_tpu_torch.Topology([tout])
+    assert tt.serialize() == paddle_tpu.Topology([jout]).serialize()
+    TNet(tt)

@@ -211,12 +211,24 @@ _SEQUENCE_SLICE_TYPES = {
     "gather_agent"}
 
 
+# the 34 costs, sampled outputs and elementwise and misc types
+_COST_SLICE_TYPES = {
+    "soft_binary_class_cross_entropy", "smooth_l1", "huber_regression", "huber_classification",
+    "rank_cost", "sum_cost", "cross_entropy_with_selfnorm", "multi_nn_cost", "nce", "hsigmoid",
+    "selective_fc", "lambda_cost", "slope_intercept", "interpolation", "sum_to_one_norm",
+    "row_l2_norm", "maxid", "multiplex", "trans", "repeat", "resize", "clip", "dotmul",
+    "out_prod", "cos", "tensor", "prelu", "power", "data_norm", "rotate", "linear_comb",
+    "cos_vm", "print", "scale_shift"}
+
+
 def test_registered_layer_types_grow_by_the_slice():
     from paddle_tpu_torch.layers.base import registered_layer_types
 
     assert set(registered_layer_types()) == (
-        _EARLIER_TYPES | _SLICE_TYPES | _BATCH_SLICE_TYPES | _SEQUENCE_SLICE_TYPES)
-    assert len(registered_layer_types()) == 45
+        _EARLIER_TYPES | _SLICE_TYPES | _BATCH_SLICE_TYPES | _SEQUENCE_SLICE_TYPES
+        | _COST_SLICE_TYPES)
+    assert len(_COST_SLICE_TYPES) == 34
+    assert len(registered_layer_types()) == 79
 
 
 def test_v1_front_end_entry_points_raise_without_cuda():

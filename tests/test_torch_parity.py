@@ -150,9 +150,11 @@ def to_port(jbatch):
     return {k: TSeq(t(v.data), t(v.lengths), t(v.sub_lengths)) for k, v in jbatch.items()}
 
 
-def outputs_both(jout, tout, jbatch, *, seed=0, names=None, grads=True, input_grads=()):
+def outputs_both(jout, tout, jbatch, *, seed=0, names=None, grads=True, input_grads=(),
+                 jparams=None):
     """The named outputs (default: jout's) of one topology in both packages
-    on the same batch and parameters (f32, train=False), and, with
+    on the same batch and parameters (f32, train=False; `jparams`, the JAX
+    package's Parameters, else ones created from `seed`), and, with
     `grads`, the gradients of sum(output * w) over every output (w a fixed
     cosine pattern) with respect to the parameters and the float slots in
     `input_grads`, the JAX side's op by op.  Returns (JAX outputs, port
@@ -161,7 +163,8 @@ def outputs_both(jout, tout, jbatch, *, seed=0, names=None, grads=True, input_gr
     names = names or [jout.name]
     jnet = JNet(JTopo([jout]), compute_dtype=jnp.float32)
     tnet = TNet(TTopo([tout]), compute_dtype=torch.float32)
-    jparams = paddle_tpu.parameters.create(jout, seed=seed)
+    if jparams is None:
+        jparams = paddle_tpu.parameters.create(jout, seed=seed)
     tb = to_port(jbatch)
     jouts = jnet.apply(jparams.params, jbatch, state=jparams.state, train=False)[0]
 
@@ -214,6 +217,24 @@ def assert_outputs_close(jo, to, atol=1e-5, rtol=1e-5):
             assert (a is None) == (b is None), (n, f)
             if a is not None:
                 np.testing.assert_array_equal(a, b, err_msg=f"{n} {f}")
+
+
+def assert_params_carry(jout, tout, seed=2):
+    """The port's own parameters and layer state of `tout`'s network have
+    the names and shapes of the JAX package's for `jout`'s, and the mover
+    carries the JAX ones bit for bit."""
+    assert TNet(TTopo([tout])).named_parameters() == JNet(JTopo([jout])).named_parameters()
+    jparams = paddle_tpu.parameters.create(jout, seed=seed)
+    tparams, tstate = TNet(TTopo([tout])).init(seed=seed, device="cpu")
+
+    def shapes(tree):
+        return {k: v.shape for k, v in flat_leaves(numpy_tree(tree)).items()}
+
+    assert shapes(tparams) == shapes(jparams.params)
+    assert shapes(tstate) == shapes(jparams.state)
+    got = flat_leaves(numpy_tree(carry(jparams).params))
+    for k, v in flat_leaves(numpy_tree(jparams.params)).items():
+        assert np.array_equal(got[k], v), k
 
 
 def demo_mlp(pkg, hidden=(128, 64), classes=10, pixels=784):
