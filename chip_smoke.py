@@ -245,14 +245,52 @@ Phases, in order; any failure exits non-zero:
      card vs CPU in f32 (relative L2 <= 1e-5, ids equal), with
      data_norm's three strategies on random statistics, and print's line
      once, outside any timed step.  No flash kernel may launch in phase
-     18.
+     18;
+ 19. the image layers, the conv operator and CTC: (a) AlexNet at
+     bench.py's bench_alexnet configuration (the reference's
+     benchmark/paddle/image/alexnet.py with batch_size=128, layer_num=1:
+     227x227x3, conv 11x11/4 96, cross-map norm 5, max pool 3/2, conv 5x5
+     256, norm, pool, convs 3x3 384, 384, 256, pool, fc 4096 twice with
+     dropout 0.5, fc 1000 softmax; its learning_rate 0.01 / 128 and L2
+     0.0005 x 128 are per-sample settings, so Momentum(0.01, 0.9) with L2
+     5e-4 under the mean cost), bf16 over f32 masters, random images and
+     labels from a seed, through trainer.SGD(...).train with cuDNN
+     autotuning: one warm-up step, 4 timed steps on distinct batches
+     (seconds per step, images/s, peak memory, the convs' analytic FLOPs
+     and their share of the bf16 peak), 5 steps on one batch (the cost must
+     fall), torch.profiler over two steps (busy share, top kernels) and the
+     two norm layers' device time, forward and backward at their shapes in
+     the step; one step's f32 gradients at B=2, card against CPU, relative
+     L2 <= 1e-4 per leaf (the CPU's f64 gradient printed beside them);
+     (b) AlexNet served from (a)'s parameters through Inference.infer, 256
+     images in two batches of 128, every distribution finite and summing to
+     1, and two images in f32 card against CPU; (c) convt (the DCGAN
+     generator's ladder, and groups 2), the cross-map norm, maxout, spp
+     (max and avg over AlexNet's conv5 output), bilinear_interp (2x up and
+     down), pad and crop (227 to 224), featmap_expand, block_expand and
+     conv_op (plain and transposed) in f32 on the card and on the CPU, held
+     to the CPU's f64 evaluation by phase 8's rule: outputs and gradients
+     within max(2 x the CPU f32's own error, 1e-5) relative L2 (the DCGAN
+     ladder's ReLUs put its first layer's f32 gradients ~1e-4 from f64 on
+     either device); (d) a CRNN-CTC line recognizer
+     (grayscale 32x100 lines, conv 3x3 64 + max pool 2, conv 3x3 128 + max
+     pool 2, block_expand 8x1 into 25 frames of 1024, bidirectional_gru
+     128, fc 38, warp_ctc(blank=0) with ctc_error_evaluator; B = 64 lines
+     with labels of 3-12 ids from a seed): 10 bf16 Adam(1e-3) steps on one
+     batch (the cost must fall; the ctc_error of each step), one step's
+     host syncs by site (none from the layers, the evaluator's one copy),
+     device kernels and busy share; the path's f32 cost and gradients and
+     warp_ctc's logit gradients card against CPU at B = 4 (<= 1e-5); and
+     the port's cost against F.ctc_loss (a yardstick the port never calls,
+     <= 1e-4 relative) with the time of each, forward and backward, and
+     the port's kernels per frame.  No flash kernel may launch in phase 19.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels with their launches on the main path (the timed training steps of
 phase 5; the NMT paths of phases 11-13, the LSTM classifier of phases 14
-and 16, the tagger of phase 15, the nested networks of phase 17 and the
-N-gram and ranking networks of phase 18 run none of them), errors and
-times.
+and 16, the tagger of phase 15, the nested networks of phase 17, the
+N-gram and ranking networks of phase 18 and the image and CTC networks of
+phase 19 run none of them), errors and times.
 Without a CUDA device, or without the paddle_tpu_torch package beside it, the script
 exits non-zero and prints no result.
 """
@@ -3015,33 +3053,40 @@ def small_card_cpu(torch, P, out, types, samples, seed, state=None, dev=None):
     samples, and for a float output the gradients of the sum of squares of
     its valid part with respect to the parameters and the float slots:
     (output |d| or relative L2, gradient relative L2 or None)."""
+    params = P.CompiledNetwork(P.Topology(out)).init_params(seed, device="cpu")
+    (y_card, g_card), (y_cpu, g_cpu) = (
+        values_and_grads(torch, P, out, types, samples, params, d, torch.float32, state)
+        for d in (dev or torch.device("cuda"), torch.device("cpu")))
+    if not y_cpu.is_floating_point() or not g_cpu:
+        return float((y_card != y_cpu).sum()), None
+    return rel_l2(torch, {"y": y_card}, {"y": y_cpu}), rel_l2(torch, g_card, g_cpu)
+
+
+def values_and_grads(torch, P, out, types, samples, params, dev, dtype, state=None):
+    """`out`'s output (its valid part) on `samples` in `dtype` on `dev` from
+    the CPU trees `params` and `state`, and for a float output the
+    gradients of its sum of squares with respect to the parameters and the
+    float slots, on the CPU."""
     from paddle_tpu_torch.core.device import tree_to
     from paddle_tpu_torch.utils.tree import leaf_paths, map_leaves
 
     net = P.CompiledNetwork(P.Topology(out), compute_dtype="float32")
-    cpu_params = net.init_params(seed, device="cpu")
-    res = []
-    for dev in (dev or torch.device("cuda"), torch.device("cpu")):
-        batch = P.reader.DataFeeder(types, device=dev)(samples)
-        xs = {}
-        for k, t in batch.items():
-            if t.data.is_floating_point():
-                t.data = t.data.detach().requires_grad_(True)
-                xs[k] = t.data
-        prm = map_leaves(lambda v: v.detach().requires_grad_(True), tree_to(cpu_params, dev))
-        st = None if state is None else tree_to(state, dev)
-        y = net.apply(prm, batch, state=st, train=False)[0][out.name]
-        data = y.masked_data() if y.is_seq else y.data
-        grads = {}
-        wrt = [(".".join(p), v) for p, v in leaf_paths(prm)] + list(xs.items())
-        if data.is_floating_point() and wrt:
-            gs = torch.autograd.grad((data ** 2).sum(), [v for _, v in wrt], allow_unused=True)
-            grads = {n: g for (n, _), g in zip(wrt, gs) if g is not None}
-        res.append((data.detach().cpu(), grads))
-    (y_card, g_card), (y_cpu, g_cpu) = res
-    if not y_cpu.is_floating_point() or not g_cpu:
-        return float((y_card != y_cpu).sum()), None
-    return rel_l2(torch, {"y": y_card}, {"y": y_cpu}), rel_l2(torch, g_card, g_cpu)
+    batch = P.reader.DataFeeder(types, device=dev)(samples)
+    xs = {}
+    for k, t in batch.items():
+        if t.data.is_floating_point():
+            t.data = t.data.detach().to(dtype).requires_grad_(True)
+            xs[k] = t.data
+    prm = map_leaves(lambda v: v.detach().to(dtype).requires_grad_(True), tree_to(params, dev))
+    st = None if state is None else tree_to(state, dev)
+    y = net.apply(prm, batch, state=st, train=False)[0][out.name]
+    data = y.masked_data() if y.is_seq else y.data
+    wrt = [(".".join(p), v) for p, v in leaf_paths(prm)] + list(xs.items())
+    grads = {}
+    if data.is_floating_point() and wrt:
+        gs = torch.autograd.grad((data ** 2).sum(), [v for _, v in wrt], allow_unused=True)
+        grads = {n: g.detach().cpu() for (n, _), g in zip(wrt, gs) if g is not None}
+    return data.detach().cpu(), grads
 
 
 def phase_sequence_small(torch, P, card):
@@ -3664,6 +3709,507 @@ def phase_costs(torch, P, fa, card):
     P.init(compute_dtype="bfloat16")
 
 
+# Phase 19: AlexNet at bench_alexnet's configuration (the reference's
+# benchmark/paddle/image/alexnet.py, batch_size=128, layer_num=1) and a
+# CRNN-CTC line recognizer.  The config's learning_rate 0.01 / 128 and
+# L2Regularization(0.0005 * 128) are v1's per-sample settings over a summed
+# gradient; under the port's mean cost they are Momentum(0.01, 0.9), L2 5e-4.
+AX_IMG, AX_CLASSES, AX_BATCH = 227, 1000, 128
+AX_LR, AX_L2 = 0.01, 5e-4
+AX_TIMED, AX_FIXED, AX_CHECK_B, AX_INFER = 4, 5, 2, 256
+AX_GRAD_REL = 1e-4  # one step's f32 gradients card vs CPU, relative L2 per leaf
+AX_PROB_ABS, AX_LOGIT_REL = 1e-5, 1e-4  # two images served in f32, card vs CPU
+AX_FEEDING = {"data": 0, "label": 1}
+# the CRNN-CTC path: grayscale lines, two conv + pool stages, 8x1 blocks,
+# a bidirectional GRU, 37 symbols + the blank, warp_ctc(blank=0)
+CTC_H, CTC_W, CTC_FILTERS, CTC_GRU, CTC_CLASSES = 32, 100, (64, 128), 128, 38
+CTC_B, CTC_LABELS, CTC_STEPS, CTC_LR, CTC_CHECK_B = 64, (3, 12), 10, 1e-3, 4
+CTC_LOSS_REL = 1e-4  # F.ctc_loss against the port's cost: a yardstick
+CTC_FEEDING = {"image": 0, "label": 1}
+
+
+def alexnet_cost(P):
+    """alexnet.py's network through the port's DSL: (cost, prediction)."""
+    L, A, dt = P.layer, P.activation, P.data_type
+    drop = P.attr.ExtraAttr(drop_rate=0.5)
+    net = L.data("data", dt.dense_vector(AX_IMG * AX_IMG * 3), height=AX_IMG, width=AX_IMG)
+    net = L.img_conv(net, filter_size=11, num_channels=3, num_filters=96, stride=4, padding=1)
+    net = L.img_cmrnorm(net, size=5, scale=0.0001, power=0.75)
+    net = L.img_pool(net, pool_size=3, stride=2)
+    net = L.img_conv(net, filter_size=5, num_filters=256, stride=1, padding=2)
+    net = L.img_cmrnorm(net, size=5, scale=0.0001, power=0.75)
+    net = L.img_pool(net, pool_size=3, stride=2)
+    for filters in (384, 384, 256):
+        net = L.img_conv(net, filter_size=3, num_filters=filters, stride=1, padding=1)
+    net = L.img_pool(net, pool_size=3, stride=2)
+    net = L.fc(net, size=4096, act=A.Relu(), layer_attr=drop)
+    net = L.fc(net, size=4096, act=A.Relu(), layer_attr=drop)
+    net = L.fc(net, size=AX_CLASSES, act=A.Softmax())
+    label = L.data("label", dt.integer_value(AX_CLASSES))
+    return L.classification_cost(input=net, label=label), net
+
+
+def alexnet_images(rng, n):
+    """n (image, label) samples: flat CHW images from N(0, 1)."""
+    imgs = rng.randn(n, 3 * AX_IMG * AX_IMG).astype(np.float32)
+    labels = rng.randint(0, AX_CLASSES, size=n)
+    return [(imgs[i], int(labels[i])) for i in range(n)]
+
+
+def run_alexnet(P, trainer, samples, on_event=None):
+    trainer.train(P.batch(lambda: iter(samples), AX_BATCH), feeding=AX_FEEDING,
+                  event_handler=on_event)
+
+
+def phase_alexnet_train(torch, P, card):
+    """Phase 19a: AlexNet training through SGD.train at bench_alexnet's
+    configuration; returns (trainer, prediction layer)."""
+    torch.backends.cudnn.benchmark = True
+    P.init(seed=31, compute_dtype="bfloat16")
+    cost, probs = alexnet_cost(P)
+    params = P.parameters.create(cost, seed=31)
+    opt = P.optimizer.Momentum(learning_rate=AX_LR, momentum=0.9,
+                               regularization=P.optimizer.L2Regularization(rate=AX_L2))
+    trainer = P.trainer.SGD(cost, params, opt)
+    topo = trainer.topology
+    step_flops = 3 * AX_BATCH * conv_flops(topo)
+    n_params = sum(v.numel() for p in params.params.values() for v in p.values())
+    say(f"alexnet: {AX_IMG}x{AX_IMG}x3, {AX_CLASSES} classes, batch {AX_BATCH}, bf16 compute "
+        f"over f32 masters, Momentum({AX_LR}, 0.9) with L2 {AX_L2} (alexnet.py's "
+        f"0.01 / 128 and L2 0.0005 x 128 per sample, under the mean cost), {n_params} "
+        f"parameters, {sum(c.type == 'conv' for c in topo.layers.values())} convs, "
+        f"{sum(c.type == 'norm' for c in topo.layers.values())} cross-map norms; "
+        f"{step_flops:.6e} conv FLOPs per training step (3 x forward)")
+    rng = np.random.RandomState(31)
+    t0 = time.perf_counter()
+    run_alexnet(P, trainer, alexnet_images(rng, AX_BATCH))  # cuDNN autotuning, allocator
+    torch.cuda.synchronize()
+    say(f"alexnet: warm-up step {time.perf_counter() - t0:.3f} s")
+    timed = alexnet_images(rng, AX_TIMED * AX_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    steps, clock = [], [0.0]
+
+    def on_event(e):
+        if isinstance(e, P.event.BeginIteration):
+            torch.cuda.synchronize()
+            clock[0] = time.perf_counter()
+        elif isinstance(e, P.event.EndIteration):
+            steps.append((time.perf_counter() - clock[0], e.cost))
+
+    run_alexnet(P, trainer, timed, on_event)
+    secs, costs = [s[0] for s in steps], [s[1] for s in steps]
+    peak = torch.cuda.max_memory_allocated()
+    if len(steps) != AX_TIMED or not all(np.isfinite(costs)):
+        raise SystemExit("alexnet: training gave a non-finite cost or a missing step")
+    mean_s = float(np.mean(secs))
+    say(f"alexnet train: {len(steps)} steps, costs {[round(c, 4) for c in costs]}, seconds per "
+        f"step {[round(x, 4) for x in secs]} (each includes feeding the batch from the host)")
+    say(f"alexnet train: {mean_s:.4f} s per step (mean of {len(secs)}), "
+        f"{AX_BATCH * len(secs) / sum(secs):.2f} images/s, conv FLOPs "
+        f"{step_flops / mean_s / 1e12:.2f} TFLOP/s = {step_flops / mean_s / PEAK_BF16_FLOPS:.4f} of "
+        f"the bf16 peak, peak memory {peak / 2**30:.2f} GiB on {card}")
+    feeder = P.reader.DataFeeder(topo.data_types(), AX_FEEDING, device=trainer.device)
+    t0 = time.perf_counter()
+    feeder(timed[:AX_BATCH])
+    torch.cuda.synchronize()
+    say(f"alexnet train: feeding one batch from the host {time.perf_counter() - t0:.4f} s")
+
+    fixed = alexnet_images(rng, AX_BATCH)
+    fixed_costs = []
+    run_alexnet(P, trainer, fixed * AX_FIXED, lambda e: fixed_costs.append(e.cost)
+                if isinstance(e, P.event.EndIteration) else None)
+    say(f"alexnet train: {AX_FIXED} steps on one batch, costs "
+        f"{[round(c, 4) for c in fixed_costs]}")
+    if not all(np.isfinite(fixed_costs)) or not fixed_costs[-1] < fixed_costs[0]:
+        raise SystemExit("alexnet: the cost did not fall over repeated steps on one batch")
+    phase_alexnet_profile(torch, P, trainer, topo)
+
+    # one step's gradients at B=2 in f32 (dropout off), card against the CPU
+    # in f32, and both against the CPU in f64
+    net = P.CompiledNetwork(P.Topology(cost), compute_dtype="float32")
+    check = alexnet_images(np.random.RandomState(32), AX_CHECK_B)
+    got = {}
+    for where, dev, dtype in (("card f32", trainer.device, torch.float32),
+                              ("CPU f32", torch.device("cpu"), torch.float32),
+                              ("CPU f64", torch.device("cpu"), torch.float64)):
+        batch = P.reader.DataFeeder(net.topology.data_types(), AX_FEEDING, device=dev)(check)
+        batch["data"] = batch["data"].with_data(batch["data"].data.to(dtype))
+        cast = lambda tree: {l: {k: v.to(dev, dtype) for k, v in p.items()}  # noqa: E731
+                             for l, p in tree.items()}
+        got[where] = grads_of(torch, net, cast(trainer.parameters.params), batch)
+    per_leaf = {n: rel_l2(torch, {n: got["card f32"][1][n]}, {n: g})
+                for n, g in got["CPU f32"][1].items()}
+    worst = max(per_leaf, key=per_leaf.get)
+    say(f"alexnet gradients B={AX_CHECK_B} f32, card vs CPU: costs {got['card f32'][0]:.9f} vs "
+        f"{got['CPU f32'][0]:.9f}; worst leaf {worst} {per_leaf[worst]:.3e} (<= {AX_GRAD_REL}) "
+        f"over {len(per_leaf)} leaves; against the CPU's f64 over every leaf: card "
+        f"{rel_l2(torch, got['card f32'][1], got['CPU f64'][1]):.3e}, CPU f32 "
+        f"{rel_l2(torch, got['CPU f32'][1], got['CPU f64'][1]):.3e}")
+    if set(per_leaf) != set(got["CPU f64"][1]) or not per_leaf[worst] <= AX_GRAD_REL:
+        raise SystemExit("alexnet: the card's gradients stray from the CPU's")
+    return trainer, probs
+
+
+def phase_alexnet_profile(torch, P, trainer, topo):
+    """Phase 19a: torch.profiler over two training steps (busy share, top
+    kernels), and the device time of the two norm layers' kernels: their
+    forward and backward alone at the step's shapes, in bf16."""
+    from torch.profiler import ProfilerActivity, profile
+
+    samples = alexnet_images(np.random.RandomState(33), 2 * AX_BATCH)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_alexnet(P, trainer, samples)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    total_us = sum(e.self_device_time_total for e in dev)
+    if total_us <= 0:
+        raise SystemExit("alexnet profile: the profiler shows no device time")
+    say(f"alexnet profile: 2 steps in {wall:.4f} s (profiler on), device busy "
+        f"{total_us / 1e6:.4f} s ({total_us / 1e6 / wall:.3f} of the window), "
+        f"{sum(e.count for e in dev) / 2:.1f} kernels per step; top device kernels per step:")
+    for e in sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)[:10]:
+        say(f"  {e.self_device_time_total / 2e3:9.3f} ms  {e.count / 2:6.1f} calls  "
+            f"{100 * e.self_device_time_total / total_us:5.1f}%  {e.key[:100]}")
+    norm_ms = norm_device_ms(torch, P, topo, trainer.device)
+    say(f"alexnet profile: the norm layers' kernels {norm_ms:.3f} ms per step = "
+        f"{norm_ms / (total_us / 2e3):.3f} of the step's device time")
+
+
+def norm_device_ms(torch, P, topo, dev) -> float:
+    """Device ms of the topology's norm layers' kernels: each layer's
+    forward and backward alone in bf16 at its shape in the step, under the
+    profiler."""
+    L, dt = P.layer, P.data_type
+    norm_us = 0.0
+    for conf in (c for c in topo.layers.values() if c.type == "norm"):
+        a = conf.attrs
+        x = L.data("x", dt.dense_vector(a["in_c"] * a["in_h"] * a["in_w"]), height=a["in_h"],
+                   width=a["in_w"])
+        out = L.img_cmrnorm(x, size=a["norm_size"], scale=a["scale"], power=a["power"])
+        net = P.CompiledNetwork(P.Topology(out), compute_dtype="bfloat16")
+        xs = torch.randn(AX_BATCH, a["in_h"], a["in_w"], a["in_c"], device=dev,
+                         dtype=torch.bfloat16, requires_grad=True)
+
+        def fwd_bwd():
+            y = net.apply({}, {"x": P.core.batch.SeqTensor(xs)}, train=True)[0][out.name].data
+            y.backward(torch.ones_like(y))
+
+        fwd_bwd()
+        wall, busy, kernels, _ = profile_call(torch, fwd_bwd)
+        norm_us += busy * 1e6
+        say(f"alexnet norm {conf.name} [{AX_BATCH}, {a['in_h']}, {a['in_w']}, {a['in_c']}] "
+            f"size {a['norm_size']}: forward + backward {busy * 1e3:.3f} ms on the device, "
+            f"{kernels} kernels")
+    return norm_us / 1e3
+
+
+def phase_alexnet_infer(torch, P, probs, trainer, card):
+    """Phase 19b: AlexNet served through Inference.infer from 19a's
+    parameters, and two images in f32 card against CPU."""
+    from paddle_tpu_torch.core.device import tree_to
+
+    P.init(compute_dtype="bfloat16")
+    inf = P.Inference(probs, trainer.parameters)
+    images = [(x,) for x, _ in alexnet_images(np.random.RandomState(34), AX_INFER + AX_BATCH)]
+    inf.infer(images[AX_INFER:], batch_size=AX_BATCH)  # warm-up
+    torch.cuda.synchronize()
+    results, batch_s = [], []
+    t0 = time.perf_counter()
+    for res in inf.iter_infer_field(field="value", input=images[:AX_INFER], batch_size=AX_BATCH):
+        batch_s.append(time.perf_counter() - t0 - sum(batch_s))
+        results.append(res[0])
+    wall = time.perf_counter() - t0
+    out = np.concatenate(results, axis=0)
+    sums = out.sum(axis=1)
+    say(f"alexnet infer: {AX_INFER} images in {len(results)} batches of {AX_BATCH}, bf16, "
+        f"seconds per batch {[round(x, 4) for x in batch_s]}, {AX_INFER / wall:.2f} images/s on "
+        f"{card}; row sums in [{sums.min():.6f}, {sums.max():.6f}]")
+    if out.shape != (AX_INFER, AX_CLASSES) or not np.isfinite(out).all():
+        raise SystemExit(f"alexnet infer: output {out.shape} not finite or not "
+                         f"{(AX_INFER, AX_CLASSES)}")
+    if np.abs(sums - 1.0).max() > 1e-2:
+        raise SystemExit("alexnet infer: a distribution does not sum to 1 within 1e-2")
+    P.init(compute_dtype="float32")
+    two = images[:AX_CHECK_B]
+    card_p = P.Inference(probs, trainer.parameters).infer(two, batch_size=AX_CHECK_B)
+    cpu_p = P.Inference(probs, trainer.parameters, device="cpu").infer(two, batch_size=AX_CHECK_B)
+    dp = float(np.abs(card_p - cpu_p).max())
+    net = P.CompiledNetwork(P.Topology(probs), compute_dtype="float32")
+    logits = []
+    for dev in (trainer.device, torch.device("cpu")):
+        batch = P.reader.DataFeeder(net.topology.data_types(), {"data": 0}, device=dev)(two)
+        with torch.inference_mode():
+            outs, _ = net.apply(tree_to(trainer.parameters.params, dev), batch, train=False)
+        logits.append(outs[probs.name + "@logits"].data.cpu().double())
+    dl = ((logits[0] - logits[1]).abs().max() / logits[1].abs().max()).item()
+    say(f"alexnet infer f32 B={AX_CHECK_B}, card vs CPU: max|dp| = {dp:.3e} (<= {AX_PROB_ABS}), "
+        f"max|dlogit|/max|logit| = {dl:.3e} (<= {AX_LOGIT_REL})")
+    if not dp <= AX_PROB_ABS or not dl <= AX_LOGIT_REL:
+        raise SystemExit("alexnet infer: card and CPU outputs disagree")
+    P.init(compute_dtype="bfloat16")
+
+
+def image_cases(P, rng):
+    """Phase 19c's cases: (name, output, data types, samples), at shapes of
+    the models that use each type."""
+    L, A, dt = P.layer, P.activation, P.data_type
+
+    def img(name, c, h, w):
+        return L.data(name, dt.dense_vector(c * h * w), height=h, width=w)
+
+    def samples(n, *widths):
+        cols = [rng.randn(n, w).astype(np.float32) for w in widths]
+        return [tuple(col[i] for col in cols) for i in range(n)]
+
+    def dense(name, c, h, w):
+        return (name, dt.dense_vector(c * h * w))
+
+    out = []
+    z = img("z", 512, 4, 4)
+    h = L.img_conv(z, 4, 256, stride=2, padding=1, trans=True, act=A.Relu())
+    h = L.img_conv(h, 4, 128, stride=2, padding=1, trans=True, act=A.Relu())
+    h = L.img_conv(h, 4, 3, stride=2, padding=1, trans=True, act=A.Tanh())
+    out.append(("convt DCGAN ladder [128, 4, 4, 512] -> 8x8x256 -> 16x16x128 -> 32x32x3", h,
+                [dense("z", 512, 4, 4)], samples(128, 512 * 16)))
+    g = L.img_conv(img("g", 256, 8, 8), 4, 128, stride=2, padding=1, groups=2, trans=True,
+                   act=A.Identity())
+    out.append(("convt groups 2 [128, 8, 8, 256] -> 16x16x128", g, [dense("g", 256, 8, 8)],
+                samples(128, 256 * 64)))
+    n = L.img_cmrnorm(img("n", 96, 55, 55), size=5, scale=0.0001, power=0.75)
+    out.append(("norm size 5 over AlexNet's conv1 [128, 55, 55, 96]", n,
+                [dense("n", 96, 55, 55)], samples(128, 96 * 55 * 55)))
+    m = L.maxout(img("m", 192, 32, 32), groups=2)
+    out.append(("maxout groups 2 [128, 32, 32, 192]", m, [dense("m", 192, 32, 32)],
+                samples(128, 192 * 32 * 32)))
+    for kind in ("max", "avg"):
+        pool = P.pooling.Max() if kind == "max" else P.pooling.Avg()
+        s = L.spp(img("s", 256, 13, 13), pyramid_height=3, pool_type=pool)
+        out.append((f"spp {kind} pyramid 3 over AlexNet's conv5 [128, 13, 13, 256]", s,
+                    [dense("s", 256, 13, 13)], samples(128, 256 * 169)))
+    u = L.bilinear_interp(img("u", 64, 28, 28), out_size_x=56, out_size_y=56)
+    out.append(("bilinear_interp 2x up [32, 28, 28, 64]", u, [dense("u", 64, 28, 28)],
+                samples(32, 64 * 28 * 28)))
+    d = L.bilinear_interp(img("d", 64, 56, 56), out_size_x=28, out_size_y=28)
+    out.append(("bilinear_interp 2x down [32, 56, 56, 64]", d, [dense("d", 64, 56, 56)],
+                samples(32, 64 * 56 * 56)))
+    p = L.img_pad(img("p", 3, 227, 227), pad_c=(0, 1), pad_h=(2, 1), pad_w=(1, 2))
+    out.append(("pad [32, 227, 227, 3] -> 230x230x4", p, [dense("p", 3, 227, 227)],
+                samples(32, 3 * 227 * 227)))
+    c = L.crop(img("c", 3, 227, 227), offset=[1, 2], axis=2, shape=[224, 224])
+    out.append(("crop [32, 227, 227, 3] to 224x224 at (1, 2)", c, [dense("c", 3, 227, 227)],
+                samples(32, 3 * 227 * 227)))
+    for as_row in (True, False):
+        f = L.featmap_expand(L.data("f", dt.dense_vector(4096)), 4, as_row_vector=as_row)
+        out.append((f"featmap_expand x4 of AlexNet's fc [128, 4096], as_row_vector {as_row}", f,
+                    [("f", dt.dense_vector(4096))], samples(128, 4096)))
+    b = L.block_expand(img("b", 128, 8, 25), block_x=1, block_y=8)
+    out.append(("block_expand 8x1 over the CTC path's [64, 8, 25, 128]", b,
+                [dense("b", 128, 8, 25)], samples(64, 128 * 8 * 25)))
+    o = L.conv_operator(img("o", 256, 13, 13), L.data("w", dt.dense_vector(256 * 256 * 9)),
+                        filter_size=3, num_filters=256, num_channels=256, padding=1)
+    out.append(("conv_op 3x3 256 -> 256 per sample over [8, 13, 13, 256]", o,
+                [dense("o", 256, 13, 13), ("w", dt.dense_vector(256 * 256 * 9))],
+                samples(8, 256 * 169, 256 * 256 * 9)))
+    t = L.conv_operator(img("o", 128, 8, 25), L.data("w", dt.dense_vector(64 * 128 * 9)),
+                        filter_size=3, num_filters=64, num_channels=128, padding=1, trans=True)
+    out.append(("conv_op trans 3x3 128 -> 64 per sample over [8, 8, 25, 128]", t,
+                [dense("o", 128, 8, 25), ("w", dt.dense_vector(64 * 128 * 9))],
+                samples(8, 128 * 200, 64 * 128 * 9)))
+    return out
+
+
+def phase_image_types(torch, P, card, dev):
+    """Phase 19c: each image type in f32 on the card and on the CPU, held
+    to the CPU's f64 evaluation (phase 8's rule): outputs and the gradients
+    of their sum of squares (parameters and inputs) within max(2 x the
+    CPU f32's own error, 1e-5) relative L2."""
+    P.init(seed=191, compute_dtype="float32")
+    worst = 0.0
+    cases = image_cases(P, np.random.RandomState(19))
+    for k, (name, out, types, samples) in enumerate(cases):
+        params = P.CompiledNetwork(P.Topology(out)).init_params(193 + k, device="cpu")
+        got = {w: values_and_grads(torch, P, out, types, samples, params, d, dt)
+               for w, d, dt in (("card", dev, torch.float32),
+                                ("cpu", torch.device("cpu"), torch.float32),
+                                ("f64", torch.device("cpu"), torch.float64))}
+        errs = {}
+        for part, i in (("output", 0), ("gradients", 1)):
+            card_, cpu_, f64 = (got[w][i] if i else {"y": got[w][0]} for w in ("card", "cpu", "f64"))
+            errs[part] = (rel_l2(torch, card_, f64),
+                          max(RN_GRAD_SLACK * rel_l2(torch, cpu_, f64), CARD_REL),
+                          rel_l2(torch, card_, cpu_))
+        say(f"image f32 on {card}: {name}: " + "; ".join(
+            f"{part} card vs CPU f64 {e:.3e} (<= {bar:.3e}), card vs CPU f32 {d:.3e}"
+            for part, (e, bar, d) in errs.items()))
+        worst = max(worst, *(e / bar for e, bar, _ in errs.values()))
+        if any(e > bar for e, bar, _ in errs.values()):
+            raise SystemExit(f"image types: {name} strays between the card and the CPU")
+    say(f"image types: {len(cases)} cases, worst error / bar {worst:.3f}")
+    P.init(compute_dtype="bfloat16")
+
+
+def crnn_ctc_cost(P, evaluator=False):
+    """The CRNN-CTC line recognizer: (cost, logits, ctc_error evaluator or
+    None)."""
+    L, A, dt = P.layer, P.activation, P.data_type
+    net = L.data("image", dt.dense_vector(CTC_H * CTC_W), height=CTC_H, width=CTC_W)
+    for k, f in enumerate(CTC_FILTERS):
+        net = L.img_conv(net, filter_size=3, num_filters=f, padding=1, act=A.Relu(),
+                         num_channels=1 if k == 0 else None)
+        net = L.img_pool(net, pool_size=2, stride=2, pool_type=P.pooling.Max())
+    net = L.block_expand(net, block_x=1, block_y=CTC_H // 4)
+    net = P.networks.bidirectional_gru(net, size=CTC_GRU, return_seq=True)
+    logits = L.fc(net, size=CTC_CLASSES, act=A.Identity(), name="ctc_logits")
+    label = L.data("label", dt.integer_value_sequence(CTC_CLASSES))
+    cost = L.warp_ctc(logits, label, size=CTC_CLASSES, blank=0, norm_by_times=False)
+    ev = P.evaluator.ctc_error_evaluator(logits, label, name="ctc_error") if evaluator else None
+    return cost, logits, ev
+
+
+def ctc_lines(rng, n):
+    """n (line image, label ids) samples: images from N(0, 1), 3-12 ids in
+    1..37 (0 is the blank)."""
+    x = rng.randn(n, CTC_H * CTC_W).astype(np.float32)
+    return [(x[i], [int(v) for v in rng.randint(1, CTC_CLASSES, size=rng.randint(
+        CTC_LABELS[0], CTC_LABELS[1] + 1))]) for i in range(n)]
+
+
+def phase_ctc(torch, P, card, dev):
+    """Phase 19d: the CRNN-CTC path: bf16 training with the evaluator, host
+    syncs by site, f32 card vs CPU, and F.ctc_loss as a yardstick."""
+    import torch.nn.functional as F
+
+    P.init(seed=41, compute_dtype="bfloat16")
+    cost, logits, ev = crnn_ctc_cost(P, evaluator=True)
+    trainer = P.trainer.SGD(cost, P.parameters.create(cost, seed=41),
+                            P.optimizer.Adam(learning_rate=CTC_LR), evaluators=[ev])
+    rng = np.random.RandomState(41)
+    batch = ctc_lines(rng, CTC_B)
+    frames = CTC_W // 4
+    say(f"ctc: lines {CTC_H}x{CTC_W}, convs {CTC_FILTERS}, block_expand 8x1 -> {frames} frames "
+        f"of {CTC_FILTERS[-1] * CTC_H // 4}, bidirectional_gru {CTC_GRU}, fc {CTC_CLASSES}, "
+        f"warp_ctc(blank=0); B = {CTC_B}, labels of {CTC_LABELS[0]}-{CTC_LABELS[1]} ids; bf16, "
+        f"Adam({CTC_LR})")
+    one_step(torch, P, trainer, CTC_FEEDING, batch)  # warm-up
+    steps = []
+    for _ in range(CTC_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = []
+        trainer.train(lambda: iter([batch]), feeding=CTC_FEEDING, event_handler=lambda e: got.append(
+            (e.cost, e.evaluator["ctc_error"])) if isinstance(e, P.event.EndIteration) else None)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0, *got[0]))
+    secs, costs, errs = zip(*steps)
+    med = float(np.median(secs))
+    say(f"ctc train: {CTC_STEPS} steps on one batch after a warm-up: costs "
+        f"{[round(c, 4) for c in costs]}, ctc_error {[round(e, 4) for e in errs]}, median "
+        f"{med:.4f} s per step, {CTC_B / med:.1f} lines/s on {card}")
+    if not all(np.isfinite(costs)) or not costs[-1] < costs[0]:
+        raise SystemExit("ctc: the cost did not fall over repeated steps on one batch")
+    sites = count_syncs(torch, lambda: one_step(torch, P, trainer, CTC_FEEDING, batch))
+    by_site = {x: sites.count(x) for x in sorted(set(sites))}
+    inside = [x for x in sites if x.startswith(("paddle_tpu_torch/layers/", "paddle_tpu_torch/ops/"))]
+    evals = [x for x in sites if x.startswith("paddle_tpu_torch/evaluator.py")]
+    say(f"ctc step: {len(sites)} host syncs by site {by_site}; from the layers and ops "
+        f"{len(inside)}, the evaluator's copy per batch {evals}")
+    if inside or len(evals) != 1:
+        raise SystemExit(f"ctc: host syncs from the layers {inside} or not one evaluator copy "
+                         f"{evals}")
+    wall, busy, kernels, top = profile_call(
+        torch, lambda: one_step(torch, P, trainer, CTC_FEEDING, batch))
+    say(f"ctc step: {kernels} device kernels, device busy {busy:.4f} s of {wall:.4f} s "
+        f"({busy / wall:.3f}); top:")
+    for line in top[:3]:
+        say(f"  {line}")
+    del trainer
+
+    # f32 card vs CPU at B = 4: the path's cost and gradients, and the cost's
+    # gradient with respect to the logits alone
+    P.init(seed=42, compute_dtype="float32")
+    small = ctc_lines(np.random.RandomState(42), CTC_CHECK_B)
+    cost32, _, _ = crnn_ctc_cost(P)
+    c_dev, c_cpu, g_rel, n_leaves = card_cpu_grads(torch, P, cost32, CTC_FEEDING, small, 43, dev)
+    c_rel = abs(c_dev - c_cpu) / abs(c_cpu)
+    L, dt = P.layer, P.data_type
+    lone = L.warp_ctc(L.data("logits", dt.dense_vector_sequence(CTC_CLASSES)),
+                      L.data("label", dt.integer_value_sequence(CTC_CLASSES)),
+                      size=CTC_CLASSES, blank=0)
+    lrng = np.random.RandomState(44)
+    lone_samples = [(lrng.randn(int(lrng.randint(2 * len(ids) + 1, frames + 1)),
+                                CTC_CLASSES).astype(np.float32), ids) for _, ids in small]
+    err_y, err_g = small_card_cpu(torch, P, lone, [
+        ("logits", dt.dense_vector_sequence(CTC_CLASSES)),
+        ("label", dt.integer_value_sequence(CTC_CLASSES))], lone_samples, 45, dev=dev)
+    say(f"ctc f32 B={CTC_CHECK_B}, card vs CPU: path cost {c_dev:.9f} vs {c_cpu:.9f} (relative "
+        f"{c_rel:.3e}), gradients relative L2 {g_rel:.3e} over {n_leaves} leaves; warp_ctc alone "
+        f"on ragged logits: costs {err_y:.3e}, logit gradients {err_g:.3e} (<= {CARD_REL})")
+    if not max(c_rel, g_rel, err_y, err_g) <= CARD_REL:
+        raise SystemExit("ctc: the card's cost or gradients stray from the CPU's")
+
+    # F.ctc_loss against the port's cost on the card, at the path's shape
+    net = P.CompiledNetwork(P.Topology(lone), compute_dtype="float32")
+    feeder = P.reader.DataFeeder([("logits", dt.dense_vector_sequence(CTC_CLASSES)),
+                                  ("label", dt.integer_value_sequence(CTC_CLASSES))], device=dev)
+    yrng = np.random.RandomState(46)
+    fb = feeder([(yrng.randn(frames, CTC_CLASSES).astype(np.float32), ids)
+                 for _, ids in ctc_lines(yrng, CTC_B)])
+    x = fb["logits"].data.detach().requires_grad_(True)
+    lab, lab_len, in_len = fb["label"].data.long(), fb["label"].lengths.long(), \
+        fb["logits"].lengths.long()
+
+    def port():
+        b = {"logits": fb["logits"].with_data(x), "label": fb["label"]}
+        c = net.apply({}, b, train=True)[0][lone.name].data
+        c.sum().backward()
+        return c
+
+    def library():
+        lp = F.log_softmax(x, dim=-1).transpose(0, 1)
+        c = F.ctc_loss(lp, lab, in_len, lab_len, blank=0, reduction="none")
+        c.sum().backward()
+        return c
+
+    mine, ref = port().detach()[:, 0], library().detach()
+    d = ((mine - ref).abs() / ref.abs()).max().item()
+    port_ms, lib_ms = time_ms(torch, port), time_ms(torch, library)
+    _, busy, kernels, _ = profile_call(torch, port)
+    say(f"ctc cost on the card, B={CTC_B}, T={frames}, {CTC_CLASSES} classes: port vs F.ctc_loss "
+        f"max relative {d:.3e} (<= {CTC_LOSS_REL}); forward + backward {port_ms:.4f} ms (port, "
+        f"{kernels} kernels, {kernels / frames:.1f} per frame, device busy {busy * 1e3:.3f} ms) "
+        f"vs {lib_ms:.4f} ms (F.ctc_loss, a yardstick the port never calls)")
+    if not d <= CTC_LOSS_REL:
+        raise SystemExit("ctc: the port's cost and F.ctc_loss disagree")
+    P.init(compute_dtype="bfloat16")
+
+
+def phase_image_ctc(torch, P, fa, card):
+    """Phase 19: AlexNet training and serving, each image type card vs CPU,
+    and the CRNN-CTC path."""
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    trainer, probs = phase_alexnet_train(torch, P, card)
+    t1 = time.perf_counter()
+    phase_alexnet_infer(torch, P, probs, trainer, card)
+    del trainer
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    dev = torch.device("cuda")
+    phase_image_types(torch, P, card, dev)
+    t3 = time.perf_counter()
+    phase_ctc(torch, P, card, dev)
+    t4 = time.perf_counter()
+    say(f"image: phase 19 split: alexnet train {t1 - t0:.1f} s, infer {t2 - t1:.1f} s, types "
+        f"{t3 - t2:.1f} s, ctc {t4 - t3:.1f} s; flash launches (fwd, dq, dkv) over it "
+        f"{launch_counts(fa)}")
+    if launch_counts(fa) != (0, 0, 0):
+        raise SystemExit("image: phase 19 launched a flash kernel")
+
+
 def main() -> int:
     import torch
 
@@ -3752,6 +4298,10 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_costs(torch, P, fa, card)
     say(f"costs: phase 18 took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_image_ctc(torch, P, fa, card)
+    say(f"image: phase 19 took {time.perf_counter() - t0:.1f} s")
     kernels = [
         {"name": name, "route": "cuda", "source": f"paddle_tpu_torch/csrc/{src}",
          "replaces": f"paddle_tpu/ops/pallas_attention.py:{line}",

@@ -15,7 +15,11 @@ NMT model (``models/seq2seq.py``) trains through recurrent groups
 (``reader/bucketing.py``).  LSTM text classification runs on the LSTM core
 (``networks.simple_lstm``), and the CRF sequence tagger
 (``models/sequence_tagging.py``) on the simple-RNN core under
-``crf``/``crf_decoding``::
+``crf``/``crf_decoding``.  The image types (``convt``, the cross-map norm,
+``maxout``, ``pad``, ``crop``, ``bilinear_interp``, ``spp``,
+``featmap_expand``, ``block_expand``), the conv operator and CTC
+(``ctc``/``warp_ctc`` with ``evaluator.ctc_error_evaluator``) carry AlexNet
+and CRNN-CTC line recognizers::
 
     import paddle_tpu_torch as paddle
     paddle.init(seed=1, compute_dtype="bfloat16", use_flash_attention=True)

@@ -11,9 +11,9 @@ events, per pass for pass events and ``test``) and finalizes them.  Printers
 print from their update and accumulate nothing.
 
 Ported: classification_error, sum, column_sum, auc, precision_recall,
-pnpair, chunk and the value, maxid, seq_text, maxframe, classification_error
-and gradient printers.  Not ported yet: ctc_error and detection_map (their
-layers are not in the port); calling either raises.
+pnpair, chunk, ctc_error and the value, maxid, seq_text, maxframe,
+classification_error and gradient printers.  Not ported yet: detection_map
+(its layers are not in the port); calling it raises.
 """
 
 from __future__ import annotations
@@ -320,6 +320,79 @@ def chunk_evaluator(
 
 
 # ---------------------------------------------------------------------------
+# ctc_error — edit distance between the best-path CTC decode and the label
+# ---------------------------------------------------------------------------
+
+
+def _ctc_best_path(logits: torch.Tensor, lengths: torch.Tensor, blank: int):
+    """Greedy decode and collapse on the logits' device: (ids [B, T] with the
+    kept symbols first, their counts [B]).  argmax takes the first maximum
+    and a stable argsort compacts, as in the JAX package."""
+    t_ = logits.shape[1]
+    am = torch.argmax(logits, dim=-1)  # [B, T]
+    prev = torch.cat([am.new_full((am.shape[0], 1), -1), am[:, :-1]], dim=1)
+    tpos = torch.arange(t_, device=am.device)[None, :]
+    keep = (am != blank) & (am != prev) & (tpos < lengths[:, None])
+    order = torch.argsort((~keep).to(torch.int8), dim=1, stable=True)
+    return am.gather(1, order), keep.sum(1)
+
+
+def _edit_distance(a: np.ndarray, alen: np.ndarray, b: np.ndarray, blen: np.ndarray):
+    """Levenshtein distance of a[i, :alen[i]] to b[i, :blen[i]] per row, in
+    integers on the host: the JAX package's two scans (one row of the table
+    per position of a, frozen past alen), vectorised over the batch."""
+    rows, ta = a.shape
+    tb = b.shape[1]
+    row = np.broadcast_to(np.arange(tb + 1, dtype=np.int64), (rows, tb + 1)).copy()
+    for i in range(ta):
+        sub = (a[:, i][:, None] != b).astype(np.int64)  # [B, Tb]
+        new = np.empty_like(row)
+        new[:, 0] = i + 1
+        for j in range(tb):
+            new[:, j + 1] = np.minimum(np.minimum(row[:, j + 1] + 1, new[:, j] + 1),
+                                       row[:, j] + sub[:, j])
+        row = np.where((i < alen)[:, None], new, row)
+    return row[np.arange(rows), blen]
+
+
+def ctc_error_evaluator(
+    input: LayerOutput, label: LayerOutput, blank: int = 0,
+    name: Optional[str] = None,
+) -> Evaluator:
+    """Sequence error: the edit distance of the best-path decode from the
+    label, summed, over the summed label lengths (reference
+    CTCErrorEvaluator.cpp:277).  The decode runs on the card; one copy per
+    batch brings the decoded ids and the labels to the host, where the
+    distances are computed."""
+    nm = name or auto_name("ctc_error")
+
+    def update(outs):
+        pred_t, lab_t = outs[input.name], outs[label.name]
+        dec, dec_len = _ctc_best_path(pred_t.data, pred_t.lengths, blank)
+        lab = _ids_of(lab_t)
+        if lab.dim() != 2:
+            # _ids_of squeezes ids padded to T = 1, as the JAX package's does
+            raise ValueError(f"{nm}: label ids of shape {tuple(lab.shape)}; a label "
+                             "sequence padded to length 1 cannot be scored")
+        t_ = dec.shape[1]
+        host = torch.cat([dec, dec_len[:, None], lab,
+                          lab_t.lengths.to(torch.int64)[:, None]], dim=1).cpu().numpy()
+        dec_h, dec_len_h = host[:, :t_], host[:, t_]
+        lab_h, lab_len_h = host[:, t_ + 1:-1], host[:, -1]
+        dist = _edit_distance(dec_h, dec_len_h, lab_h, lab_len_h)
+        return {
+            "dist": torch.tensor(float(dist.sum())),
+            "ref": torch.tensor(float(lab_len_h.sum())),
+            "seqs": torch.tensor(float(dec_h.shape[0])),
+        }
+
+    def finalize(acc):
+        return {nm: float(acc["dist"]) / max(float(acc["ref"]), 1.0)}
+
+    return Evaluator(nm, [input, label], update, finalize)
+
+
+# ---------------------------------------------------------------------------
 # printers: side-effect evaluators
 # ---------------------------------------------------------------------------
 
@@ -462,7 +535,6 @@ def _not_ported(name: str):
     return build
 
 
-ctc_error_evaluator = _not_ported("ctc_error_evaluator")
 detection_map_evaluator = _not_ported("detection_map_evaluator")
 
 

@@ -28,9 +28,8 @@ from paddle_tpu_torch.core.data_types import InputType
 from paddle_tpu_torch.core.topology import LayerConf, LayerOutput, Topology, auto_name
 from paddle_tpu_torch.pooling import pool_name
 
-# register the layer impls; 16 of the JAX package's types are not ported
-# (the rest of the image layers, conv_op, ctc, detection, mdlstm and moe),
-# and their DSL callables fail at compile time
+# register the layer impls; 5 of the JAX package's types are not ported
+# (detection, mdlstm and moe), and their DSL callables fail at compile time
 from paddle_tpu_torch.layers import base as _base  # noqa: F401
 from paddle_tpu_torch.layers import basic as _basic  # noqa: F401
 from paddle_tpu_torch.layers import conv as _conv  # noqa: F401
@@ -399,8 +398,6 @@ def img_conv(
     layer_attr: Optional[ExtraAttr] = None,
 ) -> LayerOutput:
     """reference img_conv_layer (layers.py) -> ExpandConvLayer/CudnnConvLayer."""
-    if trans:
-        raise NotImplementedError("img_conv(trans=True) (convt) is not ported yet")
     in_c, in_h, in_w = _img_attrs(input, num_channels)
     # reference accepts (x, y) tuples for filter_size/stride/padding
     if isinstance(filter_size, (list, tuple)):
@@ -415,12 +412,21 @@ def img_conv(
     sw = stride
     ph = padding_y if padding_y is not None else padding
     pw = padding
-    out_h = cnn_output_size(in_h, fh, ph, sh, caffe_mode)
-    out_w = cnn_output_size(in_w, fw, pw, sw, caffe_mode)
+    if trans:
+        if num_filters % groups or in_c % groups:
+            raise ValueError(
+                f"transpose conv groups={groups} must divide both in_c "
+                f"({in_c}) and num_filters ({num_filters})"
+            )
+        out_h = _conv.convt_output_size(in_h, fh, ph, sh)
+        out_w = _conv.convt_output_size(in_w, fw, pw, sw)
+    else:
+        out_h = cnn_output_size(in_h, fh, ph, sh, caffe_mode)
+        out_w = cnn_output_size(in_w, fw, pw, sw, caffe_mode)
     drop, shard = _extra(layer_attr)
     conf = LayerConf(
         name=name or auto_name("conv"),
-        type="conv",
+        type="convt" if trans else "conv",
         size=out_h * out_w * num_filters,
         inputs=(input.name,),
         act=act_name(act if act is not None else _act_mod.Relu()),

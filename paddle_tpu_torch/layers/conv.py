@@ -1,6 +1,6 @@
-"""Image layers: conv, pool (max / avg) and batch_norm — the counterpart of
-``paddle_tpu/layers/conv.py`` (:29-78, :125-225) for what LeNet and the
-ResNet family run.
+"""Image layers: conv, convt, pool (max / avg), batch_norm, the cross-map
+norm, maxout, pad, crop, bilinear_interp, spp and featmap_expand — the
+counterpart of ``paddle_tpu/layers/conv.py``.
 
 Layout: image tensors flow NHWC between layers, as in the JAX package (its
 ``fc`` flatten, ``addto`` and the batch-norm axes assume it).  A contiguous
@@ -10,10 +10,9 @@ channels_last outputs permute back to contiguous NHWC.  A flat [B, C*H*W]
 input (a data slot) is read in CHW order, as in the reference, and
 transposed to NHWC once.  Conv kernels stay HWIO ``[kh, kw, cin/groups,
 cout]`` as in the JAX package; each conv forms torch's ``[cout, cin/groups,
-kh, kw]`` operand in channels_last (one copy of the weight).
-
-Not ported yet: convt, norm (cross-map), maxout, pad, crop, bilinear_interp,
-spp and featmap_expand (compiling one raises).
+kh, kw]`` operand in channels_last (one copy of the weight); a convt forms
+torch's ``[cin, cout/groups, kh, kw]`` operand from the same HWIO layout
+(:func:`conv_transpose_nhwc`).
 """
 
 from __future__ import annotations
@@ -84,6 +83,35 @@ def conv_apply(conf, params, inputs, ctx):
         groups=a.get("groups", 1),
     )
     return SeqTensor(_as_nhwc(out), inputs[0].lengths)
+
+
+def conv_transpose_nhwc(x, w, *, strides, ph, pw, groups: int = 1):
+    """Transposed conv of NHWC `x` with the HWIO kernel `w` (``[kh, kw,
+    cin/groups, cout]``), as the JAX package's lhs-dilated conv computes it:
+    output extent (in - 1) s + k - 2p.  That conv correlates the
+    stride-dilated input with the kernel as it stands; conv_transpose2d
+    correlates with its operand flipped in H and W and laid out [cin,
+    cout/groups, kh, kw], so the kernel is flipped and group g's block of
+    output channels moved behind its block of input channels.  Shared by
+    the convt layer and ``conv_operator(trans=True)``."""
+    kh, kw, cin_g, cout = w.shape
+    wt = (w.flip(0, 1).reshape(kh, kw, cin_g, groups, cout // groups)
+          .permute(3, 2, 4, 0, 1).reshape(groups * cin_g, cout // groups, kh, kw))
+    out = F.conv_transpose2d(_as_nchw(x), wt.contiguous(memory_format=torch.channels_last),
+                             stride=strides, padding=(ph, pw), groups=groups)
+    return _as_nhwc(out)
+
+
+@register_layer("convt", init=conv_init)
+def convt_apply(conf, params, inputs, ctx):
+    a = conf.attrs
+    x = to_nhwc(inputs[0].data, a["in_h"], a["in_w"], a["in_c"])
+    out = conv_transpose_nhwc(
+        x, params["w"], strides=(a.get("stride_h", 1), a.get("stride_w", 1)),
+        ph=a.get("pad_h", 0), pw=a.get("pad_w", 0), groups=a.get("groups", 1))
+    if "b" in params:
+        out = out + params["b"]
+    return SeqTensor(out, inputs[0].lengths)
 
 
 # ---------------------------------------------------------------------------
@@ -191,3 +219,154 @@ def batch_norm_apply(conf, params, inputs, ctx):
     if "beta" in params:  # bias_attr=False BN has no shift
         out = out + params["beta"].to(xf.dtype)
     return SeqTensor(out.to(in_dtype), inputs[0].lengths)
+
+
+# ---------------------------------------------------------------------------
+# norm — the cross-map response normalization (AlexNet's LRN)
+# ---------------------------------------------------------------------------
+
+
+@register_layer("norm")
+def cmrnorm_apply(conf, params, inputs, ctx):
+    """x (1 + scale sum_{window over channels} x^2)^-power in f32, cast back
+    to the input's dtype (reference CrossMapNormalOp.cpp).  The window
+    starts (size - 1) // 2 channels to the left, so an even size reaches
+    one channel further to the right."""
+    a = conf.attrs
+    size = a["norm_size"]
+    x = to_nhwc(inputs[0].data, a["in_h"], a["in_w"], a["in_c"])
+    x32 = x.float()
+    half = (size - 1) // 2
+    padded = F.pad(x32 * x32, (half, size - 1 - half))
+    window = padded.unfold(3, size, 1).sum(-1)
+    denom = (1.0 + a.get("scale", 0.0128) * window) ** (-a.get("power", 0.75))
+    return SeqTensor((x32 * denom).to(x.dtype), inputs[0].lengths)
+
+
+# ---------------------------------------------------------------------------
+# maxout, pad, crop
+# ---------------------------------------------------------------------------
+
+
+@register_layer("maxout")
+def maxout_apply(conf, params, inputs, ctx):
+    """The max over each group of `groups` consecutive channels
+    (MaxOutLayer.cpp): c -> (c // groups, groups)."""
+    a = conf.attrs
+    g = a["groups"]
+    x = to_nhwc(inputs[0].data, a["in_h"], a["in_w"], a["in_c"])
+    b, h, w, c = x.shape
+    return SeqTensor(x.reshape(b, h, w, c // g, g).amax(-1), inputs[0].lengths)
+
+
+@register_layer("pad")
+def pad_apply(conf, params, inputs, ctx):
+    """Zeros before and after along C, H and W (PadLayer.cpp)."""
+    a = conf.attrs
+    x = to_nhwc(inputs[0].data, a["in_h"], a["in_w"], a["in_c"])
+    pc, ph, pw = (tuple(a.get(k, (0, 0))) for k in ("pad_c", "pad_h_pair", "pad_w_pair"))
+    return SeqTensor(F.pad(x, (*pc, *pw, *ph)), inputs[0].lengths)
+
+
+@register_layer("crop")
+def crop_apply(conf, params, inputs, ctx):
+    """The window of extent (out_h, out_w, out_c) at the offsets along H, W
+    and C (CropLayer.cpp); a second input only sized it."""
+    a = conf.attrs
+    x = to_nhwc(inputs[0].data, a["in_h"], a["in_w"], a["in_c"])
+    oh, ow, oc = a["out_h"], a["out_w"], a.get("out_c", a["in_c"])
+    offh, offw, offc = a.get("offset_h", 0), a.get("offset_w", 0), a.get("offset_c", 0)
+    out = x[:, offh:offh + oh, offw:offw + ow, offc:offc + oc]
+    return SeqTensor(out.contiguous(), inputs[0].lengths)
+
+
+# ---------------------------------------------------------------------------
+# bilinear_interp
+# ---------------------------------------------------------------------------
+
+
+def resize_weights(n_in: int, n_out: int, device) -> torch.Tensor:
+    """[n_in, n_out] weights of one axis of ``jax.image.resize(...,
+    "bilinear")``: half-pixel centres, the triangle kernel widened by
+    n_in / n_out on a downsampled axis (antialiasing), each column
+    normalised to sum 1, and zero where the sample lies outside the input.
+    Computed in f32 on the device, as JAX computes it."""
+    inv_scale = 1.0 / (n_out / n_in)
+    kernel_scale = max(inv_scale, 1.0)
+    f32 = torch.float32
+    sample = (torch.arange(n_out, dtype=f32, device=device) + 0.5) * inv_scale - 0.5
+    dist = (sample[None, :] - torch.arange(n_in, dtype=f32, device=device)[:, None]).abs()
+    w = torch.clamp(1 - dist / kernel_scale, min=0.0)
+    total = w.sum(0, keepdim=True)
+    eps = 1000.0 * float(torch.finfo(f32).eps)
+    w = torch.where(total.abs() > eps, w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, 0.0)
+
+
+@register_layer("bilinear_interp")
+def bilinear_interp_apply(conf, params, inputs, ctx):
+    """``jax.image.resize(x, ..., "bilinear")`` (what the JAX package runs
+    for BilinearInterpLayer.cpp): each axis whose extent changes is one
+    product with its weight matrix (:func:`resize_weights`), H then W."""
+    a = conf.attrs
+    x = to_nhwc(inputs[0].data, a["in_h"], a["in_w"], a["in_c"])
+    b, h, w, c = x.shape
+    oh, ow = a["out_h"], a["out_w"]
+    if oh != h:
+        wh = resize_weights(h, oh, x.device).to(x.dtype)
+        x = (wh.t() @ x.reshape(b, h, w * c)).reshape(b, oh, w, c)
+    if ow != w:
+        ww = resize_weights(w, ow, x.device).to(x.dtype)
+        x = (ww.t() @ x.reshape(b * oh, w, c)).reshape(b, oh, ow, c)
+    return SeqTensor(x, inputs[0].lengths)
+
+
+# ---------------------------------------------------------------------------
+# spp — a pyramid of pools, concatenated (SpatialPyramidPoolLayer.cpp)
+# ---------------------------------------------------------------------------
+
+
+@register_layer("spp")
+def spp_apply(conf, params, inputs, ctx):
+    """Level l pools into 2^l x 2^l bins with window = stride = ceil(extent /
+    bins), the input padded on the bottom and the right only: -inf for max,
+    zeros for avg, whose divisor kh kw counts the pad.  Each level's bins
+    flatten NHWC; the levels concatenate."""
+    a = conf.attrs
+    x = to_nhwc(inputs[0].data, a["in_h"], a["in_w"], a["in_c"])
+    b, h, w, c = x.shape
+    is_max = a.get("pool_type", "max").startswith("max")
+    outs = []
+    for lvl in range(a.get("pyramid_height", 3)):
+        bins = 2 ** lvl
+        kh, kw = -(-h // bins), -(-w // bins)
+        xp = F.pad(x, (0, 0, 0, kw * bins - w, 0, kh * bins - h),
+                   value=-math.inf if is_max else 0.0)
+        if is_max:
+            pooled = F.max_pool2d(_as_nchw(xp), (kh, kw), (kh, kw))
+        else:
+            pooled = F.avg_pool2d(_as_nchw(xp), (kh, kw), (kh, kw))
+        outs.append(_as_nhwc(pooled).reshape(b, -1))
+    return SeqTensor(torch.cat(outs, dim=-1), inputs[0].lengths)
+
+
+# ---------------------------------------------------------------------------
+# featmap_expand (FeatureMapExpandLayer.cpp)
+# ---------------------------------------------------------------------------
+
+
+@register_layer("featmap_expand")
+def featmap_expand_apply(conf, params, inputs, ctx):
+    """The flattened input tiled num_filters times: whole copies one after
+    another (as_row_vector), else each feature repeated in place."""
+    x = inputs[0]
+    n = conf.attrs["num_filters"]
+    b = x.data.shape[0]
+    flat = x.data.reshape(b, -1)
+    d = flat.shape[1]
+    if conf.attrs.get("as_row_vector", True):
+        out = flat[:, None, :].expand(b, n, d)
+    else:
+        out = flat[:, :, None].expand(b, d, n)
+    return SeqTensor(out.reshape(b, -1), x.lengths)

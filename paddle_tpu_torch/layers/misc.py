@@ -1,4 +1,4 @@
-"""The layers of ``paddle_tpu/layers/misc.py`` but ``block_expand``:
+"""The layers of ``paddle_tpu/layers/misc.py``: ``block_expand`` (:94),
 ``sub_seq`` (:139), ``kmax_seq_score`` (:225), the agents (``agent``,
 ``scatter_agent``, ``gather_agent``, :267-289), and ``prelu``, ``power``,
 ``data_norm``, ``rotate``, ``linear_comb``, ``cos_vm``, ``print`` and
@@ -9,14 +9,34 @@ sequences along time."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from paddle_tpu_torch.core import initializers as init
-from paddle_tpu_torch.core.batch import SeqTensor
+from paddle_tpu_torch.core.batch import SeqTensor, set_host_lengths
 from paddle_tpu_torch.layers.base import register_layer
 from paddle_tpu_torch.layers.conv import to_nhwc
 from paddle_tpu_torch.layers.sequence import _seqconcat
 from paddle_tpu_torch.ops.beam import top_k
+
+
+@register_layer("block_expand")
+def block_expand_apply(conf, params, inputs, ctx):
+    """BlockExpandLayer: the image as a sequence of its OH * OW blocks, row
+    by row, each block's features channel-major (C, block_y, block_x), as
+    ``F.unfold`` on NCHW orders them.  Every row is OH * OW steps long; the
+    lengths carry their host copy, so a scan over the blocks finds its live
+    range without reading the card."""
+    a = conf.attrs
+    x = to_nhwc(inputs[0].data, a["in_h"], a["in_w"], a["in_c"])
+    cols = F.unfold(x.permute(0, 3, 1, 2), (a["block_y"], a["block_x"]),
+                    padding=(a.get("padding_y", 0), a.get("padding_x", 0)),
+                    stride=(a.get("stride_y", 1), a.get("stride_x", 1)))  # [B, F, OH*OW]
+    b, n = cols.shape[0], cols.shape[2]
+    lengths = torch.full((b,), n, dtype=torch.int32, device=x.device)
+    host = np.full((b,), n, dtype=np.int32)
+    return SeqTensor(cols.transpose(1, 2), set_host_lengths(lengths, host))
 
 
 @register_layer("sub_seq")

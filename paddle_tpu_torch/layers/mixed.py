@@ -13,8 +13,9 @@ and a named projection shares through ``param_names``.
 A nested input ([B, S, T, D]) keeps its lengths and sub-lengths (the JAX
 package's mixed drops the sub-lengths of its output); a big-vocabulary
 sparse slot in padded-id form is a gather-sum of the touched rows in the
-full-matrix and table projections.  Not ported yet: ``conv_op`` (the conv
-operator; a network that uses it fails when it is compiled).
+full-matrix and table projections.  ``conv_op`` (the conv operator) is a
+layer of its own that mixed takes as an identity term: a conv of each
+sample with its own filter.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from __future__ import annotations
 from typing import Any, Dict, List
 
 import torch
+import torch.nn.functional as F
 
 from paddle_tpu_torch.core import initializers as init
 from paddle_tpu_torch.core.batch import SeqTensor
@@ -33,6 +35,7 @@ from paddle_tpu_torch.layers.base import (
     register_layer,
     take_rows_or_zero,
 )
+from paddle_tpu_torch.layers.conv import conv_transpose_nhwc, to_nhwc
 
 
 def _proj_params(kind: str, spec: Dict[str, Any], in_size: int, out_size: int,
@@ -111,5 +114,36 @@ def mixed_apply(conf, params, inputs: List[SeqTensor], ctx: ApplyContext) -> Seq
         y = _apply_proj(spec, p, t, conf.size)
         acc = y if acc is None else acc + y
     if "b" in params:
-        acc = acc + params["b"]
+        b = params["b"]
+        if acc.dim() == 4 and b.dim() == 1 and b.shape[0] == acc[0].numel():
+            # a conv projection's sum stays NHWC; the full-width bias is
+            # stored flat in CHW order, as the JAX package places it
+            b = b.reshape(acc.shape[3], acc.shape[1], acc.shape[2]).permute(1, 2, 0)
+        acc = acc + b
     return SeqTensor(acc, lengths, sub_lengths)
+
+
+@register_layer("conv_op")
+def conv_op_apply(conf, params, inputs, ctx):
+    """ConvOperator: the image inputs[0] convolved with per-sample filters,
+    inputs[1] as [B, cout, cin, kh, kw]; no parameters of its own.  One
+    grouped conv with the batch folded into the channels (groups = B), the
+    transposed form when `trans`, so no loop runs over the samples."""
+    a = conf.attrs
+    img = to_nhwc(inputs[0].data, a["in_h"], a["in_w"], a["in_c"])
+    kh, kw, cin, cout = a["filter_h"], a["filter_w"], a["in_c"], a["channels"]
+    b, h, w, _ = img.shape
+    filt = inputs[1].data.reshape(b, cout, cin, kh, kw)
+    strides = (a.get("stride_h", 1), a.get("stride_w", 1))
+    ph, pw = a.get("pad_h", 0), a.get("pad_w", 0)
+    x = img.permute(1, 2, 0, 3).reshape(1, h, w, b * cin)  # sample b's channels in group b
+    if a.get("trans", False):
+        # HWIO with group b's output channels at [b cout, (b + 1) cout)
+        hwio = filt.permute(3, 4, 2, 0, 1).reshape(kh, kw, cin, b * cout)
+        out = conv_transpose_nhwc(x, hwio, strides=strides, ph=ph, pw=pw, groups=b)
+    else:
+        out = F.conv2d(x.permute(0, 3, 1, 2), filt.reshape(b * cout, cin, kh, kw),
+                       stride=strides, padding=(ph, pw), groups=b).permute(0, 2, 3, 1)
+    oh, ow = out.shape[1], out.shape[2]
+    out = out.reshape(oh, ow, b, cout).permute(2, 0, 1, 3).contiguous()
+    return SeqTensor(out, inputs[0].lengths)

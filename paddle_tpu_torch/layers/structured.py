@@ -1,7 +1,8 @@
-"""Structured prediction: the linear-chain CRF cost (``crf``) and its
-Viterbi decoding (``crf_decoding``) — the counterpart of the CRF half of
-``paddle_tpu/layers/structured.py`` (reference CRFLayer.cpp,
-CRFDecodingLayer.cpp, LinearChainCRF.cpp).
+"""Structured prediction: the linear-chain CRF cost (``crf``), its Viterbi
+decoding (``crf_decoding``) and the CTC cost (``ctc``, which ``warp_ctc``
+builds with blank 0) — the counterpart of ``paddle_tpu/layers/structured.py``
+(reference CRFLayer.cpp, CRFDecodingLayer.cpp, LinearChainCRF.cpp,
+CTCLayer.cpp, LinearChainCTC.cpp, WarpCTCLayer.cpp).
 
 Each dynamic programme is a Python loop over the padded time axis of
 batched torch ops, masked per row by its length, as the JAX package's
@@ -9,14 +10,15 @@ batched torch ops, masked per row by its length, as the JAX package's
 autodiff does through its scan, so no backward is written by hand.  The
 loops stop after the batch's longest row (``ops.rnn.live_range``, read from
 the host copy of the lengths): every later step leaves each carry as it
-was.  Both layers run in float32 under a bfloat16 compute dtype
+was.  The three layers run in float32 under a bfloat16 compute dtype
 (``full_precision``).
 
 The weight is the reference's [N + 2, N] matrix: row 0 the start scores,
 row 1 the end scores, rows 2.. the transitions W[from, to].  ``crf`` and
 ``crf_decoding`` share it by name (``ParamAttr(name=...)``).
 
-Not ported yet: ``ctc`` and ``warp_ctc`` (with ``ctc_error_evaluator``).
+CTC keeps ``NEG = -1e30`` for an impossible path, never -inf: logaddexp of
+two -inf values has a NaN gradient.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ from paddle_tpu_torch.core import initializers as init
 from paddle_tpu_torch.core.batch import SeqTensor
 from paddle_tpu_torch.layers.base import register_layer
 from paddle_tpu_torch.ops.rnn import live_range
+
+NEG = -1e30  # an effective -inf that stays finite under arithmetic
 
 
 def crf_init(conf, in_confs, gen, device):
@@ -124,3 +128,69 @@ def crf_decoding_apply(conf, params, inputs, ctx):
         err = (path != _labels_of(inputs[1])) & valid
         return SeqTensor(err.to(torch.float32), lengths)
     return SeqTensor(path, lengths)
+
+
+# ---------------------------------------------------------------------------
+# CTC
+# ---------------------------------------------------------------------------
+
+
+def _shift(a, k, pad):
+    """a moved k places right along S, the [B, 2] NEG `pad` entering on the
+    left."""
+    return torch.cat([pad[:, :k], a[:, :-k]], dim=1)
+
+
+@register_layer("ctc", auto_activation=False, full_precision=True)
+def ctc_apply(conf, params, inputs, ctx):
+    """CTC negative log likelihood per sequence: [B, 1].
+
+    inputs[0]: [B, T, C] logits before the softmax (the reference applies it
+    inside); inputs[1]: the label ids, a sequence with lengths of its own.
+    The forward variable runs over the extended labels (blank, z1, blank,
+    z2, ..., blank): each step takes stay, a shift by 1 and, where the
+    label differs from the one two back and is not blank, a shift by 2."""
+    logits_t, labels_t = inputs
+    blank = conf.attrs.get("blank", conf.size - 1)
+    logp = torch.log_softmax(logits_t.data, dim=-1)  # [B, T, C]
+    in_len = logits_t.lengths
+    labels = labels_t.data.to(torch.int64)
+    if labels.dim() == 3:
+        labels = labels[..., 0]
+    lab_len = labels_t.lengths.to(torch.int64)
+    b_, t_, _ = logp.shape
+    s_ = 2 * labels.shape[1] + 1
+    dev = logp.device
+
+    ext = torch.full((b_, s_), blank, dtype=torch.int64, device=dev)
+    ext[:, 1::2] = labels
+    s_eff = 2 * lab_len + 1  # [B]
+    ext_valid = torch.arange(s_, device=dev)[None, :] < s_eff[:, None]
+    prev2 = torch.cat([ext.new_full((b_, 2), -1), ext[:, :-2]], dim=1)
+    can_skip = (ext != blank) & (ext != prev2)
+
+    has_lab = lab_len > 0
+    first = torch.where(has_lab, labels[:, 0], blank)
+    alpha = torch.cat([
+        logp[:, 0, blank][:, None],
+        torch.where(has_lab, logp[:, 0].gather(1, first[:, None])[:, 0], NEG)[:, None],
+        logp.new_full((b_, s_ - 2), NEG),
+    ], dim=1)
+    # [B, T, S] emission log-probs of the extended labels
+    ems = logp.gather(2, ext[:, None, :].expand(b_, t_, s_))
+    neg = logp.new_full((), NEG)
+    pad = logp.new_full((b_, 2), NEG)
+    for t in range(1, _live_steps(in_len, t_)):
+        s2 = torch.where(can_skip, _shift(alpha, 2, pad), neg)
+        nxt = torch.logaddexp(torch.logaddexp(alpha, _shift(alpha, 1, pad)), s2) + ems[:, t]
+        nxt = torch.where(ext_valid, nxt, neg)
+        alpha = torch.where((t < in_len)[:, None], nxt, alpha)
+
+    last = alpha.gather(1, (s_eff - 1)[:, None])[:, 0]
+    last2 = alpha.gather(1, (s_eff - 2).clamp(min=0)[:, None])[:, 0]
+    # an empty label sequence has the all-blank path alone (s_eff == 1)
+    last2 = torch.where(s_eff >= 2, last2, neg)
+    nll = -torch.logaddexp(last, last2)
+    if conf.attrs.get("norm_by_times", False):
+        nll = nll / in_len.to(nll.dtype)
+    return SeqTensor(nll[:, None])

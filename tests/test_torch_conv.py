@@ -220,7 +220,8 @@ def test_apply_defaults_match_jax_on_a_batch_norm_network():
     assert np.array_equal(carried.state["out"]["mean"].numpy(), moved["out"]["mean"])
 
 
-@pytest.mark.parametrize("layer_type", ["convt", "norm", "maxout", "spp"])
+@pytest.mark.parametrize("layer_type", ["priorbox", "detection_output", "multibox_loss",
+                                        "mdlstmemory"])
 def test_unported_image_layers_fail_at_compile(layer_type):
     L = paddle_tpu_torch.layer
     x = L.data("img", paddle_tpu_torch.data_type.dense_vector(48), height=4, width=4)
@@ -229,10 +230,12 @@ def test_unported_image_layers_fail_at_compile(layer_type):
 
 
 def test_transposed_img_conv_raises():
+    """A transposed conv whose groups divide neither its input nor its
+    output channels raises when it is built, as in the JAX package."""
     L = paddle_tpu_torch.layer
     x = L.data("img", paddle_tpu_torch.data_type.dense_vector(48), height=4, width=4)
-    with pytest.raises(NotImplementedError, match="trans"):
-        L.img_conv(x, filter_size=3, num_filters=2, trans=True)
+    with pytest.raises(ValueError, match="transpose conv groups=2"):
+        L.img_conv(x, filter_size=3, num_filters=2, groups=2, trans=True)
 
 
 def test_train_step_threads_detached_state():

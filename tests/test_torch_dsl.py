@@ -7,11 +7,16 @@
   byte-identically, and compile when every type has a torch impl;
 - a layer type with no torch impl fails when its network is compiled,
   with an error that names the type (each of the JAX package's registered
-  types the port lacks: the 16 of ROADMAP Queue 1 item 3);
-- the v1 names of the costs, the sampled outputs and the elementwise types
-  build the JAX package's Topology and compile in the port."""
+  types the port lacks: the 5 of ROADMAP Queue 1 items 3.6-3.7);
+- the programs over the image types, the conv operator and CTC run their
+  forward in the port;
+- the v1 names of the costs, the sampled outputs, the elementwise types,
+  the image types and CTC build the JAX package's Topology and compile in
+  the port."""
 
+import numpy as np
 import pytest
+import torch
 
 import paddle_tpu
 import paddle_tpu_torch
@@ -36,11 +41,8 @@ _UNPORTED = sorted(set(jbase.registered_layer_types()) - set(tbase.registered_la
 
 
 def test_the_unported_types_are_the_roadmaps():
-    assert len(_UNPORTED) == 16  # 95 - 79 (ROADMAP Queue 1 item 3)
-    assert _UNPORTED == [
-        "bilinear_interp", "block_expand", "conv_op", "convt", "crop", "ctc", "detection_output",
-        "featmap_expand", "maxout", "mdlstmemory", "moe", "multibox_loss", "norm", "pad",
-        "priorbox", "spp"]
+    assert len(_UNPORTED) == 5  # 95 - 90 (ROADMAP Queue 1 items 3.6-3.7)
+    assert _UNPORTED == ["detection_output", "mdlstmemory", "moe", "multibox_loss", "priorbox"]
 
 
 @pytest.mark.parametrize("type_name", _UNPORTED)
@@ -82,17 +84,27 @@ PROGRAMS = {
     "linear_comb": (lambda L, i, pkg: L.linear_comb(i["w"], i["x"], size=8), None),
     "seq_reshape": (lambda L, i, pkg: L.seq_reshape(i["s"], 4), None),
     "seq_concat": (lambda L, i, pkg: L.seq_concat(i["s"], i["s"]), None),
-    "img_cmrnorm": (lambda L, i, pkg: L.img_cmrnorm(i["img"], 3, num_channels=3), "norm"),
-    "maxout": (lambda L, i, pkg: L.maxout(i["img"], 3, num_channels=3), "maxout"),
-    "spp": (lambda L, i, pkg: L.spp(i["img"], 2, num_channels=3), "spp"),
+    "img_cmrnorm": (lambda L, i, pkg: L.img_cmrnorm(i["img"], 3, num_channels=3), None),
+    "maxout": (lambda L, i, pkg: L.maxout(i["img"], 3, num_channels=3), None),
+    "spp": (lambda L, i, pkg: L.spp(i["img"], 2, num_channels=3), None),
     "bilinear_interp": (lambda L, i, pkg: L.bilinear_interp(i["img"], 4, 4, num_channels=3),
-                        "bilinear_interp"),
-    "img_pad": (lambda L, i, pkg: L.img_pad(i["img"], pad_h=(1, 1), num_channels=3), "pad"),
+                        None),
+    "img_pad": (lambda L, i, pkg: L.img_pad(i["img"], pad_h=(1, 1), num_channels=3), None),
     "block_expand": (lambda L, i, pkg: L.block_expand(i["img"], 2, 2, num_channels=3),
-                     "block_expand"),
+                     None),
+    "img_conv_trans": (lambda L, i, pkg: L.img_conv(i["img"], 4, 5, stride=2, padding=1,
+                                                    trans=True), None),
+    "crop": (lambda L, i, pkg: L.crop(i["img"], offset=[1, 1], axis=2, shape=[5, 6]), None),
+    "featmap_expand": (lambda L, i, pkg: L.featmap_expand(i["x"], 3), None),
+    "conv_operator": (lambda L, i, pkg: L.mixed(size=2 * 8 * 8, input=[L.conv_operator(
+        i["img"], L.fc(i["x"], size=2 * 3 * 3 * 3), 3, 2, num_channels=3, padding=1)]), None),
+    "warp_ctc": (lambda L, i, pkg: L.warp_ctc(L.fc(i["s"], size=21), i["ids"], size=21), None),
+    "conv_projection_trans": (lambda L, i, pkg: L.mixed(
+        size=4 * 16 * 16, bias_attr=True, input=[L.conv_projection(
+            i["img"], 4, 4, num_channels=3, stride=2, padding=1, trans=True)]), None),
     "nce": (lambda L, i, pkg: L.nce(i["x"], i["lab"], num_classes=8), None),
     "hsigmoid": (lambda L, i, pkg: L.hsigmoid(i["x"], i["lab"], num_classes=8), None),
-    "ctc": (lambda L, i, pkg: L.ctc(L.fc(i["s"], size=21), i["ids"], size=21), "ctc"),
+    "ctc": (lambda L, i, pkg: L.ctc(L.fc(i["s"], size=21), i["ids"], size=21), None),
     "rank_cost": (lambda L, i, pkg: L.rank_cost(i["w"], i["w"], i["w"]), None),
     "huber": (lambda L, i, pkg: L.huber_regression_cost(i["x"], i["y"]), None),
     "smooth_l1": (lambda L, i, pkg: L.smooth_l1_cost(i["x"], i["y"]), None),
@@ -139,6 +151,50 @@ def test_programs_serialize_identically(name):
     else:
         with pytest.raises(NotImplementedError, match=repr(missing)):
             TNet(tt)
+
+
+# the programs over the types ported with the image layers, the conv
+# operator and CTC
+RUN = ["img_cmrnorm", "maxout", "spp", "bilinear_interp", "img_pad", "block_expand", "ctc",
+       "img_conv_trans", "crop", "featmap_expand", "conv_operator", "warp_ctc",
+       "conv_projection_trans"]
+
+
+def _random_batch(topology, rng):
+    """A port batch of 3 rows for every data slot of `_inputs` the topology
+    reads: sequences of 4 steps (ids in [1, 20))."""
+    shapes = {"x": (8,), "y": (8,), "w": (1,), "img": (3 * 8 * 8,)}
+    out = {}
+    for name in topology.data_layers():
+        if name in shapes:
+            out[name] = paddle_tpu_torch.core.batch.SeqTensor(
+                torch.from_numpy(rng.randn(3, *shapes[name]).astype(np.float32)))
+        elif name == "s":
+            out[name] = paddle_tpu_torch.core.batch.SeqTensor(
+                torch.from_numpy(rng.randn(3, 4, 8).astype(np.float32)),
+                torch.tensor([4, 3, 2], dtype=torch.int32))
+        else:
+            out[name] = paddle_tpu_torch.core.batch.SeqTensor(
+                torch.from_numpy(rng.randint(1, 8 if name == "lab" else 20,
+                                             size=(3, 4) if name == "ids" else (3,))
+                                 .astype(np.int32)),
+                torch.tensor([2, 1, 3], dtype=torch.int32) if name == "ids" else None)
+    return out
+
+
+@pytest.mark.parametrize("name", RUN)
+def test_new_type_programs_run(name):
+    """The port runs each program's forward on a random batch: finite values
+    of the size the DSL gave the output."""
+    build, _ = PROGRAMS[name]
+    _, tout = build_both(lambda pkg: build(pkg.layer, _inputs(pkg), pkg))
+    net = TNet(paddle_tpu_torch.Topology([tout]))
+    params, state = net.init(seed=1, device="cpu")
+    batch = _random_batch(net.topology, np.random.RandomState(2))
+    y = net.apply(params, batch, state=state, train=False)[0][tout.name].data
+    assert torch.isfinite(y).all()
+    per_row = y[0].numel() if tout.conf.type != "block_expand" else y.shape[-1]
+    assert per_row == tout.size
 
 
 # the v1 names (``paddle.trainer_config_helpers``) of the types ported with
@@ -192,6 +248,35 @@ V1_PROGRAMS = {
                                                                    weight=i["w"]),
     "sum_to_one_norm_layer": lambda v, i, pkg: v.sum_to_one_norm_layer(input=i["x"]),
     "row_l2_norm_layer": lambda v, i, pkg: v.row_l2_norm_layer(input=i["x"]),
+    "img_cmrnorm_layer": lambda v, i, pkg: v.img_cmrnorm_layer(input=i["img"], size=5,
+                                                               scale=0.0001, power=0.75),
+    "img_conv_layer_trans": lambda v, i, pkg: v.img_conv_layer(
+        input=i["img"], filter_size=4, num_filters=5, stride=2, padding=1, trans=True),
+    "spp_layer": lambda v, i, pkg: v.spp_layer(input=i["img"], pyramid_height=2,
+                                               pool_type=v.AvgPooling()),
+    "maxout_layer": lambda v, i, pkg: v.maxout_layer(input=i["img"], groups=3),
+    "pad_layer": lambda v, i, pkg: v.pad_layer(input=i["img"], pad_c=[1, 1], pad_h=[0, 2],
+                                               pad_w=[1, 0]),
+    "crop_layer": lambda v, i, pkg: v.crop_layer(input=i["img"], axis=2, offset=[1, 2],
+                                                 shape=[4, 5]),
+    "bilinear_interp_layer": lambda v, i, pkg: v.bilinear_interp_layer(
+        input=i["img"], out_size_x=16, out_size_y=12),
+    "featmap_expand_layer": lambda v, i, pkg: v.featmap_expand_layer(input=i["x"],
+                                                                     num_filters=2),
+    "block_expand_layer": lambda v, i, pkg: v.block_expand_layer(
+        input=i["img"], block_x=2, block_y=8, stride_x=1, stride_y=1),
+    "conv_projection_trans": lambda v, i, pkg: v.mixed_layer(
+        size=2 * 16 * 16, input=[v.conv_projection(input=i["img"], filter_size=4,
+                                                   num_filters=2, stride=2, padding=1,
+                                                   trans=True)]),
+    "conv_operator": lambda v, i, pkg: v.mixed_layer(size=2 * 6 * 6, input=[v.conv_operator(
+        img=i["img"], filter=v.fc_layer(i["x"], size=2 * 3 * 3 * 3), filter_size=3,
+        num_filters=2, num_channels=3)]),
+    "ctc_layer": lambda v, i, pkg: v.ctc_layer(input=v.fc_layer(i["s"], size=21),
+                                               label=i["ids"], size=21),
+    "warp_ctc_layer": lambda v, i, pkg: v.warp_ctc_layer(input=v.fc_layer(i["s"], size=21),
+                                                         label=i["ids"], size=21, blank=0,
+                                                         norm_by_times=True),
 }
 
 

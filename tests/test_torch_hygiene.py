@@ -221,14 +221,20 @@ _COST_SLICE_TYPES = {
     "cos_vm", "print", "scale_shift"}
 
 
+# the 11 image, conv-operator and CTC types (warp_ctc builds a ctc layer)
+_IMAGE_SLICE_TYPES = {
+    "convt", "norm", "maxout", "pad", "crop", "bilinear_interp", "spp", "featmap_expand",
+    "block_expand", "conv_op", "ctc"}
+
+
 def test_registered_layer_types_grow_by_the_slice():
     from paddle_tpu_torch.layers.base import registered_layer_types
 
     assert set(registered_layer_types()) == (
         _EARLIER_TYPES | _SLICE_TYPES | _BATCH_SLICE_TYPES | _SEQUENCE_SLICE_TYPES
-        | _COST_SLICE_TYPES)
+        | _COST_SLICE_TYPES | _IMAGE_SLICE_TYPES)
     assert len(_COST_SLICE_TYPES) == 34
-    assert len(registered_layer_types()) == 79
+    assert len(registered_layer_types()) == 90
 
 
 def test_v1_front_end_entry_points_raise_without_cuda():

@@ -126,6 +126,6 @@ def test_unported_layer_fails_at_compile_not_import():
     x = L.data("x", paddle_tpu_torch.data_type.integer_value_sequence(V))
     lbl = L.data("y", paddle_tpu_torch.data_type.integer_value_sequence(V))
     # a cost type the DSL can describe but the port has no impl for yet
-    cost = L._cost2("ctc", L.fc(x, size=V), lbl)
-    with pytest.raises(NotImplementedError, match="ctc"):
+    cost = L._cost2("multibox_loss", L.fc(x, size=V), lbl)
+    with pytest.raises(NotImplementedError, match="multibox_loss"):
         TNet(TTopo(cost))

@@ -470,17 +470,6 @@ def test_lstmemory_groups_share_named_parameters():
         "w_rec": "ga.ga_unit_input_recurrent.p1_w", "b_rec": "ga.ga_unit.b"}
 
 
-def test_conv_operator_fails_when_compiled():
-    """mixed's conv operator is not ported: a network that uses it fails
-    when compiled, naming the type."""
-    from paddle_tpu_torch.core.topology import LayerConf, LayerOutput
-
-    x = _dense(paddle_tpu_torch)
-    conf = LayerConf(name="op", type="conv_op", size=4, inputs=("x",), bias=False)
-    with pytest.raises(NotImplementedError, match="conv_op"):
-        TNet(TTopo([LayerOutput(conf, [x])]))
-
-
 # ---------------------------------------------------------------------------
 # the demo_text_lstm.py network
 # ---------------------------------------------------------------------------

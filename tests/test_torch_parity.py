@@ -120,9 +120,10 @@ def batch_both(arrays):
     return jb, tb
 
 
-def grads_both(jcost, tcost, jparams, batch_arrays, *, state=None, train=True):
+def grads_both(jcost, tcost, jparams, batch_arrays, *, state=None, train=True, jit=False):
     """(JAX cost, port cost, JAX grads, port grads) of the mean cost on one
-    batch from the same parameters (the JAX gradient op by op)."""
+    batch from the same parameters (the JAX gradient op by op, or jitted
+    with `jit`)."""
     jnet = JNet(JTopo([jcost]), compute_dtype=jnp.float32)
     tnet = TNet(TTopo([tcost]), compute_dtype=torch.float32)
     jb, tb = batch_both(batch_arrays)
@@ -131,7 +132,8 @@ def grads_both(jcost, tcost, jparams, batch_arrays, *, state=None, train=True):
     def loss(p):
         return jnet.cost(p, jb, state=jstate, train=train)[0]
 
-    jc, jg = jax.value_and_grad(loss)(jparams.params)
+    vg = jax.value_and_grad(loss)
+    jc, jg = (jax.jit(vg) if jit else vg)(jparams.params)
     carried = carry(jparams)
     leaves = map_leaves(lambda v: v.clone().requires_grad_(True), carried.params)
     tc, _ = tnet.cost(leaves, tb, state=carried.state, train=train)
@@ -151,14 +153,14 @@ def to_port(jbatch):
 
 
 def outputs_both(jout, tout, jbatch, *, seed=0, names=None, grads=True, input_grads=(),
-                 jparams=None):
+                 jparams=None, jit=False):
     """The named outputs (default: jout's) of one topology in both packages
     on the same batch and parameters (f32, train=False; `jparams`, the JAX
     package's Parameters, else ones created from `seed`), and, with
     `grads`, the gradients of sum(output * w) over every output (w a fixed
     cosine pattern) with respect to the parameters and the float slots in
-    `input_grads`, the JAX side's op by op.  Returns (JAX outputs, port
-    outputs, JAX gradients, port gradients): outputs as {name: SeqTensor}
+    `input_grads`, the JAX side's op by op (jitted with `jit`).  Returns
+    (JAX outputs, port outputs, JAX gradients, port gradients): outputs as {name: SeqTensor}
     of numpy arrays, gradients as {"params": tree, slot: array}."""
     names = names or [jout.name]
     jnet = JNet(JTopo([jout]), compute_dtype=jnp.float32)
@@ -166,7 +168,8 @@ def outputs_both(jout, tout, jbatch, *, seed=0, names=None, grads=True, input_gr
     if jparams is None:
         jparams = paddle_tpu.parameters.create(jout, seed=seed)
     tb = to_port(jbatch)
-    jouts = jnet.apply(jparams.params, jbatch, state=jparams.state, train=False)[0]
+    jfwd = lambda p, b: jnet.apply(p, b, state=jparams.state, train=False)[0]  # noqa: E731
+    jouts = (jax.jit(jfwd) if jit else jfwd)(jparams.params, jbatch)
 
     def np_seq(s):
         def a(x):
@@ -191,7 +194,8 @@ def outputs_both(jout, tout, jbatch, *, seed=0, names=None, grads=True, input_gr
         return sum(jnp.sum(o[n].data * ws[n]) for n in names)
 
     jxs = {k: jbatch[k].data for k in input_grads}
-    jgp, jgx = jax.grad(jloss, argnums=(0, 1))(jparams.params, jxs)
+    jgrad = jax.grad(jloss, argnums=(0, 1))
+    jgp, jgx = (jax.jit(jgrad) if jit else jgrad)(jparams.params, jxs)
     leaves = map_leaves(lambda v: v.clone().requires_grad_(True), carried.params)
     for k in input_grads:
         tb[k].data.requires_grad_(True)
@@ -217,6 +221,27 @@ def assert_outputs_close(jo, to, atol=1e-5, rtol=1e-5):
             assert (a is None) == (b is None), (n, f)
             if a is not None:
                 np.testing.assert_array_equal(a, b, err_msg=f"{n} {f}")
+
+
+def assert_grads_close(jg, tg, rtol=1e-5, atol=1e-6):
+    """Each gradient leaf within `rtol` and `atol` times its largest |g| (a
+    gradient sums many terms: an element that cancels to near 0 keeps the
+    rounding of its terms, which scale with the leaf)."""
+    jl, tl = flat_leaves(numpy_tree(jg)), flat_leaves(numpy_tree(tg))
+    assert set(tl) == set(jl)
+    for k in jl:
+        scale = max(float(np.abs(jl[k]).max()), 1.0)
+        np.testing.assert_allclose(tl[k], jl[k], rtol=rtol, atol=atol * scale, err_msg=k)
+
+
+def jax_params_from_port_init(jout, tout, seed):
+    """JAX Parameters of `jout`'s network holding the port's initial values
+    for `tout` (the JAX package's own init compiles one random draw per
+    shape, about a second each on the CPU)."""
+    params, state = TNet(TTopo([tout])).init(seed=seed, device="cpu")
+    as_jax = lambda tree: {l: {k: jnp.asarray(v.numpy()) for k, v in p.items()}  # noqa: E731
+                           for l, p in tree.items()}
+    return paddle_tpu.parameters.Parameters(JNet(JTopo([jout])), as_jax(params), as_jax(state))
 
 
 def assert_params_carry(jout, tout, seed=2):
