@@ -195,7 +195,11 @@ class CompiledNetwork:
         if compute_dtype is None:
             compute_dtype = _default_compute_dtype or self.dtype
         self.compute_dtype = as_dtype(compute_dtype)
-        sharded = [(n, c.shard_axis) for n, c in topology.layers.items() if c.shard_axis]
+        # a moe layer's shard_axis only places its experts on a mesh (the
+        # JAX package runs it unsharded without one): it runs here on one
+        # device; any other layer sharded over a mesh is not ported
+        sharded = [(n, c.shard_axis) for n, c in topology.layers.items()
+                   if c.shard_axis and c.type != "moe"]
         if sharded:
             raise NotImplementedError(
                 f"layer {sharded[0][0]!r}: shard_axis={sharded[0][1]!r} (a layer sharded over a "

@@ -10,10 +10,9 @@ The trainer sums the accumulators over batches (per batch for iteration
 events, per pass for pass events and ``test``) and finalizes them.  Printers
 print from their update and accumulate nothing.
 
-Ported: classification_error, sum, column_sum, auc, precision_recall,
-pnpair, chunk, ctc_error and the value, maxid, seq_text, maxframe,
-classification_error and gradient printers.  Not ported yet: detection_map
-(its layers are not in the port); calling it raises.
+Ported: all of them — classification_error, sum, column_sum, auc,
+precision_recall, pnpair, chunk, ctc_error, detection_map and the value,
+maxid, seq_text, maxframe, classification_error and gradient printers.
 """
 
 from __future__ import annotations
@@ -525,17 +524,111 @@ def gradient_printer_evaluator(input: LayerOutput, name: Optional[str] = None) -
 # ---------------------------------------------------------------------------
 
 
-def _not_ported(name: str):
-    def build(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name} is not ported yet: its layers are not in the port "
-            "(ROADMAP Queue 1 item 3)")
+# ---------------------------------------------------------------------------
+# detection mAP (reference DetectionMAPEvaluator.cpp:306)
+# ---------------------------------------------------------------------------
 
-    build.__name__ = name
-    return build
+_MAP_BINS = 1000
 
 
-detection_map_evaluator = _not_ported("detection_map_evaluator")
+def detection_map_evaluator(
+    input: LayerOutput,  # detection_output layer: [B, K, 6]
+    label: LayerOutput,  # gt slot: [B, G, 6] (label, x1, y1, x2, y2, difficult)
+    num_classes: int,
+    overlap_threshold: float = 0.5,
+    background_id: int = 0,
+    evaluate_difficult: bool = False,
+    ap_type: str = "11point",
+    name: Optional[str] = None,
+) -> Evaluator:
+    """Streaming mAP, as the JAX package's: the update matches each image's
+    detections to its ground truth greedily (by score, stable sort; one gt
+    per detection; IoU >= threshold) in K steps over the whole batch, and
+    adds TP/FP counts into per-class 1000-bin score histograms; finalize
+    integrates the binned precision-recall curve on the host (``11point``
+    or ``Integral``)."""
+    from paddle_tpu_torch.ops.detection import iou_matrix
+
+    nm = name or auto_name("detection_map")
+
+    def update(outs):
+        det_t, gt_t = outs[input.name], outs[label.name]
+        det = det_t.data.float()  # [B, K, 6]
+        gt = gt_t.data.float()  # [B, G, 6]
+        b, k = det.shape[:2]
+        dev = det.device
+        valid = gt_t.mask() > 0 if gt_t.is_seq else torch.ones(gt.shape[:2], dtype=torch.bool,
+                                                                  device=dev)
+        g_lab = gt[..., 0].to(torch.int64)
+        g_box = gt[..., 1:5]
+        g_diff = gt[..., 5] > 0
+        counted = valid & (evaluate_difficult | ~g_diff)
+        in_range = (g_lab >= 0) & (g_lab < num_classes)
+        n_gt = torch.zeros(num_classes, device=dev).index_put_(
+            (g_lab.clamp(0, num_classes - 1).reshape(-1),),
+            (counted & in_range).float().reshape(-1), accumulate=True)
+        # by score, descending (detection_output's block is sorted over all
+        # classes; the greedy match needs each class's order by score)
+        order = torch.argsort(-det[..., 1], dim=-1, stable=True)
+        det = torch.gather(det, 1, order[..., None].expand(-1, -1, 6))
+        d_lab = det[..., 0].to(torch.int64)
+        d_score = det[..., 1]
+        ious = iou_matrix(det[..., 2:6], g_box)  # [B, K, G]
+        rows = torch.arange(b, device=dev)
+        used = torch.zeros(g_lab.shape, dtype=torch.bool, device=dev)
+        tps, fps = [], []
+        for j in range(k):
+            lab = d_lab[:, j]
+            # reference calcTFPos: the best-overlap gt over ALL same-class
+            # gts; a hit on a used gt is an FP, a hit on a skipped difficult
+            # gt is ignored and does not mark the gt used
+            masked = torch.where(valid & (g_lab == lab[:, None]), ious[:, j],
+                                 torch.full_like(ious[:, j], -1.0))
+            best = torch.argmax(masked, dim=-1)
+            hit = masked[rows, best] >= overlap_threshold
+            live = (lab >= 0) & (lab != background_id) & (d_score[:, j] > 0)
+            ignore = hit & g_diff[rows, best] & (not evaluate_difficult)
+            already = used[rows, best]
+            tps.append(live & hit & ~ignore & ~already)
+            fps.append(live & (~hit | (hit & ~ignore & already)))
+            used[rows, best] = already | (hit & live & ~ignore)
+        bins = (d_score * _MAP_BINS).to(torch.int32).clamp(0, _MAP_BINS - 1).to(torch.int64)
+        at = (d_lab.clamp(0, num_classes - 1).reshape(-1), bins.reshape(-1))
+        zeros = torch.zeros((num_classes, _MAP_BINS), device=dev)
+        return {
+            "n_gt": n_gt,
+            "tp": zeros.clone().index_put_(at, torch.stack(tps, 1).float().reshape(-1),
+                                           accumulate=True),
+            "fp": zeros.index_put_(at, torch.stack(fps, 1).float().reshape(-1),
+                                   accumulate=True),
+        }
+
+    def finalize(acc):
+        n_gt = np.asarray(acc["n_gt"])
+        tp = np.asarray(acc["tp"])[:, ::-1]  # high-score bins first
+        fp = np.asarray(acc["fp"])[:, ::-1]
+        aps = []
+        for c in range(num_classes):
+            if c == background_id or n_gt[c] <= 0:
+                continue
+            ctp, cfp = np.cumsum(tp[c]), np.cumsum(fp[c])
+            recall = ctp / n_gt[c]
+            precision = ctp / np.maximum(ctp + cfp, 1e-10)
+            if ap_type == "11point":
+                ap = 0.0
+                for t in np.linspace(0, 1, 11):
+                    mask = recall >= t
+                    ap += (precision[mask].max() if mask.any() else 0.0) / 11.0
+            else:  # Integral: precision summed over the recall steps
+                prev_r = 0.0
+                ap = 0.0
+                for r, p in zip(recall, precision):
+                    ap += (r - prev_r) * p
+                    prev_r = r
+            aps.append(ap)
+        return {nm: float(np.mean(aps)) if aps else 0.0}
+
+    return Evaluator(nm, [input, label], update, finalize)
 
 
 def combined_update(evaluators: Sequence[Evaluator]):

@@ -3,15 +3,12 @@ user surface of ``paddle.trainer_config_helpers.layers`` and
 ``paddle.v2.layer`` (reference: python/paddle/trainer_config_helpers/
 layers.py, python/paddle/v2/layer.py).  Every public callable of the JAX
 package's DSL is here and builds the same Topology (``Topology.serialize()``
-is byte-identical); a callable whose layer type has no torch impl yet builds
-its Topology all the same and fails when the network is compiled
-(``layers.base.get_layer_impl`` names the type).
+is byte-identical), and every layer type it builds has a torch impl.
 
 Each function returns a :class:`LayerOutput` handle; the graph is gathered
 by parent traversal when a Topology is built.  Output-size bookkeeping (conv
 arithmetic, implicit flatten) mirrors the reference's config_parser.py
-``cnn_output_size``.  ``img_conv(trans=True)`` (``convt``) raises when it is
-built.
+``cnn_output_size``.
 """
 
 from __future__ import annotations
@@ -28,8 +25,7 @@ from paddle_tpu_torch.core.data_types import InputType
 from paddle_tpu_torch.core.topology import LayerConf, LayerOutput, Topology, auto_name
 from paddle_tpu_torch.pooling import pool_name
 
-# register the layer impls; 5 of the JAX package's types are not ported
-# (detection, mdlstm and moe), and their DSL callables fail at compile time
+# register the layer impls: all 95 of the JAX package's types
 from paddle_tpu_torch.layers import base as _base  # noqa: F401
 from paddle_tpu_torch.layers import basic as _basic  # noqa: F401
 from paddle_tpu_torch.layers import conv as _conv  # noqa: F401
@@ -39,6 +35,9 @@ from paddle_tpu_torch.layers import structured as _structured  # noqa: F401
 from paddle_tpu_torch.layers import sequence as _sequence  # noqa: F401
 from paddle_tpu_torch.layers import misc as _misc  # noqa: F401
 from paddle_tpu_torch.layers import sampled as _sampled  # noqa: F401
+from paddle_tpu_torch.layers import detection as _detection  # noqa: F401
+from paddle_tpu_torch.layers import moe as _moe  # noqa: F401
+from paddle_tpu_torch.layers import mdlstm as _mdlstm  # noqa: F401
 from paddle_tpu_torch.layers.recurrent_group import (  # noqa: F401
     StaticInput,
     SubsequenceInput,
@@ -937,11 +936,10 @@ def moe(
     layer_attr: Optional[ExtraAttr] = None,
     name: Optional[str] = None,
 ) -> LayerOutput:
-    """Mixture-of-experts FFN with top-1 capacity routing (the JAX
-    package's layers/moe.py; not ported: fails at compile time).
+    """Mixture-of-experts FFN with top-1 capacity routing (layers/moe.py).
     ``layer_attr=ExtraAttr(shard_axis='model')`` shards the experts over the
-    mesh model axis — expert parallelism, with an all-to-all dispatch and
-    combine.  The router's load-balance term rides the aux output
+    mesh model axis in the JAX package (expert parallelism); the port runs
+    such a layer unsharded on one device, with the same values.  The router's load-balance term rides the aux output
     ``<name>@aux_loss`` (pick it up via get_output + sum_cost)."""
     drop, shard = _extra(layer_attr)
     conf = LayerConf(

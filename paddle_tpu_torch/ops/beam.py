@@ -83,9 +83,14 @@ def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     ascending: ``lax.top_k``'s order, ties at the k-th value included.  One
     ``torch.topk`` over an int64 key that orders (value, -index)
     lexicographically: the f32 bits mapped to an order-preserving int32 in
-    the high word, N - 1 - index in the low word."""
+    the high word, N - 1 - index in the low word.  float64 scores (an f64
+    reference run) take a stable descending sort, which orders ties the
+    same way."""
+    if x.dtype == torch.float64:
+        vals, idx = torch.sort(x, dim=1, descending=True, stable=True)
+        return vals[:, :k], idx[:, :k]
     if x.dtype != torch.float32:
-        raise TypeError(f"top_k ranks float32 scores, got {x.dtype}")
+        raise TypeError(f"top_k ranks float32 or float64 scores, got {x.dtype}")
     bits = x.contiguous().view(torch.int32)
     ordered = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF).to(torch.int64)
     rank = (x.shape[1] - 1) - torch.arange(x.shape[1], device=x.device)

@@ -2,14 +2,12 @@
 
 - every public callable of ``paddle_tpu.layers`` exists in
   ``paddle_tpu_torch.layers`` (198 of 198);
-- DSL programs over layer types ported late or not yet and the
-  ``layer_math`` operator programs build Topologies that serialize
-  byte-identically, and compile when every type has a torch impl;
-- a layer type with no torch impl fails when its network is compiled,
-  with an error that names the type (each of the JAX package's registered
-  types the port lacks: the 5 of ROADMAP Queue 1 items 3.6-3.7);
-- the programs over the image types, the conv operator and CTC run their
-  forward in the port;
+- DSL programs over layer types ported late and the ``layer_math``
+  operator programs build Topologies that serialize byte-identically, and
+  compile;
+- the port registers every one of the JAX package's 95 layer types;
+- the programs over the image types, the conv operator, CTC, the detection
+  types, moe and mdlstmemory run their forward in the port;
 - the v1 names of the costs, the sampled outputs, the elementwise types,
   the image types and CTC build the JAX package's Topology and compile in
   the port."""
@@ -41,14 +39,8 @@ _UNPORTED = sorted(set(jbase.registered_layer_types()) - set(tbase.registered_la
 
 
 def test_the_unported_types_are_the_roadmaps():
-    assert len(_UNPORTED) == 5  # 95 - 90 (ROADMAP Queue 1 items 3.6-3.7)
-    assert _UNPORTED == ["detection_output", "mdlstmemory", "moe", "multibox_loss", "priorbox"]
-
-
-@pytest.mark.parametrize("type_name", _UNPORTED)
-def test_an_unported_type_fails_naming_itself(type_name):
-    with pytest.raises(NotImplementedError, match=repr(type_name)):
-        tbase.get_layer_impl(type_name)
+    assert len(jbase.registered_layer_types()) == 95
+    assert _UNPORTED == []  # 95 of 95: ROADMAP Queue 1 item 3 is done
 
 
 def _inputs(pkg):
@@ -61,7 +53,19 @@ def _inputs(pkg):
         "s": L.data(name="s", type=dt.dense_vector_sequence(8)),
         "ids": L.data(name="ids", type=dt.integer_value_sequence(20)),
         "img": L.data(name="img", type=dt.dense_vector(3 * 8 * 8), height=8, width=8),
+        "gt": L.data(name="gt", type=dt.dense_vector_sequence(6)),
     }
+
+
+def _ssd_head(L, i, pkg):
+    """A feature map of the image (4x4), its loc and conf heads (4 priors
+    per cell, 3 classes) and its priorbox."""
+    feat = L.img_conv(i["img"], 3, 4, stride=2, padding=1)
+    loc = L.img_conv(feat, 3, 4 * 4, padding=1, act=pkg.activation.Identity())
+    conf = L.img_conv(feat, 3, 4 * 3, padding=1, act=pkg.activation.Identity())
+    pb = L.priorbox(feat, i["img"], aspect_ratio=[2.0], variance=[0.1, 0.1, 0.2, 0.2],
+                    min_size=[2.0], max_size=[4.0])
+    return loc, conf, pb
 
 
 # name -> (builder, the unported type its network fails on, or None)
@@ -133,6 +137,14 @@ PROGRAMS = {
     "img_conv_group": (lambda L, i, pkg: pkg.networks.img_conv_group(
         i["img"], conv_num_filter=[4, 4], pool_size=2, num_channels=3, conv_padding=1,
         conv_filter_size=3, pool_stride=2), None),
+    "priorbox": (lambda L, i, pkg: _ssd_head(L, i, pkg)[2], None),
+    "multibox_loss": (lambda L, i, pkg: L.multibox_loss(
+        *_ssd_head(L, i, pkg), label=i["gt"], num_classes=3), None),
+    "detection_output": (lambda L, i, pkg: L.detection_output(
+        *_ssd_head(L, i, pkg), num_classes=3, nms_top_k=4, keep_top_k=5), None),
+    "moe": (lambda L, i, pkg: L.moe_layer(i["x"], expert_hidden=6, num_experts=2), None),
+    "mdlstmemory": (lambda L, i, pkg: L.mdlstmemory(L.img_conv(i["img"], 1, 10), size=2,
+                                                     reverse_w=True), None),
     "math": (lambda L, i, pkg: L.layer_math.exp(i["x"]) * 0.5 + L.layer_math.log(
         L.layer_math.sqrt(L.layer_math.square(i["y"]))) - 2 * i["x"] + L.layer_math.relu(
         L.layer_math.abs(i["x"])) * i["y"] + L.layer_math.sigmoid(L.layer_math.tanh(
@@ -154,19 +166,27 @@ def test_programs_serialize_identically(name):
 
 
 # the programs over the types ported with the image layers, the conv
-# operator and CTC
+# operator and CTC, and with the detection types, moe and mdlstmemory
 RUN = ["img_cmrnorm", "maxout", "spp", "bilinear_interp", "img_pad", "block_expand", "ctc",
        "img_conv_trans", "crop", "featmap_expand", "conv_operator", "warp_ctc",
-       "conv_projection_trans"]
+       "conv_projection_trans", "priorbox", "multibox_loss", "detection_output", "moe",
+       "mdlstmemory"]
 
 
 def _random_batch(topology, rng):
     """A port batch of 3 rows for every data slot of `_inputs` the topology
-    reads: sequences of 4 steps (ids in [1, 20))."""
+    reads: sequences of 4 steps (ids in [1, 20)), ground truth of 1-3 boxes
+    per image (classes 1-2)."""
     shapes = {"x": (8,), "y": (8,), "w": (1,), "img": (3 * 8 * 8,)}
     out = {}
     for name in topology.data_layers():
-        if name in shapes:
+        if name == "gt":
+            lo = rng.uniform(0.0, 0.6, size=(3, 3, 2))
+            gt = np.concatenate([rng.randint(1, 3, size=(3, 3, 1)), lo, lo + 0.3,
+                                 np.zeros((3, 3, 1))], -1).astype(np.float32)
+            out[name] = paddle_tpu_torch.core.batch.SeqTensor(
+                torch.from_numpy(gt), torch.tensor([3, 1, 2], dtype=torch.int32))
+        elif name in shapes:
             out[name] = paddle_tpu_torch.core.batch.SeqTensor(
                 torch.from_numpy(rng.randn(3, *shapes[name]).astype(np.float32)))
         elif name == "s":

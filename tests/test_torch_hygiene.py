@@ -227,14 +227,18 @@ _IMAGE_SLICE_TYPES = {
     "block_expand", "conv_op", "ctc"}
 
 
+# the last 5: the SSD detection types, moe and the 2D LSTM
+_LAST_SLICE_TYPES = {"priorbox", "multibox_loss", "detection_output", "moe", "mdlstmemory"}
+
+
 def test_registered_layer_types_grow_by_the_slice():
     from paddle_tpu_torch.layers.base import registered_layer_types
 
     assert set(registered_layer_types()) == (
         _EARLIER_TYPES | _SLICE_TYPES | _BATCH_SLICE_TYPES | _SEQUENCE_SLICE_TYPES
-        | _COST_SLICE_TYPES | _IMAGE_SLICE_TYPES)
+        | _COST_SLICE_TYPES | _IMAGE_SLICE_TYPES | _LAST_SLICE_TYPES)
     assert len(_COST_SLICE_TYPES) == 34
-    assert len(registered_layer_types()) == 90
+    assert len(registered_layer_types()) == 95
 
 
 def test_v1_front_end_entry_points_raise_without_cuda():
