@@ -326,15 +326,45 @@ Phases, in order; any failure exits non-zero:
      multibox_loss, detection_output, moe and mdlstmemory (four
      directions) at their models' shapes in f32 on the card and on the
      CPU, held to the CPU's f64 by phase 19c's rule.  No flash kernel may
-     launch in 20a, 20b or 20d.
+     launch in 20a, 20b or 20d;
+ 21. the op framework, the GAN and VAE trainers and the v2 surface, in f32
+     with TF32 off, random weights and data from seeds (widths fixed by the
+     issue that ported them where no published config applies): (a) an MLP
+     as one NetOp (x [256, 784] -> mul w1 [784, 128] -> rowwise_add ->
+     sigmoid -> mul w2 [128, 10] -> rowwise_add -> softmax ->
+     onehot_cross_entropy -> mean) with Backward(no_grad_set={x, label})
+     and one sgd op per parameter in one Scope on the card: 30 steps on one
+     batch at lr 0.5 (the cost must fall), ms per step, device kernels and
+     busy share of one step, its host syncs by site (none may come from the
+     package), and one forward and Backward card vs CPU f32 per output and
+     gradient (relative L2 within max(1e-5, 2x the CPU f32's distance from
+     f64)); (b) RecurrentOp with tests/test_framework_ops.py:199's step net
+     (h = sigmoid(x_t W + h U)) at T = 100, B = 64, D = 128: forward +
+     Backward ms, kernels per time step, and card vs CPU by (a)'s rule;
+     (c) the GAN trainer at gan_conf_image.py's MNIST setting (noise 100,
+     data 784), hidden 128, B = 128, Adam(1e-3, beta1 0.5) on each
+     network, real rows from a seeded two-component Gaussian mixture: one
+     D step's and one G step's gradients card vs CPU from the same trees
+     (<= 1e-5) and 5 batches' losses (<= 1e-4 relative), then a warm-up and
+     50 timed batches (ms per batch, D's loss below 2 ln 2 at some batch,
+     every loss finite), one batch's host syncs by site (exactly the two
+     loss reads), kernels and busy share; (d) the VAE trainer (data 784,
+     hidden 128, latent 100, B = 128, Adam(1e-3)): one step's loss and
+     gradients at one eps and reconstruct of 128 rows card vs CPU (<= 1e-5),
+     50 timed steps (the loss must fall), syncs, kernels and busy share;
+     (e) save_model/load_model and merge_model/load_merged_model
+     round-trip the GAN's generator on the card (equal samples), and
+     make_diagram of the VAE's encoder.  No flash kernel may launch in
+     phase 21.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels with their launches on the main path (the timed training steps of
 phase 5; the NMT paths of phases 11-13, the LSTM classifier of phases 14
 and 16, the tagger of phase 15, the nested networks of phase 17, the
 N-gram and ranking networks of phase 18, the image and CTC networks of
-phase 19 and the SSD and MDLSTM networks of phase 20 run none of them; phase
-20's MoE Transformer runs each 18 times per step), errors and times.
+phase 19, the SSD and MDLSTM networks of phase 20 and phase 21's framework,
+GAN and VAE paths run none of them; phase 20's MoE Transformer runs each 18
+times per step), errors and times.
 Without a CUDA device, or without the paddle_tpu_torch package beside it, the script
 exits non-zero and prints no result.
 """
@@ -4917,6 +4947,379 @@ def phase_last_types(torch, P, fa, card):
         f"{t3 - t2:.1f} s, mdlstm {t4 - t3:.1f} s, types {t5 - t4:.1f} s")
 
 
+# phase 21: the op framework, the GAN and VAE trainers, the v2 surface
+FW_B, FW_DIMS = 256, (784, 128, 10)  # the MLP of the framework's net: batch, widths
+FW_STEPS, FW_LR = 30, 0.5
+RNN_T, RNN_B, RNN_D = 100, 64, 128  # tests/test_framework_ops.py:199's step net, widened
+GAN_NOISE, GAN_DATA, GAN_HIDDEN, GAN_B = 100, 784, 128, 128  # gan_conf_image.py's MNIST
+VAE_DATA, VAE_HIDDEN, VAE_LATENT, VAE_B = 784, 128, 100, 128
+GEN_TIMED_STEPS = 50  # timed GAN batches and VAE steps, after one warm-up
+GAN_CPU_BATCHES = 5  # GAN batches card vs CPU: losses within GAN_LOSS_REL
+GAN_LOSS_REL = 1e-4
+FW_REL = 1e-5  # card vs CPU, relative L2, or 2x the CPU f32's distance from f64 if larger
+
+
+def flat_tree(tree) -> dict:
+    """{dotted path: tensor} of a parameter or gradient tree."""
+    from paddle_tpu_torch.utils.tree import dotted, leaf_paths
+
+    return {dotted(path): v for path, v in leaf_paths(tree)}
+
+
+def cpu_copy(tree):
+    """A copy of a parameter tree on the CPU (never sharing storage)."""
+    from paddle_tpu_torch.utils.tree import map_leaves
+
+    return map_leaves(lambda v: v.detach().cpu().clone(), tree)
+
+
+def mixture_rows(rng, n, dim):
+    """n rows of a two-component Gaussian mixture in `dim` dimensions (the
+    centres from RandomState(0)), float32: the phase's "real" data."""
+    centres = np.random.RandomState(0).randn(2, dim)
+    return (centres[rng.randint(2, size=n)] + 0.3 * rng.randn(n, dim)).astype(np.float32)
+
+
+def mlp_step_net(fw):
+    """(forward NetOp, its Backward with x and label out, the training NetOp
+    [forward, backward, one sgd op per parameter])."""
+    c = fw.create_op
+    fwd = fw.NetOp([
+        c("mul", X="x", Y="w1", Out="h1"), c("rowwise_add", X="h1", b="b1", Out="h1b"),
+        c("sigmoid", X="h1b", Y="s1"), c("mul", X="s1", Y="w2", Out="h2"),
+        c("rowwise_add", X="h2", b="b2", Out="h2b"), c("softmax", X="h2b", Y="prob"),
+        c("onehot_cross_entropy", X="prob", label="label", Y="ce"),
+        c("mean", X="ce", Out="cost")]).complete_add_op()
+    bwd = fw.Backward(fwd, no_grad_set={"x", "label"})
+    sgds = [c("sgd", param=n, grad=n + "@GRAD", param_out=n, learning_rate=FW_LR)
+            for n in ("w1", "b1", "w2", "b2")]
+    return fwd, bwd, fw.NetOp([fwd, bwd] + sgds).complete_add_op()
+
+
+def mlp_inputs(seed):
+    """The MLP's inputs and parameters as float32 numpy arrays."""
+    rng = np.random.RandomState(seed)
+    d0, d1, d2 = FW_DIMS
+    return {"x": rng.randn(FW_B, d0).astype(np.float32),
+            "label": rng.randint(0, d2, size=FW_B).astype(np.float32),
+            "w1": (rng.randn(d0, d1) / np.sqrt(d0)).astype(np.float32),
+            "b1": np.zeros(d1, np.float32),
+            "w2": (rng.randn(d1, d2) / np.sqrt(d1)).astype(np.float32),
+            "b2": np.zeros(d2, np.float32)}
+
+
+def seed_out_grads(torch, fwd, scope, cost="cost"):
+    """d cost / d cost = 1 and zeros for the forward's other outputs (a
+    missing out@GRAD would be seeded with ones)."""
+    fwd.infer_shape(scope)
+    for n in fwd.output_names():
+        shape = scope.get_var(n).shape
+        scope.new_var(n + "@GRAD").set(
+            torch.ones(shape, device=scope.device) if n == cost
+            else torch.zeros(shape, device=scope.device))
+
+
+def fwd_bwd_values(torch, fw, fwd, bwd, arrays, seeds, dev, dtype):
+    """{name: tensor} of every forward output and every gradient of one
+    forward and Backward on `dev` in `dtype` (float64 through the traces,
+    which cast nothing; float32 through the scope runs)."""
+    if dtype == torch.float32:
+        scope = fw.Scope(device=dev)
+        for k, v in arrays.items():
+            scope.new_var(k).set(v)
+        for k, v in seeds.items():
+            scope.new_var(k).set(v)
+        fwd.run(scope)
+        bwd.run(scope)
+        names = fwd.output_names() + bwd.output_names()
+        return {n: scope.get_var(n).get() for n in names}
+    vals = {k: torch.as_tensor(v, dtype=dtype, device=dev) for k, v in {**arrays, **seeds}.items()}
+    vals = bwd.trace(fwd.trace(vals))
+    return {n: vals[n] for n in fwd.output_names() + bwd.output_names()}
+
+
+def judge_card_cpu(torch, fw, fwd, bwd, arrays, seeds, dev, name):
+    """Card f32 against CPU f32, each output and gradient, relative L2 within
+    max(FW_REL, 2x the CPU f32's distance from the CPU's f64); returns the
+    worst ratio."""
+    card = fwd_bwd_values(torch, fw, fwd, bwd, arrays, seeds, dev, torch.float32)
+    cpu = fwd_bwd_values(torch, fw, fwd, bwd, arrays, seeds, torch.device("cpu"), torch.float32)
+    f64 = fwd_bwd_values(torch, fw, fwd, bwd, arrays, seeds, torch.device("cpu"), torch.float64)
+    worst, rows = 0.0, []
+    for n in card:
+        d = rel_l2(torch, {n: card[n]}, {n: cpu[n]})
+        own = rel_l2(torch, {n: cpu[n]}, {n: f64[n]})
+        bar = max(FW_REL, 2 * own)
+        worst = max(worst, d / bar)
+        rows.append(f"{n} {d:.3g} (CPU f32 from f64 {own:.3g})")
+    say(f"{name} card vs CPU f32, relative L2 per output and gradient (bar max({FW_REL}, 2x the "
+        f"CPU's own distance from f64)): worst / bar {worst:.3f}; " + ", ".join(rows))
+    if not worst <= 1.0:
+        raise SystemExit(f"{name}: card and CPU disagree past the bar ({worst:.3f})")
+    return worst
+
+
+def phase_framework_mlp(torch, P, card, dev):
+    """Phase 21a: the op framework's MLP trained on the card: one NetOp of
+    the forward, its Backward and four sgd ops in one Scope."""
+    from paddle_tpu_torch import framework as fw
+
+    fwd, bwd, step = mlp_step_net(fw)
+    arrays = mlp_inputs(81)
+    scope = fw.Scope(device=dev)
+    for k, v in arrays.items():
+        scope.new_var(k).set(v)
+    seed_out_grads(torch, fwd, scope)
+    say(f"framework mlp: x[{FW_B}, {FW_DIMS[0]}] -> mul w1 [{FW_DIMS[0]}, {FW_DIMS[1]}] -> "
+        f"rowwise_add -> sigmoid -> mul w2 [{FW_DIMS[1]}, {FW_DIMS[2]}] -> rowwise_add -> "
+        f"softmax -> onehot_cross_entropy -> mean; Backward(no_grad_set x, label) and 4 sgd "
+        f"ops at lr {FW_LR}: one NetOp of the forward (8 ops), its Backward and the sgd "
+        f"ops, in one Scope on {scope.device}")
+    step.run(scope)  # warm-up
+    costs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(FW_STEPS):
+        step.run(scope)
+        costs.append(scope.get_var("cost").get())
+    torch.cuda.synchronize()
+    per_step = (time.perf_counter() - t0) / FW_STEPS
+    costs = [c.item() for c in costs]
+    sites = count_syncs(torch, lambda: step.run(scope))
+    by_site = {x: sites.count(x) for x in sorted(set(sites))}
+    inside = [x for x in sites if x.startswith("paddle_tpu_torch/")]
+    wall, busy, kernels, top = profile_call(torch, lambda: step.run(scope))
+    say(f"framework mlp on {card}: {FW_STEPS} steps {per_step * 1e3:.4f} ms per step, costs "
+        f"{costs[0]:.4f} -> {costs[-1]:.4f}; one step: {len(sites)} host syncs by site "
+        f"{by_site}, {kernels} device kernels, device busy {busy * 1e3:.4f} ms of "
+        f"{wall * 1e3:.4f} ms ({busy / wall:.3f}); top:")
+    for line in top[:3]:
+        say(f"  {line}")
+    if not (all(np.isfinite(costs)) and costs[-1] < costs[0]):
+        raise SystemExit("framework mlp: the cost did not fall")
+    if inside:
+        raise SystemExit(f"framework mlp: host syncs from the package {inside}")
+    grad_seeds = {n + "@GRAD": (np.ones((), np.float32) if n == "cost" else
+                                np.zeros(scope.get_var(n).shape, np.float32))
+                  for n in fwd.output_names()}
+    judge_card_cpu(torch, fw, fwd, bwd, mlp_inputs(82), grad_seeds, dev, "framework mlp")
+
+
+def phase_framework_rnn(torch, P, card, dev):
+    """Phase 21b: RecurrentOp (h = sigmoid(x_t W + h U)) forward and
+    Backward on the card, timed, profiled and held to the CPU."""
+    from paddle_tpu_torch import framework as fw
+
+    step = fw.NetOp()
+    step.add_op(fw.create_op("mul", X="x_t", Y="W", Out="xw"))
+    step.add_op(fw.create_op("mul", X="h_pre", Y="U", Out="hu"))
+    step.add_op(fw.create_op("add", X="xw", Y="hu", Out="pre_act"))
+    step.add_op(fw.create_op("sigmoid", X="pre_act", Y="h"))
+    step.complete_add_op()
+    rnn = fw.RecurrentOp(step_net=step, inlinks={"x": "x_t"}, outlinks=["h"],
+                         memories=[("h_pre", "h", "h0")])
+    bwd = fw.Backward(rnn)
+    rng = np.random.RandomState(83)
+    arrays = {"x": rng.randn(RNN_T, RNN_B, RNN_D).astype(np.float32),
+              "W": (rng.randn(RNN_D, RNN_D) / np.sqrt(RNN_D)).astype(np.float32),
+              "U": (rng.randn(RNN_D, RNN_D) / np.sqrt(RNN_D)).astype(np.float32),
+              "h0": (0.1 * rng.randn(RNN_B, RNN_D)).astype(np.float32)}
+    seeds = {"h@GRAD": rng.randn(RNN_T, RNN_B, RNN_D).astype(np.float32)}
+    scope = fw.Scope(device=dev)
+    for k, v in {**arrays, **seeds}.items():
+        scope.new_var(k).set(v)
+
+    def fwd_bwd():
+        rnn.run(scope)
+        bwd.run(scope)
+
+    fwd_bwd()  # warm-up
+    ms = time_ms(torch, fwd_bwd, iters=5, warmup=1)
+    wall, busy, kernels, top = profile_call(torch, fwd_bwd)
+    say(f"framework rnn: T = {RNN_T}, B = {RNN_B}, D = {RNN_D} on {card}: forward + Backward "
+        f"{ms:.3f} ms, {kernels} device kernels ({kernels / RNN_T:.1f} per time step), device "
+        f"busy {busy * 1e3:.3f} ms of {wall * 1e3:.3f} ms ({busy / wall:.3f}); top:")
+    for line in top[:3]:
+        say(f"  {line}")
+    judge_card_cpu(torch, fw, rnn, bwd, arrays, seeds, dev, "framework rnn")
+
+
+def gan_pair_card_cpu(torch, P, dev, seed):
+    """A GAN trainer on the card and one on the CPU holding the card's trees
+    (fresh Adam states on both)."""
+    from paddle_tpu_torch.models.gan import GANTrainer
+
+    kw = dict(hidden=GAN_HIDDEN, seed=seed)
+    card_t = GANTrainer(GAN_NOISE, GAN_DATA, device=dev, **kw)
+    cpu_t = GANTrainer(GAN_NOISE, GAN_DATA, device="cpu", **kw)
+    cpu_t.g_params, cpu_t.d_params = cpu_copy(card_t.g_params), cpu_copy(card_t.d_params)
+    cpu_t.g_opt_state, cpu_t.d_opt_state = (cpu_t.g_opt.init(cpu_t.g_params),
+                                            cpu_t.d_opt.init(cpu_t.d_params))
+    return card_t, cpu_t
+
+
+def phase_gan(torch, P, card, dev):
+    """Phase 21c: the GAN trainer on the card: card vs CPU gradients and 5
+    batches' losses, then 50 timed batches with syncs, kernels and busy."""
+    rng = np.random.RandomState(84)
+    card_t, cpu_t = gan_pair_card_cpu(torch, P, dev, seed=85)
+    real = mixture_rows(rng, GAN_B, GAN_DATA)
+    z = rng.randn(GAN_B, GAN_NOISE).astype(np.float32)
+    rows = []
+    for what, fn in (("d_step", lambda t, d: t.d_grads(torch.from_numpy(real).to(d),
+                                                       torch.from_numpy(z).to(d))),
+                     ("g_step", lambda t, d: t.g_grads(torch.from_numpy(z).to(d)))):
+        (lc, gc), (lp, gp) = fn(card_t, dev), fn(cpu_t, torch.device("cpu"))
+        err = rel_l2(torch, flat_tree(gc), flat_tree(gp))
+        rows.append(f"{what} loss {lc.item():.6f} vs {lp.item():.6f}, gradients {err:.3g}")
+        if not err <= FW_REL:
+            raise SystemExit(f"gan: {what} gradients card vs CPU {err:.3g} > {FW_REL}")
+    worst = 0.0
+    rc, rp = np.random.RandomState(86), np.random.RandomState(86)
+    for _ in range(GAN_CPU_BATCHES):
+        batch = mixture_rows(rng, GAN_B, GAN_DATA)
+        for a, b in zip(card_t.train_batch(batch, rc), cpu_t.train_batch(batch, rp)):
+            worst = max(worst, abs(a - b) / abs(b))
+    say(f"gan card vs CPU f32 from the same trees: {'; '.join(rows)}; {GAN_CPU_BATCHES} batches' "
+        f"losses worst relative {worst:.3g} (bar {GAN_LOSS_REL})")
+    if not worst <= GAN_LOSS_REL:
+        raise SystemExit(f"gan: losses card vs CPU {worst:.3g} > {GAN_LOSS_REL}")
+    del cpu_t
+    from paddle_tpu_torch.models.gan import GANTrainer
+
+    gan = GANTrainer(GAN_NOISE, GAN_DATA, hidden=GAN_HIDDEN, seed=87, device=dev)
+    say(f"gan: noise {GAN_NOISE}, data {GAN_DATA} (gan_conf_image.py's MNIST setting), hidden "
+        f"{GAN_HIDDEN}, B = {GAN_B}, Adam(1e-3, beta1 0.5) on each network, real rows from a "
+        f"two-component mixture")
+    batches = [mixture_rows(rng, GAN_B, GAN_DATA) for _ in range(GEN_TIMED_STEPS + 3)]
+    noise = np.random.RandomState(88)
+    gan.train_batch(batches[0], noise)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [gan.train_batch(b, noise) for b in batches[1:GEN_TIMED_STEPS + 1]]
+    per = (time.perf_counter() - t0) / GEN_TIMED_STEPS
+    d_losses = [d for d, _ in losses]
+    sites = count_syncs(torch, lambda: gan.train_batch(batches[-2], noise))
+    by_site = {x: sites.count(x) for x in sorted(set(sites))}
+    wall, busy, kernels, top = profile_call(torch, lambda: gan.train_batch(batches[-1], noise))
+    say(f"gan on {card}: {GEN_TIMED_STEPS} batches (a D step and a G step each) "
+        f"{per * 1e3:.4f} ms per batch; D loss {d_losses[0]:.4f} -> {d_losses[-1]:.4f} "
+        f"(min {min(d_losses):.4f}), G loss {losses[0][1]:.4f} -> {losses[-1][1]:.4f}; one "
+        f"batch: {len(sites)} host syncs by site {by_site}, {kernels} device kernels, device "
+        f"busy {busy * 1e3:.4f} ms of {wall * 1e3:.4f} ms ({busy / wall:.3f}); top:")
+    for line in top[:3]:
+        say(f"  {line}")
+    if not np.isfinite(losses).all():
+        raise SystemExit("gan: a loss is not finite")
+    if not min(d_losses) < 2 * np.log(2):
+        raise SystemExit("gan: D never beat chance (2 ln 2)")
+    if len(sites) != 2 or any(not x.startswith("paddle_tpu_torch/models/gan.py") for x in sites):
+        raise SystemExit(f"gan: a batch must sync exactly at its two loss reads: {by_site}")
+    return gan
+
+
+def phase_vae(torch, P, card, dev):
+    """Phase 21d: the VAE trainer on the card: card vs CPU at one eps, then
+    50 timed steps with syncs, kernels and busy."""
+    from paddle_tpu_torch.models.vae import VAETrainer
+
+    kw = dict(latent_dim=VAE_LATENT, hidden=VAE_HIDDEN, lr=1e-3, seed=89)
+    vae = VAETrainer(VAE_DATA, device=dev, **kw)
+    cpu = VAETrainer(VAE_DATA, device="cpu", **kw)
+    cpu.params = cpu_copy(vae.params)
+    rng = np.random.RandomState(90)
+    x = mixture_rows(rng, VAE_B, VAE_DATA)
+    eps = rng.randn(VAE_B, VAE_LATENT).astype(np.float32)
+    lc, gc = vae.loss_grads(vae.params, torch.from_numpy(x).to(dev), torch.from_numpy(eps).to(dev))
+    lp, gp = cpu.loss_grads(cpu.params, torch.from_numpy(x), torch.from_numpy(eps))
+    g_err = rel_l2(torch, flat_tree(gc), flat_tree(gp))
+    l_err = abs(lc.item() - lp.item()) / abs(lp.item())
+    r_err = rel_l2(torch, {"r": torch.from_numpy(vae.reconstruct(x))},
+                   {"r": torch.from_numpy(cpu.reconstruct(x))})
+    say(f"vae card vs CPU f32 at one eps: loss {lc.item():.6f} vs {lp.item():.6f} ({l_err:.3g}), "
+        f"gradients {g_err:.3g}, reconstruct of {VAE_B} rows {r_err:.3g} (bar {FW_REL})")
+    if not max(l_err, g_err, r_err) <= FW_REL:
+        raise SystemExit("vae: card and CPU disagree")
+    del cpu
+    say(f"vae: data {VAE_DATA}, hidden {VAE_HIDDEN}, latent {VAE_LATENT}, B = {VAE_B}, Adam(1e-3)")
+    batches = [mixture_rows(rng, VAE_B, VAE_DATA) for _ in range(GEN_TIMED_STEPS + 3)]
+    vae.train_batch(batches[0])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [vae.train_batch(b) for b in batches[1:GEN_TIMED_STEPS + 1]]
+    per = (time.perf_counter() - t0) / GEN_TIMED_STEPS
+    sites = count_syncs(torch, lambda: vae.train_batch(batches[-2]))
+    by_site = {x: sites.count(x) for x in sorted(set(sites))}
+    wall, busy, kernels, top = profile_call(torch, lambda: vae.train_batch(batches[-1]))
+    say(f"vae on {card}: {GEN_TIMED_STEPS} steps {per * 1e3:.4f} ms per step, loss "
+        f"{losses[0]:.3f} -> {losses[-1]:.3f}; one step: {len(sites)} host syncs by site "
+        f"{by_site}, {kernels} device kernels, device busy {busy * 1e3:.4f} ms of "
+        f"{wall * 1e3:.4f} ms ({busy / wall:.3f}); top:")
+    for line in top[:3]:
+        say(f"  {line}")
+    if not (np.isfinite(losses).all() and np.mean(losses[-5:]) < np.mean(losses[:5])):
+        raise SystemExit("vae: the loss did not fall")
+    return vae
+
+
+def phase_surface(torch, P, gan, vae, dev):
+    """Phase 21e: save_model/load_model and merge_model/load_merged_model
+    round-trip the GAN's generator on the card; make_diagram of the VAE's
+    encoder."""
+    import tempfile
+
+    from paddle_tpu_torch import model
+    from paddle_tpu_torch.utils import model_tools
+
+    z = torch.from_numpy(np.random.RandomState(91).randn(64, GAN_NOISE).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        before = gan.generate(gan.g_params, z)
+    params = P.parameters.Parameters(gan.g_net, gan.g_params)
+    with tempfile.TemporaryDirectory() as d:
+        for what, save, load in (
+                ("save_model/load_model", lambda f: model.save_model(params, f),
+                 lambda p, f: model.load_model(p, f)),
+                ("merge_model/load_merged_model", lambda f: model_tools.merge_model(params, f),
+                 lambda p, f: model_tools.load_merged_model(f, p))):
+            path = os.path.join(d, "g.bundle")
+            save(path)
+            fresh = P.parameters.Parameters(gan.g_net, gan.g_net.init_params(92, dev))
+            load(fresh, path)
+            with torch.no_grad():
+                after = gan.generate(fresh.params, z)
+            same = torch.equal(after, before)
+            say(f"surface: {what} of the GAN's generator ({os.path.getsize(path)} bytes) on "
+                f"{after.device}: generated samples equal before and after: {same}")
+            if not same:
+                raise SystemExit(f"surface: {what} did not round-trip the generator")
+    dot = model_tools.make_diagram(vae.enc.topology)
+    say(f"surface: make_diagram of the VAE's encoder: {len(dot.splitlines())} lines")
+
+
+def phase_framework_gen(torch, P, fa, card):
+    """Phase 21: the op framework, the GAN and VAE trainers and the v2 surface
+    in f32 (TF32 off); no flash kernel may launch."""
+    dev = torch.device("cuda")
+    P.init(seed=80, compute_dtype="float32")
+    reset_counts(fa)
+    t = [time.perf_counter()]
+    phase_framework_mlp(torch, P, card, dev)
+    t.append(time.perf_counter())
+    phase_framework_rnn(torch, P, card, dev)
+    t.append(time.perf_counter())
+    gan = phase_gan(torch, P, card, dev)
+    t.append(time.perf_counter())
+    vae = phase_vae(torch, P, card, dev)
+    t.append(time.perf_counter())
+    phase_surface(torch, P, gan, vae, dev)
+    t.append(time.perf_counter())
+    if launch_counts(fa) != (0, 0, 0):
+        raise SystemExit("framework: phase 21 launched a flash kernel")
+    say(f"framework: phase 21 split: mlp {t[1] - t[0]:.1f} s, rnn {t[2] - t[1]:.1f} s, gan "
+        f"{t[3] - t[2]:.1f} s, vae {t[4] - t[3]:.1f} s, surface {t[5] - t[4]:.1f} s; flash "
+        f"launches (fwd, dq, dkv) over it: {launch_counts(fa)}")
+
+
 def main() -> int:
     import torch
 
@@ -5013,6 +5416,10 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_last_types(torch, P, fa, card)
     say(f"last types: phase 20 took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_framework_gen(torch, P, fa, card)
+    say(f"framework: phase 21 took {time.perf_counter() - t0:.1f} s")
     kernels = [
         {"name": name, "route": "cuda", "source": f"paddle_tpu_torch/csrc/{src}",
          "replaces": f"paddle_tpu/ops/pallas_attention.py:{line}",

@@ -19,7 +19,12 @@ NMT model (``models/seq2seq.py``) trains through recurrent groups
 ``maxout``, ``pad``, ``crop``, ``bilinear_interp``, ``spp``,
 ``featmap_expand``, ``block_expand``), the conv operator and CTC
 (``ctc``/``warp_ctc`` with ``evaluator.ctc_error_evaluator``) carry AlexNet
-and CRNN-CTC line recognizers::
+and CRNN-CTC line recognizers.  The op framework (``framework/``: Scope, the
+ten ops, NetOp, Backward, RecurrentOp and the gradient checker), the GAN and
+VAE trainers (``models/gan.py``, ``models/vae.py``) and the v2 surface
+modules (``model``, ``plot``, ``utils/model_tools.py``,
+``utils/plotcurve.py``, ``utils/preprocess_img.py``) run on the same
+device rule::
 
     import paddle_tpu_torch as paddle
     paddle.init(seed=1, compute_dtype="bfloat16", use_flash_attention=True)
@@ -66,24 +71,33 @@ from paddle_tpu_torch.models import seq2seq as _seq2seq  # noqa: F401
 from paddle_tpu_torch.models import sequence_tagging as _sequence_tagging  # noqa: F401
 from paddle_tpu_torch.models import transformer as _transformer  # noqa: F401
 from paddle_tpu_torch import models  # noqa: F401
+from paddle_tpu_torch import model  # noqa: F401
+from paddle_tpu_torch import plot  # noqa: F401
+from paddle_tpu_torch import dataset  # noqa: F401
+from paddle_tpu_torch import v1_compat  # noqa: F401
+from paddle_tpu_torch import image  # noqa: F401
+from paddle_tpu_torch import io  # noqa: F401
 from paddle_tpu_torch.utils import flags  # noqa: F401
 
 __version__ = "0.1.0"
 
 
-def init(seed=None, compute_dtype=None, device=None, *, use_gpu=None, use_tpu=None,
-         trainer_count=None, **kwargs) -> None:
-    """paddle.init for the port: seeds numpy, python and torch, sets the
-    compute dtype ('bfloat16' enables mixed precision for networks built
-    after this call) and the default device of the entry points (the card
-    unless ``device="cpu"``; raises when CUDA is asked for and absent).
+def init(use_tpu=None, trainer_count=None, seed=None, compute_dtype=None, *, device=None,
+         use_gpu=None, **kwargs) -> None:
+    """paddle.init for the port, with the JAX package's positional order:
+    seeds numpy, python and torch, sets the compute dtype ('bfloat16'
+    enables mixed precision for networks built after this call) and the
+    default device of the entry points (the card unless ``device="cpu"``;
+    raises when CUDA is asked for and absent).
 
-    ``use_gpu``, ``use_tpu`` and ``trainer_count`` are accepted for the
-    reference's and the JAX package's surface and recorded as flags; they
-    choose nothing: the device comes from ``device=`` alone, so
+    ``use_tpu``, ``trainer_count`` and ``use_gpu`` are accepted for the JAX
+    package's and the reference's surface and recorded as flags; they choose
+    nothing: the device comes from ``device=`` alone, so
     ``init(use_gpu=False)`` still runs on the card.  Remaining keyword
     arguments set flags (e.g. use_flash_attention=True); unknown names are
-    accepted and ignored, as the JAX package's init does."""
+    accepted and ignored, as the JAX package's init does.  NaN checks
+    (``check_nans=True``, by argument or environment) are not ported yet and
+    raise before anything is set."""
     import random
 
     import numpy as np
@@ -92,6 +106,10 @@ def init(seed=None, compute_dtype=None, device=None, *, use_gpu=None, use_tpu=No
     from paddle_tpu_torch.core.compiler import set_default_compute_dtype
     from paddle_tpu_torch.core.device import set_default_device
 
+    if flags._coerce("check_nans", kwargs.get("check_nans", flags.get_flag("check_nans"))):
+        raise NotImplementedError(
+            "init(check_nans=True) (NaN checks, the JAX package's enable_nan_checks) is not "
+            "ported yet (ROADMAP Queue 1 item 7)")
     set_default_device(device if device is not None else "cuda")
     explicit = {
         k: v

@@ -227,6 +227,10 @@ def slice_batch_rows(outs: Dict[str, SeqTensor], b: int) -> Dict[str, SeqTensor]
     }
 
 
+def non_seq(data, device=None) -> SeqTensor:
+    return SeqTensor(torch.as_tensor(data, device=device))
+
+
 def seq(data, lengths, device=None) -> SeqTensor:
     return SeqTensor(torch.as_tensor(data, device=device),
                      torch.as_tensor(lengths, dtype=torch.int32, device=device))

@@ -43,7 +43,7 @@ from paddle_tpu_torch.core.device import resolve_device
 from paddle_tpu_torch.core.topology import Topology
 from paddle_tpu_torch.layers.base import ApplyContext, get_layer_impl, mix_seed
 from paddle_tpu_torch.ops.activations import apply_activation
-from paddle_tpu_torch.utils.tree import get_path, map_leaves
+from paddle_tpu_torch.utils.tree import get_path, leaves, map_leaves
 
 Params = Dict[str, Dict[str, Any]]
 NetState = Dict[str, Dict[str, Any]]
@@ -396,6 +396,13 @@ class CompiledNetwork:
                 out[name] = p
         return out
 
+    def make_context(self, *, train: bool, rng: Optional[int] = None,
+                     state: Optional[NetState] = None) -> ApplyContext:
+        """The ApplyContext exactly as apply() builds it (utils.debug times
+        each layer under the same one)."""
+        return ApplyContext(train=train, rng=rng, state=state or {}, dtype=self.compute_dtype,
+                            plans=self._plans)
+
     def resolve_layer_call(self, name: str, params: Params, ins):
         """(layer params, inputs) as the apply loop hands them to the impl:
         the shared-parameter lookup and the mixed-precision casts included."""
@@ -421,8 +428,7 @@ class CompiledNetwork:
         seeds layer outputs (a recurrent group runs its step, its hoisted
         prologue and its hoisted epilogue through these)."""
         mixed = self.compute_dtype != torch.float32
-        ctx = ApplyContext(train=train, rng=rng, state=state or {}, dtype=self.compute_dtype,
-                           plans=self._plans)
+        ctx = self.make_context(train=train, rng=rng, state=state)
         if preset:
             ctx.outputs.update(preset)
         for name in self.topology.order:
@@ -491,3 +497,8 @@ class CompiledNetwork:
         output, the quantity the train step differentiates."""
         out, outs, new_state = self.forward(params, batch, state=state, train=train, rng=rng)
         return out.data.mean(), (outs, new_state)
+
+
+def count_params(params: Params) -> int:
+    """The number of elements over every leaf of a parameter tree."""
+    return sum(v.numel() for v in leaves(params))

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 _default_device = "cuda"
@@ -24,6 +25,17 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def upload(a, device: torch.device) -> torch.Tensor:
+    """A host array (or a tensor) as a float32 tensor on `device`; to the
+    card through pinned memory, without a host sync."""
+    if torch.is_tensor(a):
+        return a.to(device, torch.float32)
+    t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
 
 
 def tree_to(tree, device: torch.device):

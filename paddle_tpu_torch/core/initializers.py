@@ -1,6 +1,6 @@
 """Parameter initialisation on a ``torch.Generator`` — the counterpart of
 ``paddle_tpu/core/initializers.py`` (gaussian, default std 1/sqrt(fan_in);
-``conv_normal`` for HWIO conv kernels).
+uniform; ``conv_normal`` for HWIO conv kernels).
 
 Values are drawn on the CPU generator and then moved to ``device``, so one
 seed gives the same parameters on every device.  They differ from the JAX
@@ -14,6 +14,13 @@ from typing import Optional, Sequence
 import torch
 
 
+def split_seeds(seed: int, n: int = 2) -> list:
+    """`n` seeds drawn from a torch.Generator seeded with `seed` (where the
+    JAX package splits its key)."""
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randint(0, 2**31 - 1, (n,), generator=gen).tolist()
+
+
 def default_std(fan_in: int) -> float:
     return 1.0 / math.sqrt(max(fan_in, 1))
 
@@ -24,6 +31,13 @@ def normal(gen: torch.Generator, shape: Sequence[int], std: Optional[float] = No
         fan_in = shape[0] if len(shape) >= 2 else shape[-1]
         std = default_std(int(fan_in))
     x = torch.randn(tuple(shape), generator=gen, dtype=dtype) * std
+    return x.to(device)
+
+
+def uniform(gen: torch.Generator, shape: Sequence[int], scale: float, device="cpu",
+            dtype=torch.float32) -> torch.Tensor:
+    """Uniform in [-scale, scale)."""
+    x = torch.empty(tuple(shape), dtype=dtype).uniform_(-scale, scale, generator=gen)
     return x.to(device)
 
 

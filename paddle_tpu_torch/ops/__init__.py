@@ -14,7 +14,13 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["acc_matmul", "acc_einsum"]
+__all__ = ["acc_matmul", "acc_einsum", "needs_f32_acc"]
+
+
+def needs_f32_acc(dtype: torch.dtype) -> bool:
+    """True for sub-f32 float dtypes (bf16, f16, f8): the dtypes whose
+    contractions must accumulate upward."""
+    return dtype.is_floating_point and torch.finfo(dtype).bits < 32
 
 
 def acc_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

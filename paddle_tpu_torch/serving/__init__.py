@@ -29,5 +29,5 @@ _NOT_PORTED = frozenset({
 def __getattr__(name):
     if name in _NOT_PORTED:
         raise NotImplementedError(
-            f"paddle_tpu_torch.serving.{name} is not ported yet (ROADMAP.md Queue 1 item 5)")
+            f"paddle_tpu_torch.serving.{name} is not ported yet (ROADMAP.md Queue 1 item 4)")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -222,7 +222,7 @@ class SGD:
         if checkpoint_dir is not None:
             raise NotImplementedError(
                 "checkpoint_dir (periodic full-state checkpoints with rollback, "
-                "preemption and resume) is not ported yet (ROADMAP Queue 1 item 8); "
+                "preemption and resume) is not ported yet (ROADMAP Queue 1 item 5); "
                 "checkpoint with save_checkpoint / restore_checkpoint")
         if resume:
             raise ValueError("resume=True requires checkpoint_dir")

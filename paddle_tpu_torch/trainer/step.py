@@ -108,6 +108,23 @@ def draw_seed(gen: torch.Generator) -> int:
     return int(torch.randint(0, 2**62, (1,), generator=gen))
 
 
+def value_and_grad(fn, params):
+    """(value, aux, grads) of ``fn(leaves) -> (scalar value, aux)``, where
+    `leaves` are views of `params` that share their storage and require
+    grad: the graph hangs off them, so an in-place update of `params`
+    afterwards writes the masters themselves.  `grads` has the tree's
+    structure, zeros where `fn` does not use a leaf; `value` is detached."""
+    leaves = map_leaves(lambda v: v.detach().requires_grad_(True), params)
+    with torch.enable_grad():
+        value, aux = fn(leaves)
+        paths = list(leaf_paths(leaves))
+        grads_flat = torch.autograd.grad(value, [v for _, v in paths], allow_unused=True)
+    grads: Dict[str, Any] = {}
+    for (path, v), g in zip(paths, grads_flat):
+        set_path(grads, path, torch.zeros_like(v) if g is None else g)
+    return value.detach(), aux, grads
+
+
 def _train_step_body(network: CompiledNetwork, optimizer: Optimizer, extra_metrics=None,
                      sentinel: Optional[bool] = None, prune_masks=None):
     """(params, state, opt_state, batch, rng=None) -> (params, state,
@@ -117,19 +134,9 @@ def _train_step_body(network: CompiledNetwork, optimizer: Optimizer, extra_metri
     guard = _sentinel_enabled(sentinel)
 
     def step(params, state, opt_state, batch, rng: Optional[int] = None):
-        # views of the masters that share their storage: the graph hangs off
-        # these, and the in-place update below writes the masters themselves
-        leaves = map_leaves(lambda v: v.detach().requires_grad_(True), params)
-        with torch.enable_grad():
-            cost, (outs, new_state) = network.cost(
-                leaves, batch, state=state, train=True, rng=rng)
-            paths = list(leaf_paths(leaves))
-            grads_flat = torch.autograd.grad(
-                cost, [v for _, v in paths], allow_unused=True)
-        grads: Dict[str, Any] = {}
-        for (path, v), g in zip(paths, grads_flat):
-            set_path(grads, path, torch.zeros_like(v) if g is None else g)
-        metrics: Metrics = {"cost": cost.detach()}
+        cost, (outs, new_state), grads = value_and_grad(
+            lambda p: network.cost(p, batch, state=state, train=True, rng=rng), params)
+        metrics: Metrics = {"cost": cost}
         healthy = True
         if guard:
             grad_norm = _global_norm(grads)

@@ -1,15 +1,79 @@
-"""Parameter statistics of ``SGD.train(show_parameter_stats_period=N)`` — the
-counterpart of ``parameter_stats`` and ``format_parameter_stats`` in the JAX
-package's ``utils/debug.py`` (reference TrainerInternal.cpp:83-110)."""
+"""Diagnostics: per-layer timing and parameter statistics — the counterpart
+of the JAX package's ``utils/debug.py``.
+
+Reference counterparts: the per-layer REGISTER_TIMER_INFO forward timers of
+NeuralNetwork.cpp:247 (:func:`profile_layers`, which runs the graph
+layer at a time with a device synchronise per layer: the numbers include
+launch overhead, so use them for relative cost and the profiler for
+truth), the show_parameter_stats_period logging of
+TrainerInternal.cpp:83-110 (:func:`parameter_stats`, which
+``SGD.train(show_parameter_stats_period=N)`` logs) and the
+gradient_printer_evaluator (:func:`gradient_stats`)."""
 
 from __future__ import annotations
 
-from typing import Dict
+import time
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
-from paddle_tpu_torch.utils.tree import leaf_paths
+from paddle_tpu_torch.utils.tree import dotted, leaf_paths
+
+
+def profile_layers(
+    network,
+    params,
+    batch,
+    state=None,
+    train: bool = False,
+    rng=None,
+    repeats: int = 3,
+) -> List[Tuple[str, str, float]]:
+    """[(layer_name, type, best_ms)] forward cost per layer, eager with a
+    device synchronise per layer (reference FwdTimer per layer)."""
+    topo = network.topology
+    results: List[Tuple[str, str, float]] = []
+
+    # run once through apply() to obtain every layer's output for reuse as
+    # the timed layer's inputs (so each layer is timed in isolation)
+    with torch.no_grad():
+        outs, _ = network.apply(params, batch, state=state, train=train, rng=rng)
+
+    for name in topo.order:
+        conf = topo.layers[name]
+        impl = network._impls[name]
+        if conf.type in ("data", "step_input", "memory"):
+            continue
+        # identical param resolution + mixed-precision casts as training
+        p, ins = network.resolve_layer_call(name, params, [outs[i] for i in conf.inputs])
+
+        @torch.no_grad()
+        def run_once():
+            ctx = network.make_context(train=train, rng=rng, state=state)
+            ctx.outputs.update(outs)
+            out = impl.apply(conf, p, ins, ctx)
+            if out.data.is_cuda:
+                torch.cuda.synchronize(out.data.device)
+            return out
+
+        run_once()  # warm
+        best = float("inf")
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            run_once()
+            best = min(best, (time.perf_counter() - t0) * 1000.0)
+        results.append((name, conf.type, best))
+    return results
+
+
+def format_layer_profile(rows: List[Tuple[str, str, float]]) -> str:
+    total = sum(r[2] for r in rows)
+    lines = [f"{'layer':<32} {'type':<20} {'ms':>9} {'%':>6}"]
+    for name, typ, ms in sorted(rows, key=lambda r: -r[2]):
+        lines.append(f"{name:<32} {typ:<20} {ms:9.3f} {100 * ms / max(total, 1e-9):6.1f}")
+    lines.append(f"{'TOTAL':<32} {'':<20} {total:9.3f}")
+    return "\n".join(lines)
 
 
 def parameter_stats(params) -> Dict[str, Dict[str, float]]:
@@ -37,3 +101,14 @@ def format_parameter_stats(stats: Dict[str, Dict[str, float]]) -> str:
             f"{s['min']:>11.4g} {s['max']:>11.4g}"
         )
     return "\n".join(lines)
+
+
+def gradient_stats(network, params, batch, state=None, rng=None) -> Dict[str, float]:
+    """{layer.param: l2_norm} of d(mean cost)/d(param) — the functional
+    replacement for the reference's gradient_printer_evaluator."""
+    from paddle_tpu_torch.trainer.step import value_and_grad
+
+    _, _, grads = value_and_grad(
+        lambda p: network.cost(p, batch, state=state, rng=rng, train=True), params)
+    return {dotted(path): float(torch.linalg.vector_norm(g.float()))
+            for path, g in leaf_paths(grads)}

@@ -66,6 +66,10 @@ def set_flags(**kwargs) -> None:
         set_flag(k, v)
 
 
+def all_flags() -> Dict[str, Any]:
+    return {name: get_flag(name) for name in _DEFS}
+
+
 def reset_flags() -> None:
     _VALUES.clear()
 
@@ -85,6 +89,9 @@ define_flag("log_period", 100, "log training stats every N batches")
 define_flag("show_parameter_stats_period", 0,
             "log per-parameter stats (size, mean, mean |x|, min, max) every "
             "N batches of SGD.train (0 = off)")
+define_flag("check_nans", False,
+            "NaN checks (the JAX package's jax nan-debugging); not ported yet: "
+            "init(check_nans=True) raises")
 define_flag("compute_dtype", "", "bfloat16 enables mixed precision")
 define_flag("use_flash_attention", False,
             "hand-written flash-attention kernels (ops/flash_attention.py: "

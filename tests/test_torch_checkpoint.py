@@ -269,7 +269,7 @@ def test_checkpoint_dir_is_not_ported_yet(nets, tmp_path):
     _, tcost, _, tparams = nets
     trainer = _trainer(paddle_tpu_torch, tcost, tparams)
     reader = paddle_tpu_torch.batch(lambda: iter(_samples(B, 1)), B)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         trainer.train(reader, feeding=FEEDING, checkpoint_dir=str(tmp_path))
     with pytest.raises(ValueError, match="requires checkpoint_dir"):
         trainer.train(reader, feeding=FEEDING, resume=True)

@@ -49,7 +49,11 @@ def test_every_module_imports_without_jax():
                 "models.sequence_tagging", "v1_compat", "v1_compat.config_helpers",
                 "v1_compat.raw_face", "data_provider", "io.protodata", "io.recordio",
                 "reader.creator", "reader.decorator", "layers.layer_math", "dataset.imdb",
-                "image", "utils.queues", "utils.debug", "ops.detection"):
+                "image", "utils.queues", "utils.debug", "ops.detection", "framework",
+                "framework.scope", "framework.op", "framework.ops", "framework.net",
+                "framework.backward", "framework.recurrent", "framework.gradient_checker",
+                "models.gan", "models.vae", "model", "plot", "utils.plotcurve",
+                "utils.model_tools", "utils.preprocess_img"):
         assert f"paddle_tpu_torch.{mod}" in names.split()
 
 
@@ -273,3 +277,39 @@ def test_v1_front_end_entry_points_raise_without_cuda():
     train = v1_compat.parse_config(os.path.join(ROOT, "tests", "configs", "demo_mnist_mlp.py"))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         P.trainer.SGD(train.topology, update_equation=v1_compat.make_optimizer(train.settings))
+
+
+def test_framework_and_generative_entry_points_raise_without_cuda():
+    """Scope (and so check_gradients, which builds one, and
+    numeric_gradient), GANTrainer and VAETrainer: the card unless the caller
+    asks for the CPU, by argument or through init(device="cpu")."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device; the no-CUDA error cannot show")
+    from paddle_tpu_torch import framework as fw
+    from paddle_tpu_torch.core import device as tdevice
+    from paddle_tpu_torch.models.gan import GANTrainer
+    from paddle_tpu_torch.models.vae import VAETrainer
+
+    op = fw.create_op("sigmoid", X="x", Y="y")
+    x = {"x": np.zeros((2, 3), np.float32)}
+    for make in (fw.Scope, lambda: fw.check_gradients(op, x),
+                 lambda: fw.numeric_gradient(op, x, "x"),
+                 lambda: GANTrainer(3, 2, hidden=4), lambda: VAETrainer(4, 2, hidden=4)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    scope = fw.Scope(device="cpu")
+    assert scope.new_scope().device == torch.device("cpu")
+    fw.check_gradients(op, x, device="cpu")
+    assert GANTrainer(3, 2, hidden=4, device="cpu").device.type == "cpu"
+    assert VAETrainer(4, 2, hidden=4, device="cpu").device.type == "cpu"
+    flags = paddle_tpu_torch.flags
+    saved = dict(flags._VALUES)
+    try:
+        paddle_tpu_torch.init(device="cpu")
+        assert fw.Scope().device == torch.device("cpu")
+        assert GANTrainer(3, 2, hidden=4).d_params["d_out"]["w0"].device.type == "cpu"
+    finally:
+        tdevice._default_device = "cuda"
+        flags._VALUES.clear()
+        flags._VALUES.update(saved)
+

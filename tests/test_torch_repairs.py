@@ -9,6 +9,15 @@
   ``trainer_count`` and records them, ignores unknown names, and keeps the
   card as the device; ``use_pallas_attention`` is an alias of
   ``use_flash_attention``;
+- ``init`` takes the JAX package's positional order (use_tpu,
+  trainer_count, seed, compute_dtype); ``init(check_nans=True)``, whose NaN
+  checks are not ported, raises naming ROADMAP Queue 1 item 7 and changes
+  nothing;
+- the top level binds every module the JAX package's binds, except those
+  of ROADMAP Queue 1 items 6 and 7 (a fresh process diffs the names), and
+  ``paddle.dataset.mnist.train`` resolves without a submodule import;
+- the not-ported messages of ``SGD.train(checkpoint_dir=...)`` and
+  ``serving.ServingScheduler`` name their roadmap items (5 and 4);
 - ``SGD(is_local=...)`` (ignored, as in the JAX package),
   ``SGD.train(show_parameter_stats_period=..., async_load_data=...)`` and
   ``SGD.test(async_load_data=...)`` are accepted; ``async_load_data=True``,
@@ -143,3 +152,89 @@ def test_sgd_takes_the_reference_arguments(caplog):
     # training is always local, as in the JAX package
     assert paddle_tpu_torch.trainer.SGD(cost, update_equation=opt, is_local=False,
                                         device="cpu").device.type == "cpu"
+
+
+def test_init_takes_the_jax_positional_order():
+    from paddle_tpu_torch.core import device as tdevice
+
+    flags = paddle_tpu_torch.flags
+    saved = dict(flags._VALUES)
+    try:
+        paddle_tpu_torch.init(False, 1, device="cpu")
+        assert flags.get_flag("use_tpu") is False and flags.get_flag("trainer_count") == 1
+        paddle_tpu_torch.init(True, 2, 7, "float32", device="cpu")
+        assert flags.get_flag("use_tpu") is True and flags.get_flag("trainer_count") == 2
+        assert flags.get_flag("seed") == 7 and tdevice._default_device == "cpu"
+    finally:
+        tdevice._default_device = "cuda"
+        flags._VALUES.clear()
+        flags._VALUES.update(saved)
+
+
+def test_check_nans_raises_and_changes_nothing(monkeypatch):
+    from paddle_tpu_torch.core import device as tdevice
+
+    flags = paddle_tpu_torch.flags
+    saved = dict(flags._VALUES)
+    try:
+        assert flags.get_flag("check_nans") is False
+        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+            paddle_tpu_torch.init(device="cpu", seed=11, check_nans=True)
+        assert flags._VALUES == saved and tdevice._default_device == "cuda"
+        monkeypatch.setenv("PADDLE_TPU_TORCH_CHECK_NANS", "1")
+        with pytest.raises(NotImplementedError, match="check_nans"):
+            paddle_tpu_torch.init(device="cpu")
+        paddle_tpu_torch.init(device="cpu", check_nans=False)
+    finally:
+        tdevice._default_device = "cuda"
+        flags._VALUES.clear()
+        flags._VALUES.update(saved)
+
+
+# top-level names of the JAX package the port does not bind yet, each with
+# the ROADMAP Queue 1 item that ports it
+NOT_YET_BOUND = {
+    "parallel": 6, "launcher": 7, "master": 7, "master_journal": 7, "master_wire": 7,
+    "obs": 7, "profiler": 7, "robustness": 7,
+}
+
+_TOP_LEVEL = """
+import json, sys
+import paddle_tpu_torch as paddle
+mnist_train = paddle.dataset.mnist.train  # no submodule import before this
+import paddle_tpu
+public = lambda m: sorted(n for n in dir(m) if not n.startswith("_"))
+print(json.dumps([public(paddle_tpu), public(paddle), callable(mnist_train)]))
+"""
+
+
+def test_top_level_binds_the_jax_package_names():
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", _TOP_LEVEL], cwd=root, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    jax_names, port_names, mnist_ok = json.loads(proc.stdout.strip().splitlines()[-1])
+    missing = set(jax_names) - set(port_names)
+    assert missing == set(NOT_YET_BOUND), sorted(missing ^ set(NOT_YET_BOUND))
+    assert {"dataset", "v1_compat", "image", "io", "model", "plot"} <= set(port_names)
+    assert mnist_ok
+
+
+def test_not_ported_messages_name_their_items():
+    cost = _pruned_net(paddle_tpu_torch)
+    trainer = paddle_tpu_torch.trainer.SGD(
+        cost, update_equation=paddle_tpu_torch.optimizer.Momentum(learning_rate=0.1),
+        device="cpu")
+    reader = paddle_tpu_torch.batch(lambda: iter(_samples(8)), 8)
+    with pytest.raises(NotImplementedError, match=r"checkpoint_dir .*Queue 1 item 5\)"):
+        trainer.train(reader, feeding={"x": 0, "label": 1}, checkpoint_dir="unused")
+    from paddle_tpu_torch import serving
+
+    with pytest.raises(NotImplementedError, match=r"ServingScheduler .*Queue 1 item 4\)"):
+        serving.ServingScheduler
+
