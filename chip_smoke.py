@@ -355,15 +355,45 @@ Phases, in order; any failure exits non-zero:
      (e) save_model/load_model and merge_model/load_merged_model
      round-trip the GAN's generator on the card (equal samples), and
      make_diagram of the VAE's encoder.  No flash kernel may launch in
-     phase 21.
+     phase 21;
+ 22. the training plane's feeding and fault tolerance; each line says
+     whether cuDNN ran its autotuned or its deterministic algorithms:
+     (a) ResNet-50 at bench.py's bench_resnet_pipeline configuration (512
+     records of uint8 224x224x3 pixels and a label byte written to a
+     temporary recordio file and read by io.recordio.Prefetcher, B = 128,
+     the data layer's feed_dtype uint8 and feed_scale 1/255, bf16,
+     Momentum(0.01, 0.9)) in five arms in turns: inline staging, the
+     DevicePrefetcher with pinned side-stream staging, data echo x2 over
+     12 transfers, the cached pass replayed stepwise and the whole-pass
+     epoch program over 3 passes of 4 batches (images/s and s/step each),
+     the consumer's wait_s, one batch's isolated copy rate pinned and
+     pageable, profiler windows of arms 1, 2, 4 and 5 (busy share, the
+     copies' kind and stream, H2D bytes per cached pass, the main
+     thread's launch calls), host syncs per cached pass (exactly 1 for
+     the epoch program), the pass cache's summary; deterministic: arms 1
+     and 2 bit-identical after the same 8 batches, arms 4 and 5 after one
+     cached pass, a cached batch's crc32 unchanged; (b) AlexNet with
+     bench_alexnet's uint8 pixels (feed_scale 1/255, feed_shift -0.5) at
+     B = 128 and SSD300 at phase 20a's setting through SGD.train fed
+     inline and prefetched in turns: s/step, busy, top device items, no
+     pageable pixel copy in the prefetched window, s per call of
+     single-batch train calls both ways with the feed's parts timed alone
+     (convert, synchronous upload, staged upload), and the parameters and
+     costs of 4 steps bit-identical (deterministic); (c) the robustness
+     plane on ResNet-50 (f32 pixels) through SGD.train with a temporary
+     checkpoint_dir: a nan_batch step skipped with the state bit-identical
+     across it, rollback 3 times and quarantine of a poisoned window,
+     checkpoint bytes and save and restore seconds, SIGTERM at step 5 and
+     a resume from another seed bit-identical to an uninterrupted run.  No
+     flash kernel may launch in phase 22.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels with their launches on the main path (the timed training steps of
 phase 5; the NMT paths of phases 11-13, the LSTM classifier of phases 14
 and 16, the tagger of phase 15, the nested networks of phase 17, the
 N-gram and ranking networks of phase 18, the image and CTC networks of
-phase 19, the SSD and MDLSTM networks of phase 20 and phase 21's framework,
-GAN and VAE paths run none of them; phase 20's MoE Transformer runs each 18
+phase 19, the SSD and MDLSTM networks of phase 20, phase 21's framework,
+GAN and VAE paths and phase 22's image networks run none of them; phase 20's MoE Transformer runs each 18
 times per step), errors and times.
 Without a CUDA device, or without the paddle_tpu_torch package beside it, the script
 exits non-zero and prints no result.
@@ -3850,11 +3880,13 @@ CTC_LOSS_REL = 1e-4  # F.ctc_loss against the port's cost: a yardstick
 CTC_FEEDING = {"image": 0, "label": 1}
 
 
-def alexnet_cost(P):
-    """alexnet.py's network through the port's DSL: (cost, prediction)."""
+def alexnet_cost(P, **feed):
+    """alexnet.py's network through the port's DSL: (cost, prediction);
+    `feed` (feed_dtype, feed_scale, feed_shift) goes to the data layer."""
     L, A, dt = P.layer, P.activation, P.data_type
     drop = P.attr.ExtraAttr(drop_rate=0.5)
-    net = L.data("data", dt.dense_vector(AX_IMG * AX_IMG * 3), height=AX_IMG, width=AX_IMG)
+    net = L.data("data", dt.dense_vector(AX_IMG * AX_IMG * 3), height=AX_IMG, width=AX_IMG,
+                 **feed)
     net = L.img_conv(net, filter_size=11, num_channels=3, num_filters=96, stride=4, padding=1)
     net = L.img_cmrnorm(net, size=5, scale=0.0001, power=0.75)
     net = L.img_pool(net, pool_size=3, stride=2)
@@ -5320,6 +5352,623 @@ def phase_framework_gen(torch, P, fa, card):
         f"launches (fwd, dq, dkv) over it: {launch_counts(fa)}")
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the training plane's feeding and fault tolerance
+# ---------------------------------------------------------------------------
+
+# (a) ResNet-50 at bench.py's bench_resnet_pipeline configuration
+# (bench.py:1588-1614): 512 records of uint8 224x224x3 pixels and a label
+# byte in a recordio file, read by io.recordio.Prefetcher, batched on the
+# host, the uint8 batch copied to the card and normalised there by the data
+# layer's feed_dtype="uint8" / feed_scale=1/255; B=128, bf16 over f32
+# masters, Momentum at phase 8's rate (0.01, 0.9)
+PL_RECORDS, PL_STEPS, PL_ECHO, PL_ECHO_TRANSFERS, PL_EPOCHS = 512, 24, 2, 12, 3
+PL_CHECK_BATCHES = 8  # arms 1 and 2 held bit for bit over these batches
+PL_TRACE_STEPS = 3  # steps in each profiled window
+PL_BIG_COPY = 1 << 20  # a host-to-device copy at least this large carries pixels
+# (c) the robustness plane on (a)'s ResNet-50 through SGD.train.  Its pixels
+# are f32: a uint8 slot cannot hold the NaN chaos.poison_batch writes (it
+# poisons the first floating-point slot, as the JAX package's does)
+RB_BATCHES, RB_PERIOD, RB_SIGTERM_AT, RB_NAN_AT = 8, 2, 5, 3
+# (b) AlexNet at bench_alexnet's uint8 feed (bench.py:2186-2197) and SSD300
+# at phase 20a's configuration, each through SGD.train fed inline and on the
+# prefetch thread, in turns
+FEED_STEPS, FEED_ROUNDS, FEED_TRACE_STEPS = 4, 2, 2
+
+
+def set_deterministic(torch, on: bool) -> str:
+    """cuDNN's deterministic algorithms (benchmark off) for the bit-identity
+    checks, or the autotuned ones the timed arms use; returns the mode's
+    tag, which every line of phase 22 carries."""
+    torch.backends.cudnn.deterministic = on
+    torch.backends.cudnn.benchmark = not on
+    return "[deterministic]" if on else "[autotuned]"
+
+
+def trace_window(torch, fn, what):
+    """(wall s, trace events) of one call of fn under torch.profiler, from
+    its Chrome trace (each event's stream, thread and copy kind); while a
+    window records no device event, fn runs in a fresh one, PROFILE_TRIES
+    in all.  The events are [] when no window recorded any."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    for n in range(1, PROFILE_TRIES + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = [e for e in json.load(f).get("traceEvents", []) if e.get("ph") == "X"]
+        if any(e.get("cat") in ("kernel", "gpu_memcpy") for e in events):
+            return wall, events
+        say(f"{what}: profiler window {n} of {PROFILE_TRIES} recorded no device time")
+    return wall, []
+
+
+def window_report(events, wall):
+    """Busy share (the union of the device's kernel, copy and memset
+    intervals over the wall time), the host-to-device copies, the streams
+    the kernels ran on, the top device items and the main thread's kernel
+    launches of one traced window."""
+    dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in dev)
+    busy, end = 0.0, -1.0
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    h2d = [e for e in dev if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+    streams = {e.get("args", {}).get("stream", e.get("tid")) for e in dev
+               if e.get("cat") == "kernel"}
+    by_name = {}
+    for e in dev:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + float(e["dur"])
+    top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:5]
+    launches = [e for e in events if e.get("cat") == "cuda_runtime"
+                and e.get("name", "").startswith("cudaLaunchKernel")]
+    by_tid = {}
+    for e in launches:
+        by_tid.setdefault(e.get("tid"), []).append(float(e["dur"]))
+    main = max(by_tid.values(), key=len) if by_tid else []
+    return {
+        "busy": busy / 1e6 / wall if wall > 0 else float("nan"),
+        "h2d": [(e["name"], e.get("args", {}).get("bytes"),
+                 e.get("args", {}).get("stream", e.get("tid"))) for e in h2d],
+        "compute_streams": streams,
+        "top": [f"{us / 1e3:8.3f} ms  {name[:80]}" for name, us in top],
+        "launches": len(main),
+        "launch_us": float(np.mean(main)) if main else float("nan"),
+        "launch_rate": len(main) / wall if wall > 0 else float("nan"),
+    }
+
+
+def h2d_bytes(rep) -> str:
+    sizes = [b for _, b, _ in rep["h2d"]]
+    if any(b is None for b in sizes):
+        return f"{len(sizes)} copies (bytes not in the trace)"
+    return f"{sum(sizes)} bytes in {len(sizes)} copies"
+
+
+def pipeline_records(path, rng):
+    from paddle_tpu_torch.io import recordio
+
+    recordio.write_records(path, (
+        rng.randint(0, 256, size=RN_IMG * RN_IMG * 3, dtype=np.uint8).tobytes()
+        + bytes([rng.randint(100)]) for _ in range(PL_RECORDS)), max_chunk_records=64)
+
+
+def record_batches(path):
+    """Host batches of RN_BATCH (uint8 pixels, label) samples from the
+    recordio file through io.recordio.Prefetcher, pass after pass."""
+    from paddle_tpu_torch.io import recordio
+
+    while True:
+        pf = recordio.Prefetcher([path])
+        try:
+            batch = []
+            while True:
+                rec = pf.next()
+                if rec is None:
+                    break
+                batch.append((np.frombuffer(rec[:-1], np.uint8), rec[-1]))
+                if len(batch) == RN_BATCH:
+                    yield batch
+                    batch = []
+        finally:
+            pf.close()
+
+
+def tree_crc(torch, t) -> int:
+    import zlib
+
+    return zlib.crc32(t.detach().cpu().contiguous().numpy().tobytes())
+
+
+def phase_pipeline(torch, P, card):
+    """Phase 22a: the ResNet-50 pipeline's five arms in turns, their
+    windows, and the bit-identity checks."""
+    import itertools
+    import tempfile
+
+    from paddle_tpu_torch.models.resnet import resnet_cost
+    from paddle_tpu_torch.reader.feeder import DataFeeder, feed_dtypes_of
+    from paddle_tpu_torch.reader.pass_cache import PassCache
+    from paddle_tpu_torch.reader.prefetch import DevicePrefetcher
+    from paddle_tpu_torch.trainer.step import (
+        draw_seed, fetch_metrics, make_epoch_program, make_train_carry, split_train_carry)
+
+    P.init(seed=61, compute_dtype="bfloat16")
+    cost, _ = resnet_cost(depth=RN_DEPTH, class_num=RN_CLASSES, img_size=RN_IMG)
+    topo = P.Topology(cost)
+    topo.layers["image"].attrs["feed_dtype"] = "uint8"
+    topo.layers["image"].attrs["feed_scale"] = 1.0 / 255.0
+    net = P.CompiledNetwork(topo)
+    opt = P.optimizer.Momentum(learning_rate=RN_LR, momentum=0.9)
+    step = P.trainer.make_train_step(net, opt)
+    feeder = DataFeeder(topo.data_types(), RN_FEEDING, feed_dtypes=feed_dtypes_of(topo),
+                        device="cuda")
+    params, state = net.init(seed=61)
+    st = {"params": params, "state": state, "opt": opt.init(params),
+          "gen": torch.Generator().manual_seed(62)}
+    tmp = tempfile.mkdtemp()
+    path = os.path.join(tmp, "train.rio")
+    pipeline_records(path, np.random.RandomState(0))
+    src = record_batches(path)
+    mode = set_deterministic(torch, False)
+
+    def run(batches, n):
+        costs = []
+        for _ in range(n):
+            b = DataFeeder.consume(next(batches))
+            st["params"], st["state"], st["opt"], m = step(
+                st["params"], st["state"], st["opt"], b, draw_seed(st["gen"]))
+            costs.append(float(m["cost"]))
+        return costs
+
+    def timed(what, fn, steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        costs = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        say(f"pipeline {mode} arm {what}: {steps} steps in {dt:.4f} s, {dt / steps:.4f} s/step, "
+            f"{RN_BATCH * steps / dt:.2f} images/s; costs {costs[0]:.4f} .. {costs[-1]:.4f}")
+        if not all(np.isfinite(costs)):
+            raise SystemExit(f"pipeline: arm {what} gave a non-finite cost")
+        return dt / steps
+
+    def inline(n):
+        return run((feeder(s) for s in src), n)
+
+    def prefetched(n):
+        pf = DevicePrefetcher(src, feeder.stage, depth=2)
+        try:
+            return run(pf, n), pf
+        finally:
+            pf.close()
+
+    t0 = time.perf_counter()
+    inline(2)  # cuDNN autotuning, the allocator
+    prefetched(2)
+    say(f"pipeline {mode}: ResNet-{RN_DEPTH} B={RN_BATCH} from {PL_RECORDS} recordio records "
+        f"(uint8 pixels, feed_scale 1/255), warm-up {time.perf_counter() - t0:.2f} s")
+    secs = {"1 inline": timed("1 inline", lambda: inline(PL_STEPS), PL_STEPS)}
+    pf = DevicePrefetcher(src, feeder.stage, depth=2)
+    DataFeeder.consume(next(pf))  # fill the double buffer before the clock
+    pf.wait_s = 0.0
+    secs["2 prefetch"] = timed("2 prefetch", lambda: run(pf, PL_STEPS), PL_STEPS)
+    wait_s = pf.wait_s
+    pf.close()
+    say(f"pipeline {mode} arm 2: the consumer waited {wait_s:.4f} s on the queue over "
+        f"{PL_STEPS} steps")
+
+    def echo():
+        pf = DevicePrefetcher(src, feeder.stage, depth=2)
+        try:
+            return run((b for bb in itertools.islice(pf, PL_ECHO_TRANSFERS)
+                        for b in (bb,) * PL_ECHO), PL_ECHO * PL_ECHO_TRANSFERS)
+        finally:
+            pf.close()
+
+    secs["3 echo"] = timed(f"3 echo x{PL_ECHO} ({PL_ECHO_TRANSFERS} transfers)", echo,
+                           PL_ECHO * PL_ECHO_TRANSFERS)
+
+    n_pass = PL_RECORDS // RN_BATCH
+    cache = PassCache(seed=61)
+    pf = DevicePrefetcher(src, feeder.stage, depth=2)
+    for b in cache.capture(itertools.islice(pf, n_pass)):
+        DataFeeder.consume(b)
+    pf.close()
+    first = cache.sample_batch()["image"].data
+    crc0 = tree_crc(torch, first)
+    stacked = cache.stacked()
+    prog = make_epoch_program(net, opt)
+
+    def stepwise_epochs(passes):
+        out = []
+        for p in passes:
+            out += run(iter(cache.epoch(p)), n_pass)
+        return out
+
+    def program_epochs(passes):
+        out = []
+        for p in passes:
+            carry = make_train_carry(st["params"], st["state"], st["opt"], st["gen"])
+            carry, ms = prog(carry, stacked, cache.epoch_perm(p))
+            host = fetch_metrics({**ms, "skipped": carry["skipped"]})
+            if float(host["skipped"]):
+                raise SystemExit(f"pipeline: the epoch program skipped a step in pass {p}")
+            st["params"], st["state"], st["opt"], st["gen"] = split_train_carry(carry)
+            out += [float(c) for c in host["cost"]]
+        return out
+
+    stepwise_epochs([0])
+    program_epochs([0])
+    secs["4 cached stepwise"] = timed(f"4 cached stepwise ({PL_EPOCHS} passes of {n_pass})",
+                                      lambda: stepwise_epochs(range(1, 1 + PL_EPOCHS)),
+                                      PL_EPOCHS * n_pass)
+    secs["5 epoch program"] = timed(f"5 epoch program ({PL_EPOCHS} passes of {n_pass})",
+                                    lambda: program_epochs(range(1, 1 + PL_EPOCHS)),
+                                    PL_EPOCHS * n_pass)
+    say(f"pipeline {mode}: s/step by arm " + ", ".join(f"{k} {v:.4f}" for k, v in secs.items())
+        + f" on {card}")
+    say(f"pipeline: pass cache {cache.summary()}")
+
+    # isolated host-to-device copy of one uint8 batch, best of 3
+    arr = np.stack([s[0] for s in next(src)])
+    rates = {}
+    for kind in ("pageable", "pinned"):
+        host = torch.from_numpy(arr)
+        if kind == "pinned":
+            host = host.pin_memory()
+        best = float("inf")
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            host.to("cuda", non_blocking=(kind == "pinned"))
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        rates[kind] = arr.nbytes / best / 1e9
+    say(f"pipeline: one uint8 batch ({arr.nbytes} bytes) to the card alone: pinned "
+        f"{rates['pinned']:.2f} GB/s, pageable {rates['pageable']:.2f} GB/s")
+
+    # windows of arms 1, 2 and 4
+    reps = {}
+    wall, ev = trace_window(torch, lambda: inline(PL_TRACE_STEPS), "pipeline arm 1")
+    reps["1 inline"] = window_report(ev, wall)
+    wall, ev = trace_window(torch, lambda: prefetched(PL_TRACE_STEPS), "pipeline arm 2")
+    reps["2 prefetch"] = window_report(ev, wall)
+    wall, ev = trace_window(torch, lambda: stepwise_epochs([PL_EPOCHS + 1]), "pipeline arm 4")
+    reps["4 cached stepwise"] = window_report(ev, wall)
+    wall, ev = trace_window(torch, lambda: program_epochs([PL_EPOCHS + 2]), "pipeline arm 5")
+    reps["5 epoch program"] = window_report(ev, wall)
+    for k, r in reps.items():
+        say(f"pipeline {mode} window arm {k}: busy {r['busy']:.3f}, host-to-device "
+            f"{h2d_bytes(r)}, kernel streams {sorted(map(str, r['compute_streams']))}, main-"
+            f"thread launches {r['launches']} at {r['launch_us']:.2f} us per call, "
+            f"{r['launch_rate']:.0f} per s of the window; top:")
+        for line in r["top"]:
+            say(f"    {line}")
+    big = [(n, b, s) for n, b, s in reps["2 prefetch"]["h2d"] if b is None or b >= PL_BIG_COPY]
+    pinned = bool(big) and all("Pinned" in n for n, _, _ in big)
+    apart = bool(big) and not ({s for _, _, s in big} & reps["2 prefetch"]["compute_streams"])
+    say(f"pipeline: arm 2's pixel copies {[(n, b, s) for n, b, s in big]}: pinned {pinned}, on "
+        f"a stream apart from the compute kernels' {apart}")
+    if not (pinned and apart):
+        raise SystemExit("pipeline: the prefetched pixel copies are not pinned copies on a "
+                         "side stream")
+    if any(n for n, b, _ in reps["2 prefetch"]["h2d"] if "Pageable" in n
+           and (b is None or b >= PL_BIG_COPY)):
+        raise SystemExit("pipeline: a pageable pixel copy is left in arm 2's window")
+    for k in ("4 cached stepwise", "5 epoch program"):
+        say(f"pipeline: host-to-device per cached pass, arm {k}: {h2d_bytes(reps[k])}")
+    # the first set_sync_debug_mode of a process reports one sync at its own
+    # line (seen when this phase runs alone): spend it on an empty window
+    count_syncs(torch, lambda: None)
+    syncs4 = count_syncs(torch, lambda: stepwise_epochs([PL_EPOCHS + 3]))
+    syncs5 = count_syncs(torch, lambda: program_epochs([PL_EPOCHS + 4]))
+    say(f"pipeline: host syncs per cached pass of {n_pass} steps: arm 4 {len(syncs4)} "
+        f"({sorted(set(syncs4))}), arm 5 {len(syncs5)} ({sorted(set(syncs5))})")
+    if len(syncs5) != 1:
+        raise SystemExit(f"pipeline: the epoch program made {len(syncs5)} host syncs in a pass")
+
+    # bit identity, deterministic algorithms
+    mode = set_deterministic(torch, True)
+    fixed = [next(src) for _ in range(PL_CHECK_BATCHES)]
+    start = clone_tree((st["params"], st["state"], st["opt"]))
+    gen0 = st["gen"].get_state()
+
+    def from_start():
+        st["params"], st["state"], st["opt"] = clone_tree(start)
+        st["gen"].set_state(gen0)
+
+    from_start()
+    run((feeder(s) for s in fixed), PL_CHECK_BATCHES)
+    inline_end = clone_tree((st["params"], st["state"], st["opt"]))
+    from_start()
+    pf = DevicePrefetcher(iter(fixed), feeder.stage, depth=2)
+    run(pf, PL_CHECK_BATCHES)
+    pf.close()
+    same12 = trees_equal(torch, (st["params"], st["state"], st["opt"]), inline_end)
+    from_start()
+    c4 = stepwise_epochs([PL_EPOCHS + 5])
+    end4 = clone_tree((st["params"], st["state"], st["opt"]))
+    from_start()
+    c5 = program_epochs([PL_EPOCHS + 5])
+    same45 = trees_equal(torch, (st["params"], st["state"], st["opt"]), end4) and c4 == c5
+    crc1 = tree_crc(torch, first)
+    say(f"pipeline {mode}: arms 1 and 2 after the same {PL_CHECK_BATCHES} batches: params, "
+        f"batch-norm state and momentum bit-identical {same12}; arms 4 and 5 after one cached "
+        f"pass: bit-identical {same45} (costs {[round(c, 6) for c in c4]} and "
+        f"{[round(c, 6) for c in c5]}); a cached batch's crc32 {crc0:#010x} before the cached "
+        f"passes, {crc1:#010x} after")
+    set_deterministic(torch, False)
+    if not same12 or not same45 or crc0 != crc1:
+        raise SystemExit("pipeline: a bit-identity check failed")
+    cache.drop()
+    import shutil
+
+    shutil.rmtree(tmp, ignore_errors=True)
+    return reps
+
+
+def feed_arms(torch, P, name, make_trainer, feeding, batches, card):
+    """Phase 22b for one model: SGD.train fed inline and on the prefetch
+    thread, in turns, timed and traced, then the parameters after
+    FEED_STEPS steps from one start, deterministic."""
+    mode = set_deterministic(torch, False)
+    trainer = make_trainer()
+
+    def train(async_load, n):
+        trainer.train(lambda: iter(batches[:n]), feeding=feeding, async_load_data=async_load)
+
+    train(False, 1)  # cuDNN autotuning, the allocator
+    train(True, 1)
+    secs = {True: [], False: []}
+    for _ in range(FEED_ROUNDS):
+        for async_load in (True, False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train(async_load, FEED_STEPS)
+            torch.cuda.synchronize()
+            secs[async_load].append((time.perf_counter() - t0) / FEED_STEPS)
+    reps = {}
+    for async_load in (True, False):
+        wall, ev = trace_window(torch, lambda: train(async_load, FEED_TRACE_STEPS),
+                                f"{name} feed")
+        reps[async_load] = window_report(ev, wall)
+    for async_load, label in ((True, "prefetch"), (False, "inline")):
+        r = reps[async_load]
+        say(f"{name} {mode} {label}: s/step {[round(s, 4) for s in secs[async_load]]}, busy "
+            f"{r['busy']:.3f}, host-to-device {h2d_bytes(r)}, main-thread launches "
+            f"{r['launches']} at {r['launch_us']:.2f} us per call, {r['launch_rate']:.0f} per s "
+            f"on {card}; top:")
+        for line in r["top"]:
+            say(f"    {line}")
+    # one batch per train call (phase 20a's one_step): nothing to overlap;
+    # the feed's parts timed alone on the main thread
+    single = {True: [], False: []}
+    for _ in range(FEED_ROUNDS):
+        for async_load in (True, False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train(async_load, 1)
+            torch.cuda.synchronize()
+            single[async_load].append(time.perf_counter() - t0)
+    feeder = trainer._make_feeder(feeding)
+    t0 = time.perf_counter()
+    host = feeder.convert(batches[0])
+    convert_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feeder.upload(host)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    feeder.upload(host, staged=True)
+    issue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    staged_s = time.perf_counter() - t0
+    say(f"{name} {mode}: one batch per train call, s per call prefetched "
+        f"{[round(x, 4) for x in single[True]]}, inline {[round(x, 4) for x in single[False]]}; "
+        f"the feed alone: convert on the host {convert_s:.4f} s, synchronous upload "
+        f"{upload_s:.4f} s, staged upload {issue_s:.4f} s to pin and issue, {staged_s:.4f} s "
+        f"until the copy landed")
+    pageable = [(n, b) for n, b, _ in reps[True]["h2d"]
+                if "Pageable" in n and (b is None or b >= PL_BIG_COPY)]
+    say(f"{name}: pageable pixel copies in the prefetch window {pageable}, in the inline "
+        f"window {[(n, b) for n, b, _ in reps[False]['h2d'] if 'Pageable' in n][:3]}")
+    if pageable:
+        raise SystemExit(f"{name}: a pageable pixel copy is left in the prefetch window")
+    del trainer
+    mode = set_deterministic(torch, True)
+    ends = {}
+    for async_load in (True, False):
+        t = make_trainer()
+        costs = []
+        t.train(lambda: iter(batches[:FEED_STEPS]), feeding=feeding, async_load_data=async_load,
+                event_handler=lambda e: costs.append(e.cost)
+                if isinstance(e, P.event.EndIteration) else None)
+        ends[async_load] = (clone_tree(t.parameters.params), costs)
+        del t
+    same = trees_equal(torch, ends[True][0], ends[False][0]) and ends[True][1] == ends[False][1]
+    say(f"{name} {mode}: prefetch and inline after {FEED_STEPS} steps from one start: params "
+        f"and costs bit-identical {same} (costs {[round(c, 5) for c in ends[True][1]]})")
+    set_deterministic(torch, False)
+    if not same:
+        raise SystemExit(f"{name}: the prefetched run left the inline one")
+    return secs, reps
+
+
+def phase_feed_models(torch, P, card):
+    """Phase 22b: AlexNet (uint8 pixels) and SSD300 (f32 pixels)."""
+    P.init(seed=71, compute_dtype="bfloat16")
+    ax_cost, _ = alexnet_cost(P, feed_dtype="uint8", feed_scale=1 / 255.0, feed_shift=-0.5)
+    rng = np.random.RandomState(71)
+    pix = rng.randint(0, 256, size=(FEED_STEPS * AX_BATCH, 3 * AX_IMG * AX_IMG), dtype=np.uint8)
+    labels = rng.randint(0, AX_CLASSES, size=len(pix))
+    ax_batches = [[(pix[i], int(labels[i])) for i in range(k * AX_BATCH, (k + 1) * AX_BATCH)]
+                  for k in range(FEED_STEPS)]
+    say(f"alexnet feed: bench_alexnet's uint8 pixels with feed_scale 1/255, feed_shift -0.5, "
+        f"B={AX_BATCH}: {pix[:AX_BATCH].nbytes} bytes of pixels per batch")
+    feed_arms(torch, P, "alexnet feed", lambda: P.trainer.SGD(
+        ax_cost, P.parameters.create(ax_cost, seed=71), P.optimizer.Momentum(
+            learning_rate=AX_LR, momentum=0.9,
+            regularization=P.optimizer.L2Regularization(rate=AX_L2))),
+        AX_FEEDING, ax_batches, card)
+    torch.cuda.empty_cache()
+    P.init(seed=72, compute_dtype="bfloat16")
+    ssd_cost, _, _ = ssd300(P)
+    srng = np.random.RandomState(72)
+    ssd_batches = [ssd_samples(srng, SSD_B) for _ in range(FEED_STEPS)]
+    feed_arms(torch, P, "ssd feed", lambda: P.trainer.SGD(
+        ssd_cost, P.parameters.create(ssd_cost, seed=72), P.optimizer.Momentum(
+            learning_rate=SSD_LR, momentum=0.9,
+            regularization=P.optimizer.L2Regularization(rate=SSD_L2))),
+        SSD_FEEDING, ssd_batches, card)
+
+
+def phase_robust(torch, P, card):
+    """Phase 22c: the robustness plane on ResNet-50 through SGD.train with
+    checkpoint_dir, deterministic algorithms throughout."""
+    import signal
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.models.resnet import resnet_cost
+    from paddle_tpu_torch.robustness import chaos, read_marker
+    from paddle_tpu_torch.utils.timers import global_stats
+
+    mode = set_deterministic(torch, True)
+    P.init(seed=81, compute_dtype="bfloat16")
+    cost, _ = resnet_cost(depth=RN_DEPTH, class_num=RN_CLASSES, img_size=RN_IMG)
+    data = [resnet_images(np.random.RandomState(81 + k), RN_BATCH) for k in range(RB_BATCHES)]
+    reader = lambda: iter(data)  # noqa: E731 — batches of RN_BATCH samples
+    tmp = tempfile.mkdtemp()
+
+    def trainer(seed):
+        return P.trainer.SGD(cost, P.parameters.create(cost, seed=seed), P.optimizer.Momentum(
+            learning_rate=RN_LR, momentum=0.9), seed=seed)
+
+    # a poisoned step is skipped, the state bit-identical across it
+    t = trainer(81)
+    chaos.arm(f"nan_batch@{RB_NAN_AT}")
+    seen = {}
+
+    def around(e):
+        if isinstance(e, P.event.BeginIteration) and e.batch_id == RB_NAN_AT - 1:
+            seen["before"] = clone_tree((t.parameters.params, t._opt_state))
+        if isinstance(e, P.event.EndIteration) and e.batch_id == RB_NAN_AT - 1:
+            seen["cost"] = e.cost
+            seen["same"] = trees_equal(torch, (t.parameters.params, t._opt_state),
+                                       seen["before"])
+
+    skipped0 = global_stats.count("robustness.skipped_steps")
+    t.train(lambda: iter(data[:4]), feeding=RN_FEEDING, event_handler=around,
+            checkpoint_dir=os.path.join(tmp, "poison"), checkpoint_period_batches=RB_PERIOD)
+    chaos.disarm()
+    skipped = global_stats.count("robustness.skipped_steps") - skipped0
+    say(f"robust {mode}: nan_batch@{RB_NAN_AT}: cost {seen.get('cost')}, {skipped} step "
+        f"skipped, params and momentum bit-identical across it {seen.get('same')}")
+    if skipped != 1 or not seen.get("same") or np.isfinite(seen.get("cost", 0.0)):
+        raise SystemExit("robust: the poisoned step was not skipped with the state unchanged")
+    del t
+
+    # rollback and quarantine (tests/test_robustness.py:264-284's drive)
+    P.flags.set_flag("sentinel_skip_limit", 1)
+    P.flags.set_flag("failure_max", 3)
+    rb0 = global_stats.count("robustness.rollbacks")
+    q0 = global_stats.count("robustness.quarantined_batches")
+    t = trainer(82)
+    chaos.arm("nan_batch@1")
+    t0 = time.perf_counter()
+    t.train(lambda: iter(data[:3]), feeding=RN_FEEDING,
+            checkpoint_dir=os.path.join(tmp, "rollback"))
+    chaos.disarm()
+    P.flags.set_flag("sentinel_skip_limit", 3)
+    P.flags.set_flag("failure_max", 3)
+    rb = global_stats.count("robustness.rollbacks") - rb0
+    q = global_stats.count("robustness.quarantined_batches") - q0
+    finite = all(bool(torch.isfinite(v).all()) for p in t.parameters.params.values()
+                 for v in p.values())
+    say(f"robust {mode}: nan_batch@1 with sentinel_skip_limit=1, failure_max=3: {rb} rollbacks, "
+        f"{q} batch quarantined, parameters finite {finite} ({time.perf_counter() - t0:.2f} s)")
+    if rb != 3 or q != 1 or not finite:
+        raise SystemExit("robust: the poisoned window was not rolled back 3 times and "
+                         "quarantined")
+    del t
+
+    # checkpoint bytes and seconds
+    manager = P.checkpoint.CheckpointManager(os.path.join(tmp, "timing"))
+    t = trainer(83)
+    t0 = time.perf_counter()
+    t.save_checkpoint(manager, step=1)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    t.restore_checkpoint(manager)
+    restore_s = time.perf_counter() - t0
+    say(f"robust: one full-state checkpoint {dir_bytes(os.path.join(tmp, 'timing'))} bytes, "
+        f"save {save_s:.3f} s, restore {restore_s:.3f} s")
+    del t
+
+    # preemption and resume, against an uninterrupted run
+    ref = trainer(84)
+    ref.train(reader, feeding=RN_FEEDING)
+    ck = os.path.join(tmp, "preempt")
+    t = trainer(84)
+    steps = [0]
+
+    def sigterm(e):
+        if isinstance(e, P.event.EndIteration):
+            steps[0] += 1
+            if steps[0] == RB_SIGTERM_AT:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+    t.train(reader, feeding=RN_FEEDING, event_handler=sigterm, checkpoint_dir=ck,
+            checkpoint_period_batches=RB_PERIOD)
+    marker = read_marker(ck)
+    resumed = trainer(85)  # another seed: the restored state must win
+    resumed.train(reader, feeding=RN_FEEDING, checkpoint_dir=ck, resume=True)
+    same = trees_equal(torch, resumed.parameters.params, ref.parameters.params) and \
+        trees_equal(torch, resumed._opt_state, ref._opt_state)
+    say(f"robust {mode}: SIGTERM at step {RB_SIGTERM_AT}: preempted {t.preempted}, marker "
+        f"{marker}; a trainer of another seed resumed and finished: params and momentum "
+        f"bit-identical to an uninterrupted run {same}; the marker consumed "
+        f"{read_marker(ck) is None}")
+    set_deterministic(torch, False)
+    shutil.rmtree(tmp, ignore_errors=True)
+    if not t.preempted or not marker or not marker.get("preempted") or not same:
+        raise SystemExit("robust: preemption and resume did not continue the run bit for bit")
+
+
+def phase_training_plane(torch, P, fa, card):
+    """Phase 22: (a) the ResNet-50 pipeline, (b) AlexNet and SSD300 fed
+    inline and prefetched, (c) the robustness plane; no flash kernel may
+    launch."""
+    reset_counts(fa)
+    t = [time.perf_counter()]
+    phase_pipeline(torch, P, card)
+    torch.cuda.empty_cache()
+    t.append(time.perf_counter())
+    phase_feed_models(torch, P, card)
+    torch.cuda.empty_cache()
+    t.append(time.perf_counter())
+    phase_robust(torch, P, card)
+    torch.cuda.empty_cache()
+    t.append(time.perf_counter())
+    if launch_counts(fa) != (0, 0, 0):
+        raise SystemExit("training plane: phase 22 launched a flash kernel")
+    say(f"training plane: phase 22 split: pipeline {t[1] - t[0]:.1f} s, feed {t[2] - t[1]:.1f} s, "
+        f"robust {t[3] - t[2]:.1f} s; flash launches (fwd, dq, dkv) over it: {launch_counts(fa)}")
+
+
 def main() -> int:
     import torch
 
@@ -5420,6 +6069,10 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_framework_gen(torch, P, fa, card)
     say(f"framework: phase 21 took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_training_plane(torch, P, fa, card)
+    say(f"training plane: phase 22 took {time.perf_counter() - t0:.1f} s")
     kernels = [
         {"name": name, "route": "cuda", "source": f"paddle_tpu_torch/csrc/{src}",
          "replaces": f"paddle_tpu/ops/pallas_attention.py:{line}",

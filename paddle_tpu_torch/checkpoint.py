@@ -8,15 +8,20 @@ three planes (the v2 tar is ``Parameters.to_tar``/``from_tar``):
 3. **Full training-state checkpoints** — params, layer state, optimizer
    state and counters in one step directory, ``ckpt-%08d/state.npz`` with
    a ``meta.json`` that holds its CRC32, committed by an atomic rename,
-   optionally written by a background thread, with retention.
+   optionally written by a background thread, with retention.  The
+   sharded multi-writer form (:meth:`CheckpointManager.save_shard` and
+   :meth:`CheckpointManager.commit`): each writer puts its slice of the
+   sorted leaf names, round robin, into ``shard-%05d-of-%05d.npz`` with a
+   CRC sidecar, and the step becomes restorable when ``MANIFEST.json``
+   lands by an atomic rename.  A torn shard under a committed manifest
+   fails its CRC, and :meth:`CheckpointManager.restore_latest` walks back
+   to the previous complete step.
 
 A step's leaves carry the names ``jax.tree_util.keystr`` gives the JAX
 package's nested dicts (``['params']['fc0']['w0']``), 0-d counters are
 0-d arrays (``opt_state['step']`` int32), so a step written by either
-package restores in the other.
-
-Not ported yet: the sharded multi-writer plane (``save_shard``/``commit``,
-the elastic workers' checkpoints).
+package, single or sharded, restores in the other.  The ``torn_checkpoint``
+chaos point truncates a data file after its write.
 """
 
 from __future__ import annotations
@@ -40,6 +45,12 @@ __all__ = [
     "load_parameter_dir",
     "CheckpointManager",
 ]
+
+MANIFEST_NAME = "MANIFEST.json"
+
+
+def _shard_file(shard_id: int, num_shards: int) -> str:
+    return f"shard-{shard_id:05d}-of-{num_shards:05d}"
 
 _V1_VERSION = 0
 _V1_VALUE_SIZE = 4  # float32
@@ -204,7 +215,100 @@ class CheckpointManager:
         except BaseException:
             shutil.rmtree(tmp, ignore_errors=True)
             raise
+        from paddle_tpu_torch.robustness import chaos as _chaos
+
+        if _chaos.fire("torn_checkpoint"):
+            # a crash mid-write: the step directory exists, its data file is
+            # truncated (restore must notice and fall back)
+            _chaos.tear_file(os.path.join(final, "state.npz"))
         self._retain()
+
+    # -- the sharded multi-writer plane -------------------------------------
+    def save_shard(self, step: int, shard_id: int, num_shards: int, tree: Any,
+                   async_: bool = False) -> None:
+        """Write this writer's shard of `tree`: the `shard_id`-th slice of
+        the sorted leaf names, round robin over `num_shards`.  Only those
+        leaves are copied to the host.  ``async_=True`` writes on a
+        background thread (failures surface from :meth:`wait`).  The step
+        is restorable once every shard landed and :meth:`commit` published
+        the manifest."""
+        keyed = dict(_leaves(tree))
+        mine = {k: _host_array(keyed[k]) for k in sorted(keyed)[shard_id::num_shards]}
+        self.wait()  # one write at a time
+        if async_:
+
+            def run():
+                try:
+                    self._write_shard(step, shard_id, num_shards, mine)
+                except BaseException as exc:  # re-raised by the next wait()
+                    self._pending_error = exc
+
+            t = threading.Thread(target=run, name="paddle-ckpt-shard", daemon=False)
+            t.start()
+            self._pending = t
+        else:
+            self._write_shard(step, shard_id, num_shards, mine)
+
+    def _write_shard(self, step: int, shard_id: int, num_shards: int,
+                     arrays: Dict[str, np.ndarray]) -> None:
+        d = os.path.join(self.directory, f"ckpt-{step:08d}")
+        os.makedirs(d, exist_ok=True)
+        base = _shard_file(shard_id, num_shards)
+        fd, tmp = tempfile.mkstemp(prefix=f".tmp-{base}-", dir=d)
+        try:
+            with os.fdopen(fd, "wb") as f:
+                np.savez(f, **arrays)
+            crc = _crc_file(tmp)
+            os.replace(tmp, os.path.join(d, base + ".npz"))
+        except BaseException:
+            try:
+                os.remove(tmp)
+            except OSError:
+                pass
+            raise
+        side_tmp = os.path.join(d, "." + base + ".json.tmp")
+        with open(side_tmp, "w") as f:
+            json.dump({"crc32": crc, "n_leaves": len(arrays)}, f)
+        os.replace(side_tmp, os.path.join(d, base + ".json"))
+        from paddle_tpu_torch.robustness import chaos as _chaos
+
+        if _chaos.fire("torn_checkpoint"):
+            # truncated after its CRC was recorded: a committed manifest must
+            # fail restore and fall back to the previous complete step
+            _chaos.tear_file(os.path.join(d, base + ".npz"))
+
+    def commit(self, step: int, num_shards: int,
+               extra: Optional[Dict[str, Any]] = None) -> bool:
+        """Publish a sharded step: check that every shard and its CRC
+        sidecar landed, then rename ``MANIFEST.json`` into place, the one
+        commit point.  Idempotent (True when a manifest exists) and safe
+        from every writer: False, committing nothing, while a shard is
+        missing."""
+        d = os.path.join(self.directory, f"ckpt-{step:08d}")
+        man_path = os.path.join(d, MANIFEST_NAME)
+        if os.path.exists(man_path):
+            return True
+        shards: Dict[str, int] = {}
+        n_leaves = 0
+        for i in range(num_shards):
+            base = _shard_file(i, num_shards)
+            if not os.path.exists(os.path.join(d, base + ".npz")):
+                return False
+            try:
+                with open(os.path.join(d, base + ".json")) as f:
+                    side = json.load(f)
+            except (OSError, ValueError):
+                return False
+            shards[base + ".npz"] = side["crc32"]
+            n_leaves += side.get("n_leaves", 0)
+        manifest = {"step": step, "num_shards": num_shards, "shards": shards,
+                    "n_leaves": n_leaves, "timestamp": time.time(), "extra": extra or {}}
+        tmp = man_path + f".tmp-{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump(manifest, f)
+        os.replace(tmp, man_path)
+        self._retain()
+        return True
 
     def _retain(self) -> None:
         """Keep the newest ``max_to_keep`` committed steps; delete only steps
@@ -219,7 +323,9 @@ class CheckpointManager:
                 shutil.rmtree(os.path.join(self.directory, f"ckpt-{s:08d}"), ignore_errors=True)
 
     def _is_committed(self, step: int) -> bool:
-        return os.path.exists(os.path.join(self.directory, f"ckpt-{step:08d}", "meta.json"))
+        d = os.path.join(self.directory, f"ckpt-{step:08d}")
+        return (os.path.exists(os.path.join(d, "meta.json"))
+                or os.path.exists(os.path.join(d, MANIFEST_NAME)))
 
     def wait(self) -> None:
         """Join an in-flight asynchronous write; re-raises its failure."""
@@ -246,16 +352,34 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def meta(self, step: int) -> Dict[str, Any]:
-        path = os.path.join(self.directory, f"ckpt-{step:08d}", "meta.json")
-        if not os.path.exists(path):
-            raise IOError(f"checkpoint {os.path.dirname(path)}: no meta.json")
-        with open(path) as f:
-            return json.load(f)
+        """The step's meta.json, or its MANIFEST.json for a sharded step."""
+        d = os.path.join(self.directory, f"ckpt-{step:08d}")
+        for name in ("meta.json", MANIFEST_NAME):
+            path = os.path.join(d, name)
+            if os.path.exists(path):
+                with open(path) as f:
+                    return json.load(f)
+        raise IOError(f"checkpoint {d}: no meta.json or {MANIFEST_NAME}")
 
     def restore(self, step: int, template: Any):
         """Verify the CRC, then rebuild `template`'s structure from the step.
-        Returns (tree, extra)."""
+        Returns (tree, extra).  A sharded step merges its shards, each held
+        to its manifest CRC; a shard set with no manifest is not
+        restorable."""
         d = os.path.join(self.directory, f"ckpt-{step:08d}")
+        man_path = os.path.join(d, MANIFEST_NAME)
+        if os.path.exists(man_path):
+            with open(man_path) as f:
+                manifest = json.load(f)
+            arrays: Dict[str, np.ndarray] = {}
+            for fname, crc in manifest["shards"].items():
+                path = os.path.join(d, fname)
+                if _crc_file(path) != crc:
+                    raise IOError(f"checkpoint shard {path} corrupt: crc mismatch vs "
+                                  f"manifest {crc:#x}")
+                with np.load(path) as z:
+                    arrays.update({k: z[k] for k in z.files})
+            return _unflatten_into(template, arrays), manifest.get("extra", {})
         meta = self.meta(step)
         data_path = os.path.join(d, "state.npz")
         if _crc_file(data_path) != meta["crc32"]:

@@ -38,7 +38,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from paddle_tpu_torch.analysis.diagnostics import Diagnostic, DiagnosticError, Severity
-from paddle_tpu_torch.core.batch import Batch, SeqTensor
+from paddle_tpu_torch.core.batch import Batch, SeqTensor, batch_shape_key
 from paddle_tpu_torch.core.device import resolve_device
 from paddle_tpu_torch.core.topology import Topology
 from paddle_tpu_torch.layers.base import ApplyContext, get_layer_impl, mix_seed
@@ -184,6 +184,49 @@ def _feed_transform(conf, t: SeqTensor) -> SeqTensor:
     if shift:
         x = x + shift
     return SeqTensor(x, t.lengths, t.sub_lengths)
+
+
+class CompileShapeCache:
+    """Dispatch accounting per batch shape — the counterpart of the JAX
+    package's ``CompileShapeCache``, which mirrors jit's executable cache.
+    The port runs eagerly and compiles nothing per shape, but the same
+    counters say what a variable-length feed does: every observed batch
+    counts a hit or a miss (``<name>/compile_hit`` / ``compile_miss`` in
+    ``utils.timers.global_stats``) by its shape signature
+    (``core.batch.batch_shape_key``), and ``n_shapes`` holds the shape-
+    ladder contract (a laddered feed realises one shape per rung
+    combination, never one per batch)."""
+
+    def __init__(self, name: str = "train_step", stats=None):
+        from paddle_tpu_torch.utils.timers import global_stats
+
+        self.name = name
+        self._stats = stats if stats is not None else global_stats
+        self.shapes: Dict[tuple, int] = {}  # shape key -> dispatch count
+
+    def observe(self, batch: Batch) -> bool:
+        """Record one dispatch; True when its shape is new."""
+        key = batch_shape_key(batch)
+        miss = key not in self.shapes
+        self.shapes[key] = self.shapes.get(key, 0) + 1
+        self._stats.incr(f"{self.name}/compile_{'miss' if miss else 'hit'}")
+        return miss
+
+    @property
+    def n_shapes(self) -> int:
+        return len(self.shapes)
+
+    @property
+    def misses(self) -> int:
+        # every distinct shape missed exactly once
+        return self.n_shapes
+
+    @property
+    def hits(self) -> int:
+        return sum(self.shapes.values()) - len(self.shapes)
+
+    def summary(self) -> Dict[str, int]:
+        return {"shapes": self.n_shapes, "hits": self.hits, "misses": self.misses}
 
 
 class CompiledNetwork:

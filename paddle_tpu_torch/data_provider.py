@@ -230,12 +230,10 @@ def provider(
             if shuffle_flag:
                 rd = reader_dec.shuffle(rd, pool_size)
             if cache == CacheType.CACHE_PASS_IN_MEM:
-                # the device half of CACHE_PASS_IN_MEM: tag the reader so a
-                # trainer can keep the DECODED pass device-resident and
-                # replay it for epochs >= 2 (the JAX package's
-                # reader/pass_cache.py; the port's trainer does not read the
-                # tag yet, ROADMAP Queue 1 item 5); the host-RAM cache above
-                # still spares the generator re-run.  Replay shuffling
+                # the device half of CACHE_PASS_IN_MEM: tag the reader so
+                # SGD.train keeps the decoded pass on the device and replays
+                # it for passes >= 2 (reader/pass_cache.py); the host-RAM
+                # cache above still spares the generator re-run.  Replay shuffling
                 # follows the provider's own shuffle intent: a
                 # should_shuffle=False provider (ordered/curriculum data)
                 # must replay in capture order, like the reference's

@@ -1,5 +1,5 @@
-"""``paddle.batch`` — the counterpart of ``paddle_tpu/minibatch.py`` (the
-pass-cache tags it carries there are not ported yet)."""
+"""``paddle.batch`` — the counterpart of ``paddle_tpu/minibatch.py``; it
+carries a reader's pass-cache tags (``reader/pass_cache.py``)."""
 
 from __future__ import annotations
 
@@ -17,4 +17,7 @@ def batch(reader, batch_size: int, drop_last: bool = False):
         if b and not drop_last:
             yield b
 
-    return batch_reader
+    from paddle_tpu_torch.reader.pass_cache import copy_cache_tags
+
+    # carry the @provider(cache=CACHE_PASS_IN_MEM) tags to the trainer
+    return copy_cache_tags(reader, batch_reader)

@@ -1,7 +1,7 @@
 """Data feeding of the PyTorch/CUDA port: the reader decorators and creators,
-token-budget bucketing and the DataFeeder (the JAX package's
-``reader/__init__`` exports, less the load generator and the device pass
-cache, which are not ported yet)."""
+token-budget bucketing, the DataFeeder, the prefetch thread and the device
+pass cache (the JAX package's ``reader/__init__`` exports, less the serving
+load generator, ROADMAP Queue 1 item 4)."""
 
 from paddle_tpu_torch.reader import bucketing  # noqa: F401
 from paddle_tpu_torch.reader.bucketing import (  # noqa: F401
@@ -19,3 +19,4 @@ from paddle_tpu_torch.reader.decorator import (  # noqa: F401
     xmap_readers,
 )
 from paddle_tpu_torch.reader.feeder import DataFeeder  # noqa: F401
+from paddle_tpu_torch.reader.pass_cache import PassCache  # noqa: F401

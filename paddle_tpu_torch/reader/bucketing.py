@@ -208,4 +208,6 @@ def token_budget_batch(
                 rng.shuffle(leftovers)
             yield from leftovers
 
-    return batched_reader
+    from paddle_tpu_torch.reader.pass_cache import copy_cache_tags
+
+    return copy_cache_tags(reader, batched_reader)

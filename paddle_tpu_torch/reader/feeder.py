@@ -8,7 +8,20 @@ The host copies of the lengths and sub-lengths ride their tensors
 (``core.batch.set_host_lengths``), so nothing reads them back from the card.
 Sparse slots are densified to multi-hot rows, except a sparse_binary slot
 above SPARSE_IDS_THRESHOLD, which feeds as padded ids (the sentinel is the
-vocabulary size) for the consumers' gather-sum."""
+vocabulary size) for the consumers' gather-sum.
+
+Staging (``DataFeeder.stage``, the torch form of the JAX package's
+``jax.device_put`` on its prefetch thread): the batch is converted on the
+host, each array is copied into pinned memory and sent with a
+non-blocking copy on the feeder's own CUDA stream, and one CUDA event
+recorded after the last copy rides the batch (:class:`StagedBatch`).
+``DataFeeder.consume`` makes the consuming stream wait on that event and
+marks every tensor as used on it (``record_stream``), so the caching
+allocator does not hand a tensor's memory to the next staged batch while
+the step still reads it.  A worker thread stages under the feeder's device
+and stream explicitly: the current stream is per thread.  On the CPU
+nothing is pinned and no stream is made.  ``DataFeeder.__call__`` keeps the
+synchronous copy on the current stream."""
 
 from __future__ import annotations
 
@@ -51,6 +64,22 @@ def feed_dtypes_of(topology) -> Dict[str, str]:
     }
 
 
+class StagedBatch(dict):
+    """A fed batch whose host-to-device copies were issued on a side stream;
+    ``ready`` is the CUDA event recorded after the last of them (None when
+    nothing was copied asynchronously)."""
+
+    ready = None
+    device = None
+
+
+def _batch_tensors(batch):
+    for t in batch.values():
+        for x in (t.data, t.lengths, t.sub_lengths):
+            if x is not None:
+                yield x
+
+
 class DataFeeder:
     """feeding: {slot_name: index_in_sample}, or slot names in sample order;
     None means the order of `data_types`.  ``device=None`` is the port's
@@ -80,11 +109,68 @@ class DataFeeder:
         self.ladder = tuple(ladder) if ladder else None
         self.dtype = dtype
         self.device = resolve_device(device)
+        self._stream = None  # the staging stream, made at the first stage()
 
     def __call__(self, batch_data: List[Any]) -> Dict[str, SeqTensor]:
-        return self.convert(batch_data)
+        """The batch on the feeder's device, copied synchronously."""
+        return self.upload(self.convert(batch_data))
+
+    # -- staging ---------------------------------------------------------
+    def upload(self, host: Dict[str, SeqTensor], staged: bool = False) -> Dict[str, SeqTensor]:
+        """`host` (from :meth:`convert`) on the feeder's device: with
+        `staged` on a CUDA device, through pinned memory on the feeder's
+        stream (a :class:`StagedBatch`), else synchronously."""
+        if self.device.type != "cuda" or not staged:
+            out = {name: self._upload_slot(t, False) for name, t in host.items()}
+            return StagedBatch(out) if staged else out
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device=self.device)
+        # a worker thread must name the device and the stream: both are
+        # per-thread state, and the default stream would serialise the
+        # copies with the step
+        with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
+            out = StagedBatch({name: self._upload_slot(t, True) for name, t in host.items()})
+            out.ready = torch.cuda.Event()
+            out.ready.record(self._stream)
+            out.device = self.device
+        return out
+
+    def stage(self, batch_data: List[Any]) -> Dict[str, SeqTensor]:
+        """:meth:`convert` then a staged :meth:`upload`: the feed work a
+        prefetch worker runs."""
+        return self.upload(self.convert(batch_data), staged=True)
+
+    @staticmethod
+    def consume(batch):
+        """Make the current stream wait for a staged batch's copies, and
+        mark its tensors as used on that stream; a batch that was not
+        staged passes through."""
+        ev = getattr(batch, "ready", None)
+        if ev is None:
+            return batch
+        stream = torch.cuda.current_stream(batch.device)
+        stream.wait_event(ev)
+        for x in _batch_tensors(batch):
+            if x.is_cuda:
+                x.record_stream(stream)
+        return batch
+
+    def _upload_slot(self, t: SeqTensor, pinned: bool) -> SeqTensor:
+        def up(x):
+            if x is None:
+                return None
+            host = getattr(x, "_host_lengths", None)
+            if pinned:
+                x = x.pin_memory().to(self.device, non_blocking=True)
+            else:
+                x = x.to(self.device)
+            return x if host is None else set_host_lengths(x, host)
+
+        return SeqTensor(up(t.data), up(t.lengths), up(t.sub_lengths), sparse_ids=t.sparse_ids)
 
     def convert(self, batch_data: List[Any]) -> Dict[str, SeqTensor]:
+        """The batch converted on the host: CPU tensors with their host
+        lengths attached; :meth:`upload` puts it on the device."""
         n_slots = max(self.index.values()) + 1 if self.index else 0
         for sample in batch_data[:1]:
             if not isinstance(sample, (tuple, list)) or len(sample) < n_slots:
@@ -104,12 +190,13 @@ class DataFeeder:
             return ladder_len(max(max_len, self.min_seq_len), self.ladder)
         return max(_round_up(max_len, self.seq_multiple), self.min_seq_len)
 
-    def _to(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(arr).to(self.device)
+    @staticmethod
+    def _to(arr: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(arr)
 
     def _lengths(self, host: np.ndarray) -> torch.Tensor:
-        """A lengths or sub-lengths tensor on the device, its host copy
-        attached."""
+        """A lengths or sub-lengths tensor, its host copy attached (it rides
+        the upload)."""
         return set_host_lengths(self._to(host), host)
 
     def _convert_slot(self, col, itype: InputType, dtype) -> SeqTensor:

@@ -27,38 +27,59 @@ masks from the initial parameters, applied to them at construction and
 after every update, as the JAX package's ``SGD`` does.
 ``show_parameter_stats_period`` logs per-parameter statistics.
 
-Not ported yet: ``checkpoint_dir``/``resume`` (the recovery plane with
-rollback and preemption), the device-resident pass cache, the
-ahead-of-time executable cache, asynchronous feeding
-(``async_load_data=True`` raises), elastic training and device meshes.
+Feeding runs on a prefetch thread by default (``async_load_data``,
+reader/prefetch.py; pinned memory and the feeder's own CUDA stream on the
+card); the device-resident pass cache with data echo and the whole-pass
+epoch program (reader/pass_cache.py, trainer/step.py) replay later passes
+from the device; ``checkpoint_dir`` turns on the robustness plane
+(robustness/: the sentinel's judge, rollback with quarantine, preemption,
+``resume``, chaos points).  ``compile_cache`` counts the batch shapes.
+
+Not ported yet: the ahead-of-time executable cache (ROADMAP Queue 1 item
+7), elastic training (``elastic_model``, item 5.6), the numerics sanitizer
+(item 7) and device meshes (item 6).
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
 import os
+from collections import deque
+from contextlib import nullcontext
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from paddle_tpu_torch import event as v2_event
-from paddle_tpu_torch.core.batch import DEFAULT_LADDER
-from paddle_tpu_torch.core.compiler import CompiledNetwork
+from paddle_tpu_torch.core.batch import DEFAULT_LADDER, batch_shape_key
+from paddle_tpu_torch.core.compiler import CompiledNetwork, CompileShapeCache
 from paddle_tpu_torch.core.device import resolve_device, tree_to
 from paddle_tpu_torch.core.topology import LayerOutput, Topology
 from paddle_tpu_torch.optimizer import Optimizer
 from paddle_tpu_torch.parameters import create_from_network
 from paddle_tpu_torch.reader.feeder import DataFeeder, feed_dtypes_of
+from paddle_tpu_torch.reader.pass_cache import PassCache
+from paddle_tpu_torch.reader.prefetch import prefetch
+from paddle_tpu_torch.robustness import chaos as _chaos
+from paddle_tpu_torch.robustness.preemption import PreemptionGuard, clear_marker, write_marker
+from paddle_tpu_torch.robustness.recovery import RecoveryCoordinator
+from paddle_tpu_torch.robustness.sentinel import DivergenceSentinel
 from paddle_tpu_torch.trainer.evaluators import default_metrics_fn
 from paddle_tpu_torch.trainer.step import (
     apply_prune_masks,
     build_prune_masks,
     draw_seed,
+    fetch_metrics,
+    make_epoch_program,
     make_eval_step,
+    make_train_carry,
     make_train_step,
+    split_train_carry,
 )
 from paddle_tpu_torch.utils import flags as _flags
+from paddle_tpu_torch.utils.timers import global_stats, stat_timer
 
 _log = logging.getLogger("paddle_tpu_torch.trainer")
 
@@ -71,11 +92,11 @@ def _batch_rows(batch) -> int:
     return 1
 
 
-def _no_async_feed(async_load_data: bool) -> None:
-    if async_load_data:
-        raise NotImplementedError(
-            "async_load_data=True (feeding on a prefetch thread) is not ported "
-            "yet (ROADMAP Queue 1 item 5); the port feeds inline")
+def clone_tree(tree):
+    """A copy of a tree whose tensors are cloned (other leaves shared)."""
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    return tree.clone() if torch.is_tensor(tree) else tree
 
 
 class SGD:
@@ -146,6 +167,14 @@ class SGD:
         self._opt_state = self.optimizer.init(self.parameters.params)
         self._rng = torch.Generator().manual_seed(seed + 1)
         self._step_count = 0
+        self.preempted = False
+        self._pass_cache = None  # set per train() call when caching is on
+        self._pass_cache_reader = None  # the reader the cache was captured from
+        self._exec_table: Dict[tuple, Any] = {}  # epoch programs by pass shape
+        # every train and eval batch's shape is counted (hits and misses in
+        # utils.timers.global_stats): a laddered feed stays bounded
+        self.compile_cache = CompileShapeCache("train_step")
+        self._eval_cache = CompileShapeCache("eval_step")
 
     # ------------------------------------------------------------------
     def _build_metrics_fn(self):
@@ -190,6 +219,57 @@ class SGD:
             ladder=DEFAULT_LADDER if _flags.get_flag("use_bucketing") else None,
         )
 
+    def _stage_fn(self, feeder: DataFeeder, staged: bool):
+        """The feed of one batch: convert on the host, the ``nan_batch``
+        chaos point, then the upload (pinned on a side stream when `staged`,
+        the prefetch worker's form)."""
+
+        def stage(data):
+            with stat_timer("feed"):
+                host = feeder.convert(data)
+                if _chaos.fire("nan_batch"):
+                    host = _chaos.poison_batch(host)
+                return feeder.upload(host, staged=staged)
+
+        return stage
+
+    def _dispatch_epoch_program(self, pass_cache, pass_id, params, state, opt_state):
+        """One cached pass through the epoch program (trainer/step.py
+        make_epoch_program), then one fetch of its folds and per-step
+        metrics.  Returns (host metrics stacked [n_batches, ...], (params,
+        state, opt_state)).  When a step of the pass was unhealthy the
+        metrics are None and the state and the generator are those of the
+        pass's start: the caller replays the pass stepwise, so that skips
+        (and the optimizer's host step counter) match the stepwise path
+        exactly."""
+        n = pass_cache.n_batches
+        key = ("epoch_program", n, batch_shape_key(pass_cache.sample_batch()))
+        prog = self._exec_table.get(key)
+        if prog is None:
+            prog = make_epoch_program(self.network, self.optimizer, None, self._metrics_fn,
+                                      prune_masks=self._prune_masks)
+            self._exec_table[key] = prog
+            _log.info("whole-pass epoch program ready: %d steps, one fetch per pass", n)
+        guarded = _flags.get_flag("divergence_sentinel")
+        if guarded:
+            kept = (clone_tree(params), clone_tree(state), clone_tree(opt_state),
+                    self._rng.get_state())
+        carry = make_train_carry(params, state, opt_state, self._rng)
+        with stat_timer("epoch_program"):
+            carry, ms = prog(carry, pass_cache.stacked(), pass_cache.epoch_perm(pass_id))
+        global_stats.incr("epoch_program/dispatches")
+        global_stats.incr("epoch_program/steps", n)
+        host = fetch_metrics(ms)  # the pass's one fetch
+        if guarded and bool((host["health"] < 0.5).any()):
+            params, state, opt_state, rng_state = kept
+            self._rng.set_state(rng_state)
+            _log.info("epoch program: %d unhealthy step(s) in pass %d; replaying the pass "
+                      "stepwise from its start", int((host["health"] < 0.5).sum()), pass_id)
+            global_stats.incr("epoch_program/replayed")
+            return None, (params, state, opt_state)
+        params, state, opt_state, self._rng = split_train_carry(carry)
+        return host, (params, state, opt_state)
+
     def train(
         self,
         reader: Callable,
@@ -201,7 +281,7 @@ class SGD:
         saving_period_by_batches: Optional[int] = None,
         start_pass: int = 0,
         show_parameter_stats_period: Optional[int] = None,
-        async_load_data: bool = False,
+        async_load_data: bool = True,
         checkpoint_dir: Optional[str] = None,
         checkpoint_period_batches: Optional[int] = None,
         resume: bool = False,
@@ -213,103 +293,373 @@ class SGD:
         reports its (non-finite) cost in EndIteration, and counts in no pass
         mean.  With `save_dir`, pass-%05d is written every `saving_period`
         passes (None: the flag) and every `saving_period_by_batches`
-        batches (the reference trainer's cadence).  Every
-        `show_parameter_stats_period` steps (None: the flag; 0: off) the
-        per-parameter statistics are logged.  Feeding runs inline:
-        ``async_load_data=True`` (a prefetch thread) is not ported yet and
-        raises."""
-        _no_async_feed(async_load_data)
-        if checkpoint_dir is not None:
-            raise NotImplementedError(
-                "checkpoint_dir (periodic full-state checkpoints with rollback, "
-                "preemption and resume) is not ported yet (ROADMAP Queue 1 item 5); "
-                "checkpoint with save_checkpoint / restore_checkpoint")
-        if resume:
-            raise ValueError("resume=True requires checkpoint_dir")
+        batches.  Every `show_parameter_stats_period` steps (None: the
+        flag; 0: off) the per-parameter statistics are logged.
+
+        ``async_load_data`` (on by default, as in the JAX package): the feed
+        (converters, the pinned copy, the copies on the feeder's stream)
+        runs on a prefetch thread, two batches ahead; off, it runs inline
+        with a synchronous copy.  A failure on the thread is raised here.
+
+        The pass cache (the ``cache_pass_in_mem`` flag, or a reader tagged
+        by ``@provider(cache=CacheType.CACHE_PASS_IN_MEM)``): pass 1's staged
+        batches stay on the device (reader/pass_cache.py, with
+        ``data_echo_factor`` echo on pass 1) and later passes replay them;
+        the same reader in a later call replays at once.  With
+        ``whole_pass_program``, a replayed pass runs as the epoch program
+        (one fetch per pass), or stepwise with a warning that says why.
+
+        Fault tolerance (robustness/): with ``checkpoint_dir``, full-state
+        checkpoints (parameters, layer and optimizer state, the generator,
+        the pass and batch position) are written before the first batch,
+        every ``checkpoint_period_batches`` batches (None: the flag) and at
+        every pass end.  When the sentinel declares divergence (a skip
+        streak or loss spikes), the run rolls back to the last good
+        checkpoint and retries the window of batches since, quarantining it
+        after ``failure_max`` failures.  SIGTERM/SIGINT write a synchronous
+        checkpoint and a ``PREEMPTED`` marker and return (``self.preempted``
+        is True); ``resume=True`` restores the latest good checkpoint and
+        drains the interrupted pass's consumed batches, so a deterministic
+        reader continues the uninterrupted trajectory bit for bit.  A
+        resumed run does not cache: it streams its remaining passes."""
         if event_handler is None:
-            event_handler = lambda e: None
+            event_handler = lambda e: None  # noqa: E731
         if saving_period is None:
             saving_period = _flags.get_flag("saving_period")
         log_period = _flags.get_flag("log_period")
         if show_parameter_stats_period is None:  # an explicit 0 disables too
             show_parameter_stats_period = _flags.get_flag("show_parameter_stats_period")
+        whole_pass = _flags.get_flag("whole_pass_program")
+        whole_pass_warned = False
         feeder = self._make_feeder(feeding)
-        params, state, opt_state = (
-            self.parameters.params, self.parameters.state, self._opt_state
-        )
-        for pass_id in range(start_pass, start_pass + num_passes):
-            event_handler(v2_event.BeginPass(pass_id))
-            if "pass" in opt_state:
-                opt_state["pass"] = pass_id  # the pass_manual schedule reads it
-            costs: List[float] = []
-            weights: List[int] = []
-            pass_accums: Dict[str, np.ndarray] = {}
-            for batch_id, data in enumerate(reader()):
-                event_handler(v2_event.BeginIteration(pass_id, batch_id))
-                batch = feeder(data)
-                params, state, opt_state, metrics = self._train_step(
-                    params, state, opt_state, batch, draw_seed(self._rng)
-                )
-                self._step_count += 1
-                health = metrics.pop("health", None)
-                metrics.pop("grad_norm", None)
-                cost = float(metrics["cost"])
-                if log_period and self._step_count % log_period == 0:
-                    _log.info("pass %d batch %d cost %.6f", pass_id, batch_id, cost)
-                if (show_parameter_stats_period
-                        and self._step_count % show_parameter_stats_period == 0):
-                    # reference TrainerInternal.cpp:83-110 per-parameter stats
-                    from paddle_tpu_torch.utils.debug import (
-                        format_parameter_stats,
-                        parameter_stats,
-                    )
+        stage = self._stage_fn(feeder, async_load_data)
 
-                    _log.info("parameter stats @ step %d:\n%s", self._step_count,
-                              format_parameter_stats(parameter_stats(params)))
-                evaluator: Dict[str, float] = {}
-                if health is None or float(health) >= 0.5:
-                    costs.append(cost)
-                    weights.append(_batch_rows(batch))
-                    evaluator, accums = self._split_metrics(metrics)
-                    for k, v in accums.items():
-                        pass_accums[k] = pass_accums.get(k, 0) + v
-                    evaluator.update(self._finalize(accums))
-                else:
-                    _log.warning("sentinel: non-finite step skipped (pass %d batch %d)",
-                                 pass_id, batch_id)
-                event_handler(v2_event.EndIteration(pass_id, batch_id, cost, evaluator))
-                if (save_dir and saving_period_by_batches
-                        and (batch_id + 1) % saving_period_by_batches == 0):
-                    self.parameters.params, self.parameters.state = params, state
-                    self._opt_state = opt_state
-                    self.save_pass(save_dir, pass_id, batch_id=batch_id + 1)
-            # the latest values, so that test, tar saving and checkpoints in
-            # an EndPass handler see them
+        # -- the robustness plane: sentinel, rollback, preemption ----------
+        self.preempted = False
+        sentinel = None
+        if _flags.get_flag("divergence_sentinel"):
+            sentinel = DivergenceSentinel.from_flags()
+        recovery = manager = None
+        if checkpoint_dir:
+            from paddle_tpu_torch import checkpoint as _ckpt
+
+            manager = _ckpt.CheckpointManager(checkpoint_dir)
+            recovery = RecoveryCoordinator.from_flags(
+                save_fn=lambda step, extra: self.save_checkpoint(manager, step=step, extra=extra),
+                restore_fn=lambda: self._restore_latest_full(manager),
+            )
+            if checkpoint_period_batches is None:
+                checkpoint_period_batches = _flags.get_flag("checkpoint_period_batches")
+            if not resume and manager.latest_step() is not None:
+                _log.warning(
+                    "checkpoint_dir %s already holds checkpoints from a previous run but "
+                    "resume=False: a rollback could restore stale state; use a fresh "
+                    "directory or resume", checkpoint_dir)
+        elif resume:
+            raise ValueError("resume=True requires checkpoint_dir")
+
+        resume_extra = None
+        skip_batches = 0
+        first_pass = start_pass
+        if resume:
+            resume_extra = recovery.resume()
+            if resume_extra is None:
+                _log.warning("resume: no usable checkpoint under %s; starting fresh",
+                             checkpoint_dir)
+            else:
+                clear_marker(checkpoint_dir)
+                first_pass = int(resume_extra.get("pass_id", start_pass))
+                skip_batches = int(resume_extra.get("batch_id", -1)) + 1
+                _log.info("resumed at step %d: pass %d, skipping %d consumed batch(es)",
+                          self._step_count, first_pass, skip_batches)
+
+        # -- the pass cache ------------------------------------------------
+        # a single-pass run never replays, so it holds nothing (echo still
+        # applies: it needs the batch in hand only)
+        pass_cache = None
+        cache_requested = _flags.get_flag("cache_pass_in_mem") or bool(
+            getattr(reader, "cache_pass_in_mem", False))
+        if cache_requested and resume_extra is not None and not (
+                self._pass_cache is not None and self._pass_cache.ready):
+            # a resumed process cannot rebuild the interrupted run's capture
+            # (a mid-pass resume would capture the pass's tail only)
+            _log.warning("pass cache disabled on resume: the interrupted run's capture cannot "
+                         "be rebuilt; streaming the remaining passes")
+            cache_requested = False
+        echo_factor = max(int(_flags.get_flag("data_echo_factor")), 1) if cache_requested else 1
+        if cache_requested:
+            # the cache lives with its reader: a later call with the same
+            # reader object replays at once, another reader frees it first
+            prev = self._pass_cache
+            if prev is not None and prev.ready and self._pass_cache_reader is reader:
+                pass_cache = prev
+            else:
+                if prev is not None:
+                    prev.drop()
+                if num_passes > 1:
+                    pass_cache = PassCache.from_flags(reader, seed=self._seed,
+                                                      echo_factor=echo_factor)
+        elif self._pass_cache is not None:
+            self._pass_cache.drop()  # caching switched off: free the memory
+        self._pass_cache = pass_cache
+        self._pass_cache_reader = reader if pass_cache is not None else None
+        if whole_pass and pass_cache is None:
+            _log.warning(
+                "whole_pass_program requested but no device-resident pass cache is "
+                "available (needs cache_pass_in_mem or a CACHE_PASS_IN_MEM provider, "
+                "num_passes > 1, and a run that is not resumed); training stepwise")
+
+        def judge_step(pass_id, bid, cost, health, grad_norm, metrics, rows):
+            """The sentinel's verdict on one step and its bookkeeping,
+            shared by the stepwise loop and the epoch program's replay of
+            its fetched metrics, so the two cannot drift apart.  Emits
+            EndIteration."""
+            verdict = "ok"
+            if sentinel is not None and health is not None:
+                healthy = float(health) >= 0.5
+                if healthy and grad_norm is not None:
+                    global_stats.observe("robustness.grad_norm", float(grad_norm))
+                verdict = sentinel.observe(cost, healthy)
+            if log_period and self._step_count % log_period == 0:
+                _log.info("pass %d batch %d cost %.6f", pass_id, bid, cost)
+            evaluator: Dict[str, float] = {}
+            if verdict == "ok":
+                pass_costs.append(cost)
+                pass_weights.append(rows)
+                evaluator, accums = self._split_metrics(metrics)
+                for k, v in accums.items():
+                    pass_accums[k] = pass_accums.get(k, 0) + v
+                evaluator.update(self._finalize(accums))
+            event_handler(v2_event.EndIteration(pass_id, bid, cost, evaluator))
+            return verdict
+
+        def publish():
             self.parameters.params, self.parameters.state = params, state
             self._opt_state = opt_state
-            # per-sample mean: each batch weighs by its row count
-            pass_metrics = {
-                "mean_cost": float(np.average(costs, weights=weights)) if costs else 0.0
-            }
-            pass_metrics.update(self._finalize(pass_accums))
-            event_handler(v2_event.EndPass(pass_id, pass_metrics))
-            if save_dir and (pass_id + 1 - start_pass) % saving_period == 0:
-                self.save_pass(save_dir, pass_id)
+
+        params, state, opt_state = self.parameters.params, self.parameters.state, self._opt_state
+        guard = None
+        if recovery is not None:
+            guard = PreemptionGuard()
+            if resume_extra is None:
+                # a rollback needs an anchor before the first batch lands
+                recovery.checkpoint(self._step_count, {
+                    "step_count": self._step_count, "pass_id": first_pass, "batch_id": -1})
+        with (guard if guard is not None else nullcontext()):
+            for pass_id in range(first_pass, start_pass + num_passes):
+                skip = skip_batches if pass_id == first_pass else 0
+                event_handler(v2_event.BeginPass(pass_id))
+                if "pass" in opt_state:
+                    opt_state["pass"] = pass_id  # the pass_manual schedule reads it
+                pass_costs: List[float] = []
+                pass_weights: List[int] = []
+                pass_accums: Dict[str, np.ndarray] = {}
+                # rollback marks: the pass report must not count a retried
+                # window twice
+                costs_mark = 0
+                accums_mark: Dict[str, np.ndarray] = {}
+                cached = pass_cache is not None and pass_cache.ready
+                use_epoch_prog = (
+                    whole_pass and cached and recovery is None and not skip
+                    and pass_cache.n_buckets == 1 and not pass_cache.sample_shuffle
+                    and pass_cache.fits_stacked())
+                if whole_pass and cached and not use_epoch_prog and not whole_pass_warned:
+                    whole_pass_warned = True
+                    reasons = []
+                    if recovery is not None:
+                        reasons.append("checkpoint/rollback plane active")
+                    if skip:
+                        reasons.append("mid-pass resume")
+                    if pass_cache.n_buckets != 1:
+                        reasons.append(f"{pass_cache.n_buckets} shape buckets")
+                    if pass_cache.sample_shuffle:
+                        reasons.append("sample_shuffle")
+                    if not pass_cache.fits_stacked():
+                        reasons.append("stacked copy would exceed pass_cache_hbm_budget_mb "
+                                       "(needs 2x the cached pass)")
+                    _log.warning("whole_pass_program requested but replaying stepwise (%s)",
+                                 "; ".join(reasons) or "unknown")
+                step_ms = None
+                if use_epoch_prog:
+                    step_ms, (params, state, opt_state) = self._dispatch_epoch_program(
+                        pass_cache, pass_id, params, state, opt_state)
+                if step_ms is not None:
+                    # the fetched per-step metrics drive the same bookkeeping
+                    # as the stepwise loop
+                    rows = _batch_rows(pass_cache.sample_batch())
+                    healths = step_ms.pop("health", None)
+                    grad_norms = step_ms.pop("grad_norm", None)
+                    for i in range(pass_cache.n_batches):
+                        event_handler(v2_event.BeginIteration(pass_id, i))
+                        self._step_count += 1
+                        verdict = judge_step(
+                            pass_id, i, float(step_ms["cost"][i]),
+                            None if healths is None else healths[i],
+                            None if grad_norms is None else grad_norms[i],
+                            {k: v[i] for k, v in step_ms.items()}, rows)
+                        if verdict == "diverged":
+                            _log.error(
+                                "divergence detected at pass %d batch %d inside the whole-"
+                                "pass epoch program: no per-step rollback in this mode (run "
+                                "with checkpoint_dir for the stepwise path)", pass_id, i)
+                            if sentinel is not None:
+                                sentinel.reset()
+                    batches = iter(())
+                elif cached:
+                    # replay from the device: no feeder, no host-to-device copy
+                    batches = pass_cache.epoch(pass_id)
+                    if skip:
+                        batches = itertools.islice(batches, skip, None)
+                else:
+                    raw = iter(reader())
+                    # resume mid-pass: drain the consumed batches unstaged (the
+                    # reader's own generator advances as the interrupted run's)
+                    for _ in range(skip):
+                        next(raw, None)
+                    batches = prefetch(raw, stage) if async_load_data else map(stage, raw)
+                    if pass_cache is not None and pass_cache.active:
+                        batches = pass_cache.capture(batches)
+                    elif echo_factor > 1 and pass_id == first_pass:
+                        # a single-pass (or overflowed) run with echo: train each
+                        # transferred batch echo_factor times, keep none
+                        batches = (b for bb in batches for b in (bb,) * echo_factor)
+                live = iter(batches)
+                replay: deque = deque()
+                batch_id = skip - 1
+                while True:
+                    if replay:
+                        _, bid, batch = replay.popleft()
+                        is_live = False
+                    else:
+                        try:
+                            batch = next(live)
+                        except StopIteration:
+                            break
+                        batch_id += 1
+                        bid = batch_id
+                        is_live = True
+                    event_handler(v2_event.BeginIteration(pass_id, bid))
+                    if self.compile_cache.observe(batch) and self._step_count:
+                        _log.debug("train batch %d brings a new shape (distinct shapes now "
+                                   "%d)", bid, self.compile_cache.n_shapes)
+                    if is_live and recovery is not None:
+                        recovery.record(pass_id, bid, batch)
+                    batch = DataFeeder.consume(batch)
+                    with stat_timer("train_step"):
+                        params, state, opt_state, metrics = self._train_step(
+                            params, state, opt_state, batch, draw_seed(self._rng))
+                        metrics = fetch_metrics(metrics)
+                    self._step_count += 1
+                    health = metrics.pop("health", None)
+                    grad_norm = metrics.pop("grad_norm", None)
+                    cost = float(metrics["cost"])
+                    if _chaos.fire("kill"):  # a hard-preemption drill: no flush
+                        _chaos.kill_self()
+                    if (show_parameter_stats_period
+                            and self._step_count % show_parameter_stats_period == 0):
+                        # reference TrainerInternal.cpp:83-110 per-parameter stats
+                        from paddle_tpu_torch.utils.debug import (
+                            format_parameter_stats,
+                            parameter_stats,
+                        )
+
+                        _log.info("parameter stats @ step %d:\n%s", self._step_count,
+                                  format_parameter_stats(parameter_stats(params)))
+                    verdict = judge_step(pass_id, bid, cost, health, grad_norm, metrics,
+                                         _batch_rows(batch))
+                    if not is_live and not replay and recovery is not None:
+                        recovery.replay_done()  # the window applied cleanly again
+                    if verdict == "diverged":
+                        if recovery is None:
+                            _log.error("divergence detected at pass %d batch %d but no "
+                                       "checkpoint_dir is set: cannot roll back", pass_id, bid)
+                            if sentinel is not None:
+                                sentinel.reset()
+                        else:
+                            action, window = recovery.on_divergence()
+                            if action != "none":
+                                # the restore set self.*: take the loop's
+                                # references again and drop the undone
+                                # bookkeeping
+                                params, state = self.parameters.params, self.parameters.state
+                                opt_state = self._opt_state
+                                del pass_costs[costs_mark:]
+                                del pass_weights[costs_mark:]
+                                pass_accums = {k: np.copy(v) for k, v in accums_mark.items()}
+                                if sentinel is not None:
+                                    sentinel.reset()
+                                if action == "retry":
+                                    replay = deque(window)
+                        continue
+                    if (recovery is not None and verdict == "ok" and checkpoint_period_batches
+                            and not recovery.replaying
+                            and (sentinel is None or sentinel.steady)
+                            and self._step_count % checkpoint_period_batches == 0):
+                        publish()
+                        recovery.checkpoint(self._step_count, {
+                            "step_count": self._step_count, "pass_id": pass_id,
+                            "batch_id": bid})
+                        costs_mark = len(pass_costs)
+                        accums_mark = {k: np.copy(v) for k, v in pass_accums.items()}
+                    if (save_dir and saving_period_by_batches
+                            and (bid + 1) % saving_period_by_batches == 0):
+                        publish()
+                        self.save_pass(save_dir, pass_id, batch_id=bid + 1)
+                    if guard is not None and guard.triggered:
+                        # preemption: finish this step's bookkeeping, then a
+                        # synchronous final checkpoint and the marker
+                        publish()
+                        extra = {"step_count": self._step_count, "pass_id": pass_id,
+                                 "batch_id": bid, "preempted": True}
+                        self.save_checkpoint(manager, step=self._step_count, extra=extra)
+                        write_marker(checkpoint_dir, {**extra, "signal": guard.signum})
+                        self.preempted = True
+                        _log.warning("preempted at pass %d batch %d (step %d): state "
+                                     "checkpointed under %s; restart with resume=True",
+                                     pass_id, bid, self._step_count, checkpoint_dir)
+                        return
+                # the latest values, so that test, tar saving and checkpoints
+                # in an EndPass handler see them
+                publish()
+                # per-sample mean: each batch weighs by its row count
+                pass_metrics = {
+                    "mean_cost": float(np.average(pass_costs, weights=pass_weights))
+                    if pass_costs else 0.0
+                }
+                cc = self.compile_cache
+                if cc.n_shapes > 1:
+                    _log.info("pass %d bucket dispatch: %d distinct batch shapes, %d misses / "
+                              "%d hits", pass_id, cc.n_shapes, cc.misses, cc.hits)
+                pass_metrics.update(self._finalize(pass_accums))
+                event_handler(v2_event.EndPass(pass_id, pass_metrics))
+                if save_dir and (pass_id + 1 - start_pass) % saving_period == 0:
+                    self.save_pass(save_dir, pass_id)
+                if recovery is not None:
+                    # a pass end is a natural anchor; its position is the next
+                    # pass's start, so a resume never reads this one again
+                    recovery.checkpoint(self._step_count, {
+                        "step_count": self._step_count, "pass_id": pass_id + 1,
+                        "batch_id": -1})
+        publish()
 
     def test(self, reader: Callable, feeding=None,
-             async_load_data: bool = False) -> v2_event.TestResult:
+             async_load_data: bool = True) -> v2_event.TestResult:
         """Cost and metrics over `reader`, averaged per sample, with the
         layer state as global statistics; evaluators finalize over the
-        whole reader.  ``async_load_data=True`` raises (not ported yet)."""
-        _no_async_feed(async_load_data)
+        whole reader.  ``async_load_data`` feeds on a prefetch thread, as in
+        ``train``."""
         feeder = self._make_feeder(feeding)
+        stage = self._stage_fn(feeder, async_load_data)
         costs: List[float] = []
         weights: List[int] = []
         sums: Dict[str, float] = {}
         accum_sums: Dict[str, np.ndarray] = {}
-        for data in reader():
-            batch = feeder(data)
-            metrics = self._eval_step(self.parameters.params, self.parameters.state, batch)
+        batches = prefetch(reader(), stage) if async_load_data else map(stage, reader())
+        for batch in batches:
+            self._eval_cache.observe(batch)
+            batch = DataFeeder.consume(batch)
+            metrics = fetch_metrics(
+                self._eval_step(self.parameters.params, self.parameters.state, batch))
             rows = _batch_rows(batch)
             costs.append(float(metrics["cost"]))
             weights.append(rows)
@@ -324,6 +674,7 @@ class SGD:
         return v2_event.TestResult(
             avg, float(np.average(costs, weights=weights)) if costs else 0.0,
         )
+
 
     # -- parameter saving -------------------------------------------------
     def save_parameter_to_tar(self, f) -> None:
@@ -395,6 +746,24 @@ class SGD:
             key = [int(x) for x in np.asarray(tree["rng"]).reshape(-1)]
             self._rng.manual_seed((key[0] << 32 | key[-1]) & 0x7FFFFFFFFFFFFFFF)
         self._step_count = int(extra.get("step_count", self._step_count))
+
+    def _restore_latest_full(self, manager) -> Optional[Dict[str, Any]]:
+        """Restore the latest restorable checkpoint (a torn newest one is
+        walked past) and return its extra dict (the position the recovery
+        plane stored), or None when there is none."""
+        restored = manager.restore_latest(self._full_state())
+        if restored is None:
+            return None
+        _, tree, extra = restored
+        self._apply_restored(tree, extra)
+        return dict(extra)
+
+    def elastic_model(self, decode):
+        """The elastic multi-process trainer's adapter (the JAX package's
+        ``trainer/elastic.py``) is not ported yet."""
+        raise NotImplementedError(
+            "elastic_model (trainer/elastic.py with the master plane) is not ported yet "
+            "(ROADMAP Queue 1 item 5.6)")
 
     def restore_checkpoint(self, manager, step: Optional[int] = None) -> bool:
         """Restore the latest restorable (or the given) checkpoint; False

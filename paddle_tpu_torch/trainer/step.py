@@ -14,15 +14,23 @@ finite.  The JAX package computes the update and then selects the old or the
 new trees; the port updates in place, so it decides first: an unhealthy step
 skips the update and returns the parameters, the layer state and the
 optimizer state as they were, bit for bit.  ``health`` and ``grad_norm``
-ride the metrics.
+ride the metrics.  The decision needs the host: the step fetches its cost,
+its gradient norm and every metric in one copy (:func:`fetch_metrics`), the
+one host sync of a step, and returns them as host tensors.
+
+The whole-pass epoch program (:func:`make_epoch_program`) runs a cached
+pass with no host read inside: its steps decide on the card, keeping each
+leaf's old value where the step was unhealthy (``torch.where``), fold the
+health and the cost into the carry, and hand back the stacked per-step
+metrics for one fetch.
 
 Static pruning (a ``HookAttr("pruning", r)`` on a layer's ParamAttr):
 :func:`build_prune_masks` keeps the largest (1 - r) fraction of each weight
 by initial magnitude, and the step masks the weights in place after every
 update (reference StaticPruningHook), as the JAX package does.
 
-Not ported yet: a device mesh (data or model parallelism) and the quantized
-gradient reduction.
+Not ported yet: a device mesh (data or model parallelism, ROADMAP Queue 1
+item 6) and the quantized gradient reduction (item 6).
 """
 
 from __future__ import annotations
@@ -31,8 +39,13 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from paddle_tpu_torch.core.batch import SeqTensor
-from paddle_tpu_torch.core.compiler import CompiledNetwork
+from paddle_tpu_torch.core.batch import (
+    DEFAULT_LADDER,
+    SeqTensor,
+    canonicalize_batch,
+    set_host_lengths,
+)
+from paddle_tpu_torch.core.compiler import CompiledNetwork, CompileShapeCache
 from paddle_tpu_torch.optimizer import Optimizer
 from paddle_tpu_torch.utils.tree import leaf_paths, leaves as tree_leaves, map_leaves, set_path
 
@@ -125,32 +138,89 @@ def value_and_grad(fn, params):
     return value.detach(), aux, grads
 
 
+def fetch_metrics(metrics: Metrics) -> Metrics:
+    """`metrics` with every CUDA tensor replaced by its host copy, all of
+    them through one device-to-host copy (one host sync however many
+    metrics a step has).  Values keep their dtypes and shapes (the copy
+    travels as float64, exact for every float and for integers below
+    2**53); host values pass through."""
+    on_card = [(k, v) for k, v in metrics.items() if torch.is_tensor(v) and v.is_cuda]
+    if not on_card:
+        return metrics
+    flat = torch.cat([v.detach().reshape(-1).to(torch.float64) for _, v in on_card]).cpu()
+    out = dict(metrics)
+    at = 0
+    for k, v in on_card:
+        n = v.numel()
+        out[k] = flat[at:at + n].reshape(v.shape).to(v.dtype)
+        at += n
+    return out
+
+
+def _tensor_leaves(tree):
+    """The tensor leaves of a tree, in its leaf order (host counters and
+    other plain values left out)."""
+    return [v for v in tree_leaves(tree) if torch.is_tensor(v)]
+
+
+def _select(ok: torch.Tensor, new, old):
+    """`new`'s tree with each leaf that `old` also holds taken from `old`
+    where `ok` is false."""
+    if isinstance(new, dict):
+        return {k: _select(ok, v, old.get(k)) if isinstance(old, dict) else v
+                for k, v in new.items()}
+    return new if old is None else torch.where(ok, new, old)
+
+
 def _train_step_body(network: CompiledNetwork, optimizer: Optimizer, extra_metrics=None,
-                     sentinel: Optional[bool] = None, prune_masks=None):
+                     sentinel: Optional[bool] = None, prune_masks=None,
+                     on_device: bool = False):
     """(params, state, opt_state, batch, rng=None) -> (params, state,
     opt_state, metrics), with the parameter and optimizer tensors updated in
     place (and masked by `prune_masks`) and the layer state replaced; `rng`
-    is the step's seed (dropout)."""
+    is the step's seed (dropout).
+
+    The sentinel's decision is made on the host by default: one fetch
+    (:func:`fetch_metrics`) of the metrics, which come back as host tensors.
+    `on_device` (the epoch program) reads nothing: the update runs, and
+    every parameter, optimizer and state tensor then keeps its old value
+    where ``health`` is 0 (a per-leaf ``torch.where``); the metrics stay on
+    the device.  The optimizer's step counter is a host int, so it advances
+    on a skipped step there (the trainer replays such a pass stepwise)."""
     guard = _sentinel_enabled(sentinel)
 
     def step(params, state, opt_state, batch, rng: Optional[int] = None):
         cost, (outs, new_state), grads = value_and_grad(
             lambda p: network.cost(p, batch, state=state, train=True, rng=rng), params)
         metrics: Metrics = {"cost": cost}
-        healthy = True
-        if guard:
-            grad_norm = _global_norm(grads)
-            # the one host sync of the step (the trainer reads the cost anyway)
-            healthy = bool(torch.isfinite(cost.detach().float()) & torch.isfinite(grad_norm))
-            metrics["health"] = torch.tensor(float(healthy))
-            metrics["grad_norm"] = grad_norm
+        if extra_metrics is not None:
+            metrics.update(extra_metrics(outs))
+        new_state = map_leaves(torch.Tensor.detach, new_state)
+        if not guard:
+            params, opt_state = optimizer.update(grads, opt_state, params)
+            return apply_prune_masks(params, prune_masks), new_state, opt_state, metrics
+        grad_norm = _global_norm(grads)
+        metrics["grad_norm"] = grad_norm
+        if on_device:
+            ok = torch.isfinite(cost.detach().float()) & torch.isfinite(grad_norm)
+            metrics["health"] = ok.float()
+            with torch.no_grad():
+                kept = [v.clone() for v in _tensor_leaves(params) + _tensor_leaves(opt_state)]
+                params, opt_state = optimizer.update(grads, opt_state, params)
+                params = apply_prune_masks(params, prune_masks)
+                for v, old in zip(_tensor_leaves(params) + _tensor_leaves(opt_state), kept):
+                    v.copy_(torch.where(ok, v, old))
+                new_state = _select(ok, new_state, state or {})
+            return params, new_state, opt_state, metrics
+        # the one host sync of the step: the trainer reads these anyway
+        metrics = fetch_metrics(metrics)
+        healthy = bool(torch.isfinite(metrics["cost"].float()) & torch.isfinite(
+            metrics["grad_norm"].float()))
+        metrics["health"] = torch.tensor(float(healthy))
         if healthy:
             params, opt_state = optimizer.update(grads, opt_state, params)
             params = apply_prune_masks(params, prune_masks)
-            # the state carries no graph into the next step
-            state = map_leaves(torch.Tensor.detach, new_state)
-        if extra_metrics is not None:
-            metrics.update(extra_metrics(outs))
+            state = new_state
         return params, state, opt_state, metrics
 
     return step
@@ -176,14 +246,20 @@ def make_train_step(
     return _train_step_body(network, optimizer, extra_metrics, sentinel, prune_masks)
 
 
+def _row(x, i: int):
+    """Row `i` of a stacked tensor (a view), with its host lengths."""
+    if x is None:
+        return None
+    host = getattr(x, "_host_lengths", None)
+    return x[i] if host is None else set_host_lengths(x[i], host[i])
+
+
 def _step_slice(batches, i: int):
-    """Batch `i` of batches stacked on a leading [n_steps, ...] axis."""
+    """Batch `i` of batches stacked on a leading [n_steps, ...] axis: views,
+    carrying the host copies of the lengths when the stack has them."""
     return {
-        name: SeqTensor(
-            t.data[i],
-            None if t.lengths is None else t.lengths[i],
-            None if t.sub_lengths is None else t.sub_lengths[i],
-        )
+        name: SeqTensor(_row(t.data, i), _row(t.lengths, i), _row(t.sub_lengths, i),
+                        sparse_ids=t.sparse_ids)
         for name, t in batches.items()
     }
 
@@ -223,6 +299,133 @@ def make_multi_train_step(
     return multi
 
 
+def _carry_scalar(params, value: float) -> torch.Tensor:
+    leaves = _tensor_leaves(params)
+    return torch.full((), value, dtype=torch.float32,
+                      device=leaves[0].device if leaves else None)
+
+
+def make_train_carry(params, state, opt_state, rng: torch.Generator):
+    """The carried state of the whole-pass epoch program as one tree:
+    parameters, layer state, optimizer state, the generator the step seeds
+    are drawn from, and the on-device folds ``health_min``, ``skipped``
+    (unhealthy steps), ``cost_sum`` (of the healthy steps) and ``ok_steps``,
+    0-d float32 tensors on the parameters' device."""
+    return {
+        "params": params,
+        "state": state,
+        "opt_state": opt_state,
+        "rng": rng,
+        "health_min": _carry_scalar(params, 1.0),
+        "skipped": _carry_scalar(params, 0.0),
+        "cost_sum": _carry_scalar(params, 0.0),
+        "ok_steps": _carry_scalar(params, 0.0),
+    }
+
+
+def split_train_carry(carry):
+    """(params, state, opt_state, rng) back out of an epoch-program carry."""
+    return carry["params"], carry["state"], carry["opt_state"], carry["rng"]
+
+
+def make_epoch_program(
+    network: CompiledNetwork,
+    optimizer: Optimizer,
+    mesh=None,
+    extra_metrics: Optional[MetricsFn] = None,
+    prune_masks=None,
+    sentinel: Optional[bool] = None,
+):
+    """A whole training pass with no host read inside: ``(carry,
+    stacked_batches, perm) -> (carry, per_step_metrics)``.
+
+    ``stacked_batches`` is the cached pass stacked on a leading [N, ...]
+    axis in capture order (``PassCache.stacked``); ``perm`` is this pass's
+    order, a host tensor or list (``PassCache.epoch_perm``): the loop reads
+    it on the host and takes each step's batch as a view of the stack, so
+    nothing is gathered or uploaded.  Step i draws its seed from the
+    carry's generator exactly as ``SGD.train``'s stepwise loop draws it
+    (:func:`draw_seed`), and runs the shared step body with its decision on
+    the device, so parameters, metrics and the sentinel's skips match the
+    stepwise path bit for bit while every step is healthy.  The carry
+    folds ``health_min``, ``skipped``, ``cost_sum`` and ``ok_steps`` on the
+    device; the per-step metrics come back stacked [N, ...] on the device
+    for one fetch (:func:`fetch_metrics`).  No ``torch.compile`` and no CUDA
+    graph: the program is the same eager step, without its host sync."""
+    if mesh is not None:
+        _not_ported("the epoch program over a device mesh")
+    step = _train_step_body(network, optimizer, extra_metrics, sentinel, prune_masks,
+                            on_device=True)
+
+    def epoch(carry, batches, perm):
+        order = perm.tolist() if torch.is_tensor(perm) else [int(i) for i in perm]
+        params, state, opt_state, gen = split_train_carry(carry)
+        folds = {k: carry[k] for k in ("health_min", "skipped", "cost_sum", "ok_steps")}
+        history = []
+        for i in order:
+            params, state, opt_state, m = step(
+                params, state, opt_state, _step_slice(batches, i), draw_seed(gen))
+            h = m.get("health")
+            if h is None:
+                h = torch.ones_like(folds["health_min"])
+            folds["health_min"] = torch.minimum(folds["health_min"], h)
+            folds["skipped"] = folds["skipped"] + (1.0 - h)
+            folds["cost_sum"] = folds["cost_sum"] + torch.where(
+                h >= 0.5, m["cost"].detach().float(), torch.zeros_like(h))
+            folds["ok_steps"] = folds["ok_steps"] + h
+            history.append(m)
+        stacked = {k: torch.stack([m[k].detach() for m in history]) for k in history[0]} \
+            if history else {}
+        return {**make_train_carry(params, state, opt_state, gen), **folds}, stacked
+
+    return epoch
+
+
+def make_bucketed_train_step(
+    network: CompiledNetwork,
+    optimizer: Optimizer,
+    mesh=None,
+    extra_metrics: Optional[MetricsFn] = None,
+    infer_param_shardings: bool = False,
+    prune_masks=None,
+    ladder=DEFAULT_LADDER,
+    cache: Optional[CompileShapeCache] = None,
+):
+    """A train step that holds the bucket-shape contract where it is
+    called: every batch is padded to the shape ladder
+    (``core.batch.canonicalize_batch``) and counted by a
+    :class:`~paddle_tpu_torch.core.compiler.CompileShapeCache`.  Returns
+    ``(step, cache)``; ``step`` has :func:`make_train_step`'s signature."""
+    if infer_param_shardings:
+        _not_ported("parameter sharding inference over a device mesh")
+    inner = make_train_step(network, optimizer, mesh, extra_metrics, prune_masks)
+    if cache is None:
+        cache = CompileShapeCache("train_step")
+
+    def step(params, state, opt_state, batch, rng: Optional[int] = None):
+        batch = canonicalize_batch(batch, ladder)
+        cache.observe(batch)
+        return inner(params, state, opt_state, batch, rng)
+
+    return step, cache
+
+
+def make_grad_step(network: CompiledNetwork, mesh=None, infer_param_shardings: bool = False):
+    """``(params, state, batch, rng) -> (grads, cost)``: the gradient half of
+    the train step, with no update, the unit of work of the elastic trainer
+    (``trainer/elastic.py``, ROADMAP Queue 1 item 5.6).  The layer-state
+    update of the forward is dropped, as in the JAX package."""
+    if mesh is not None or infer_param_shardings:
+        _not_ported("the gradient step over a device mesh")
+
+    def gstep(params, state, batch, rng: Optional[int] = None):
+        cost, _, grads = value_and_grad(
+            lambda p: network.cost(p, batch, state=state, rng=rng, train=True), params)
+        return grads, cost
+
+    return gstep
+
+
 def make_eval_step(
     network: CompiledNetwork, mesh=None, extra_metrics: Optional[MetricsFn] = None
 ):
@@ -240,3 +443,17 @@ def make_eval_step(
         return metrics
 
     return step
+
+
+def make_forward_fn(network: CompiledNetwork, output_names=None):
+    """An inference forward returning the selected layer outputs' data
+    (``paddle/capi``'s gradient-machine forward): ``fwd(params, state,
+    batch, train=False) -> {name: tensor}``, without gradients."""
+
+    @torch.no_grad()
+    def fwd(params, state, batch, train: bool = False):
+        outs, _ = network.apply(params, batch, state=state, train=train)
+        names = output_names or network.topology.output_names
+        return {n: outs[n].data for n in names}
+
+    return fwd

@@ -111,8 +111,64 @@ define_flag("saving_period", 1,
             "default of the JAX package's train(saving_period=...) and of "
             "its CLI's --saving_period)")
 define_flag("checkpoint_period_batches", 50,
-            "full-state checkpoint cadence in batches of SGD.train with "
-            "checkpoint_dir (the recovery plane, not ported yet)")
+            "full-state checkpoint cadence (in batches) when SGD.train runs "
+            "with checkpoint_dir; each checkpoint is the rollback anchor and "
+            "the preemption and kill -9 resume point, and bounds the replay "
+            "window the recovery plane retains on the device")
+define_flag("cache_pass_in_mem", False,
+            "device-resident pass cache (reader/pass_cache.py, the "
+            "reference's CacheType.CACHE_PASS_IN_MEM): the first pass "
+            "captures every staged batch in its wire form (uint8 stays "
+            "uint8; the data layer's feed transform runs in the step) and "
+            "every later pass replays it from device memory in a "
+            "seed-reproducible order, with no host-to-device copy; a "
+            "@provider(cache=CacheType.CACHE_PASS_IN_MEM) reader opts in "
+            "through its tag")
+define_flag("data_echo_factor", 1,
+            "train each first-pass batch N times back to back (data echo), "
+            "so the copy-bound first pass spends each transfer N times; 1 = "
+            "off.  Applies whenever the pass cache is enabled")
+define_flag("pass_cache_hbm_budget_mb", 4096,
+            "device-memory budget of the pass cache, in MiB of staged "
+            "(wire-form) batches; a pass that does not fit falls back to "
+            "streaming with a warning.  Sizing: n_samples x bytes per sample "
+            "in wire form (uint8 224x224x3 is 0.15 MB an image)")
+define_flag("whole_pass_program", False,
+            "whole-pass epoch program (trainer/step.py make_epoch_program): "
+            "when the pass cache holds a sealed single-shape pass, passes "
+            ">= 2 run every step with no host read inside and one fetch of "
+            "the stacked per-step metrics at the end, bit-exact against the "
+            "stepwise path (sentinel skips included).  Needs "
+            "cache_pass_in_mem; falls back to stepwise replay, with a "
+            "warning, for a multi-shape pass, sample_shuffle, a stacked "
+            "copy over the budget, a mid-pass resume or a run with "
+            "checkpoint_dir")
+define_flag("sentinel_check_interval", 1,
+            "health fetch cadence of fetch-free multi-step loops "
+            "(make_multi_train_step folds the minimum health and the skip "
+            "count per call); SGD.train reads every step's health with its "
+            "cost, so it ignores this")
+define_flag("sentinel_skip_limit", 3,
+            "consecutive skipped (non-finite) steps that declare divergence "
+            "and trigger a rollback (robustness/recovery.py)")
+define_flag("sentinel_ema_decay", 0.98,
+            "decay of the healthy-cost EMA the spike detector compares "
+            "against")
+define_flag("sentinel_spike_factor", 4.0,
+            "a cost above spike_factor x EMA counts as a loss spike; "
+            "sentinel_spike_patience consecutive spikes declare divergence "
+            "even when every value is finite")
+define_flag("sentinel_spike_patience", 3,
+            "consecutive EMA spikes before the sentinel declares divergence")
+define_flag("failure_max", 3,
+            "rollback retries of the same data window before it is "
+            "quarantined and training continues past it (the reference "
+            "master's processFailedTask discipline, go/master/service.go:308)")
+define_flag("chaos", "",
+            "chaos fault-point spec, e.g. 'nan_batch@5,kill@12' "
+            "(robustness/chaos.py; the environment variable "
+            "PADDLE_TPU_TORCH_CHAOS reaches subprocesses); never set in "
+            "production")
 define_flag("use_bucketing", False,
             "length-bucketed feed for variable-length sequence workloads: "
             "the SGD trainer's DataFeeder pads sequence slots to the "

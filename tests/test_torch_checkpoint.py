@@ -266,11 +266,22 @@ def test_train_writes_pass_dirs_and_load_pass_round_trips(nets, tmp_path):
 
 
 def test_checkpoint_dir_is_not_ported_yet(nets, tmp_path):
-    _, tcost, _, tparams = nets
+    """The name is kept from before the recovery plane was ported: now
+    ``checkpoint_dir`` trains and writes full-state checkpoints the JAX
+    package restores, and ``resume=True`` without a directory still raises
+    ``ValueError``."""
+    jcost, tcost, _, tparams = nets
     trainer = _trainer(paddle_tpu_torch, tcost, tparams)
     reader = paddle_tpu_torch.batch(lambda: iter(_samples(B, 1)), B)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        trainer.train(reader, feeding=FEEDING, checkpoint_dir=str(tmp_path))
+    trainer.train(reader, feeding=FEEDING, checkpoint_dir=str(tmp_path))
+    manager = paddle_tpu_torch.checkpoint.CheckpointManager(str(tmp_path))
+    step = manager.latest_step()
+    assert step == trainer._step_count == 1
+    assert manager.meta(step)["extra"]["pass_id"] == 1
+    jtrainer = _trainer(paddle_tpu, jcost, paddle_tpu.parameters.create(jcost, seed=6))
+    assert jtrainer.restore_checkpoint(paddle_tpu.checkpoint.CheckpointManager(str(tmp_path)))
+    assert_trees_equal(numpy_tree(jtrainer.parameters.params),
+                       numpy_tree(trainer.parameters.params))
     with pytest.raises(ValueError, match="requires checkpoint_dir"):
         trainer.train(reader, feeding=FEEDING, resume=True)
 

@@ -53,7 +53,9 @@ def test_every_module_imports_without_jax():
                 "framework.scope", "framework.op", "framework.ops", "framework.net",
                 "framework.backward", "framework.recurrent", "framework.gradient_checker",
                 "models.gan", "models.vae", "model", "plot", "utils.plotcurve",
-                "utils.model_tools", "utils.preprocess_img"):
+                "utils.model_tools", "utils.preprocess_img", "reader.prefetch",
+                "reader.pass_cache", "robustness", "robustness.chaos", "robustness.sentinel",
+                "robustness.recovery", "robustness.preemption"):
         assert f"paddle_tpu_torch.{mod}" in names.split()
 
 
@@ -313,3 +315,37 @@ def test_framework_and_generative_entry_points_raise_without_cuda():
         flags._VALUES.clear()
         flags._VALUES.update(saved)
 
+
+
+def test_async_feed_raises_without_cuda_unless_on_the_cpu():
+    """SGD.train(async_load_data=True) on the CPU trains; a trainer whose
+    device is the card raises without CUDA, before any step, and never goes
+    back to an inline feed on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device; the no-CUDA error cannot show")
+    L, A, dt = paddle_tpu_torch.layer, paddle_tpu_torch.activation, paddle_tpu_torch.data_type
+    x = L.data(name="x", type=dt.dense_vector(4))
+    cost = L.square_error_cost(input=L.fc(input=x, size=1, act=A.Linear()),
+                               label=L.data(name="y", type=dt.dense_vector(1)))
+    opt = paddle_tpu_torch.optimizer.Momentum(learning_rate=0.1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        paddle_tpu_torch.trainer.SGD(cost, update_equation=opt)
+    trainer = paddle_tpu_torch.trainer.SGD(cost, update_equation=opt, device="cpu")
+    samples = [(np.ones(4, np.float32), np.ones(1, np.float32))] * 8
+    reader = paddle_tpu_torch.batch(lambda: iter(samples), 4)
+    steps = []
+    trainer.train(reader, async_load_data=True, event_handler=lambda e: steps.append(e)
+                  if isinstance(e, paddle_tpu_torch.event.EndIteration) else None)
+    assert len(steps) == 2
+    trainer.device = torch.device("cuda")
+    steps.clear()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        trainer.train(reader, async_load_data=True, event_handler=steps.append)
+    assert not steps
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DataFeeder(trainer.topology.data_types(), device="cuda")
+    # a feeder bound to the card stages there or raises: no quiet CPU copy
+    feeder = DataFeeder(trainer.topology.data_types(), device="cpu")
+    feeder.device = torch.device("cuda")
+    with pytest.raises((RuntimeError, AssertionError)):
+        feeder.stage(samples[:4])

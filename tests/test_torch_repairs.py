@@ -16,12 +16,13 @@
 - the top level binds every module the JAX package's binds, except those
   of ROADMAP Queue 1 items 6 and 7 (a fresh process diffs the names), and
   ``paddle.dataset.mnist.train`` resolves without a submodule import;
-- the not-ported messages of ``SGD.train(checkpoint_dir=...)`` and
-  ``serving.ServingScheduler`` name their roadmap items (5 and 4);
+- ``SGD.train(checkpoint_dir=...)`` trains and writes a checkpoint, and
+  the not-ported message of ``serving.ServingScheduler`` names its roadmap
+  item (4);
 - ``SGD(is_local=...)`` (ignored, as in the JAX package),
   ``SGD.train(show_parameter_stats_period=..., async_load_data=...)`` and
-  ``SGD.test(async_load_data=...)`` are accepted; ``async_load_data=True``,
-  which is not ported, raises ``NotImplementedError`` naming it.
+  ``SGD.test(async_load_data=...)`` are accepted; ``async_load_data=True``
+  runs and equals ``False`` bit for bit (costs, parameters, test result).
 """
 
 import logging
@@ -145,10 +146,22 @@ def test_sgd_takes_the_reference_arguments(caplog):
     assert len(stats) == 2 and "pruned.w0" in stats[0]
     assert np.isfinite(trainer.test(reader, feeding={"x": 0, "label": 1},
                                     async_load_data=False).cost)
-    with pytest.raises(NotImplementedError, match="async_load_data"):
-        trainer.train(reader, feeding={"x": 0, "label": 1}, async_load_data=True)
-    with pytest.raises(NotImplementedError, match="async_load_data"):
-        trainer.test(reader, feeding={"x": 0, "label": 1}, async_load_data=True)
+    # feeding on the prefetch thread equals the inline feed bit for bit
+    runs = []
+    for async_load in (True, False):
+        t = paddle_tpu_torch.trainer.SGD(cost, parameters=paddle_tpu_torch.parameters.create(
+            cost, seed=2, device="cpu"), update_equation=paddle_tpu_torch.optimizer.Momentum(
+                learning_rate=0.1), device="cpu")
+        costs = []
+        t.train(reader, feeding={"x": 0, "label": 1}, async_load_data=async_load,
+                event_handler=lambda e, c=costs: c.append(e.cost)
+                if isinstance(e, paddle_tpu_torch.event.EndIteration) else None)
+        runs.append((costs, t, t.test(reader, feeding={"x": 0, "label": 1},
+                                      async_load_data=async_load)))
+    (ca, ta, ra), (cb, tb, rb) = runs
+    assert ca == cb and len(ca) == 2 and (ra.cost, ra.metrics) == (rb.cost, rb.metrics)
+    for name in ta.parameters.names():
+        assert np.array_equal(ta.parameters.get(name), tb.parameters.get(name)), name
     # training is always local, as in the JAX package
     assert paddle_tpu_torch.trainer.SGD(cost, update_equation=opt, is_local=False,
                                         device="cpu").device.type == "cpu"
@@ -195,7 +208,7 @@ def test_check_nans_raises_and_changes_nothing(monkeypatch):
 # the ROADMAP Queue 1 item that ports it
 NOT_YET_BOUND = {
     "parallel": 6, "launcher": 7, "master": 7, "master_journal": 7, "master_wire": 7,
-    "obs": 7, "profiler": 7, "robustness": 7,
+    "obs": 7, "profiler": 7,
 }
 
 _TOP_LEVEL = """
@@ -225,14 +238,21 @@ def test_top_level_binds_the_jax_package_names():
     assert mnist_ok
 
 
-def test_not_ported_messages_name_their_items():
+def test_not_ported_messages_name_their_items(tmp_path):
     cost = _pruned_net(paddle_tpu_torch)
     trainer = paddle_tpu_torch.trainer.SGD(
         cost, update_equation=paddle_tpu_torch.optimizer.Momentum(learning_rate=0.1),
         device="cpu")
     reader = paddle_tpu_torch.batch(lambda: iter(_samples(8)), 8)
-    with pytest.raises(NotImplementedError, match=r"checkpoint_dir .*Queue 1 item 5\)"):
-        trainer.train(reader, feeding={"x": 0, "label": 1}, checkpoint_dir="unused")
+    # checkpoint_dir is ported: it trains and writes the anchor and pass-end
+    # checkpoints
+    ck = str(tmp_path / "ck")
+    trainer.train(reader, feeding={"x": 0, "label": 1}, checkpoint_dir=ck)
+    manager = paddle_tpu_torch.checkpoint.CheckpointManager(ck)
+    assert manager.all_steps() == [0, 1]
+    assert manager.meta(1)["extra"]["pass_id"] == 1
+    with pytest.raises(NotImplementedError, match=r"elastic_model .*Queue 1 item 5\.6\)"):
+        trainer.elastic_model(lambda rec: rec)
     from paddle_tpu_torch import serving
 
     with pytest.raises(NotImplementedError, match=r"ServingScheduler .*Queue 1 item 4\)"):
