@@ -385,7 +385,22 @@ Phases, in order; any failure exits non-zero:
      across it, rollback 3 times and quarantine of a poisoned window,
      checkpoint bytes and save and restore seconds, SIGTERM at step 5 and
      a resume from another seed bit-identical to an uninterrupted run.  No
-     flash kernel may launch in phase 22.
+     flash kernel may launch in phase 22;
+ 23. elastic fleets of worker processes (``elastic_drive`` through
+     ``sys.executable -c``) sharing the card under an HA master in this
+     process: (a) LeNet-5 at BASELINE config #1 (4,096 seeded records, 32
+     tasks of 128 a pass, 2 passes, f32): (i) N=1, then at once (ii) N=2,
+     (iii) N=2 with kill_worker@3 in one worker, (iv) N=2 with worker_hang
+     in one, pruned and rejoining, (v) a resume from the manifest of a
+     fleet stopped after pass 1, (vi) N=2 under a leader subprocess armed
+     with kill_master@8 and this process's warm standby; every final state
+     and restored manifest bit-identical to (i), the card's free memory
+     back after them; (b) ResNet-50 (4 tasks of B = 128 a pass, bf16,
+     uint8 feed, quantized contributions) at N=1 and N=2, bit-identical,
+     with s/pass, task compute, quantize/fence/fetch/reduce/apply seconds,
+     payload and wire bytes, journal bytes and peak memory per worker.
+     Every worker runs deterministic kernels; the frame bound is 256 MB.
+     No flash kernel may launch in phase 23.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels with their launches on the main path (the timed training steps of
@@ -393,7 +408,7 @@ phase 5; the NMT paths of phases 11-13, the LSTM classifier of phases 14
 and 16, the tagger of phase 15, the nested networks of phase 17, the
 N-gram and ranking networks of phase 18, the image and CTC networks of
 phase 19, the SSD and MDLSTM networks of phase 20, phase 21's framework,
-GAN and VAE paths and phase 22's image networks run none of them; phase 20's MoE Transformer runs each 18
+GAN and VAE paths, phase 22's image networks and phase 23's fleets run none of them; phase 20's MoE Transformer runs each 18
 times per step), errors and times.
 Without a CUDA device, or without the paddle_tpu_torch package beside it, the script
 exits non-zero and prints no result.
@@ -5969,6 +5984,465 @@ def phase_training_plane(torch, P, fa, card):
         f"robust {t[3] - t[2]:.1f} s; flash launches (fwd, dq, dkv) over it: {launch_counts(fa)}")
 
 
+# ---------------------------------------------------------------------------
+# phase 23: elastic fleets of worker processes sharing the one card
+# ---------------------------------------------------------------------------
+# (a) LeNet-5 at BASELINE config #1 (28x28x1, 10 classes, Momentum, f32):
+# 4,096 seeded records of uint8 pixels and a label byte, 64 per chunk,
+# chunks_per_task 2: 128 rows and 32 tasks a pass, 2 passes
+EL_LN_RECORDS, EL_CHUNK, EL_CPT, EL_PASSES = 4096, 64, 2, 2
+EL_LN_LR = 0.01
+EL_LN_TASKS = EL_LN_RECORDS // (EL_CHUNK * EL_CPT)
+# (b) ResNet-50 at bench_resnet_pipeline's configuration on phase 22a's
+# records (PL_RECORDS uint8 224x224x3 and a label byte, 64 per chunk): 4
+# tasks of RN_BATCH a pass, bf16 over f32 masters, quantized contributions
+EL_RN_TASKS = PL_RECORDS // (EL_CHUNK * EL_CPT)
+EL_CHUNK_BYTES = 1 << 30  # chunks end at EL_CHUNK records, never at the 1 MiB default
+# a pass's result map rides one frame: LeNet's 32 f32 contributions of
+# ~5 MB and ResNet's 4 quantized ones of ~26 MB are both over the 64 MB
+# default, so the master and every worker run at 256 MB
+EL_RPC_MB = 256
+# the master: worker leases of 10 s (a worker's first task pays for CUDA
+# start-up; its heartbeat thread holds the lease through it), task leases
+# of 120 s, a 6 s HA lease; the hung worker sleeps past its lease
+EL_MASTER = dict(chunks_per_task=EL_CPT, timeout_s=120.0, worker_timeout_s=10.0,
+                 auto_rotate=False, lease_timeout=6.0)
+EL_HANG_S = 14
+EL_MEM_SLACK = 256 << 20  # free card memory must come back within this after a fleet
+EL_DETERMINISM = ("cudnn.deterministic=True, cudnn.benchmark=False, "
+                  "use_deterministic_algorithms(True, warn_only=True), "
+                  "CUBLAS_WORKSPACE_CONFIG=:4096:8, TF32 off")
+
+
+def el_lenet(P, seed, dev):
+    """LeNet-5's trainer and record decoder, as a worker builds them (layer
+    names from a fresh counter, so this process's earlier phases do not
+    rename the checkpoint's leaves)."""
+    from paddle_tpu_torch.core.topology import reset_auto_names
+    from paddle_tpu_torch.models.lenet import lenet_cost
+
+    reset_auto_names()
+    P.init(seed=seed, compute_dtype="float32", device=dev)
+    cost, _ = lenet_cost(class_num=10)
+    trainer = P.trainer.SGD(cost, P.parameters.create(cost, seed=seed, device=dev),
+                            P.optimizer.Momentum(learning_rate=EL_LN_LR, momentum=0.9),
+                            seed=seed, device=dev)
+
+    def decode(rec):
+        return np.frombuffer(rec[:-1], np.uint8).astype(np.float32) / 255.0, rec[-1]
+
+    return trainer, decode
+
+
+def el_resnet(P, seed, dev):
+    """ResNet-50's trainer at phase 22a's feed (uint8 pixels, feed_scale
+    1/255, bf16) and its record decoder."""
+    from paddle_tpu_torch.core.topology import reset_auto_names
+    from paddle_tpu_torch.models.resnet import resnet_cost
+
+    reset_auto_names()
+    P.init(seed=seed, compute_dtype="bfloat16", device=dev)
+    cost, _ = resnet_cost(depth=RN_DEPTH, class_num=RN_CLASSES, img_size=RN_IMG)
+    image = P.Topology(cost).layers["image"]
+    image.attrs["feed_dtype"] = "uint8"
+    image.attrs["feed_scale"] = 1.0 / 255.0
+    trainer = P.trainer.SGD(cost, P.parameters.create(cost, seed=seed, device=dev),
+                            P.optimizer.Momentum(learning_rate=RN_LR, momentum=0.9),
+                            seed=seed, device=dev)
+
+    def decode(rec):
+        return np.frombuffer(rec[:-1], np.uint8), rec[-1]
+
+    return trainer, decode
+
+
+def state_digest(tree) -> str:
+    """sha256 over a state tree's leaves in sorted key order (tensors as
+    their host bytes)."""
+    import hashlib
+
+    h = hashlib.sha256()
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], f"{path}/{k}")
+            return
+        a = t.detach().cpu().contiguous().numpy() if hasattr(t, "detach") else np.asarray(t)
+        h.update(f"{path}:{a.dtype}:{a.shape}".encode())
+        h.update(a.tobytes())
+
+    walk(tree, "")
+    return h.hexdigest()
+
+
+def elastic_drive(spec_json: str) -> int:
+    """One worker process of phase 23 (``sys.executable -c``): the port's
+    ElasticWorker over an HAClient of the fleet's directory, with the model
+    built through the public API on deterministic kernels; writes its
+    summary, its per-pass timings, its peak card memory and its final
+    state's digest to the spec's stats file."""
+    import warnings
+
+    import torch
+
+    spec = json.loads(spec_json)
+    sys.path.insert(0, HERE)
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.checkpoint import CheckpointManager
+    from paddle_tpu_torch.master_ha import HAClient
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.trainer import elastic
+
+    dev = spec.get("device", "cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    trainer, decode = (el_lenet if spec["model"] == "lenet" else el_resnet)(P, spec["seed"], dev)
+    model = trainer.elastic_model(decode)
+    window = 60.0
+    client_kw = dict(timeout=window / 2.0, call_timeout_s=15.0)
+    worker = elastic.ElasticWorker(
+        HAClient(spec["dir"], **client_kw), spec["wid"], model,
+        manager=CheckpointManager(spec["ckpt"]) if spec.get("ckpt") else None,
+        resume=spec.get("resume", False), heartbeat_client=HAClient(spec["dir"], **client_kw),
+        min_workers=spec["min_workers"], rpc_retry_window_s=window)
+
+    times = {"fence": [], "fetch": [], "reduce": [], "apply": [], "quantize": [], "task": []}
+    ends = []
+
+    def timed(key, fn, sync=False):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                if sync and dev == "cuda":
+                    torch.cuda.synchronize()
+                times[key].append(time.perf_counter() - t0)
+                if key == "apply":
+                    ends.append(time.perf_counter())
+        return run
+
+    rpc = worker._rpc
+    fetch = timed("fetch", rpc)
+    worker._rpc = lambda method, *args: (fetch if method == "pass_results" else rpc)(method, *args)
+    worker._fence = timed("fence", worker._fence)
+    elastic.reduce_results = timed("reduce", elastic.reduce_results)
+    elastic._bsq.quantize_tree = timed("quantize", elastic._bsq.quantize_tree)
+    model.apply = timed("apply", model.apply, sync=True)
+    model.task_grad = timed("task", model.task_grad)
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    boot_s = time.time() - spec["t_spawn"]
+    t_start = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        summary = worker.run(spec["passes"])
+    nondet = sorted({str(w.message).splitlines()[0][:160] for w in caught
+                     if "determinis" in str(w.message)})
+    marks = [t_start] + ends
+    out = dict(summary, times=times, pass_s=[b - a for a, b in zip(marks, marks[1:])],
+               boot_s=boot_s,
+               digest=state_digest(model.state()), nondeterministic=nondet,
+               peak_bytes=torch.cuda.max_memory_allocated() if dev == "cuda" else 0,
+               flash=[fa.flash_attention.launches, fa.flash_attention_bwd.dq_launches,
+                      fa.flash_attention_bwd.dkv_launches])
+    with open(spec["stats"], "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def el_records(path, n, pixels, classes, seed):
+    """n seeded records of uint8 pixels and a label byte, EL_CHUNK to a
+    chunk."""
+    from paddle_tpu_torch.io import recordio
+
+    rng = np.random.RandomState(seed)
+    recordio.write_records(path, (
+        rng.randint(0, 256, size=pixels, dtype=np.uint8).tobytes() + bytes([rng.randint(classes)])
+        for _ in range(n)), max_chunk_records=EL_CHUNK, max_chunk_bytes=EL_CHUNK_BYTES)
+
+
+def el_journal_bytes(hadir) -> int:
+    return sum(os.path.getsize(os.path.join(hadir, f)) for f in os.listdir(hadir)
+               if f.startswith("master_journal-"))
+
+
+def el_wait(cond, secs, what):
+    deadline = time.time() + secs
+    while not cond():
+        if time.time() > deadline:
+            raise SystemExit(f"elastic: {what}")
+        time.sleep(0.05)
+
+
+def el_fleet(d, model, n, data, *, passes=EL_PASSES, chaos=None, resume=False,
+             failover=False, ckpt=True, env_extra=None, dev="cuda"):
+    """One fleet of n worker processes under an HA master in this process
+    (with failover, a leader subprocess armed with kill_master@8 and this
+    process's warm standby).  Returns what the phase prints and checks."""
+    from paddle_tpu_torch.master_ha import HAMaster, discover_endpoint
+
+    os.makedirs(d, exist_ok=True)
+    hadir = os.path.join(d, "ha")
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               PADDLE_TPU_TORCH_RPC_MAX_MESSAGE_MB=str(EL_RPC_MB),
+               PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               **(env_extra or {}))
+    leader = None
+    if failover:
+        leader = subprocess.Popen(
+            [sys.executable, "-m", "paddle_tpu_torch", "master", "--dir", hadir, "--patterns",
+             data, "--chunks-per-task", str(EL_CPT), "--timeout-s", str(EL_MASTER["timeout_s"]),
+             "--worker-timeout-s", str(EL_MASTER["worker_timeout_s"]), "--lease-timeout",
+             str(EL_MASTER["lease_timeout"]), "--chaos", "kill_master@8"],
+            cwd=HERE, env=env, stdout=open(os.path.join(d, "leader.log"), "w"),
+            stderr=subprocess.STDOUT)
+        el_wait(lambda: discover_endpoint(hadir) is not None or leader.poll() is not None, 60,
+                "the leader master published no endpoint")
+        ha = HAMaster(hadir, [data], owner_id="standby", **EL_MASTER)
+        ha.start()
+        el_wait(lambda: ha._replica is not None, 30, "the standby built no replica")
+    else:
+        ha = HAMaster(hadir, [data], owner_id="smoke", **EL_MASTER)
+        ha.start()
+        if not ha.wait_leader(30):
+            raise SystemExit("elastic: the in-process master never led")
+    code = ("import sys; sys.path.insert(0, sys.argv[2]); import chip_smoke as cs; "
+            "sys.exit(cs.elastic_drive(sys.argv[1]))")
+    procs, rcs = [], []
+    t0 = time.perf_counter()
+    try:
+        for i in range(n):
+            spec = {"model": model, "dir": hadir, "wid": f"w{i}", "passes": passes,
+                    "min_workers": n, "seed": 5, "device": dev, "resume": resume,
+                    "t_spawn": time.time(),
+                    "ckpt": os.path.join(d, "ck") if ckpt else None,
+                    "stats": os.path.join(d, f"stats-w{i}.json")}
+            wenv = dict(env, **(chaos or {}).get(i, {}))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", code, json.dumps(spec), HERE], env=wenv,
+                stdout=open(os.path.join(d, f"w{i}.log"), "w"), stderr=subprocess.STDOUT))
+        rcs = [p.wait(timeout=600) for p in procs]
+        secs = time.perf_counter() - t0
+        if failover:
+            el_wait(lambda: ha.is_leader.is_set(), 30, "the standby never took over")
+        mstats = ha.service.stats()
+        takeover = ha.last_takeover
+        jbytes = el_journal_bytes(hadir)
+    finally:
+        ha.stop()
+        for p in procs + ([leader] if leader else []):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for i, rc in enumerate(rcs):
+        if rc != 0 and not (chaos and rc == -9):
+            with open(os.path.join(d, f"w{i}.log")) as f:
+                tail = f.read()[-3000:]
+            raise SystemExit(f"elastic: worker w{i} of {d} exited {rc}:\n{tail}")
+    stats = {}
+    for i in range(n):
+        path = os.path.join(d, f"stats-w{i}.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                stats[i] = json.load(f)
+    return {"rcs": rcs, "secs": secs, "master": mstats, "takeover": takeover,
+            "journal_bytes": jbytes, "stats": stats,
+            "leader_rc": leader.returncode if leader else None, "ck": os.path.join(d, "ck")}
+
+
+def el_restored_digest(ck, template) -> tuple:
+    from paddle_tpu_torch.checkpoint import CheckpointManager
+
+    restored = CheckpointManager(ck).restore_latest(template)
+    if restored is None:
+        raise SystemExit(f"elastic: no committed manifest in {ck}")
+    step, tree, extra = restored
+    return step, state_digest(tree), extra
+
+
+def el_check(name, r, ref_digest, ref_costs, template, *, killed=(), tasks=None):
+    """Every finishing worker's final state and the restored manifest equal
+    the reference bit for bit; no worker launched a flash kernel or met a
+    nondeterministic op."""
+    alive = [i for i in range(len(r["rcs"])) if i not in killed]
+    if any(i not in r["stats"] for i in alive):
+        raise SystemExit(f"elastic {name}: a surviving worker wrote no stats")
+    digests = {r["stats"][i]["digest"] for i in alive}
+    step, mdigest, extra = el_restored_digest(r["ck"], template)
+    nondet = sorted({m for i in alive for m in r["stats"][i]["nondeterministic"]})
+    flash = [r["stats"][i]["flash"] for i in alive]
+    costs = r["stats"][alive[0]]["pass_costs"]
+    same = digests == {ref_digest} and mdigest == ref_digest
+    done = sum(s["tasks_done"] for s in r["stats"].values())
+    say(f"elastic {name}: exit codes {r['rcs']}, {r['secs']:.2f} s, fail events "
+        f"{r['master']['fail_events']}, tasks done {done}, manifest step {step} (pass "
+        f"{extra.get('pass_id')}); final states and manifest bit-identical to (i): {same}; "
+        f"pass costs {['%.6f' % c for c in costs]}; worker boot s "
+        f"{['%.2f' % r['stats'][i]['boot_s'] for i in alive]}; flash launches {flash}; "
+        f"nondeterministic ops {nondet or 'none'}")
+    if not same:
+        raise SystemExit(f"elastic {name}: the final state left (i)'s")
+    if ref_costs is not None and costs != ref_costs[len(ref_costs) - len(costs):]:
+        raise SystemExit(f"elastic {name}: the pass costs left (i)'s")
+    if any(f != [0, 0, 0] for f in flash):
+        raise SystemExit(f"elastic {name}: a worker launched a flash kernel")
+    if tasks is not None and done != tasks:
+        raise SystemExit(f"elastic {name}: {done} tasks done, not {tasks}")
+
+
+def el_free(torch, dev) -> int:
+    return torch.cuda.mem_get_info()[0] if dev == "cuda" else 0
+
+
+def el_timing(name, st, per_task=False) -> str:
+    t = st["times"]
+    tasks = f" ({['%.3f' % x for x in t['task']]})" if per_task else ""
+    return (f"elastic {name}: boot {st['boot_s']:.2f} s, s/pass "
+            f"{['%.3f' % x for x in st['pass_s']]}, tasks {st['tasks_done']}, task compute "
+            f"{st['busy_s']:.3f} s{tasks}, quantize {sum(t['quantize']):.3f} s, fence "
+            f"{['%.3f' % x for x in t['fence']]}, fetch {['%.3f' % x for x in t['fetch']]}, "
+            f"reduce {['%.3f' % x for x in t['reduce']]}, apply "
+            f"{['%.3f' % x for x in t['apply']]} s; grad_payload_bytes "
+            f"{st['grad_payload_bytes']}, wire_bytes_per_pass {st['wire_bytes_per_pass']}; "
+            f"peak card memory {st['peak_bytes']} B")
+
+
+def phase_elastic_lenet(torch, P, root, card, dev="cuda"):
+    """Phase 23a: LeNet-5 fleets (i)-(vi).  (i) runs alone; (ii)-(vi) run
+    at once (each under its own master), since a fleet's bits cannot
+    depend on its timing; the card's free memory before (ii)-(vi) must come
+    back after them, SIGKILLed workers included."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    data = os.path.join(root, "lenet.rio")
+    el_records(data, EL_LN_RECORDS, 784, 10, 23)
+    template_trainer, _ = el_lenet(P, 5, dev)
+    template = template_trainer._full_state()
+    say(f"elastic lenet: {EL_LN_RECORDS} records, {EL_CHUNK} per chunk, chunks_per_task "
+        f"{EL_CPT}: {EL_LN_TASKS} tasks of {EL_CHUNK * EL_CPT} rows a pass, {EL_PASSES} passes, "
+        f"Momentum({EL_LN_LR}, 0.9), f32; workers on {EL_DETERMINISM}; {card}")
+    r1 = el_fleet(os.path.join(root, "ln1"), "lenet", 1, data, dev=dev)
+    ref = r1["stats"][0]["digest"]
+    ref_costs = r1["stats"][0]["pass_costs"]
+    total = EL_LN_TASKS * EL_PASSES
+    el_check("(i) N=1", r1, ref, ref_costs, template, tasks=total)
+    say(el_timing("(i) N=1 w0", r1["stats"][0]) + f"; {card}")
+
+    def resumed():
+        d5 = os.path.join(root, "ln5")
+        first = el_fleet(d5, "lenet", 2, data, passes=1, dev=dev)
+        step, _, _ = el_restored_digest(first["ck"], template)
+        return step, el_fleet(d5, "lenet", 2, data, resume=True, dev=dev)
+
+    free0 = el_free(torch, dev)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=5) as pool:
+        f2 = pool.submit(el_fleet, os.path.join(root, "ln2"), "lenet", 2, data, dev=dev)
+        f3 = pool.submit(el_fleet, os.path.join(root, "ln3"), "lenet", 2, data,
+                         dev=dev, chaos={1: {"PADDLE_TPU_TORCH_CHAOS": "kill_worker@3"}})
+        f4 = pool.submit(el_fleet, os.path.join(root, "ln4"), "lenet", 2, data,
+                         dev=dev, chaos={1: {"PADDLE_TPU_TORCH_CHAOS": "worker_hang@2",
+                                             "PADDLE_TPU_TORCH_CHAOS_HANG_SECS": str(EL_HANG_S)}})
+        f5 = pool.submit(resumed)
+        f6 = pool.submit(el_fleet, os.path.join(root, "ln6"), "lenet", 2, data,
+                         failover=True, dev=dev)
+        r2, r3, r4, (step5, r5), r6 = (f.result() for f in (f2, f3, f4, f5, f6))
+    group_s = time.perf_counter() - t0
+    deadline = time.time() + 15
+    free1 = el_free(torch, dev)
+    while free1 < free0 - EL_MEM_SLACK and time.time() < deadline:
+        time.sleep(0.2)
+        free1 = el_free(torch, dev)
+    el_check("(ii) N=2", r2, ref, ref_costs, template, tasks=total)
+    if r3["rcs"][1] != -9 or r3["master"]["fail_events"] < 1:
+        raise SystemExit(f"elastic (iii): kill_worker@3 did not land ({r3['rcs']})")
+    el_check("(iii) N=2, kill_worker@3 in w1", r3, ref, ref_costs, template, killed=(1,))
+    if r4["master"]["fail_events"] < 1:
+        raise SystemExit("elastic (iv): the hung worker was never pruned")
+    el_check(f"(iv) N=2, worker_hang@2 ({EL_HANG_S} s) in w1: pruned, rejoined "
+             f"(rejected acks {r4['stats'][1]['rejected_acks']})", r4, ref, None, template)
+    el_check(f"(v) N=2 resumed from the manifest of step {step5} that a fleet stopped after "
+             f"pass 1 committed", r5, ref, ref_costs, template)
+    tk = r6["takeover"] or {}
+    say(f"elastic (vi): leader exit {r6['leader_rc']}, the standby's takeover {tk}")
+    if r6["leader_rc"] != -9 or not tk.get("warm") or not tk.get("replayed_records"):
+        raise SystemExit("elastic (vi): the standby did not take over warm from a killed leader")
+    el_check("(vi) N=2, kill_master@8 on the leader, warm standby", r6, ref, ref_costs,
+             template, tasks=total)
+    say(f"elastic lenet: (ii)-(vi) at once in {group_s:.2f} s; free card memory "
+        f"{free0 >> 20} MiB before them, {free1 >> 20} MiB after (the SIGKILLed worker's "
+        f"included); {card}")
+    if free1 < free0 - EL_MEM_SLACK:
+        raise SystemExit("elastic: the card's memory did not come back after the fleets")
+
+
+def phase_elastic_resnet(root, card, dev="cuda"):
+    """Phase 23b: ResNet-50 fleets at N=1 and N=2, quantized
+    contributions."""
+    data = os.path.join(root, "resnet.rio")
+    el_records(data, PL_RECORDS, RN_IMG * RN_IMG * 3, 100, 0)
+    env = {"PADDLE_TPU_TORCH_ELASTIC_QUANTIZED_GRADS": "1"}
+    say(f"elastic resnet: ResNet-{RN_DEPTH} B={RN_BATCH} per task, {PL_RECORDS} records of "
+        f"{EL_CHUNK} per chunk: {EL_RN_TASKS} tasks a pass, {EL_PASSES} passes, bf16, uint8 feed, "
+        f"quantized contributions, rpc_max_message_mb {EL_RPC_MB}; {card}")
+    runs = {}
+    for n in (1, 2):
+        r = el_fleet(os.path.join(root, f"rn{n}"), "resnet", n, data, ckpt=False,
+                     env_extra=env, dev=dev)
+        runs[n] = r
+        for i, st in sorted(r["stats"].items()):
+            say(el_timing(f"resnet N={n} w{i}", st, per_task=True) + f"; pass costs "
+                f"{['%.6f' % c for c in st['pass_costs']]}; flash launches {st['flash']}; "
+                f"nondeterministic ops {st['nondeterministic'] or 'none'}")
+        say(f"elastic resnet N={n}: fleet {r['secs']:.2f} s, master journal "
+            f"{r['journal_bytes']} B, fail events {r['master']['fail_events']}; {card}")
+    digests = {st["digest"] for r in runs.values() for st in r["stats"].values()}
+    flash = [st["flash"] for r in runs.values() for st in r["stats"].values()]
+    costs = {tuple(st["pass_costs"]) for r in runs.values() for st in r["stats"].values()}
+    done = {n: sum(st["tasks_done"] for st in r["stats"].values()) for n, r in runs.items()}
+    say(f"elastic resnet: N=1 and N=2 final states bit-identical {len(digests) == 1}, pass "
+        f"costs equal {len(costs) == 1}, tasks done {done}")
+    if len(digests) != 1 or len(costs) != 1:
+        raise SystemExit("elastic resnet: N=1 and N=2 ended apart")
+    if any(f != [0, 0, 0] for f in flash) or any(v != EL_RN_TASKS * EL_PASSES
+                                                 for v in done.values()):
+        raise SystemExit("elastic resnet: a flash launch, or a task count off")
+    if not all(np.isfinite(c) for c in next(iter(costs))):
+        raise SystemExit("elastic resnet: a non-finite pass cost")
+
+
+def phase_elastic(torch, P, fa, card):
+    """Phase 23: LeNet-5 and ResNet-50 fleets of worker processes under an
+    HA master in this process; no flash kernel may launch."""
+    import shutil
+    import tempfile
+
+    reset_counts(fa)
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp()
+    rpc_mb = P.flags.get_flag("rpc_max_message_mb")
+    P.flags.set_flag("rpc_max_message_mb", EL_RPC_MB)
+    t = [time.perf_counter()]
+    try:
+        phase_elastic_lenet(torch, P, root, card)
+        t.append(time.perf_counter())
+        phase_elastic_resnet(root, card)
+        t.append(time.perf_counter())
+    finally:
+        P.flags.set_flag("rpc_max_message_mb", rpc_mb)
+        shutil.rmtree(root, ignore_errors=True)
+    if launch_counts(fa) != (0, 0, 0):
+        raise SystemExit("elastic: phase 23 launched a flash kernel")
+    say(f"elastic: phase 23 split: lenet {t[1] - t[0]:.1f} s, resnet {t[2] - t[1]:.1f} s; flash "
+        f"launches (fwd, dq, dkv) over it: {launch_counts(fa)}")
+
+
 def main() -> int:
     import torch
 
@@ -6073,6 +6547,10 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_training_plane(torch, P, fa, card)
     say(f"training plane: phase 22 took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_elastic(torch, P, fa, card)
+    say(f"elastic: phase 23 took {time.perf_counter() - t0:.1f} s")
     kernels = [
         {"name": name, "route": "cuda", "source": f"paddle_tpu_torch/csrc/{src}",
          "replaces": f"paddle_tpu/ops/pallas_attention.py:{line}",

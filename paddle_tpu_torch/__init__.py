@@ -77,6 +77,11 @@ from paddle_tpu_torch import dataset  # noqa: F401
 from paddle_tpu_torch import v1_compat  # noqa: F401
 from paddle_tpu_torch import image  # noqa: F401
 from paddle_tpu_torch import io  # noqa: F401
+from paddle_tpu_torch import obs  # noqa: F401
+from paddle_tpu_torch import master_wire  # noqa: F401
+from paddle_tpu_torch import master_journal  # noqa: F401
+from paddle_tpu_torch import master  # noqa: F401
+from paddle_tpu_torch import launcher  # noqa: F401
 from paddle_tpu_torch.utils import flags  # noqa: F401
 
 __version__ = "0.1.0"

@@ -303,7 +303,9 @@ class CheckpointManager:
             n_leaves += side.get("n_leaves", 0)
         manifest = {"step": step, "num_shards": num_shards, "shards": shards,
                     "n_leaves": n_leaves, "timestamp": time.time(), "extra": extra or {}}
-        tmp = man_path + f".tmp-{os.getpid()}"
+        # one temporary file per writer thread: the workers of an in-process
+        # fleet share a pid and may commit the same step at once
+        tmp = man_path + f".tmp-{os.getpid()}-{threading.get_ident()}"
         with open(tmp, "w") as f:
             json.dump(manifest, f)
         os.replace(tmp, man_path)

@@ -63,8 +63,25 @@ def recordio_local(paths, buf_size: int = 100, pickled: bool = True):
 
 def cloud_reader(paths, master, buf_size: int = 64, pickled: bool = True):
     """A reader that leases tasks from the elastic master (reference
-    creator.cloud_reader over the Go master client, creator.py:87).  The
-    master plane (``master.Client``) is not ported yet."""
-    raise NotImplementedError(
-        "cloud_reader needs the elastic master plane (master.Client), which "
-        "is not ported yet (ROADMAP Queue 1 item 7)")
+    creator.cloud_reader over the Go master client, creator.py:87).
+
+    ``master`` is a ``paddle_tpu_torch.master.Service`` (in-process) or a
+    ``(host, port)`` address of a ``master.Server`` (of either package: the
+    wire is shared).  The shard set is registered once; each reader pass
+    drains the master's task queue with consume-then-ack leases, so
+    concurrent trainers split the shards and a crashed trainer's tasks
+    re-serve."""
+    from paddle_tpu_torch.master import Client
+    from paddle_tpu_torch.reader.decorator import buffered
+
+    client = Client(master)
+    client.set_dataset(_expand(paths))
+
+    def reader():
+        while True:
+            rec = client.next_record()
+            if rec is None:
+                return
+            yield pickle.loads(rec) if pickled else rec   # records written by dataset.common.convert
+
+    return buffered(reader, buf_size)

@@ -11,10 +11,11 @@ and chaos — the counterpart of ``paddle_tpu/robustness/``.
   restores mid-pass.
 * :mod:`~paddle_tpu_torch.robustness.chaos` — named fault points armed by
   flag or environment.
+* :mod:`~paddle_tpu_torch.robustness.netem` — the ``net_*`` points' faults
+  on the master's wire.
 
-The JAX package's ``scenarios``, ``fuzz``, ``netem`` and ``traces`` drive
-its master, serving and network planes; they come with ROADMAP Queue 1
-item 7.
+The JAX package's ``scenarios``, ``fuzz`` and ``traces`` drive its serving
+and fleet planes; they come with ROADMAP Queue 1 item 7.
 """
 
 from paddle_tpu_torch.robustness import chaos  # noqa: F401

@@ -14,12 +14,21 @@ the environment variable ``PADDLE_TPU_TORCH_CHAOS``::
     kill@12            SIGKILL the process right after train step 12
                        (SGD.train)
 
-The other points keep the JAX package's names and can be armed, but
-nothing in the port consults them yet: ``stale_lease``, ``kill_master``
-and the ``net_*`` points (the master plane and its transport, ROADMAP
-Queue 1 item 7), ``kill_worker`` and ``worker_hang`` (the elastic workers,
-item 5.6 with item 7's master plane), ``nan_request`` and
-``serve_slow_client`` (the serving scheduler, item 4).
+    stale_lease        the master (master.py) treats every worker lease as
+                       expired at its next check
+    kill_master@8      SIGKILL the master inside its 8th task_finished
+    kill_worker@3      SIGKILL an elastic worker holding its 3rd lease
+                       (trainer/elastic.py)
+    worker_hang        freeze an elastic worker, heartbeats included,
+                       until its leases expire
+    net_*              faults on the master's wire (robustness/netem.py)
+
+``nan_request`` and ``serve_slow_client`` keep the JAX package's names and
+can be armed, but nothing consults them until the serving scheduler is
+ported (ROADMAP Queue 1 item 4).  A firing point dumps the obs flight
+recorder once per arming, as the JAX package's does.  This module imports
+torch only where ``poison_batch`` meets a tensor, so the master plane
+consults it without torch.
 
 ``@occurrence`` counts consultations of that point (1-based); without it
 the point fires every time.  ``fire()`` matches exactly, so ``kill@12``
@@ -35,7 +44,6 @@ import os
 from typing import Dict, Optional
 
 import numpy as np
-import torch
 
 __all__ = [
     "arm",
@@ -69,6 +77,8 @@ KNOWN_POINTS = frozenset(
 _armed: Dict[str, Optional[int]] = {}  # point -> occurrence (None: every time)
 _counts: Dict[str, int] = {}  # point -> consultations
 _fired: Dict[str, int] = {}  # point -> fires (the arming audit)
+# points that already dumped the flight recorder (one postmortem per arming)
+_flight_dumped: set = set()
 _env_loaded = False
 _atexit_hooked = False
 
@@ -91,6 +101,7 @@ def _parse(spec: str) -> Dict[str, Optional[int]]:
 
 
 def _clear() -> None:
+    _flight_dumped.clear()
     _armed.clear()
     _counts.clear()
     _fired.clear()
@@ -143,8 +154,9 @@ def _load_env() -> None:
 
 def fire(point: str) -> bool:
     """Consult a fault point: True when it injects its fault at this
-    consultation.  (The JAX package also dumps its obs flight recorder
-    here; the obs plane is ROADMAP Queue 1 item 7.)"""
+    consultation.  The first firing of an arming dumps the obs flight
+    recorder before the fault lands (a SIGKILL follows at once, so the
+    dump is the only record the process leaves)."""
     _load_env()
     if point not in _armed:
         return False
@@ -154,6 +166,11 @@ def fire(point: str) -> bool:
     if hit:
         _fired[point] = _fired.get(point, 0) + 1
         _log.warning("chaos point %r firing (consultation %d)", point, _counts[point])
+        if point not in _flight_dumped:
+            _flight_dumped.add(point)
+            from paddle_tpu_torch import obs as _obs
+
+            _obs.flight_dump(f"chaos:{point}@{_counts[point]}")
     return hit
 
 
@@ -231,6 +248,8 @@ def poison_batch(batch):
     """NaN into the first element of the batch's first floating-point slot:
     the slot is cloned first, so a tensor the reader, a cache or another
     batch holds is never written.  Returns the batch."""
+    import torch
+
     for key in batch:
         t = batch[key]
         data = t.data if hasattr(t, "data") else t

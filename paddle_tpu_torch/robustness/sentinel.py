@@ -109,9 +109,13 @@ class DivergenceSentinel:
         return "ok"
 
     def _diverged(self, why: str) -> str:
-        # the JAX package dumps its obs flight recorder here; the obs plane
-        # is ROADMAP Queue 1 item 7, so the port logs the divergence
+        """Declare divergence; the obs flight recorder dumps the last span
+        events first, so the postmortem shows what led into the incident
+        before a rollback erases it."""
+        from paddle_tpu_torch import obs as _obs
+
         _log.error("sentinel: divergence declared (%s)", why)
+        _obs.flight_dump(f"sentinel-divergence: {why}")
         return "diverged"
 
     @classmethod

@@ -35,9 +35,10 @@ from the device; ``checkpoint_dir`` turns on the robustness plane
 (robustness/: the sentinel's judge, rollback with quarantine, preemption,
 ``resume``, chaos points).  ``compile_cache`` counts the batch shapes.
 
-Not ported yet: the ahead-of-time executable cache (ROADMAP Queue 1 item
-7), elastic training (``elastic_model``, item 5.6), the numerics sanitizer
-(item 7) and device meshes (item 6).
+``elastic_model`` adapts the trainer to an elastic worker
+(trainer/elastic.py).  Not ported yet: the ahead-of-time executable cache
+(ROADMAP Queue 1 item 7), the numerics sanitizer (item 7) and device
+meshes (item 6).
 """
 
 from __future__ import annotations
@@ -759,11 +760,13 @@ class SGD:
         return dict(extra)
 
     def elastic_model(self, decode):
-        """The elastic multi-process trainer's adapter (the JAX package's
-        ``trainer/elastic.py``) is not ported yet."""
-        raise NotImplementedError(
-            "elastic_model (trainer/elastic.py with the master plane) is not ported yet "
-            "(ROADMAP Queue 1 item 5.6)")
+        """This trainer as an elastic worker's model
+        (:class:`~paddle_tpu_torch.trainer.elastic.TrainerTaskModel`):
+        ``decode(record) -> sample`` turns one stored record into one feed
+        sample."""
+        from paddle_tpu_torch.trainer.elastic import TrainerTaskModel
+
+        return TrainerTaskModel(self, decode)
 
     def restore_checkpoint(self, manager, step: Optional[int] = None) -> bool:
         """Restore the latest restorable (or the given) checkpoint; False

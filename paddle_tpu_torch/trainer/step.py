@@ -413,8 +413,8 @@ def make_bucketed_train_step(
 def make_grad_step(network: CompiledNetwork, mesh=None, infer_param_shardings: bool = False):
     """``(params, state, batch, rng) -> (grads, cost)``: the gradient half of
     the train step, with no update, the unit of work of the elastic trainer
-    (``trainer/elastic.py``, ROADMAP Queue 1 item 5.6).  The layer-state
-    update of the forward is dropped, as in the JAX package."""
+    (``trainer/elastic.py`` ``TrainerTaskModel``).  The layer-state update
+    of the forward is dropped, as in the JAX package."""
     if mesh is not None or infer_param_shardings:
         _not_ported("the gradient step over a device mesh")
 

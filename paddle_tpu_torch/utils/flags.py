@@ -221,3 +221,45 @@ define_flag("serving_max_new_tokens", 32,
             "default per-request decode cap of the serving plane (a "
             "request's own max_new_tokens overrides; the generator's "
             "max_length stays the ceiling)")
+define_flag("rpc_max_message_mb", 64,
+            "hard bound (MB) on one master-RPC wire frame, enforced on send "
+            "and on receive (master_wire.py): an over-budget outbound payload "
+            "(a too-large gradient tree) fails at once with a "
+            "WireOversizeError naming this flag, and an over-budget inbound "
+            "length prefix is refused before allocation.  Set it alike on "
+            "the master and every worker")
+define_flag("trace_dir", "",
+            "obs plane (obs/): every process dumps its span timeline to "
+            "trace-<role>-<pid>.json under this directory at exit, and "
+            "flight-recorder postmortems land here too; obs.merge.merge_dir "
+            "zips the per-process files into one timeline.  The environment "
+            "variable PADDLE_TPU_TORCH_TRACE_DIR reaches subprocess fleets; "
+            "empty = no export (the flight recorder still records)")
+define_flag("flight_recorder", True,
+            "keep the obs span recorder armed at bounded memory (per-thread "
+            "rings of trace_ring_events events): SIGUSR1, a firing chaos "
+            "point and the divergence sentinel dump the last events to "
+            "flight-<pid>.json (under trace_dir, else the system temporary "
+            "directory); off = every emit is one attribute read")
+define_flag("trace_ring_events", 4096,
+            "bounded ring capacity (events) of each thread's obs span "
+            "buffer; the flight recorder's memory ceiling is threads x this "
+            "x ~100 bytes")
+define_flag("metrics_port", 0,
+            "serve the StatSet plane and the registered gauges in Prometheus "
+            "text format on http://127.0.0.1:<port>/metrics "
+            "(obs/metrics.py; 0 = no endpoint)")
+define_flag("metrics_period_s", 5.0,
+            "seconds between obs metrics snapshots")
+define_flag("quantize_block_size", 256,
+            "elements per block of the block-scaled int8 format (one f32 "
+            "max-abs scale per block) that elastic gradient contributions "
+            "ride the master wire in (ops/quantize.py quantize_tree)")
+define_flag("elastic_quantized_grads", False,
+            "elastic workers submit per-task gradient contributions as "
+            "block-scaled int8 blocks with f32 scales on the master wire "
+            "(~4x fewer result bytes per pass); reduce_results dequantizes "
+            "before the sorted-order reduction, so every worker still "
+            "reduces the same bytes.  The environment variable "
+            "PADDLE_TPU_TORCH_ELASTIC_QUANTIZED_GRADS reaches worker "
+            "subprocesses")

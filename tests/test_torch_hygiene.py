@@ -55,7 +55,10 @@ def test_every_module_imports_without_jax():
                 "models.gan", "models.vae", "model", "plot", "utils.plotcurve",
                 "utils.model_tools", "utils.preprocess_img", "reader.prefetch",
                 "reader.pass_cache", "robustness", "robustness.chaos", "robustness.sentinel",
-                "robustness.recovery", "robustness.preemption"):
+                "robustness.recovery", "robustness.preemption", "analysis.lock_sanitizer",
+                "obs", "obs.tracer", "obs.metrics", "obs.merge", "master_wire", "ops.quantize",
+                "robustness.netem", "master_journal", "master", "master_ha", "trainer.elastic",
+                "launcher", "cli", "__main__"):
         assert f"paddle_tpu_torch.{mod}" in names.split()
 
 
@@ -349,3 +352,43 @@ def test_async_feed_raises_without_cuda_unless_on_the_cpu():
     feeder.device = torch.device("cuda")
     with pytest.raises((RuntimeError, AssertionError)):
         feeder.stage(samples[:4])
+
+
+def test_elastic_entry_points_raise_without_cuda_unless_on_the_cpu(tmp_path):
+    """TrainerTaskModel, SGD.elastic_model and the mlp worker run on the
+    card unless asked for the CPU, and raise without CUDA."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device; the no-CUDA error cannot show")
+    from paddle_tpu_torch.core import device as tdevice
+    from paddle_tpu_torch.trainer import elastic
+    from paddle_tpu_torch.utils import flags
+
+    L, A, dt = paddle_tpu_torch.layer, paddle_tpu_torch.activation, paddle_tpu_torch.data_type
+    x = L.data(name="x", type=dt.dense_vector(4))
+    cost = L.square_error_cost(input=L.fc(input=x, size=1, act=A.Linear()),
+                               label=L.data(name="y", type=dt.dense_vector(1)))
+    trainer = paddle_tpu_torch.trainer.SGD(
+        cost, update_equation=paddle_tpu_torch.optimizer.Momentum(learning_rate=0.1),
+        device="cpu")
+    assert isinstance(trainer.elastic_model(bytes), elastic.TrainerTaskModel)
+    trainer.device = torch.device("cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        trainer.elastic_model(bytes)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        elastic.TrainerTaskModel(trainer, bytes)
+    saved = dict(flags._VALUES)
+    try:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            elastic._build_model("mlp", {"dim": "4"}, 0)
+        model = elastic._build_model("mlp", {"dim": "4", "device": "cpu"}, 0)
+        assert model._t.device == torch.device("cpu")
+        # the worker process exits nonzero when its CUDA work cannot run
+        proc = subprocess.run(
+            [sys.executable, "-m", "paddle_tpu_torch.trainer.elastic", "--dir",
+             str(tmp_path), "--model", "mlp", "--client-timeout", "1"],
+            cwd=ROOT, capture_output=True, text=True, timeout=120)
+        assert proc.returncode != 0 and "device='cpu'" in proc.stderr
+    finally:
+        tdevice._default_device = "cuda"
+        flags._VALUES.clear()
+        flags._VALUES.update(saved)

@@ -8,7 +8,8 @@
   other's Reader, Prefetcher, ``scan_chunks`` and ``creator.recordio_local``;
 - ``reader.decorator``'s shuffle (seeded), buffered, xmap_readers, compose,
   chain, map_readers, cache and firstn yield the same samples;
-  ``creator.cloud_reader`` raises (the master plane is not ported);
+  ``creator.cloud_reader`` leases the same samples from a master of either
+  package as the JAX package's does;
 - ``@provider`` and ``DataProviderConverter`` behave alike;
 - the ``dataset/`` parsers read in-test fixture files (MNIST IDX, UCI
   housing) and serve their synthetic fallbacks alike; nothing is fetched.
@@ -123,8 +124,18 @@ def test_recordio_creator_and_dataset_convert(tmp_path):
         got = list(tcreator.recordio_local(pattern)())
         assert _same(got, list(jcreator.recordio_local(pattern)()))
         assert len(got) == 25
-    with pytest.raises(NotImplementedError, match="master"):
-        tcreator.cloud_reader(pattern, master=None)
+    # cloud_reader leases the shards from a master of either package
+    from paddle_tpu import master as jmaster
+    from paddle_tpu_torch import master as tmaster
+
+    for smod in (tmaster, jmaster):
+        for creator in (tcreator, jcreator):
+            srv = smod.Server(smod.Service(chunks_per_task=1))
+            try:
+                leased = list(creator.cloud_reader(pattern, srv.address)())
+            finally:
+                srv.close()
+            assert _same(sorted(leased, key=lambda s: int(s[1])), samples)
     assert list(tcreator.np_array(np.arange(3))()) == [0, 1, 2]
     txt = tmp_path / "lines.txt"
     txt.write_text("a\nb\n")

@@ -2,7 +2,8 @@
 CPU, on the same inputs:
 
 - ``model.save_model``'s tar loads in the JAX package's ``load_model`` and
-  the reverse, bit for bit; with a master it raises (not ported);
+  the reverse, bit for bit; with a master of either package, one trainer
+  per window wins the save and the other skips;
 - ``utils.model_tools``: ``merge_model`` bundles cross-load both ways with
   equal manifests, ``make_diagram`` text is equal for one topology and
   ``dump_config`` is equal on tests/configs/demo_mnist_mlp.py;
@@ -69,8 +70,27 @@ def test_save_model_tars_load_in_both_packages(tmp_path):
     jpath = jmodel.save_model(jparams2, str(tmp_path / "jax.tar"))
     tmodel.load_model(tparams2, jpath)
     assert_trees_equal(tparams2.params, jparams2.params)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tmodel.save_model(tparams, str(tmp_path / "m.tar"), master=("localhost", 1))
+    # with a master, one trainer per window wins the save (the JAX
+    # package's master arbitrates the port's save and the reverse)
+    from paddle_tpu import master as jmaster
+    from paddle_tpu_torch import master as tmaster
+
+    for smod, cmod, saver, loader, params in ((jmaster, tmaster, tmodel, jmodel, tparams),
+                                              (tmaster, jmaster, jmodel, tmodel, jparams)):
+        srv = smod.Server(smod.Service())
+        try:
+            first = cmod.Client(srv.address, trainer_id="first")
+            got = saver.save_model(params, str(tmp_path / "fleet"), master=first)
+            assert got == str(tmp_path / "fleet" / "first" / "model.tar")
+            other = cmod.Client(srv.address, trainer_id="other")
+            assert saver.save_model(params, str(tmp_path / "fleet"), master=other) is None
+            first.close()
+            other.close()
+        finally:
+            srv.close()
+        loader.load_model(jparams2 if loader is jmodel else tparams2, got)
+    assert_trees_equal(jparams2.params, tparams.params)
+    assert_trees_equal(tparams2.params, jparams.params)
     assert isinstance(tmodel.trainer_id, str) and len(tmodel.trainer_id) == 36
 
 
