@@ -6443,6 +6443,554 @@ def phase_elastic(torch, P, fa, card):
         f"launches (fwd, dq, dkv) over it: {launch_counts(fa)}")
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the serving plane (the engine's arms, the scheduler, the fleet)
+# ---------------------------------------------------------------------------
+
+# phase 13's model and engine (512/512, vocab 30000, f32, 16 slots, K = 8,
+# 64 MB of pages); chunked prefill at 64 tokens a chunk
+SP_CHUNK = 64
+SP_LONG, SP_SHORT = 12, 52  # 24a.1: prompts of 300-500 and of 4-30 source tokens
+SP_BEAMS, SP_BEAM_K = 8, 5  # 24a.4: beam requests among 56 greedy ones
+SP_LOAD = 128  # 24b: requests of each open-loop run
+SP_FLEET = 64  # 24c: requests through the fleet, then again under the kill
+SP_LEASE_S = 5.0  # the fleet's engine lease: room for a busy engine's heartbeat
+SP_HANG_S = 2.0  # serve_slow_client's frozen callback
+
+
+def sp_mix(n, seed=0):
+    """Phase 13's request mix: n sources of 4-30 tokens from `seed` (the
+    first 64 of seed 0 are phase 13's)."""
+    rng = np.random.RandomState(seed)
+    return [rng.randint(2, NMT_VOCAB, size=rng.randint(4, 31)).tolist() for _ in range(n)]
+
+
+def sp_generator(P, dev):
+    """Phase 13's generator: seed 61, f32."""
+    from paddle_tpu_torch.models import seq2seq as S
+
+    P.init(seed=61, compute_dtype="float32", device=dev)
+    cost, _ = S.seq2seq_cost(NMT_VOCAB, NMT_VOCAB, NMT_WIDTH, NMT_WIDTH)
+    params = P.parameters.create(cost, seed=61, device=dev)
+    return S.Seq2SeqGenerator(params, NMT_VOCAB, NMT_VOCAB, word_dim=NMT_WIDTH,
+                              hidden_dim=NMT_WIDTH, bos_id=0, eos_id=1, max_length=GEN_MAXLEN,
+                              device=dev)
+
+
+def sp_engine(gen, dev, **kw):
+    from paddle_tpu_torch.serving import ServingEngine
+
+    return ServingEngine(gen, max_slots=SERVE_SLOTS, block_steps=SERVE_K,
+                         max_new_tokens=GEN_MAXLEN, hbm_budget_mb=SERVE_BUDGET_MB, device=dev,
+                         **kw)
+
+
+def sp_drive(eng, reqs, long_from=None):
+    """Admit as slots free and step until every request is done.  Returns
+    (seconds, gaps): each gap is the time from one decode dispatch's end to
+    the next while sequences were live, with whether a prompt longer than
+    `long_from` tokens prefilled (whole, or one chunk) inside it."""
+    import collections
+
+    queue = collections.deque(reqs)
+    gaps, t_last = [], None
+    t0 = time.perf_counter()
+    while queue or eng.n_live or eng.n_prefilling:
+        long_pf = eng.n_prefilling > 0
+        if queue and eng.n_free_slots:
+            for r in eng.admit(list(queue)):
+                queue.remove(r)
+                long_pf |= long_from is not None and len(r.src_ids) > long_from
+        live = eng.n_live
+        eng.step()
+        t = time.perf_counter()
+        if live and t_last is not None:
+            gaps.append((t - t_last, long_pf))
+        t_last = t if live else None
+    return time.perf_counter() - t0, gaps
+
+
+def sp_golden(torch, eng, cache, srcs):
+    """The one-shot path's (tokens, log-probs) of each source, cached by
+    source: tokens from reference_decode, log-probs from phase 13's trace."""
+    for s in srcs:
+        key = tuple(s)
+        if key not in cache:
+            toks = eng.reference_decode(s, GEN_MAXLEN)
+            t2, chosen, _ = oneshot_trace(torch, eng, s, GEN_MAXLEN)
+            if t2 != toks:
+                raise SystemExit("serving plane: the one-shot trace is not reference_decode's")
+            cache[key] = (toks, chosen[:len(toks)])
+    return [cache[tuple(s)] for s in srcs]
+
+
+def sp_check(name, reqs, golden, logprobs=True):
+    """Every request's tokens (and log-probs) bit for bit the golden's."""
+    bad = [r.req_id for r, (toks, lps) in zip(reqs, golden)
+           if r.tokens != toks or (logprobs and r.token_logprobs != lps)]
+    if bad:
+        raise SystemExit(f"serving plane {name}: requests {bad} left the one-shot path")
+
+
+def sp_arms(torch, P, gen, dev, card, golden):
+    """24a: the engine's arms, each request bit for bit the one-shot path's."""
+    from paddle_tpu_torch.reader.loadgen import PrefixMixer
+    from paddle_tpu_torch.serving import Request
+
+    g0 = sp_engine(gen, dev)
+    # the attention scores' product at the engine's rows: one product over
+    # every padded position rounds a row by the extent; the generation step
+    # takes it in blocks of 16 positions (ops/rnn.py _att_scores_blocks)
+    from paddle_tpu_torch.ops.rnn import _att_scores_blocks
+
+    x_gen = torch.Generator(device=g0.device).manual_seed(1)
+    p_dim = int(g0._w["v"].shape[0])
+    t = torch.randn((g0.rows, 512, p_dim), generator=x_gen, device=g0.device)
+    sp_ = torch.randn((g0.rows, p_dim), generator=x_gen, device=g0.device)
+    v = g0._w["v"]
+    whole = {s: (torch.tanh(t[:, :s] + sp_[:, None]) @ v)[:, :16] for s in (16, 32, 512)}
+    blocked = {s: _att_scores_blocks("tanh", t[:, :s], sp_, v)[:, :16] for s in (16, 32, 512)}
+    say(f"serving: scores of the first 16 positions as one product over the extent equal the "
+        f"extent-16 product's at 32 {torch.equal(whole[32], whole[16])}, at 512 "
+        f"{torch.equal(whole[512], whole[16])}; in blocks of 16 at 32 "
+        f"{torch.equal(blocked[32], blocked[16])}, at 512 {torch.equal(blocked[512], blocked[16])}")
+    if not (torch.equal(blocked[32], blocked[16]) and torch.equal(blocked[512], blocked[16])):
+        raise SystemExit("serving: the blocked scores depend on the extent")
+    # 24a.1 chunked prefill against whole-prompt prefill, in turns
+    rng = np.random.RandomState(24)
+    longs = [rng.randint(2, NMT_VOCAB, size=rng.randint(300, 501)).tolist()
+             for _ in range(SP_LONG)]
+    shorts = [rng.randint(2, NMT_VOCAB, size=rng.randint(4, 31)).tolist()
+              for _ in range(SP_SHORT)]
+    mix = []
+    for i in range(SP_LONG + SP_SHORT):  # a long prompt among every ~5 requests
+        pool = longs if (i % 5 == 2 and longs) or not shorts else shorts
+        mix.append(pool.pop(0))
+    gold = sp_golden(torch, g0, golden, mix)
+    engines = {"whole": g0, "chunked": sp_engine(gen, dev, prefill_chunk_tokens=SP_CHUNK)}
+    for name, eng in engines.items():  # warm-up: every rung and the chunk path
+        sp_drive(eng, [Request([2] * n) for n in (5, 20, 40, 400, 5, 20)])
+    for name in ("whole", "chunked", "chunked", "whole"):
+        eng = engines[name]
+        c0 = dict(eng.trace_counts)
+        reqs = [Request(s) for s in mix]
+        secs, gaps = sp_drive(eng, reqs, long_from=SP_CHUNK)
+        sp_check(f"24a.1 {name}", reqs, gold)
+        during = [g for g, lp in gaps if lp]
+        quiet = [g for g, lp in gaps if not lp]
+        chunks = eng.trace_counts["prefill_chunk"] - c0["prefill_chunk"]
+        say(f"serving 24a.1 {name}: {len(reqs)} requests ({SP_LONG} of 300-500 source tokens) in "
+            f"{secs:.4f} s, {len(reqs) / secs:.2f} requests/s; longest gap between decode "
+            f"dispatches while a long prompt prefilled {max(during) * 1e3:.3f} ms (median "
+            f"{float(np.median(during)) * 1e3:.3f} ms over {len(during)}), otherwise "
+            f"{max(quiet) * 1e3:.3f} ms; chunk dispatches {chunks} "
+            f"({chunks / SP_LONG:.1f} per long prompt); bit-identical on {card}")
+        if name == "chunked" and chunks != SP_LONG * 2 * (512 // SP_CHUNK):
+            raise SystemExit("serving 24a.1: a long prompt did not take two dispatches per chunk")
+    del engines
+
+    # 24a.2 the copy-on-write prefix cache over bench.py's prefix mix
+    mixer = PrefixMixer(NMT_VOCAB, pool_size=4, prefix_frac=0.6, prefix_tokens=16,
+                        tail_tokens=10, dup_frac=0.5, seed=4)
+    p_srcs = [mixer.source(i) for i in range(SERVE_REQUESTS)]
+    gold = sp_golden(torch, g0, golden, p_srcs)
+    eng = sp_engine(gen, dev, prefix_cache=True)
+    sp_drive(eng, [Request([2] * n) for n in (5, 20, 5, 20)])
+    eng.prefix_hits = eng.prefix_misses = 0
+    prefilled = []
+    orig = eng._prefill_group
+    eng._prefill_group = lambda group: (prefilled.extend(r.req_id for _, r, _ in group),
+                                        orig(group))[1]
+    peak = [0]
+    orig_admit = eng.admit
+    eng.admit = lambda rs: (lambda a: (peak.__setitem__(0, max(peak[0], eng.pages.n_shared)),
+                                       a)[1])(orig_admit(rs))
+    c0 = eng.trace_counts["prefill"]
+    reqs = [Request(s) for s in p_srcs]
+    secs, _ = sp_drive(eng, reqs)
+    sp_check("24a.2 prefix", reqs, gold)
+    hits = [r.req_id for r in reqs if r.req_id not in prefilled]
+    rate = eng.prefix_hits / len(reqs)
+    say(f"serving 24a.2 prefix cache: hit rate {rate:.4f} ({eng.prefix_hits} hits, "
+        f"{eng.prefix_misses} misses of {len(reqs)}), {len(hits)} requests admitted without a "
+        f"prefill, {eng.trace_counts['prefill'] - c0} prefill dispatches, peak blocks shared "
+        f"{peak[0]}, entries {eng.prefix_cache_len}; {len(reqs) / secs:.2f} requests/s; "
+        f"bit-identical on {card}")
+    if not eng.prefix_hits or len(hits) != eng.prefix_hits or eng.pages.n_used:
+        raise SystemExit("serving 24a.2: a hit made a prefill dispatch, or no request hit")
+    del eng
+
+    # 24a.3 speculative decoding against greedy over phase 13's mix
+    srcs = sp_mix(SERVE_REQUESTS)
+    gold = sp_golden(torch, g0, golden, srcs)
+    spec = sp_engine(gen, dev, spec_decode=True)
+    for e in (g0, spec):
+        sp_drive(e, [Request([2] * (5 + 20 * (i % 2))) for i in range(16)])
+    for name, e in (("greedy", g0), ("spec", spec), ("spec", spec), ("greedy", g0)):
+        c0 = dict(e.trace_counts)
+        p0, a0 = e.spec_proposed, e.spec_accepted
+        reqs = [Request(s) for s in srcs]
+        secs, _ = sp_drive(e, reqs)
+        sp_check(f"24a.3 {name}", reqs, gold)
+        n_tok = sum(len(r.tokens) for r in reqs)
+        disp = (e.trace_counts["verify"] - c0["verify"]) + (e.trace_counts["decode"] - c0["decode"])
+        # a request's dispatches: the distinct stamps of its tokens
+        row_disp = sum(len(set(r.token_times)) for r in reqs)
+        acc = (e.spec_accepted - a0) / max(1, e.spec_proposed - p0)
+        say(f"serving 24a.3 {name}: {disp} dispatches for {n_tok} tokens, "
+            f"{n_tok / row_disp:.3f} tokens per request per dispatch (K = {SERVE_K}), accept "
+            f"rate {acc:.4f}, {len(reqs) / secs:.2f} requests/s; bit-identical on {card}")
+    del spec
+
+    # 24a.4 beam requests (width 5) mixed into greedy ones
+    srcs = sp_mix(SERVE_REQUESTS, seed=1)
+    beam_at = set(range(3, SERVE_REQUESTS, SERVE_REQUESTS // SP_BEAMS))
+    reqs = [Request(s, GEN_MAXLEN, beam_size=SP_BEAM_K if i in beam_at else None)
+            for i, s in enumerate(srcs)]
+    sp_drive(g0, [Request([2] * 5, beam_size=SP_BEAM_K), Request([2] * 20)])
+    c0 = g0.trace_counts["beam"]
+    secs, _ = sp_drive(g0, reqs)
+    greedy = [r for r in reqs if not r.beam_size]
+    sp_check("24a.4 greedy", greedy, sp_golden(torch, g0, golden, [r.src_ids for r in greedy]))
+    worst = 0
+    for r in reqs:
+        if r.beam_size:
+            toks, score = g0.reference_beam(r.src_ids, SP_BEAM_K, GEN_MAXLEN)
+            if r.tokens != toks or r.beam_score != score:
+                raise SystemExit(f"serving 24a.4: beam request {r.req_id} left generate's "
+                                 f"({r.beam_score} vs {score})")
+            worst = max(worst, len(toks))
+    say(f"serving 24a.4 beam: {len(beam_at)} requests at width {SP_BEAM_K} among "
+        f"{len(greedy)} greedy, {g0.trace_counts['beam'] - c0} beam dispatches of "
+        f"{g0.rows * SP_BEAM_K} beam rows, {len(reqs) / secs:.2f} requests/s; tokens and "
+        f"beam_score equal the one-shot generate's on {card}")
+
+    # 24a.5 int8 weights: the engine's tokens against the one-shot path
+    # stepping on the same dequantized bundle (bit for bit), the drift of a
+    # step's logits from f32's (the serving_int8_drift_budget flag's
+    # measure), and, for the record, how many requests keep f32's tokens
+    from paddle_tpu_torch.core.batch import pad_batch_rows
+    from paddle_tpu_torch.models.seq2seq import make_fused_logits
+
+    q8 = sp_engine(gen, dev, int8_weights=True)
+    srcs = sp_mix(SERVE_REQUESTS)
+    sp_drive(q8, [Request([2] * (5 + 20 * (i % 2))) for i in range(16)])
+    reqs = [Request(s) for s in srcs]
+    secs, _ = sp_drive(q8, reqs)
+    gold = sp_golden(torch, g0, golden, srcs)
+    same = sum(r.tokens == toks for r, (toks, _) in zip(reqs, gold))
+    deq = q8._weights()
+    gen.fused_decode_weights = lambda gp: deq
+    try:
+        ref8 = [q8.reference_decode(s, GEN_MAXLEN) for s in srcs]
+    finally:
+        del gen.fused_decode_weights
+    bad = [r.req_id for r, toks in zip(reqs, ref8) if r.tokens != toks]
+    with torch.no_grad():
+        batch = pad_batch_rows(g0._feeder([(s,) for s in srcs[:SERVE_SLOTS]]), g0.rows)
+        statics, carry, _, _ = gen._prepare(batch)
+        mt = gen._match
+        enc_t = statics[mt.enc_name]
+        ep = statics[mt.ep_name].data
+        ep = ep + g0._w["sp_b"] if g0._w["sp_b"] is not None else ep
+        ids = torch.full((g0.rows,), gen.bos_id, dtype=torch.int32, device=g0.device)
+        h = next(iter(carry.values()))
+        logits = [make_fused_logits(w, enc_t.data, ep, enc_t.mask(torch.bool), **g0._acts)(
+            ids, h)[0] for w in (g0._w, deq)]
+    logit_drift = float((logits[1] - logits[0]).abs().max() / logits[0].abs().max())
+    deq_ms = sp_ms(torch, dev, q8._weights)
+    drift = q8.weight_drift()
+    budget = P.flags.get_flag("serving_int8_drift_budget")
+    say(f"serving 24a.5 int8: weight bytes {g0.weight_bytes} f32, {q8.weight_bytes} int8 "
+        f"({g0.weight_bytes / q8.weight_bytes:.3f}x); weight_drift {drift:.6f}, a step's logit "
+        f"drift {logit_drift:.6f} (budget {budget}); slots per GB at 16 source tokens "
+        f"{g0.slots_per_gb(16):.1f} f32, {q8.slots_per_gb(16):.1f} int8; every request's tokens "
+        f"the int8 one-shot path's: {not bad}; {same} of {len(reqs)} requests with f32's tokens "
+        f"(random weights: near-tied logits); dequantize {deq_ms:.4f} ms per dispatch (CUDA "
+        f"events); {len(reqs) / secs:.2f} requests/s on {card}")
+    if bad or not (drift < budget and logit_drift < budget):
+        raise SystemExit(f"serving 24a.5: int8 requests {bad} left the int8 one-shot path, or "
+                         "the drift is over budget")
+    return g0
+
+
+def sp_ms(torch, dev, fn, iters=20) -> float:
+    """Milliseconds per call of fn: CUDA events on the card."""
+    if dev != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        return (time.perf_counter() - t0) / iters * 1e3
+    return time_ms(torch, fn, iters=iters)
+
+
+def sp_scheduler(torch, P, g0, card, golden):
+    """24b: the scheduler at saturation, at 90% of it and at 2x it with
+    deadlines, and the two chaos drills."""
+    from paddle_tpu_torch.reader.loadgen import OpenLoopLoadGen
+    from paddle_tpu_torch.robustness import chaos
+    from paddle_tpu_torch.serving import Request, ServingScheduler, percentile, status_counts
+
+    srcs = sp_mix(SP_LOAD)
+    gold = sp_golden(torch, g0, golden, srcs)
+    # a request is served late only by the loop iteration that finishes it:
+    # the longest admission plus the longest step bound its lateness
+    durs = {"admit": [0.0], "step": [0.0]}
+
+    def timed(name, fn):
+        def call(*a):
+            t = time.perf_counter()
+            try:
+                return fn(*a)
+            finally:
+                durs[name].append(time.perf_counter() - t)
+        return call
+
+    g0.admit, g0.step = timed("admit", g0.admit), timed("step", g0.step)
+    with ServingScheduler(g0) as sched:
+        for r in [sched.submit(Request(s)) for s in srcs[:32]]:  # warm-up, calibration
+            r.wait(120)
+        reqs = [Request(s) for s in srcs]
+        t0 = time.perf_counter()
+        for r in reqs:
+            sched.submit(r)
+        for r in reqs:
+            if not r.wait(300):
+                raise SystemExit("serving 24b: a request was never finalized")
+        sat = len(reqs) / (time.perf_counter() - t0)
+        sp_check("24b saturation", reqs, gold)
+        say(f"serving 24b saturation: {len(reqs)} requests submitted at once, {sat:.2f} "
+            f"requests/s on {card}")
+        runs = {}
+        for name, rate, deadline in (("90%", 0.9 * sat, None), ("2x", 2.0 * sat, "3x")):
+            if deadline == "3x":
+                service = [r.t_done - r.t_admit for r in runs["90%"]]
+                deadline = 3.0 * float(np.mean(service))
+            # at 2x the backlog must outgrow the deadline: twice the requests
+            reqs = [Request(s) for s in (srcs if deadline is None else srcs + srcs)]
+            t0 = time.perf_counter()
+            OpenLoopLoadGen(rate, len(reqs), lambda i: reqs[i], seed=0,
+                            deadline_s=deadline).run(sched.submit)
+            for r in reqs:
+                if not r.wait(300):
+                    raise SystemExit("serving 24b: a request was never finalized")
+            wall = time.perf_counter() - t0
+            runs[name] = reqs
+            ok = [r for r in reqs if r.status == "served"]
+            tpot = sorted((r.t_done - r.t_admit) / len(r.tokens) for r in ok if r.tokens)
+            ledger = status_counts(reqs)
+            late = [r.t_done - r.t_deadline for r in ok
+                    if r.t_deadline is not None and r.t_done > r.t_deadline]
+            say(f"serving 24b {name}: offered {rate:.2f} requests/s"
+                f"{'' if deadline is None else f' with deadline {deadline * 1e3:.3f} ms'}, "
+                f"sustained {len(ok) / wall:.2f} requests/s over {wall:.4f} s; per-token latency "
+                f"p50 {percentile(tpot, 0.5) * 1e3:.4f} ms, p99 {percentile(tpot, 0.99) * 1e3:.4f} "
+                f"ms; ledger {ledger}; served past the deadline {len(late)} (by at most "
+                f"{max(late, default=0.0) * 1e3:.3f} ms) on {card}")
+            sp_check(f"24b {name}", ok, [golden[tuple(r.src_ids)] for r in ok])
+            if name == "90%" and ledger["served"] != len(reqs):
+                raise SystemExit("serving 24b: not every request was served at 90% of saturation")
+            if name == "2x":
+                if not ledger["shed"] or ledger["timeout"] >= ledger["shed"]:
+                    raise SystemExit("serving 24b: at 2x saturation the plane did not shed")
+                if late and max(late) > max(durs["admit"]) + max(durs["step"]):
+                    raise SystemExit("serving 24b: a request was served past its deadline by "
+                                     "more than the iteration that finished it")
+    del g0.admit, g0.step
+
+    # the chaos drills of tests/test_serving_e2e.py
+    chaos.arm("nan_request@3")
+    try:
+        t0 = time.perf_counter()
+        with ServingScheduler(g0) as sched:
+            reqs = [sched.submit(Request(s)) for s in srcs[:8]]
+            for r in reqs:
+                r.wait(60)
+        wall = time.perf_counter() - t0
+    finally:
+        chaos.disarm()
+    poisoned = [r for r in reqs if r.error is not None]
+    if poisoned != [reqs[2]] or "non-integral" not in reqs[2].error:
+        raise SystemExit("serving 24b: nan_request was not rejected alone")
+    sp_check("24b nan_request", reqs[:2] + reqs[3:], [golden[tuple(s)] for s in
+                                                       srcs[:2] + srcs[3:8]])
+    say(f"serving 24b nan_request: the 3rd submission rejected ({reqs[2].error[:40]}...), the "
+        f"other 7 served bit-identical in {wall:.4f} s on {card}")
+    os.environ["PADDLE_TPU_TORCH_CHAOS_HANG_SECS"] = str(SP_HANG_S)
+    chaos.arm("serve_slow_client@1")
+    delivered = []
+    try:
+        with ServingScheduler(g0) as sched:
+            reqs = [sched.submit(Request(s, callback=delivered.append)) for s in srcs[:6]]
+            t0 = time.perf_counter()
+            for r in reqs:
+                r.wait(60)
+            wait_s = time.perf_counter() - t0
+    finally:
+        chaos.disarm()
+        os.environ.pop("PADDLE_TPU_TORCH_CHAOS_HANG_SECS", None)
+    sp_check("24b serve_slow_client", reqs, [golden[tuple(s)] for s in srcs[:6]])
+    say(f"serving 24b serve_slow_client: every wait() returned in {wait_s:.4f} s while the "
+        f"first callback hung {SP_HANG_S} s; {len(delivered)} callbacks delivered after it on "
+        f"{card}")
+    if wait_s >= SP_HANG_S or len(delivered) != len(reqs):
+        raise SystemExit("serving 24b: the slow client stalled more than delivery")
+
+
+def sp_fleet(torch, P, g0, dev, card, golden):
+    """24c: a Router in this process over two ``serve --register`` engine
+    processes sharing the card: requests through FleetClient, one engine
+    SIGKILLed under load, the survivor drained."""
+    import signal
+    import tempfile
+
+    from paddle_tpu_torch.serving import FleetClient, Request, Router
+    from paddle_tpu_torch.serving.scheduler import TERMINAL_STATUSES
+
+    d = tempfile.mkdtemp(prefix="chip-smoke-fleet-")
+    tar = os.path.join(d, "params.tar")
+    with open(tar, "wb") as f:
+        g0._gen.params.to_tar(f)
+    free0 = el_free(torch, dev)
+    router = Router(address=("127.0.0.1", 0), lease_timeout_s=SP_LEASE_S, stats_poll_s=0.1,
+                    journal_path=os.path.join(d, "journal.jsonl"))
+    host, port = router.address
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               PADDLE_TPU_TORCH_SERVING_DECODE_BLOCK_STEPS=str(SERVE_K))
+    args = ["--register", f"{host}:{port}", "--model", tar, "--src-vocab", str(NMT_VOCAB),
+            "--trg-vocab", str(NMT_VOCAB), "--word-dim", str(NMT_WIDTH), "--hidden-dim",
+            str(NMT_WIDTH), "--max-length", str(GEN_MAXLEN), "--max-new-tokens",
+            str(GEN_MAXLEN), "--max-slots", str(SERVE_SLOTS), "--hbm-budget-mb",
+            str(SERVE_BUDGET_MB), "--seed", "61"] + ([] if dev == "cuda" else ["--device", dev])
+    procs = {}
+    t0 = time.perf_counter()
+    try:
+        for i in range(2):
+            procs[f"eng{i}"] = subprocess.Popen(
+                [sys.executable, "-m", "paddle_tpu_torch", "serve", *args, "--engine-id",
+                 f"eng{i}"], cwd=HERE, env=env, stdout=open(os.path.join(d, f"eng{i}.log"), "w"),
+                stderr=subprocess.STDOUT)
+        first = None
+        while len(router.live_engines()) < 2:
+            if first is None and router.live_engines():
+                first = time.perf_counter() - t0
+            if time.perf_counter() - t0 > 300 or any(p.poll() is not None for p in procs.values()):
+                raise SystemExit("serving 24c: an engine never registered: " + sp_logs(d))
+            time.sleep(0.05)
+        both = time.perf_counter() - t0
+        first = both if first is None else first
+        srcs = sp_mix(SP_FLEET)
+        gold = sp_golden(torch, g0, golden, srcs)
+        fc = FleetClient(router.address)
+        try:
+            warm = [fc.submit(Request(s, GEN_MAXLEN, req_id=f"warm{i}"))
+                    for i, s in enumerate(srcs[:16])]
+            for r in warm:
+                r.wait(300)
+            reqs = [Request(s, GEN_MAXLEN, req_id=f"fleet{i}") for i, s in enumerate(srcs)]
+            t1 = time.perf_counter()
+            for r in reqs:
+                fc.submit(r)
+            for r in reqs:
+                if not r.wait(300):
+                    raise SystemExit("serving 24c: a fleet request was never finalized")
+            secs = time.perf_counter() - t1
+            ledger = router.fleet_stats()["ledger"]
+            per = {e: h.get("served") for e, h in router.fleet_stats().get("engines", {}).items()}
+            say(f"serving 24c fleet: first lease {first:.2f} s, both {both:.2f} s after spawn; "
+                f"{len(reqs)} requests in {secs:.4f} s, {len(reqs) / secs:.2f} requests/s; "
+                f"ledger {ledger}; per engine {per}; duplicates discarded "
+                f"{router.duplicates_discarded}; free card memory {free0 >> 20} MiB before the "
+                f"engines on {card}")
+            if any(r.status != "served" for r in reqs) or router.duplicates_discarded:
+                raise SystemExit("serving 24c: a fleet request was not served once")
+            sp_check("24c fleet", reqs, gold, logprobs=False)
+
+            # SIGKILL one engine under load
+            kill = [Request(s, GEN_MAXLEN, req_id=f"kill{i}") for i, s in enumerate(srcs)]
+            t1 = time.perf_counter()
+            for i, r in enumerate(kill):
+                fc.submit(r)
+                if i == len(kill) // 4:
+                    procs["eng1"].send_signal(signal.SIGKILL)
+                    t_kill = time.perf_counter()
+                time.sleep(0.01)
+            for r in kill:
+                if not r.wait(300):
+                    raise SystemExit("serving 24c: a request under the kill was never finalized")
+            recover = max(r.t_done for r in kill) - t_kill
+            procs["eng1"].wait(30)
+            while router.live_engines() != ["eng0"] and time.perf_counter() - t_kill < 60:
+                time.sleep(0.05)
+            pruned = time.perf_counter() - t_kill
+            free_kill = el_free(torch, dev)
+            statuses = [r.status for r in kill]
+            ok = [r for r in kill if r.status == "served"]
+            ledger = router.fleet_stats()["ledger"]
+            say(f"serving 24c kill: eng1 SIGKILLed after {len(kill) // 4 + 1} of {len(kill)} "
+                f"submissions; statuses {{{', '.join(f'{s}: {statuses.count(s)}' for s in TERMINAL_STATUSES)}}}; "
+                f"all finalized {recover:.3f} s after the kill; eng1 pruned {pruned:.3f} s "
+                f"after it (lease {SP_LEASE_S} s), live engines {router.live_engines()}; "
+                f"reroutes {router.reroutes}; ledger {ledger}; duplicates discarded "
+                f"{router.duplicates_discarded}; free card memory {free_kill >> 20} MiB after "
+                f"the kill, rc {procs['eng1'].returncode}")
+            if any(s not in TERMINAL_STATUSES for s in statuses) or router.duplicates_discarded:
+                raise SystemExit("serving 24c: a request under the kill did not end once")
+            if router.live_engines() != ["eng0"] or len(ok) < len(kill) // 2:
+                raise SystemExit("serving 24c: the fleet did not re-route around the dead engine")
+            sp_check("24c kill", ok, [golden[tuple(r.src_ids)] for r in ok], logprobs=False)
+        finally:
+            fc.close()
+        t1 = time.perf_counter()
+        clean = router.drain_engine("eng0", timeout_s=120.0)
+        drained = time.perf_counter() - t1
+        procs["eng0"].send_signal(signal.SIGTERM)
+        rc = procs["eng0"].wait(120)
+        time.sleep(1.0)
+        free_end = el_free(torch, dev)
+        say(f"serving 24c drain: eng0 drained {'clean' if clean else 'NOT clean'} in "
+            f"{drained:.3f} s, exit code {rc} after SIGTERM; free card memory {free_end >> 20} "
+            f"MiB after both engines (before {free0 >> 20} MiB)")
+        if not clean or rc != 0:
+            raise SystemExit("serving 24c: the survivor did not drain clean: " + sp_logs(d))
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait(30)
+        router.close()
+
+
+def sp_logs(d) -> str:
+    out = []
+    for f in sorted(os.listdir(d)):
+        if f.endswith(".log"):
+            with open(os.path.join(d, f)) as fh:
+                out.append(f"--- {f}\n" + fh.read()[-3000:])
+    return "\n".join(out)
+
+
+def phase_serving_plane(torch, P, fa, card, dev="cuda"):
+    """Phase 24: the serving plane at phase 13's width: 24a the engine's
+    arms (chunked prefill, prefix cache, speculative decoding, beam, int8
+    weights), 24b the scheduler under open-loop load and its drills, 24c a
+    two-engine fleet behind the router.  No flash kernel may launch."""
+    reset_counts(fa)
+    gen = sp_generator(P, dev)
+    golden = {}
+    t = [time.perf_counter()]
+    g0 = sp_arms(torch, P, gen, dev, card, golden)
+    t.append(time.perf_counter())
+    sp_scheduler(torch, P, g0, card, golden)
+    t.append(time.perf_counter())
+    sp_fleet(torch, P, g0, dev, card, golden)
+    t.append(time.perf_counter())
+    if launch_counts(fa) != (0, 0, 0):
+        raise SystemExit("serving plane: phase 24 launched a flash kernel")
+    say(f"serving plane: phase 24 split: 24a {t[1] - t[0]:.1f} s, 24b {t[2] - t[1]:.1f} s, 24c "
+        f"{t[3] - t[2]:.1f} s; flash launches (fwd, dq, dkv) over it: {launch_counts(fa)}")
+
+
 def main() -> int:
     import torch
 
@@ -6551,6 +7099,10 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_elastic(torch, P, fa, card)
     say(f"elastic: phase 23 took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_serving_plane(torch, P, fa, card)
+    say(f"serving plane: phase 24 took {time.perf_counter() - t0:.1f} s")
     kernels = [
         {"name": name, "route": "cuda", "source": f"paddle_tpu_torch/csrc/{src}",
          "replaces": f"paddle_tpu/ops/pallas_attention.py:{line}",

@@ -16,15 +16,18 @@ plus one f32 scale (max-abs over the block / 127).  Dequantize is
 ``payload * scale`` truncated back to the original shape; a zero block
 quantizes against scale 1.0.
 
-The in-graph halves wait: ``quantize_block_scaled``,
-``dequantize_block_scaled`` and ``quantized_psum`` (the quantized gradient
-reduction over a device mesh, ROADMAP Queue 1 item 6) and the serving
-weight bundles (item 4.5) raise.
+The tensor halves (:func:`quantize_block_scaled`,
+:func:`dequantize_block_scaled`) and the serving engine's int8 weight
+bundles (:func:`quantize_weight_bundle`, :func:`dequantize_weight_bundle`,
+:func:`weight_bundle_bytes`) import torch inside each call; their ``q`` and
+``s`` equal the JAX package's bit for bit on the CPU (both round half to
+even).  ``quantized_psum`` (the quantized gradient reduction over a device
+mesh, ROADMAP Queue 1 item 6) raises.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -147,14 +150,66 @@ def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
 
 
-def quantize_block_scaled(*args, **kwargs):
-    """The in-graph block-scaled quantize (device mesh, item 6)."""
-    _not_ported("quantize_block_scaled (the in-graph quantizer)", "6")
+# ---------------------------------------------------------------------------
+# tensor halves (torch imported inside each function, so the master plane
+# that imports this module stays torch-free)
+# ---------------------------------------------------------------------------
+
+def quantize_block_scaled(x, block: Optional[int] = None, payload_dtype=None,
+                          stochastic: bool = False, generator=None, scale_dtype=None):
+    """Block-scaled quantize of a tensor: ``x`` (any shape, float) ->
+    ``(payload [nb, block], scales [nb])`` on ``x``'s device.
+
+    ``payload_dtype``: ``torch.int8`` (default) or ``torch.bfloat16``.  int8
+    payloads round half to even into ``[-127, 127]`` with per-block scale
+    ``amax / 127``; bf16 payloads store ``block / amax`` with scale
+    ``amax``.  ``stochastic`` (int8 only) rounds ``floor(v + u)``, ``u ~
+    U[0, 1)`` drawn from the explicit ``torch.Generator`` ``generator``.
+    ``scale_dtype`` narrows the stored scale (default f32); the zero guard
+    applies only at exact amax 0."""
+    import torch
+
+    block = _resolve_block(block)
+    payload_dtype = torch.int8 if payload_dtype is None else payload_dtype
+    scale_dtype = torch.float32 if scale_dtype is None else scale_dtype
+    n = x.numel()
+    nb = max((n + block - 1) // block, 1)
+    flat = torch.zeros((nb * block,), dtype=torch.float32, device=x.device)
+    flat[:n] = x.detach().to(torch.float32).reshape(-1)
+    blocks = flat.reshape(nb, block)
+    amax = blocks.abs().amax(dim=1)
+    one = torch.ones((), dtype=torch.float32, device=x.device)
+    if payload_dtype == torch.int8:
+        scale = (amax / INT8_MAX).to(scale_dtype)
+        safe = torch.where(amax == 0.0, one, scale.to(torch.float32))
+        v = blocks / safe[:, None]
+        if stochastic:
+            if generator is None:
+                raise ValueError("stochastic rounding needs a torch.Generator")
+            u = torch.rand(v.shape, generator=generator, dtype=torch.float32,
+                           device=generator.device)
+            v = torch.floor(v + u.to(v.device))
+        else:
+            v = torch.round(v)
+        payload = torch.clamp(v, -INT8_MAX, INT8_MAX).to(torch.int8)
+    else:
+        scale = amax.to(scale_dtype)
+        safe = torch.where(amax == 0.0, one, scale.to(torch.float32))
+        payload = (blocks / safe[:, None]).to(payload_dtype)
+    return payload, scale
 
 
-def dequantize_block_scaled(*args, **kwargs):
-    """The in-graph block-scaled dequantize (device mesh, item 6)."""
-    _not_ported("dequantize_block_scaled (the in-graph quantizer)", "6")
+def dequantize_block_scaled(payload, scales, shape, dtype=None):
+    """Inverse of :func:`quantize_block_scaled`: ``payload * scale``,
+    truncated back to ``shape`` and ``dtype``."""
+    import torch
+
+    dtype = torch.float32 if dtype is None else dtype
+    flat = payload.to(torch.float32) * scales.to(torch.float32)[:, None]
+    n = 1
+    for d in shape:
+        n *= int(d)
+    return flat.reshape(-1)[:n].reshape(tuple(shape)).to(dtype)
 
 
 def quantized_psum(*args, **kwargs):
@@ -162,16 +217,47 @@ def quantized_psum(*args, **kwargs):
     _not_ported("quantized_psum (the quantized gradient reduction over a mesh)", "6")
 
 
-def quantize_weight_bundle(*args, **kwargs):
-    """Serving's weight-only int8 bundle (item 4.5)."""
-    _not_ported("quantize_weight_bundle (int8 serving weights)", "4.5")
+# ---------------------------------------------------------------------------
+# serving weight bundles: int8 weight-only decode
+# ---------------------------------------------------------------------------
+
+def quantize_weight_bundle(w: Dict[str, Any], block: Optional[int] = None, min_size: int = 512
+                           ) -> Tuple[Dict[str, Any], Dict[str, Tuple[Tuple[int, ...], Any]]]:
+    """Quantize the dense matrices of a fused decode-weight bundle (the
+    serving engine's): every float tensor with ndim >= 2 and >= ``min_size``
+    elements becomes ``{"q": int8 blocks, "s": f32 scales}``; biases,
+    vectors and None ride through at full precision (weight-only
+    quantization).  Returns ``(bundle, meta)``, ``meta`` mapping each
+    quantized key to ``(shape, dtype)``."""
+    block = _resolve_block(block)
+    out: Dict[str, Any] = {}
+    meta: Dict[str, Tuple[Tuple[int, ...], Any]] = {}
+    for k, v in w.items():
+        if (v is not None and hasattr(v, "is_floating_point") and v.is_floating_point()
+                and v.dim() >= 2 and v.numel() >= min_size):
+            q, s = quantize_block_scaled(v, block=block)
+            out[k] = {"q": q, "s": s}
+            meta[k] = (tuple(int(d) for d in v.shape), v.dtype)
+        else:
+            out[k] = v
+    return out, meta
 
 
-def dequantize_weight_bundle(*args, **kwargs):
-    """Serving's weight-only int8 bundle (item 4.5)."""
-    _not_ported("dequantize_weight_bundle (int8 serving weights)", "4.5")
+def dequantize_weight_bundle(w: Dict[str, Any], meta: Dict[str, Tuple[Tuple[int, ...], Any]]
+                             ) -> Dict[str, Any]:
+    """Inverse of :func:`quantize_weight_bundle`; the serving engine runs it
+    at the top of every dispatch, so the resident bundle holds the int8
+    blocks and only the dispatch's working set holds f32 copies."""
+    return {k: (dequantize_block_scaled(v["q"], v["s"], *meta[k]) if k in meta else v)
+            for k, v in w.items()}
 
 
-def weight_bundle_bytes(*args, **kwargs):
-    """Serving's weight-only int8 bundle (item 4.5)."""
-    _not_ported("weight_bundle_bytes (int8 serving weights)", "4.5")
+def weight_bundle_bytes(w: Dict[str, Any]) -> int:
+    """Resident bytes of a (possibly quantized) weight bundle."""
+    total = 0
+    for v in w.values():
+        if v is None:
+            continue
+        parts = v.values() if isinstance(v, dict) else (v,)
+        total += sum(int(x.numel() * x.element_size()) for x in parts)
+    return total

@@ -534,6 +534,22 @@ def _context_bmm(alpha, enc):
 CONTEXT_BLOCK = 16
 
 
+def _att_scores_blocks(att_act: str, ep, sp, v):
+    """[B, S] scores act(ep + sp[:, None, :]) . v, each block of
+    CONTEXT_BLOCK positions one [B * CONTEXT_BLOCK, P] product.  One product
+    over all B * S rows picks its algorithm by S (cuBLAS rounds a row by M),
+    so a row's score would depend on how far the batch pads S; at a fixed
+    B the blocks' M does not."""
+    t = get_activation(att_act)(ep + sp[:, None, :])
+    b, s, p = t.shape
+    nb = -(-s // CONTEXT_BLOCK)
+    if nb * CONTEXT_BLOCK != s:
+        t = torch.nn.functional.pad(t, (0, 0, 0, nb * CONTEXT_BLOCK - s))
+    blocks = t.reshape(b, nb, CONTEXT_BLOCK, p).transpose(0, 1).reshape(
+        nb, b * CONTEXT_BLOCK, p)
+    return torch.cat([(blk @ v).reshape(b, CONTEXT_BLOCK) for blk in blocks], dim=1)[:, :s]
+
+
 def _context_blocks(alpha, enc):
     """[B, E] context alpha . enc summed over S in blocks of CONTEXT_BLOCK
     positions, the blocks' partial sums added in order.  Padding positions
@@ -547,14 +563,15 @@ def _context_blocks(alpha, enc):
     return ctx
 
 
-def _attgru_step(acts, xg_t, h_p, enc, ep, emask, w1, v, w_ctx, w_c, m, context=_context_bmm):
+def _attgru_step(acts, xg_t, h_p, enc, ep, emask, w1, v, w_ctx, w_c, m, context=_context_bmm,
+                 scores=_att_scores):
     """One fused decoder step: (h_t, (sp, alpha, ctx, p_ur, cpre)), the
     residuals the hand-written backward needs."""
     p_dim = ep.shape[-1]
     h = h_p.shape[-1]
     a1 = h_p @ w1  # [B, P + 2H]: state projection and GRU u/r gates
     sp = a1[:, :p_dim]
-    alpha = _att_softmax(_att_scores(acts[2], ep, sp, v), emask)
+    alpha = _att_softmax(scores(acts[2], ep, sp, v), emask)
     ctxv = context(alpha, enc)
     p = torch.addmm(xg_t, ctxv, w_ctx)  # [B, 3H] in (u, r, c) order
     p_ur = p[:, : 2 * h] + a1[:, p_dim:]
@@ -667,14 +684,15 @@ def attention_gru_step(xg_t, h_p, enc, enc_proj, enc_mask, w1, v, w_ctx, w_c, *,
                        att_act: str = "tanh") -> torch.Tensor:
     """One fused decoder step for generation (beam and greedy stepping, the
     serving engine's decode): the scan core's step with every row live, its
-    context summed in blocks so that a row's result does not depend on the
-    padded extent S (the engine pads each row's memory to the batch's page
-    rung, the one-shot path to its own ladder rung).  xg_t: [B, 3H] this step's
+    scores and its context taken in blocks of positions so that a row's
+    result does not depend on the padded extent S (the engine pads each
+    row's memory to the batch's page rung, the one-shot path to its own
+    ladder rung).  xg_t: [B, 3H] this step's
     target-side gate projections (+ biases); enc_mask: [B, S] bool or None.
     Returns h_t [B, H]."""
     m = torch.ones((h_p.shape[0], 1), dtype=torch.bool, device=h_p.device)
     h_t, _ = _attgru_step((gate_act, act, att_act), xg_t, h_p, enc, enc_proj, enc_mask, w1, v,
-                          w_ctx, w_c, m, context=_context_blocks)
+                          w_ctx, w_c, m, context=_context_blocks, scores=_att_scores_blocks)
     return h_t
 
 

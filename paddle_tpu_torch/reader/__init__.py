@@ -1,7 +1,7 @@
 """Data feeding of the PyTorch/CUDA port: the reader decorators and creators,
-token-budget bucketing, the DataFeeder, the prefetch thread and the device
-pass cache (the JAX package's ``reader/__init__`` exports, less the serving
-load generator, ROADMAP Queue 1 item 4)."""
+token-budget bucketing, the DataFeeder, the prefetch thread, the device
+pass cache and the serving plane's open-loop load generator (the JAX
+package's ``reader/__init__`` exports)."""
 
 from paddle_tpu_torch.reader import bucketing  # noqa: F401
 from paddle_tpu_torch.reader.bucketing import (  # noqa: F401
@@ -19,4 +19,5 @@ from paddle_tpu_torch.reader.decorator import (  # noqa: F401
     xmap_readers,
 )
 from paddle_tpu_torch.reader.feeder import DataFeeder  # noqa: F401
+from paddle_tpu_torch.reader.loadgen import OpenLoopLoadGen, PrefixMixer  # noqa: F401
 from paddle_tpu_torch.reader.pass_cache import PassCache  # noqa: F401

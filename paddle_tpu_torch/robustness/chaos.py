@@ -22,11 +22,13 @@ the environment variable ``PADDLE_TPU_TORCH_CHAOS``::
     worker_hang        freeze an elastic worker, heartbeats included,
                        until its leases expire
     net_*              faults on the master's wire (robustness/netem.py)
+    nan_request        poison an incoming serving request with NaN at
+                       submit (serving/scheduler.py: validation rejects it)
+    serve_slow_client  freeze the serving scheduler's delivery thread
+                       before a callback (only delivery stalls)
 
-``nan_request`` and ``serve_slow_client`` keep the JAX package's names and
-can be armed, but nothing consults them until the serving scheduler is
-ported (ROADMAP Queue 1 item 4).  A firing point dumps the obs flight
-recorder once per arming, as the JAX package's does.  This module imports
+A firing point dumps the obs flight recorder once per arming, as the JAX
+package's does.  This module imports
 torch only where ``poison_batch`` meets a tensor, so the master plane
 consults it without torch.
 

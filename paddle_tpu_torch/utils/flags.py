@@ -221,6 +221,129 @@ define_flag("serving_max_new_tokens", 32,
             "default per-request decode cap of the serving plane (a "
             "request's own max_new_tokens overrides; the generator's "
             "max_length stays the ceiling)")
+define_flag("serving_prefix_cache", False,
+            "copy-on-write prefix sharing in the serving plane "
+            "(serving/engine.py): finished prompts park their encoder "
+            "pages in a refcount-0 LRU pool keyed on token-block hashes + "
+            "the engine's topology fingerprint; a request whose FULL "
+            "prompt matches maps the same blocks into its page table with "
+            "ZERO prefill dispatches (bit-identical — the bi-GRU encoder "
+            "reads the whole prompt, so only exact-prompt reuse is sound; "
+            "chunked prefills additionally resume mid-prompt from cached "
+            "forward-GRU carries).  Blocks free only at refcount 0; "
+            "eviction is LRU under the same serving_hbm_budget_mb")
+define_flag("serving_spec_decode", False,
+            "speculative decoding in the serving plane: an n-gram draft "
+            "proposes serving_decode_block_steps tokens and the target "
+            "model verifies ALL of them in ONE dispatch (the existing "
+            "K-steps compiled shape, drafts as inputs); the emitted "
+            "tokens are exactly the greedy argmax chain's — acceptance "
+            "only changes how many land per dispatch, never their values "
+            "(rejection falls back bit-identically).  Accepted-token "
+            "rate rides serving metrics as spec_accept_rate")
+define_flag("serving_spec_ngram", 2,
+            "context n-gram order of the serving draft proposer: the last "
+            "n generated tokens are matched against the request's own "
+            "generated history and the continuation after the most recent "
+            "match is proposed (prompt-lookup decoding); larger n = "
+            "fewer, more precise matches")
+define_flag("serving_default_deadline_s", 0.0,
+            "default end-to-end deadline (seconds from submit) stamped on "
+            "serving requests that carry none of their own; the scheduler "
+            "SHEDS a request whose predicted queue wait already blows its "
+            "deadline (distinct 'shed' status — at overload the plane "
+            "degrades to its SLO-feasible subset instead of collapsing "
+            "into universal timeouts) and cancels a live request once its "
+            "deadline passes (pages free immediately).  0 = no deadline "
+            "(pre-SLO behavior)")
+define_flag("serving_queue_limit", 0,
+            "bound on requests queued ahead of admission (submitted + "
+            "validated-waiting) in the serving scheduler: a submit beyond "
+            "it is REJECTED immediately ('rejected: queue full' — open-"
+            "loop backpressure, the client retries elsewhere) instead of "
+            "growing an unbounded queue whose every occupant times out.  "
+            "0 = unbounded (pre-SLO behavior)")
+define_flag("serving_prefill_chunk_tokens", 0,
+            "chunked prefill: a prompt whose padded source extent exceeds "
+            "this many tokens prefills in ladder-rung chunks (carried "
+            "bi-GRU state, one bounded dispatch per chunk) interleaved "
+            "with decode steps, so a long prompt no longer stalls every "
+            "decoding sequence for its whole encoder forward (head-of-"
+            "line isolation; outputs stay bit-identical to the one-shot "
+            "path).  Must be a multiple of serving_block_tokens and "
+            "divide every larger shape-ladder rung.  0 = off (whole-"
+            "prompt prefill)")
+define_flag("serving_priority_aging_s", 2.0,
+            "aging rate of the strict-priority-with-aging dequeue "
+            "(serving/scheduler.py): every this-many seconds of queue "
+            "wait promote a waiting request one priority level, so "
+            "batch-class traffic ages into urgency instead of starving "
+            "behind a steady interactive stream; 0 = pure strict "
+            "priority (starvation becomes the operator's choice)")
+define_flag("serving_class_deadline_s", "",
+            "per-class default end-to-end deadlines, 'prio:seconds' "
+            "pairs e.g. '0:0.25,2:1.5' (priority 0 is most urgent): a "
+            "request of that class submitted without its own deadline "
+            "gets the class default; unlisted classes fall back to "
+            "serving_default_deadline_s")
+define_flag("serving_class_shed_slack", "",
+            "per-class multiplier on the shed predictor's service-"
+            "safety headroom, 'prio:factor' pairs e.g. '2:2.0': >1 "
+            "sheds that class EARLIER under pressure (more headroom "
+            "demanded), <1 lets it gamble closer to its deadline; "
+            "unlisted classes use 1.0")
+define_flag("serving_int8_weights", False,
+            "weight-only int8 serving decode: the fused decode-weight "
+            "bundle's dense matrices live as int8 blocks + f32 scales "
+            "and dequantize per dispatch per dispatch (~4x smaller resident "
+            "weight bytes under serving_hbm_budget_mb -> more concurrent "
+            "slots per GB); biases/vectors stay f32, training is "
+            "untouched (the certify_precision_plan weight-only ACCEPT "
+            "case)")
+define_flag("serving_int8_drift_budget", 0.08,
+            "max tolerated per-step drift of int8-weight decode vs the "
+            "f32 reference, measured as max|logits_int8 - logits_f32| / "
+            "max|logits_f32| on a probe batch — the explicit bit-drift "
+            "budget the tests and chip_smoke.py gate on")
+define_flag("router_lease_timeout_s", 2.0,
+            "heartbeat-lease timeout of the serving-fleet router's "
+            "engine registry (serving/router.py — the master cluster "
+            "plane's worker-lease discipline lifted to the serving "
+            "tier): an engine silent this long is pruned and its "
+            "in-flight requests re-route to the survivors")
+define_flag("router_queue_limit", 0,
+            "bound on requests concurrently inside the router's "
+            "admission/dispatch section (the serving_queue_limit "
+            "semantics one tier up): past it a request is REJECTED at "
+            "the frontend before paying a network hop; 0 = unbounded")
+define_flag("router_stats_poll_s", 0.2,
+            "period of the router's per-engine stats poll — one typed "
+            "RPC per engine per period (scheduler.export_stats over the "
+            "wire codec, not a Prometheus scrape); routing scores read "
+            "the latest snapshot")
+define_flag("router_affinity", True,
+            "prefix/session affinity routing in the fleet router: hash "
+            "the request's session id (or its prefix block-chain key) "
+            "to a preferred engine by rendezvous hashing, so "
+            "shared-prefix traffic concentrates where the COW prefix "
+            "cache already holds the blocks.  The preferred engine is "
+            "OVERRIDDEN when its predicted wait exceeds the best "
+            "engine's by more than router_affinity_slack_s — affinity "
+            "must never defeat load balance")
+define_flag("router_affinity_slack_s", 0.25,
+            "how much worse (seconds of predicted wait) the affinity-"
+            "preferred engine may be before the router falls back to "
+            "the least-predicted-wait choice")
+define_flag("router_call_timeout_s", 120.0,
+            "per-request deadline of the router->engine serve RPC "
+            "(dial + full decode + reply); requests carrying their own "
+            "SLO use min(remaining deadline + grace, this)")
+define_flag("metrics_out", "",
+            "obs metrics export: periodically snapshot the StatSet plane "
+            "+ the registered SLO gauges (serving queue depth, pages in "
+            "use, EWMA predicted wait, served/shed/rejected/timeout "
+            "ledger) to this file in Prometheus text exposition format "
+            "(atomic replace).  Empty = off")
 define_flag("rpc_max_message_mb", 64,
             "hard bound (MB) on one master-RPC wire frame, enforced on send "
             "and on receive (master_wire.py): an over-budget outbound payload "

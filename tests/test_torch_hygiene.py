@@ -58,7 +58,8 @@ def test_every_module_imports_without_jax():
                 "robustness.recovery", "robustness.preemption", "analysis.lock_sanitizer",
                 "obs", "obs.tracer", "obs.metrics", "obs.merge", "master_wire", "ops.quantize",
                 "robustness.netem", "master_journal", "master", "master_ha", "trainer.elastic",
-                "launcher", "cli", "__main__"):
+                "launcher", "cli", "__main__", "serving.router", "reader.loadgen",
+                "robustness.traces", "core.aot_cache", "analysis.diagnostics"):
         assert f"paddle_tpu_torch.{mod}" in names.split()
 
 
@@ -392,3 +393,37 @@ def test_elastic_entry_points_raise_without_cuda_unless_on_the_cpu(tmp_path):
         tdevice._default_device = "cuda"
         flags._VALUES.clear()
         flags._VALUES.update(saved)
+
+
+_TORCH_IMPORT = re.compile(r"^(?:import|from)\s+torch\b", re.M)
+
+
+def test_router_loadgen_and_traces_import_no_torch_at_module_level():
+    """Like their JAX twins, which import no jax, these three modules keep
+    torch out of their own top level (``ops/quantize.py`` imports it only
+    inside its tensor functions)."""
+    for rel in ("serving/router.py", "reader/loadgen.py", "robustness/traces.py",
+                "ops/quantize.py"):
+        with open(os.path.join(PKG, rel)) as f:
+            assert not _TORCH_IMPORT.search(f.read()), rel
+    assert _TORCH_IMPORT.search("import torch\n")
+
+
+def test_serve_raises_without_cuda_unless_on_the_cpu():
+    """The scheduler over an engine and ``serve`` run on the card unless
+    asked for the CPU: without CUDA, ``serve`` exits nonzero naming the
+    CPU option, and with ``--device cpu`` it serves."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device; the no-CUDA error cannot show")
+    args = [sys.executable, "-m", "paddle_tpu_torch", "serve", "--src-vocab", "20",
+            "--trg-vocab", "20", "--word-dim", "8", "--hidden-dim", "8", "--max-length", "4",
+            "--synthetic", "3", "--max-slots", "2", "--hbm-budget-mb", "1"]
+    proc = subprocess.run(args, cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and "device='cpu'" in proc.stderr
+    proc = subprocess.run(args + ["--device", "cpu"], cwd=ROOT, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    import json
+
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert summary["served"] == 3 and summary["unfinished"] == 0

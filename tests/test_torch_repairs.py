@@ -270,10 +270,12 @@ def test_not_ported_messages_name_their_items(tmp_path):
         paddle_tpu_torch.launcher.init_cluster()
     with pytest.raises(NotImplementedError, match=r"'train' subcommand .*Queue 1 item 7\)"):
         tcli.main(["train"])
+    # the serving plane is ported: the scheduler and the CLI's serve and route
     from paddle_tpu_torch import serving
 
-    with pytest.raises(NotImplementedError, match=r"ServingScheduler .*Queue 1 item 4\)"):
-        serving.ServingScheduler
+    assert serving.ServingScheduler.__module__ == "paddle_tpu_torch.serving.scheduler"
+    assert tcli._COMMANDS["serve"] is tcli.cmd_serve
+    assert tcli._COMMANDS["route"] is tcli.cmd_route
 
 
 
@@ -315,7 +317,8 @@ def test_every_chaos_point_but_serving_is_consulted():
                 with open(os.path.join(dirpath, f)) as fh:
                     src = fh.read()
                 consulted |= set(re.findall(r"fire\(\s*[\"']([a-z_]+)[\"']", src))
-    assert chaos.KNOWN_POINTS - consulted == {"nan_request", "serve_slow_client"}
+    # the serving scheduler consults nan_request and serve_slow_client too
+    assert chaos.KNOWN_POINTS - consulted == set()
     assert "nothing in the port consults" not in chaos.__doc__
 
 
@@ -399,3 +402,42 @@ def test_save_model_and_cloud_reader_share_a_master_with_the_jax_package(tmp_pat
         srv.close()
     labels = sorted(int(s[1]) for s in got["jax"] + got["port"])
     assert labels == list(range(40))
+
+
+def test_generation_step_products_do_not_depend_on_the_padded_extent():
+    """Repair (found on the card by chip_smoke.py phase 24a.1): the fused
+    generation step took its attention scores as one product over all B * S
+    rows, and cuBLAS rounds a row by M, so a short request decoded in a
+    batch padded to a long prompt's page rung left the one-shot path.  Every
+    product of the step now has the same shape whatever S."""
+    from torch.overrides import TorchFunctionMode
+
+    from paddle_tpu_torch.ops.rnn import attention_gru_step
+
+    class Shapes(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = set()
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if getattr(func, "__name__", "") in ("matmul", "__matmul__", "mm", "mv", "addmm",
+                                                  "bmm"):
+                self.seen.add(tuple(tuple(a.shape) for a in args if isinstance(a, torch.Tensor)))
+            return func(*args, **(kwargs or {}))
+
+    g = torch.Generator().manual_seed(0)
+    b, h, e, p = 4, 6, 10, 5
+    w1, v = torch.randn(h, p + 2 * h, generator=g), torch.randn(p, generator=g)
+    w_ctx, w_c = torch.randn(e, 3 * h, generator=g), torch.randn(h, h, generator=g)
+    xg, h0 = torch.randn(b, 3 * h, generator=g), torch.randn(b, h, generator=g)
+    shapes, outs = [], []
+    for s in (16, 512):
+        enc, ep = torch.randn(b, s, e, generator=g), torch.randn(b, s, p, generator=g)
+        enc[:, :16], ep[:, :16] = outs[0][1] if outs else (enc[:, :16], ep[:, :16])
+        emask = torch.arange(s)[None, :] < torch.tensor([16, 9, 3, 12])[:, None]
+        with Shapes() as mode:
+            out = attention_gru_step(xg, h0, enc, ep, emask, w1, v, w_ctx, w_c)
+        shapes.append(mode.seen)
+        outs.append((out, (enc[:, :16].clone(), ep[:, :16].clone())))
+    assert shapes[0] == shapes[1], shapes
+    assert torch.equal(outs[0][0], outs[1][0])

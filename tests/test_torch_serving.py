@@ -12,7 +12,14 @@ f32, at the JAX package's test sizes (vocab 20, word width 8, hidden 12):
 - each request's tokens equal the JAX engine's on the same weights;
 - finite garbage in the scratch page and the scratch slot changes no live
   request's tokens (padding rows write there, several times per prefill);
-- every deferred arm raises ``NotImplementedError`` naming itself."""
+- chunked prefill (tests/test_serving.py:425-488): interleaved with
+  decoding and cancelled mid-prefill, its flag checks, and an encoder
+  outside the idiom raising when the engine is built;
+- ``paddle_tpu_torch.serving`` binds the JAX package's names, and the one
+  deferred arm (``aot_cache_dir``) raises naming ROADMAP item 7.
+
+The other arms live in tests/test_torch_serving_speed.py, the scheduler in
+tests/test_torch_scheduler.py."""
 
 import numpy as np
 import pytest
@@ -382,30 +389,81 @@ def test_every_dispatch_runs_on_the_engines_rows(small_gen):
 
 
 # ---------------------------------------------------------------------------
-# what is not ported yet
+# chunked prefill, the engine's surface, and what is not ported yet
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arm,value", [
-    ("prefill_chunk_tokens", 32), ("prefix_cache", True), ("spec_decode", True),
-    ("int8_weights", True), ("aot_cache_dir", "/nonexistent")])
-def test_deferred_engine_arms_raise(small_gen, arm, value):
-    with pytest.raises(NotImplementedError, match=arm):
-        make_engine(small_gen, **{arm: value})
+def test_chunked_prefill_bit_identical_interleaved(small_gen):
+    """Two long prompts prefilling one chunk per step while two short ones
+    decode: every request's tokens and log-probabilities are the one-shot
+    path's, and each long prompt takes one dispatch per chunk and
+    direction."""
+    eng = make_engine(small_gen, prefill_chunk_tokens=16, hbm_budget_mb=4)
+    reqs = [Request(s) for s in srcs_of(20, (40, 70)) + srcs_of(21, (3, 5))]
+    eng.admit(reqs)
+    assert eng.n_prefilling == 2 and eng.n_live == 2
+    done = []
+    for _ in range(300):
+        done += eng.step()
+        if len(done) == len(reqs):
+            break
+    assert len(done) == len(reqs)
+    for r in reqs:
+        assert r.tokens == eng.reference_decode(r.src_ids, MAXLEN), r.req_id
+        assert r.token_logprobs == oneshot_logprobs(eng, r.src_ids, MAXLEN)[:len(r.tokens)]
+    # rungs 64 and 128 at 16 tokens a chunk, both directions
+    assert eng.trace_counts["prefill_chunk"] == 2 * (4 + 8)
+    assert eng.trace_counts["prefill"] == 1  # the two short prompts, one rung
+    assert eng.pages.n_used == 0 and eng.n_free_slots == eng.max_slots
 
 
-def test_beam_request_raises(small_gen):
-    eng = make_engine(small_gen)
-    with pytest.raises(NotImplementedError, match="beam_size"):
-        eng.admit([Request([2, 3, 4]), Request([5, 6], beam_size=4)])
-    assert eng.n_live == 0 and eng.pages.n_used == 0
+def test_chunked_prefill_cancel_mid_prefill(small_gen):
+    eng = make_engine(small_gen, prefill_chunk_tokens=16, hbm_budget_mb=4)
+    r = Request(srcs_of(24, (70,))[0])
+    eng.admit([r])
+    eng.step()  # one forward chunk in
+    assert eng.n_prefilling == 1
+    assert eng.cancel(r) is True
+    assert eng.pages.n_used == 0 and eng.n_free_slots == eng.max_slots
+    assert eng.cancel(r) is False
 
 
-@pytest.mark.parametrize("name", ["ServingScheduler", "Router", "OpenLoopLoadGen"])
-def test_deferred_serving_parts_raise(name):
+def test_chunked_prefill_flag_validation(small_gen):
+    with pytest.raises(ValueError, match="multiple"):
+        make_engine(small_gen, prefill_chunk_tokens=24)
+    with pytest.raises(ValueError, match="divide"):
+        make_engine(small_gen, prefill_chunk_tokens=48)
+
+
+def test_chunked_prefill_outside_the_encoder_idiom_raises(small_gen, monkeypatch):
+    """No arm gives way to another: an encoder the chunk dispatches cannot
+    run raises when the engine is built."""
+    import dataclasses
+
+    layers = small_gen._enc_net.topology.layers
+    monkeypatch.setitem(layers, "enc_fw", dataclasses.replace(layers["enc_fw"], type="lstmemory"))
+    with pytest.raises(ValueError, match="expected a fused grumemory"):
+        make_engine(small_gen, prefill_chunk_tokens=16)
+    make_engine(small_gen)  # whole-prompt prefill does not need the idiom
+
+
+def test_engine_accepts_spec_ngram(small_gen):
+    eng = make_engine(small_gen, spec_decode=True, spec_ngram=3)
+    assert eng.spec_ngram == 3 and eng.spec_decode
+
+
+def test_serving_binds_every_name_of_the_jax_package():
+    import paddle_tpu.serving as jserving
     import paddle_tpu_torch.serving as serving
 
-    with pytest.raises(NotImplementedError, match=name):
-        getattr(serving, name)
+    assert sorted(serving.__all__) == sorted(jserving.__all__)
+    for name in jserving.__all__:
+        assert getattr(serving, name).__name__ == getattr(jserving, name).__name__
     with pytest.raises(AttributeError):
         serving.no_such_name  # noqa: B018
+
+
+@pytest.mark.parametrize("arm,value", [("aot_cache_dir", "/nonexistent")])
+def test_deferred_engine_arms_raise(small_gen, arm, value):
+    with pytest.raises(NotImplementedError, match="item 7"):
+        make_engine(small_gen, **{arm: value})
