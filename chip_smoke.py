@@ -400,7 +400,31 @@ Phases, in order; any failure exits non-zero:
      with s/pass, task compute, quantize/fence/fetch/reduce/apply seconds,
      payload and wire bytes, journal bytes and peak memory per worker.
      Every worker runs deterministic kernels; the frame bound is 256 MB.
-     No flash kernel may launch in phase 23.
+     No flash kernel may launch in phase 23;
+ 24. the serving plane at phase 13's width: (a) the engine's arms (chunked
+     prefill, prefix cache, speculative decoding, beam, int8 weights), (b)
+     the scheduler under open-loop load and its drills, (c) a two-engine
+     fleet behind the router.  No flash kernel may launch in phase 24;
+ 25. the v1 command line (``python -m paddle_tpu_torch``), the profiler and
+     the NaN trap, on phase 16's bench_lstm_textcls config and corpus:
+     (a) the reference rnn benchmark's line ``train --job=time
+     --config_args=hidden_size=512,lstm_num=2,batch_size=128
+     --test_period=20 --use_gpu=True --trainer_count=1`` as a subprocess
+     (bf16 through the compute_dtype flag), with and without --feed_data:
+     ms/batch and samples/s beside phase 16's s/step; (b) --job=train
+     --save_dir (a v1 pass dir), then --job=test on it, bit-equal to
+     SGD.test in this process on the same loaded parameters; (c)
+     merge_model and --job=test on the bundle, bit-equal to (b); (d)
+     --job=checkgrad in f64 on a tanh MLP at batch 8; (e) --job=time of a
+     2-layer Transformer-base encoder classifier (batch 8, T = 1024, flash
+     on): 2 launches of each kernel per step; (f) profiler.profile around
+     two textcls steps: a trace with device kernels and the obs spans as
+     record_function ranges; (g) init(check_nans=True): a NaN planted in
+     an input and one made only in the backward raise FloatingPointError
+     naming the op and the layer, disarmed the sentinel skips; armed
+     against disarmed step time; (h) lint --config (clean; a planted
+     dangling input exits 1 with G002), lint --journal (J001 on a corrupt
+     frame), dump_config, make_diagram, version, trace validate.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels with their launches on the main path (the timed training steps of
@@ -408,8 +432,10 @@ phase 5; the NMT paths of phases 11-13, the LSTM classifier of phases 14
 and 16, the tagger of phase 15, the nested networks of phase 17, the
 N-gram and ranking networks of phase 18, the image and CTC networks of
 phase 19, the SSD and MDLSTM networks of phase 20, phase 21's framework,
-GAN and VAE paths, phase 22's image networks and phase 23's fleets run none of them; phase 20's MoE Transformer runs each 18
-times per step), errors and times.
+GAN and VAE paths, phase 22's image networks, phase 23's fleets and phase
+24's serving plane run none of them; phase 20's MoE Transformer runs each
+18 times per step and phase 25e's encoder twice per step), errors and
+times.
 Without a CUDA device, or without the paddle_tpu_torch package beside it, the script
 exits non-zero and prints no result.
 """
@@ -2696,6 +2722,7 @@ def phase_v1(torch, P, fa, card, lstm14):
         if launch_counts(fa) != (0, 0, 0):
             raise SystemExit("v1: the v1 path launched a flash kernel")
         P.init(compute_dtype="bfloat16")
+        return {"s_per_step": mean_s}
     finally:
         shutil.rmtree(d, ignore_errors=True)
 
@@ -6991,6 +7018,444 @@ def phase_serving_plane(torch, P, fa, card, dev="cuda"):
         f"{t[3] - t[2]:.1f} s; flash launches (fwd, dq, dkv) over it: {launch_counts(fa)}")
 
 
+# phase 25: the v1 command line (paddle_tpu_torch/cli.py), the profiler and
+# the NaN trap, carried by bench_lstm_textcls (phase 16's config and corpus)
+CLI_TIMED = 20  # --test_period of 25a, the reference rnn benchmark's line
+CLI_ENC_B, CLI_ENC_TIMED = 8, 10  # 25e: batch and timed steps
+CLI_ENC_CONFIG = """
+from paddle.trainer_config_helpers import *
+
+settings(batch_size=8, learning_rate=1e-4, learning_method=AdamOptimizer())
+define_py_data_sources2("enc.list", None, module="enc_provider", obj="process")
+x = pos_encoding(embedding_layer(input=data_layer("src", 32000), size=512), emb_scale=512 ** 0.5)
+for i in range(2):
+    att = multi_head_attention(layer_norm(x, name="l%d_ln1" % i), n_heads=8, name="l%d_att" % i)
+    x = addto_layer([x, att], name="l%d_res1" % i)
+    h = fc_layer(input=layer_norm(x, name="l%d_ln2" % i), size=2048, act=ReluActivation(),
+                 name="l%d_ff1" % i)
+    x = addto_layer([x, fc_layer(input=h, size=512, name="l%d_ff2" % i)], name="l%d_res2" % i)
+pooled = pooling_layer(input=layer_norm(x, name="enc_ln"), pooling_type=AvgPooling())
+prob = fc_layer(input=pooled, size=2, act=SoftmaxActivation())
+outputs(classification_cost(input=prob, label=data_layer("label", 2)))
+"""
+CLI_ENC_PROVIDER = """
+import pickle
+from paddle.trainer.PyDataProvider2 import *
+
+@provider(input_types=[integer_value_sequence(32000), integer_value(2)], should_shuffle=False)
+def process(settings, path):
+    with open(path, "rb") as f:
+        for ids, label in pickle.load(f):
+            yield ids, label
+"""
+CLI_MLP_CONFIG = """
+from paddle.trainer_config_helpers import *
+
+settings(batch_size=8, learning_rate=1e-2, learning_method=MomentumOptimizer(0.9))
+define_py_data_sources2("mlp.list", None, module="mlp_provider", obj="process")
+h = fc_layer(input=data_layer(name="x", size=784), size=128, act=TanhActivation())
+h = fc_layer(input=h, size=64, act=TanhActivation())
+p = fc_layer(input=h, size=10, act=SoftmaxActivation())
+outputs(classification_cost(input=p, label=data_layer(name="y", size=10)))
+"""
+CLI_MLP_PROVIDER = """
+import pickle
+from paddle.trainer.PyDataProvider2 import *
+
+@provider(input_types=[dense_vector(784), integer_value(10)], should_shuffle=False)
+def process(settings, path):
+    with open(path, "rb") as f:
+        for x, y in pickle.load(f):
+            yield x, y
+"""
+CLI_DANGLING = """
+from paddle.trainer_config_helpers import *
+
+x = data_layer(name="x", size=8)
+hidden = fc_layer(input=x, size=8, act=TanhActivation(), name="hidden")
+outputs(LayerOutput(LayerConf(name="sum", type="addto", size=8,
+                              inputs=("hidden", "ghost_layer")), [hidden]))
+"""
+TRAP_WIDTH, TRAP_B, TRAP_STEPS = 1024, 128, 5  # 25g's MLP and its timed steps
+
+
+def cli_run(tcli, argv):
+    """(exit code, stdout) of the port's command line in this process."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = tcli.main(argv)
+    return rc, out.getvalue()
+
+
+def cli_time_line(out):
+    """(batches, batch size, ms/batch, samples/s) of a --job=time report."""
+    import re
+
+    m = re.search(r"(\d+) batches of (\d+): ([0-9.]+) ms/batch, ([0-9.]+) samples/sec", out)
+    if m is None:
+        raise SystemExit(f"cli: no ms/batch line in the time job's output:\n{out[-2000:]}")
+    return int(m.group(1)), int(m.group(2)), float(m.group(3)), float(m.group(4))
+
+
+def cli_write(d, files):
+    for name, text in files.items():
+        with open(os.path.join(d, name), "w") as f:
+            f.write(text)
+
+
+def recorded_tests(P):
+    """Patch SGD.test to record each result's cost (the command line's test
+    job prints it to 6 decimals); returns (costs, undo)."""
+    costs, orig = [], P.trainer.SGD.test
+
+    def test(self, *a, **k):
+        res = orig(self, *a, **k)
+        costs.append(res.cost)
+        return res
+
+    P.trainer.SGD.test = test
+    return costs, lambda: setattr(P.trainer.SGD, "test", orig)
+
+
+def phase_cli_shell(d, v1):
+    """25a: the reference rnn benchmark's line as a subprocess, with and
+    without --feed_data, at phase 16's precision (bf16 through the
+    compute_dtype flag)."""
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               PADDLE_TPU_TORCH_COMPUTE_DTYPE="bfloat16")
+    for extra in ([], ["--feed_data"]):
+        argv = [sys.executable, "-m", "paddle_tpu_torch", "train", "--config=textcls.py",
+                f"--config_args={V1_ARGS}", "--job=time", f"--test_period={CLI_TIMED}",
+                "--use_gpu=True", "--trainer_count=1", "--log_period=10"] + extra
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, cwd=d, env=env, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise SystemExit(f"cli 25a: {' '.join(argv[2:])} exited {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+        n, b, ms, sps = cli_time_line(proc.stdout)
+        table = [ln for ln in proc.stdout.splitlines() if ln.startswith(("FwdBwd", "GetData"))]
+        say(f"cli 25a: `python -m paddle_tpu_torch {' '.join(argv[3:])}` (bf16): {n} batches of "
+            f"{b}: {ms:.3f} ms/batch, {sps:.1f} samples/s; StatSet {table}; process wall "
+            f"{wall:.1f} s; phase 16 in-process: {v1['s_per_step'] * 1e3:.3f} ms per step, "
+            f"{TXT_B / v1['s_per_step']:.1f} samples/s")
+
+
+def phase_cli_train_test(P, tcli, d):
+    """25b and 25c: train one pass with --save_dir, --job=test on the pass
+    dir against SGD.test in this process on the same loaded parameters
+    (bit-equal: a forward on the same parameters and batches), then
+    merge_model and --job=test on the bundle (bit-equal to 25b)."""
+    from paddle_tpu_torch.v1_compat import make_config_reader, parse_config
+
+    cfg = os.path.join(d, "textcls.py")
+    save = os.path.join(d, "model")
+    t0 = time.perf_counter()
+    rc, out = cli_run(tcli, ["train", f"--config={cfg}", f"--config_args={V1_ARGS}",
+                             "--num_passes=1", f"--save_dir={save}"])
+    pass_dir = os.path.join(save, "pass-00000")
+    files = sorted(os.listdir(pass_dir)) if os.path.isdir(pass_dir) else []
+    say(f"cli 25b: --job=train --num_passes=1 over {V1_REVIEWS} reviews: exit {rc} in "
+        f"{time.perf_counter() - t0:.1f} s; {[ln for ln in out.splitlines() if 'Pass 0' in ln]}; "
+        f"pass-00000 holds {files}")
+    if rc != 0 or "params.tar" not in files or "__lstmemory_0__.w_h" not in files:
+        raise SystemExit("cli 25b: the train job failed or wrote no v1 pass dir")
+    costs, undo = recorded_tests(P)
+    try:
+        rc, out = cli_run(tcli, ["train", f"--config={cfg}", f"--config_args={V1_ARGS}",
+                                 "--job=test", f"--init_model_path={pass_dir}"])
+        bundle = os.path.join(d, "textcls.paddle")
+        rc_m, _ = cli_run(tcli, ["merge_model", f"--model_dir={pass_dir}",
+                                 f"--config_file={cfg}", f"--model_file={bundle}",
+                                 f"--config_args={V1_ARGS}"])
+        rc_b, out_b = cli_run(tcli, ["train", f"--config={cfg}", f"--config_args={V1_ARGS}",
+                                     "--job=test", f"--init_model_path={bundle}"])
+    finally:
+        undo()
+    if rc or rc_m or rc_b or len(costs) != 2:
+        raise SystemExit(f"cli 25b/25c: exit codes test {rc}, merge_model {rc_m}, bundle test "
+                         f"{rc_b}; {len(costs)} test results")
+    parsed = parse_config(cfg, V1_ARGS)
+    trainer = tcli._make_trainer(parsed, 0, "cuda")
+    tcli._load_init_model(trainer, pass_dir)
+    # the config declares no test list: the test job reads the train stream
+    want = trainer.test(P.batch(make_config_reader(parsed, d, train=True),
+                                parsed.settings.batch_size), feeding=parsed.feeding).cost
+    line = [ln for ln in out.splitlines() if ln.startswith("Test cost")]
+    say(f"cli 25b: --job=test on pass-00000: {line} (unrounded {costs[0]!r}); SGD.test in this "
+        f"process on the same loaded parameters: {want!r}; bit-equal {costs[0] == want}")
+    say(f"cli 25c: merge_model -> {os.path.getsize(bundle)} bytes; --job=test on the bundle: "
+        f"{costs[1]!r}; bit-equal to 25b {costs[1] == costs[0]}")
+    if costs[0] != want:
+        raise SystemExit(f"cli 25b: the test job's cost {costs[0]!r} != SGD.test's {want!r}")
+    if costs[1] != costs[0]:
+        raise SystemExit(f"cli 25c: the bundle's test cost {costs[1]!r} != the pass dir's")
+    return trainer, parsed
+
+
+def phase_cli_checkgrad(torch, tcli, d):
+    """25d: --job=checkgrad on the card, f64, an MLP at batch 8."""
+    rng = np.random.RandomState(25)
+    rows = [([float(v) for v in rng.standard_normal(784)], int(rng.randint(10)))
+            for _ in range(16)]
+    import pickle
+
+    with open(os.path.join(d, "mlp.pkl"), "wb") as f:
+        pickle.dump(rows, f, protocol=2)
+    cli_write(d, {"mlp.py": CLI_MLP_CONFIG, "mlp_provider.py": CLI_MLP_PROVIDER,
+                  "mlp.list": "mlp.pkl\n"})
+    t0 = time.perf_counter()
+    rc, out = cli_run(tcli, ["train", f"--config={os.path.join(d, 'mlp.py')}",
+                             "--job=checkgrad"])
+    line = [ln for ln in out.splitlines() if "checkgrad" in ln or ln.startswith("FAIL")]
+    say(f"cli 25d: --job=checkgrad (784-128-64-10 tanh MLP, batch 8, f64 on the card): exit "
+        f"{rc} in {time.perf_counter() - t0:.1f} s: {line}")
+    if rc != 0 or "checkgrad PASSED" not in out or torch.get_default_dtype() != torch.float32:
+        raise SystemExit("cli 25d: checkgrad failed on the card (or left f64 as the default)")
+
+
+def phase_cli_encoder(P, fa, tcli, d, card):
+    """25e: --job=time of a 2-layer Transformer-base encoder classifier with
+    use_flash_attention on, in this process: every step launches the
+    forward, dq and dk/dv kernels twice (2 layers)."""
+    import pickle
+
+    rng = np.random.RandomState(26)
+    n = CLI_ENC_B * 4
+    lens = [1024 if i % CLI_ENC_B == 0 else int(rng.randint(600, 1025)) for i in range(n)]
+    rows = [([int(t) for t in rng.randint(2, 32000, size=m)], int(rng.randint(2)))
+            for m in lens]
+    with open(os.path.join(d, "enc.pkl"), "wb") as f:
+        pickle.dump(rows, f, protocol=2)
+    cli_write(d, {"enc.py": CLI_ENC_CONFIG, "enc_provider.py": CLI_ENC_PROVIDER,
+                  "enc.list": "enc.pkl\n"})
+    P.flags.set_flag("use_flash_attention", True)
+    reset_counts(fa)
+    try:
+        rc, out = cli_run(tcli, ["train", f"--config={os.path.join(d, 'enc.py')}", "--job=time",
+                                 f"--test_period={CLI_ENC_TIMED}", "--feed_data"])
+    finally:
+        P.flags.set_flag("use_flash_attention", False)
+    steps = 10 + CLI_ENC_TIMED
+    got = launch_counts(fa)
+    nb, b, ms, sps = cli_time_line(out)
+    say(f"cli 25e: --job=time of a 2-layer Transformer-base encoder classifier (d 512, 8 heads, "
+        f"d_ff 2048, batch {b}, lengths 600-1024 padded to 1024, bf16, flash on): exit {rc}; "
+        f"{nb} batches: {ms:.3f} ms/batch, {sps:.1f} samples/s on {card}; flash launches "
+        f"(fwd, dq, dkv) over {steps} steps: {got}, per step "
+        f"{tuple(round(c / steps, 3) for c in got)}")
+    if rc != 0 or got != (2 * steps,) * 3:
+        raise SystemExit(f"cli 25e: expected 2 launches of each kernel per step, got {got}")
+    reset_counts(fa)
+
+
+def phase_cli_profile(torch, P, trainer, parsed, d):
+    """25f: profiler.profile around two textcls training steps: a trace file
+    holding device kernels and the obs spans as record_function ranges.
+    Returns the obs trace file the spans were exported to."""
+    import glob
+
+    two = list(P.reader.firstn(P.batch(P.v1_compat.make_config_reader(parsed, d),
+                                       parsed.settings.batch_size), 2)())
+    P.obs.tracer.reset()
+    for n in range(1, PROFILE_TRIES + 1):
+        logdir = os.path.join(d, f"profile{n}")
+        with P.profiler.profile(logdir):
+            trainer.train(lambda: iter(two), feeding=parsed.feeding)
+            torch.cuda.synchronize()
+        files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+        if len(files) != 1:
+            raise SystemExit(f"cli 25f: profile wrote {files}")
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        spans = {}
+        for e in events:
+            if e.get("cat") == "user_annotation":
+                spans[e["name"]] = spans.get(e["name"], 0) + 1
+        say(f"cli 25f: profiler.profile window {n}: {os.path.basename(files[0])} "
+            f"({os.path.getsize(files[0])} bytes): {len(kernels)} device kernels, obs spans as "
+            f"record_function ranges {dict(sorted(spans.items()))}")
+        if kernels:
+            break
+    if not kernels:
+        raise SystemExit("cli 25f: no profiler window recorded device kernels")
+    if spans.get("train_step", 0) < 2 or spans.get("block_fetch", 0) < 2:
+        raise SystemExit("cli 25f: the obs train_step/block_fetch spans are missing")
+    return P.obs.tracer.dump(os.path.join(d, "obs", "trace-trainer.json"))
+
+
+def trap_net(P, nan_backward):
+    L, A = P.layer, P.activation
+    x = L.data("x", P.data_type.dense_vector(TRAP_WIDTH))
+    if nan_backward:
+        # sqrt(relu(W x)) * 0 at x = 0: a finite forward, 0 / (2 sqrt(0)) in
+        # the sqrt's backward
+        h = L.fc(x, size=TRAP_WIDTH, act=A.Relu(), bias_attr=False, name="h")
+        q = L.addto([h], act=A.Sqrt(), bias_attr=False, name="q")
+        return L.sum_cost(L.slope_intercept(q, slope=0.0, name="z"))
+    h = L.fc(x, size=TRAP_WIDTH, act=A.Tanh(), name="h")
+    out = L.fc(h, size=10, act=A.Softmax(), name="out")
+    return L.classification_cost(out, L.data("y", P.data_type.integer_value(10)))
+
+
+def phase_cli_trap(torch, P, card):
+    """25g: init(check_nans=True) on the card: a NaN planted in an input
+    raises naming the op and the layer, a NaN made only in the backward
+    raises naming the backward node and the layer (autograd's device
+    thread carries the mode), disarmed the sentinel skips the same batch;
+    the armed step's time against the disarmed one."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode
+
+    P.init(compute_dtype="float32")
+    rng = np.random.RandomState(27)
+    rows = [(rng.standard_normal(TRAP_WIDTH).astype(np.float32), int(rng.randint(10)))
+            for _ in range(TRAP_B)]
+    poisoned = list(rows)
+    poisoned[5] = (np.where(np.arange(TRAP_WIDTH) == 7, np.nan, rows[5][0]).astype(np.float32),
+                   rows[5][1])
+    feeding = {"x": 0, "y": 1}
+    cost = trap_net(P, False)
+    trainer = P.trainer.SGD(cost, P.parameters.create(cost, seed=27),
+                            P.optimizer.Momentum(learning_rate=0.01))
+
+    def steps(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train(P.batch(lambda: iter(rows * n), TRAP_B), feeding=feeding)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n
+
+    steps(1)  # warm-up
+    off = steps(TRAP_STEPS)
+    P.init(check_nans=True, compute_dtype="float32")
+    try:
+        if _get_current_dispatch_mode() is not P.profiler.active_trap():
+            raise SystemExit("cli 25g: init(check_nans=True) did not arm the trap")
+        on = steps(TRAP_STEPS)
+        errors = []
+        try:
+            trainer.train(P.batch(lambda: iter(poisoned), TRAP_B), feeding=feeding)
+        except FloatingPointError as e:
+            errors.append(str(e))
+        bcost = trap_net(P, True)
+        btrainer = P.trainer.SGD(bcost, P.parameters.create(bcost, seed=28),
+                                 P.optimizer.Momentum(learning_rate=0.01))
+        zeros = [(np.zeros(TRAP_WIDTH, np.float32),) for _ in range(TRAP_B)]
+        try:
+            btrainer.train(P.batch(lambda: iter(zeros), TRAP_B), feeding={"x": 0})
+        except FloatingPointError as e:
+            errors.append(str(e))
+    finally:
+        P.profiler.enable_nan_checks(False)
+        P.flags.set_flag("check_nans", False)
+    say(f"cli 25g: NaN trap on {card}: planted input -> {errors[0] if errors else None!r}; "
+        f"backward only -> {errors[1] if len(errors) > 1 else None!r}")
+    if (len(errors) != 2 or "forward of layer 'h'" not in errors[0] or "aten." not in errors[0]
+            or "backward (SqrtBackward0) of layer 'q'" not in errors[1]):
+        raise SystemExit("cli 25g: the trap missed a NaN or did not name the op and the layer")
+    if _get_current_dispatch_mode() is not None:
+        raise SystemExit("cli 25g: a dispatch mode is still on the stack after disarming")
+    before = {k: v.clone() for k, v in trainer.parameters.params["h"].items()}
+    seen = []
+    trainer.train(P.batch(lambda: iter(poisoned), TRAP_B), feeding=feeding,
+                  event_handler=lambda e: seen.append(e.cost)
+                  if isinstance(e, P.event.EndIteration) else None)
+    kept = all(torch.equal(v, before[k]) for k, v in trainer.parameters.params["h"].items())
+    say(f"cli 25g: disarmed, the planted batch's cost {seen} and the parameters kept: {kept} "
+        f"(the sentinel's skip); step of the {TRAP_WIDTH}-wide MLP at batch {TRAP_B} (f32): "
+        f"disarmed {off * 1e3:.3f} ms, armed {on * 1e3:.3f} ms ({on / off:.1f}x: a host sync "
+        f"per op)")
+    if len(seen) != 1 or not np.isnan(seen[0]) or not kept:
+        raise SystemExit("cli 25g: disarmed, the sentinel did not skip the planted batch")
+
+
+def phase_cli_faces(torch, tcli, d, obs_trace):
+    """25h: lint --config (clean, and a planted dangling input), lint
+    --journal (a corrupt frame), dump_config, make_diagram, version, trace
+    validate on 25f's obs trace file."""
+    from paddle_tpu_torch.master_journal import JournalWriter
+    from paddle_tpu_torch.v1_compat import parse_config
+
+    cfg = os.path.join(d, "textcls.py")
+    cli_write(d, {"dangling.py": CLI_DANGLING})
+    jpath = os.path.join(d, "master_journal-000001.log")
+    w = JournalWriter(jpath, fsync=False)
+    for i in range(4):
+        w.append(i + 1, {"t": "join", "worker": f"w{i}"})
+    w.close()
+    raw = bytearray(open(jpath, "rb").read())
+    raw[len(raw) // 2] ^= 0xFF
+    with open(jpath, "wb") as f:
+        f.write(bytes(raw))
+    dot = os.path.join(d, "textcls.dot")
+    runs = {
+        "lint clean": cli_run(tcli, ["lint", "--config", cfg]),
+        "lint dangling": cli_run(tcli, ["lint", "--config", os.path.join(d, "dangling.py")]),
+        "lint journal": cli_run(tcli, ["lint", "--journal", jpath]),
+        "dump_config": cli_run(tcli, ["dump_config", cfg, f"--config_args={V1_ARGS}"]),
+        "make_diagram": cli_run(tcli, ["make_diagram", cfg, dot]),
+        "version": cli_run(tcli, ["version"]),
+        "trace validate": cli_run(tcli, ["trace", "validate", obs_trace]),
+    }
+    for name, (rc, out) in runs.items():
+        lines = out.strip().splitlines()
+        say(f"cli 25h: {name}: exit {rc}: {lines[0][:160]}"
+            + (f" ... {lines[-1][:160]}" if len(lines) > 1 else ""))
+    checks = {
+        "lint clean": runs["lint clean"][0] == 0,
+        "lint dangling": runs["lint dangling"][0] == 1 and "error[G002]" in runs["lint dangling"][1],
+        "lint journal": runs["lint journal"][0] == 1 and "J001" in runs["lint journal"][1],
+        "dump_config": runs["dump_config"][1] == parse_config(cfg, V1_ARGS).serialize() + "\n",
+        "make_diagram": open(dot).read().startswith("digraph"),
+        "version": torch.cuda.get_device_name(0) in runs["version"][1],
+        "trace validate": runs["trace validate"][0] == 0,
+    }
+    if not all(checks.values()):
+        raise SystemExit(f"cli 25h: failed {[k for k, v in checks.items() if not v]}")
+
+
+def phase_cli(torch, P, fa, card, v1):
+    """Phase 25: the v1 command line on phase 16's bench_lstm_textcls config
+    and corpus (25a-25c, 25f, 25h), an MLP (25d, 25g) and a Transformer-base
+    encoder classifier (25e).  Only 25e may launch a flash kernel."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import cli as tcli
+
+    d = tempfile.mkdtemp(prefix="cli_textcls_")
+    t = [time.perf_counter()]
+    try:
+        cli_write(d, {"textcls.py": V1_CONFIG, "provider.py": V1_PROVIDER})
+        v1_stage(d, "reviews.pkl", text_reviews(np.random.RandomState(0), V1_REVIEWS, TXT_VOCAB,
+                                                False))
+        phase_cli_shell(d, v1)
+        t.append(time.perf_counter())
+        P.init(seed=95, compute_dtype="bfloat16")
+        reset_counts(fa)
+        trainer, parsed = phase_cli_train_test(P, tcli, d)
+        phase_cli_checkgrad(torch, tcli, d)
+        if launch_counts(fa) != (0, 0, 0):
+            raise SystemExit("cli: 25b-25d launched a flash kernel")
+        t.append(time.perf_counter())
+        phase_cli_encoder(P, fa, tcli, d, card)
+        t.append(time.perf_counter())
+        obs_trace = phase_cli_profile(torch, P, trainer, parsed, d)
+        del trainer
+        phase_cli_trap(torch, P, card)
+        P.init(compute_dtype="bfloat16")
+        phase_cli_faces(torch, tcli, d, obs_trace)
+        t.append(time.perf_counter())
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    say(f"cli: phase 25 split: 25a {t[1] - t[0]:.1f} s, 25b-25d {t[2] - t[1]:.1f} s, 25e "
+        f"{t[3] - t[2]:.1f} s, 25f-25h {t[4] - t[3]:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -7069,7 +7534,7 @@ def main() -> int:
     say(f"tagger: phase 15 took {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    phase_v1(torch, P, fa, card, lstm14)
+    v1 = phase_v1(torch, P, fa, card, lstm14)
     say(f"v1: phase 16 took {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -7103,6 +7568,10 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_serving_plane(torch, P, fa, card)
     say(f"serving plane: phase 24 took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_cli(torch, P, fa, card, v1)
+    say(f"cli: phase 25 took {time.perf_counter() - t0:.1f} s")
     kernels = [
         {"name": name, "route": "cuda", "source": f"paddle_tpu_torch/csrc/{src}",
          "replaces": f"paddle_tpu/ops/pallas_attention.py:{line}",

@@ -23,8 +23,10 @@ and CRNN-CTC line recognizers.  The op framework (``framework/``: Scope, the
 ten ops, NetOp, Backward, RecurrentOp and the gradient checker), the GAN and
 VAE trainers (``models/gan.py``, ``models/vae.py``) and the v2 surface
 modules (``model``, ``plot``, ``utils/model_tools.py``,
-``utils/plotcurve.py``, ``utils/preprocess_img.py``) run on the same
-device rule::
+``utils/plotcurve.py``, ``utils/preprocess_img.py``), the v1 command line
+(``python -m paddle_tpu_torch train --job=train|test|time|checkgrad``,
+``cli.py``), the profiler and NaN trap (``profiler``) and the config-time
+graph lint (``analysis.lint_topology``) run on the same device rule::
 
     import paddle_tpu_torch as paddle
     paddle.init(seed=1, compute_dtype="bfloat16", use_flash_attention=True)
@@ -83,6 +85,7 @@ from paddle_tpu_torch import master_journal  # noqa: F401
 from paddle_tpu_torch import master  # noqa: F401
 from paddle_tpu_torch import launcher  # noqa: F401
 from paddle_tpu_torch.utils import flags  # noqa: F401
+from paddle_tpu_torch.utils import profiler  # noqa: F401
 
 __version__ = "0.1.0"
 
@@ -100,9 +103,9 @@ def init(use_tpu=None, trainer_count=None, seed=None, compute_dtype=None, *, dev
     nothing: the device comes from ``device=`` alone, so
     ``init(use_gpu=False)`` still runs on the card.  Remaining keyword
     arguments set flags (e.g. use_flash_attention=True); unknown names are
-    accepted and ignored, as the JAX package's init does.  NaN checks
-    (``check_nans=True``, by argument or environment) are not ported yet and
-    raise before anything is set."""
+    accepted and ignored, as the JAX package's init does.
+    ``check_nans=True`` (by argument, or ``PADDLE_TPU_TORCH_CHECK_NANS=1``)
+    arms the NaN trap (``profiler.enable_nan_checks``)."""
     import random
 
     import numpy as np
@@ -111,10 +114,6 @@ def init(use_tpu=None, trainer_count=None, seed=None, compute_dtype=None, *, dev
     from paddle_tpu_torch.core.compiler import set_default_compute_dtype
     from paddle_tpu_torch.core.device import set_default_device
 
-    if flags._coerce("check_nans", kwargs.get("check_nans", flags.get_flag("check_nans"))):
-        raise NotImplementedError(
-            "init(check_nans=True) (NaN checks, the JAX package's enable_nan_checks) is not "
-            "ported yet (ROADMAP Queue 1 item 7)")
     set_default_device(device if device is not None else "cuda")
     explicit = {
         k: v
@@ -135,3 +134,5 @@ def init(use_tpu=None, trainer_count=None, seed=None, compute_dtype=None, *, dev
     dtype_src = compute_dtype if compute_dtype is not None else flags.get_flag("compute_dtype")
     if dtype_src:
         set_default_compute_dtype(dtype_src)
+    if flags.get_flag("check_nans"):
+        profiler.enable_nan_checks(True)

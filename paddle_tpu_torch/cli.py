@@ -1,24 +1,829 @@
 """``python -m paddle_tpu_torch <command>`` — the counterpart of
-``paddle_tpu/cli.py``, with its ``master`` and ``worker`` subcommands (an HA
-master candidate of the elastic cluster plane, and one elastic trainer
-process) and its ``serve`` and ``route`` subcommands (one serving engine
-under the SLO scheduler, or a fleet engine with ``--register``; the fleet
-router).  Every other subcommand of the JAX package's CLI raises
-``NotImplementedError`` (ROADMAP Queue 1 item 7)."""
+``paddle_tpu/cli.py``, the reference's ``paddle`` command line
+(``paddle/trainer/TrainerMain.cpp:32-65``, ``paddle/scripts/submit_local.sh.in``):
+
+* ``train --config=conf.py --job=train|test|time|checkgrad`` runs a v1
+  config file unmodified (parse -> compile -> train step pass loop, with
+  ``pass-%05d/`` dirs as the reference trainer writes them), on the card
+  unless ``--device=cpu``; ``--job=time`` is the reference's
+  TrainerBenchmark (TrainerBenchmark.cpp:71);
+* ``version``, ``dump_config``, ``make_diagram``, ``merge_model``,
+  ``plotcurve``; ``trace merge|validate`` over obs span files; ``lint
+  --config`` (the graph lint) and ``lint --journal``;
+* ``master`` and ``worker`` (an HA master candidate of the elastic cluster
+  plane, and one elastic trainer process), ``serve`` and ``route`` (one
+  serving engine under the SLO scheduler, or a fleet engine with
+  ``--register``; the fleet router).
+
+``explore``, ``fuzz``, ``cache`` and ``scenario``, and lint's other modes,
+raise ``NotImplementedError`` (ROADMAP Queue 1 item 7).  Flags mirror the
+reference gflags in ``--name=value`` form; argparse also accepts ``--name
+value``."""
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
+import os
+import re
 import sys
 import time
 from typing import List, Optional
 
-__all__ = ["main", "cmd_master", "cmd_worker", "cmd_serve", "cmd_route"]
+__all__ = ["main", "cmd_train", "cmd_version", "cmd_dump_config", "cmd_make_diagram",
+           "cmd_merge_model", "cmd_plotcurve", "cmd_trace", "cmd_lint", "cmd_master",
+           "cmd_worker", "cmd_serve", "cmd_route"]
 
 
 def _echo(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _build_train_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="python -m paddle_tpu_torch train",
+        description="Train/test/time/checkgrad a v1 config file "
+        "(reference paddle_trainer, TrainerMain.cpp).",
+    )
+    ap.add_argument("--config", required=True, help="v1 config file (.py/.conf)")
+    ap.add_argument(
+        "--config_args", default="",
+        help="comma-separated key=value pairs passed to the config "
+        "(get_config_arg)",
+    )
+    ap.add_argument(
+        "--job", default="train",
+        choices=["train", "test", "time", "checkgrad"],
+        help="one of (train, test, time, checkgrad) — TrainerMain.cpp:51-62",
+    )
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the card; 'cpu' asks for the CPU)")
+    ap.add_argument("--save_dir", default=None, help="write pass-%%05d/ checkpoints here")
+    ap.add_argument("--num_passes", type=int, default=1)
+    ap.add_argument("--start_pass", type=int, default=0)
+    ap.add_argument(
+        "--init_model_path", default=None,
+        help="load initial parameters from this pass dir, merge_model bundle "
+        "or params.tar (ParamUtil.cpp)",
+    )
+    ap.add_argument("--saving_period", type=int, default=1)
+    ap.add_argument("--saving_period_by_batches", type=int, default=0)
+    ap.add_argument("--batch_size", type=int, default=0,
+                    help="override the config's settings(batch_size=...)")
+    ap.add_argument("--log_period", type=int, default=None)
+    ap.add_argument("--dot_period", type=int, default=1,
+                    help="print a '.' every N batches (reference TrainerInternal)")
+    ap.add_argument("--show_parameter_stats_period", type=int, default=None)
+    ap.add_argument("--test_period", type=int, default=50,
+                    help="--job=time: number of timed batches "
+                    "(TrainerBenchmark.cpp:79)")
+    ap.add_argument("--feed_data", action="store_true",
+                    help="--job=time: refetch a fresh batch every timed step "
+                    "instead of reusing one (TrainerBenchmark.cpp:80-83)")
+    ap.add_argument("--seed", type=int, default=None)
+    # the reference's and the JAX package's device switches: recorded as
+    # flags, the device comes from --device alone
+    ap.add_argument("--use_tpu", type=_flag_bool, default=True, nargs="?", const=True)
+    ap.add_argument("--use_gpu", type=_flag_bool, default=False, nargs="?", const=True)
+    ap.add_argument("--trainer_count", type=int, default=1)
+    ap.add_argument("--async_load_data", type=_flag_bool, default=True)
+    ap.add_argument(
+        "--cache_pass_in_mem", type=_flag_bool, default=False, nargs="?",
+        const=True,
+        help="device-resident pass cache: epoch 1 captures the staged "
+        "batches on the device, later epochs replay them with no "
+        "host-to-device copy (CacheType.CACHE_PASS_IN_MEM; "
+        "@provider(cache=...) configs enable this without the flag)",
+    )
+    ap.add_argument(
+        "--data_echo_factor", type=int, default=None,
+        help="train each epoch-1 batch N times (data echo) to amortize "
+        "its host-to-device copy; needs the pass cache enabled",
+    )
+    ap.add_argument(
+        "--aot_cache_dir", default=None,
+        help="persistent AOT executable cache of the JAX package; not "
+        "ported (ROADMAP Queue 1 item 7)",
+    )
+    ap.add_argument(
+        "--whole_pass_program", type=_flag_bool, default=False, nargs="?",
+        const=True,
+        help="run cached epochs >= 2 as ONE epoch program over the stacked "
+        "pass cache (one fetch per pass, bit-exact vs stepwise); needs "
+        "--cache_pass_in_mem",
+    )
+    ap.add_argument(
+        "--checkpoint_dir", default=None,
+        help="fault-tolerance plane (robustness/): write full-state "
+        "checkpoints (params + optimizer state + generator + pass/batch "
+        "position) here every --checkpoint_period_batches batches and at "
+        "pass boundaries; enables divergence auto-rollback and "
+        "preemption-safe shutdown (SIGTERM -> final checkpoint + "
+        "PREEMPTED marker)",
+    )
+    ap.add_argument(
+        "--checkpoint_period_batches", type=int, default=None,
+        help="full-state checkpoint cadence in batches (default: the "
+        "checkpoint_period_batches flag)",
+    )
+    ap.add_argument(
+        "--resume", action="store_true",
+        help="restore the latest good checkpoint from --checkpoint_dir "
+        "(walking past torn ones) and continue mid-pass where the "
+        "interrupted run stopped",
+    )
+    ap.add_argument(
+        "--chaos", default=None,
+        help="arm chaos fault points, e.g. 'nan_batch@5,kill@12' "
+        "(robustness/chaos.py; testing only)",
+    )
+    return ap
+
+
+def _flag_bool(v) -> bool:
+    if isinstance(v, bool):
+        return v
+    return str(v).lower() in ("1", "true", "yes")
+
+
+def _load_init_model(trainer, path: str) -> None:
+    """--init_model_path: a pass dir (v1 per-parameter binaries), a
+    merged-model bundle (merge_model output), or a bare params.tar."""
+    import tarfile
+
+    from paddle_tpu_torch import checkpoint as ckpt
+
+    if os.path.isdir(path):
+        ckpt.load_parameter_dir(trainer.parameters, path)
+        return
+    # a merge_model bundle is a tar with a manifest + nested params.tar;
+    # a bare params.tar has no manifest
+    is_bundle = False
+    try:
+        with tarfile.open(path, "r:*") as tf:
+            is_bundle = any(m.name.endswith("manifest.json") for m in tf.getmembers())
+    except tarfile.ReadError:
+        pass
+    if is_bundle:
+        from paddle_tpu_torch.utils.model_tools import load_merged_model
+
+        load_merged_model(path, trainer.parameters)
+    else:
+        with open(path, "rb") as f:
+            trainer.parameters.from_tar(f)
+
+
+def _make_trainer(parsed, seed: int, device):
+    from paddle_tpu_torch import parameters as v2_params
+    from paddle_tpu_torch import trainer as v2_trainer
+    from paddle_tpu_torch.v1_compat import make_optimizer
+
+    params = v2_params.create(parsed.topology, seed=seed, device=device)
+    return v2_trainer.SGD(
+        cost=parsed.topology,
+        parameters=params,
+        update_equation=make_optimizer(parsed.settings),
+        evaluators=list(parsed.evaluators),
+        seed=seed,
+        device=device,
+    )
+
+
+# The reference trainer's registered gflags this CLI doesn't implement
+# (paddle/utils/Flags.cpp + paddle/trainer/*.cpp DEFINE_*), the JAX
+# package's set: a train.sh line that works against paddle_trainer must not
+# die here — these names are accepted and ignored with a note.  Anything
+# NOT in this set (typos, stray tokens) stays a hard error.
+_IGNORED_REFERENCE_FLAGS = {
+    "average_test_period", "beam_size", "checkgrad_eps", "comment",
+    "distribute_test", "enable_parallel_vector", "gpu_id",
+    "load_missing_parameter_strategy", "loadsave_parameters_in_pserver",
+    "local", "log_period_server", "nics", "num_gradient_servers",
+    "parallel_nn", "port", "ports_num", "ports_num_for_sparse",
+    "prev_batch_state", "rdma_tcp", "save_only_one", "show_layer_stat",
+    "start_pserver", "test_all_data_in_one_period", "test_pass",
+    "test_wait", "trainer_id", "use_old_updater", "with_cost",
+}
+
+
+# the subset of ignored flags that take a VALUE (gflags string/int/double
+# definitions per the reference Flags.cpp/trainer flags) — only these may
+# consume a separate following token; the boolean remainder never does.
+# NB test_wait and enable_parallel_vector LOOK boolean but are DEFINE_int32
+# (Trainer.cpp:70, Flags.cpp:62).
+_VALUE_REFERENCE_FLAGS = {
+    "average_test_period", "beam_size", "checkgrad_eps", "comment",
+    "enable_parallel_vector", "gpu_id", "load_missing_parameter_strategy",
+    "log_period_server", "nics", "num_gradient_servers", "port",
+    "ports_num", "ports_num_for_sparse", "rdma_tcp", "test_pass",
+    "test_wait", "trainer_id",
+}
+
+
+def _ignored_flag_name(token: str):
+    """The _IGNORED_REFERENCE_FLAGS entry this token spells, or None.
+    Accepts --name, --name=value, and the gflags --no<bool> negation."""
+    if not token.startswith("-"):
+        return None
+    name = token.lstrip("-").split("=", 1)[0]
+    if name in _IGNORED_REFERENCE_FLAGS:
+        return name
+    if name.startswith("no") and name[2:] in _IGNORED_REFERENCE_FLAGS:
+        return name[2:]
+    return None
+
+
+def _split_unknown(unknown: List[str]):
+    """(ignored reference-flag tokens, fatal tokens) of the arguments the
+    train parser did not know."""
+    ignored, fatal = [], []
+    i = 0
+    while i < len(unknown):
+        u = unknown[i]
+        name = _ignored_flag_name(u)
+        if name is not None:
+            ignored.append(u)
+            # gflags separate-value form (`--gpu_id -1`, `--nics eth0`):
+            # only VALUE-taking flags consume the next token, and only when
+            # the value wasn't already attached with '='.  The token must
+            # neither be a key=value (a stray `batch_size=32` after a
+            # boolean stays fatal) nor LOOK like a flag itself (`--nics
+            # --nolocall` must not eat the typo) — negative numbers like
+            # `-1` are values, dash-then-letter is a flag.
+            nxt = unknown[i + 1] if i + 1 < len(unknown) else None
+            looks_like_flag = bool(nxt and re.match(r"--?[A-Za-z]", nxt))
+            if (
+                "=" not in u
+                and not u.lstrip("-").startswith("no")
+                and name in _VALUE_REFERENCE_FLAGS
+                and nxt is not None
+                and "=" not in nxt
+                and not looks_like_flag
+            ):
+                ignored.append(nxt)
+                i += 1
+        else:
+            fatal.append(u)
+        i += 1
+    return ignored, fatal
+
+
+def cmd_train(argv: List[str]) -> int:
+    """``train`` — the reference ``paddle train`` (TrainerMain.cpp): parse a
+    v1 config, build its network and optimizer, and run ``--job`` (train,
+    test, time or checkgrad) on the card unless ``--device=cpu``."""
+    args, unknown = _build_train_parser().parse_known_args(argv)
+    ignored, fatal = _split_unknown(unknown)
+    if ignored:
+        print(f"note: ignoring reference trainer flags {ignored}", file=sys.stderr)
+    if fatal:
+        print(
+            f"error: unrecognized arguments {fatal} (not reference trainer "
+            "flags; see `python -m paddle_tpu_torch train --help`)",
+            file=sys.stderr,
+        )
+        return 2
+    if args.aot_cache_dir:
+        raise NotImplementedError(
+            "--aot_cache_dir (the JAX package's persistent executable cache) is not "
+            "ported yet (ROADMAP Queue 1 item 7)")
+    from paddle_tpu_torch import obs as _obs
+    from paddle_tpu_torch.core.device import resolve_device
+    from paddle_tpu_torch.utils import flags as _flags
+    from paddle_tpu_torch.v1_compat import parse_config
+
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        print(f"error: {e} (on the command line: --device=cpu)", file=sys.stderr)
+        return 1
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
+    _obs.tracer.configure(role="trainer")
+    if args.log_period is not None:
+        _flags.set_flag("log_period", args.log_period)
+    if args.show_parameter_stats_period is not None:
+        _flags.set_flag("show_parameter_stats_period", args.show_parameter_stats_period)
+    if args.seed is not None:
+        _flags.set_flag("seed", args.seed)
+    if args.cache_pass_in_mem:
+        _flags.set_flag("cache_pass_in_mem", True)
+    if args.data_echo_factor is not None:
+        _flags.set_flag("data_echo_factor", args.data_echo_factor)
+    if args.whole_pass_program:
+        _flags.set_flag("whole_pass_program", True)
+    if args.chaos:
+        from paddle_tpu_torch.robustness import chaos as _chaos
+
+        _chaos.arm(args.chaos)
+    _flags.set_flags(use_tpu=args.use_tpu, use_gpu=args.use_gpu,
+                     trainer_count=args.trainer_count)
+    if _flags.get_flag("compute_dtype"):
+        # the flag (PADDLE_TPU_TORCH_COMPUTE_DTYPE) picks mixed precision,
+        # as init() does
+        from paddle_tpu_torch.core.compiler import set_default_compute_dtype
+
+        set_default_compute_dtype(_flags.get_flag("compute_dtype"))
+    seed = _flags.get_flag("seed")
+
+    config_path = os.path.abspath(args.config)
+    config_dir = os.path.dirname(config_path)
+    parsed = parse_config(config_path, args.config_args)
+    if args.batch_size:
+        # write the override back BEFORE building the optimizer: the
+        # 'manual' LR schedule converts its sample boundaries through
+        # settings.batch_size (reference numSamplesProcessed counts real
+        # samples)
+        parsed.settings.batch_size = args.batch_size
+    batch_size = parsed.settings.batch_size
+    trainer = _make_trainer(parsed, seed, device)
+
+    if args.init_model_path:
+        _load_init_model(trainer, args.init_model_path)
+    elif args.start_pass > 0 and args.save_dir:
+        # resume from the last completed pass (reference ParamUtil
+        # loadParametersWithPath from save_dir/pass-%05d)
+        trainer.load_pass(args.save_dir, args.start_pass - 1)
+
+    job = {"train": _job_train, "test": _job_test, "time": _job_time,
+           "checkgrad": _job_checkgrad}[args.job]
+    return job(args, parsed, trainer, batch_size, config_dir)
+
+
+def _has_test(parsed) -> bool:
+    """Whether the config declares a test stream (TestData, or a test list
+    in define_py_data_sources2)."""
+    return parsed.test_data is not None or bool(
+        parsed.data_sources is not None and parsed.data_sources.test_list)
+
+
+def _job_train(args, parsed, trainer, batch_size, config_dir) -> int:
+    """--job=train: dots, "Pass N: mean cost", the test stream after each
+    pass, pass-%05d dirs; exit 75 when preempted."""
+    from paddle_tpu_torch import event as v2_event
+    from paddle_tpu_torch import minibatch
+    from paddle_tpu_torch.v1_compat import make_batched_reader, make_config_reader
+
+    test_reader = None
+    if _has_test(parsed):
+        try:
+            test_reader = make_config_reader(parsed, config_dir, train=False)
+        except (ValueError, FileNotFoundError) as e:
+            _echo(f"test data declared but unavailable ({e}); skipping eval")
+
+    dot = max(args.dot_period, 0)
+    t0 = time.time()
+
+    def handler(ev) -> None:
+        if isinstance(ev, v2_event.EndIteration):
+            if dot and (ev.batch_id + 1) % dot == 0:
+                sys.stdout.write(".")
+                sys.stdout.flush()
+        elif isinstance(ev, v2_event.EndPass):
+            sys.stdout.write("\n")
+            _echo(
+                f"Pass {ev.pass_id}: mean cost "
+                f"{ev.evaluator.get('mean_cost', float('nan')):.6f} "
+                f"({time.time() - t0:.1f}s elapsed)"
+            )
+            for k, v in sorted(ev.evaluator.items()):
+                if k != "mean_cost":
+                    _echo(f"  {k} = {v}")
+            if test_reader is not None:
+                res = trainer.test(reader=minibatch.batch(test_reader, batch_size),
+                                   feeding=parsed.feeding)
+                _echo(f"Test with Pass {ev.pass_id}: cost {res.cost:.6f}")
+                for k, v in sorted(res.metrics.items()):
+                    _echo(f"  {k} = {v}")
+
+    trainer.train(
+        reader=make_batched_reader(parsed, config_dir, batch_size, train=True),
+        num_passes=args.num_passes,
+        event_handler=handler,
+        feeding=parsed.feeding,
+        save_dir=args.save_dir,
+        saving_period=args.saving_period,
+        saving_period_by_batches=args.saving_period_by_batches or None,
+        start_pass=args.start_pass,
+        async_load_data=args.async_load_data,
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_period_batches=args.checkpoint_period_batches,
+        resume=args.resume,
+    )
+    if trainer.preempted:
+        _echo(
+            f"PREEMPTED: state checkpointed under {args.checkpoint_dir}; "
+            "restart with --resume to continue"
+        )
+        return 75  # EX_TEMPFAIL: restart me
+    return 0
+
+
+def _job_test(args, parsed, trainer, batch_size, config_dir) -> int:
+    """--job=test (reference Tester.cpp): evaluate the loaded model on the
+    config's test stream (train stream when no test stream is declared or
+    it cannot be read)."""
+    from paddle_tpu_torch import minibatch
+    from paddle_tpu_torch.v1_compat import make_config_reader
+
+    reader = None
+    if _has_test(parsed):
+        try:
+            reader = make_config_reader(parsed, config_dir, train=False)
+        except (ValueError, FileNotFoundError):
+            pass
+    if reader is None:
+        _echo("no test data declared; evaluating on the train stream")
+        reader = make_config_reader(parsed, config_dir, train=True)
+    res = trainer.test(reader=minibatch.batch(reader, batch_size), feeding=parsed.feeding)
+    _echo(f"Test cost {res.cost:.6f}")
+    for k, v in sorted(res.metrics.items()):
+        _echo(f"  {k} = {v}")
+    return 0
+
+
+def _job_time(args, parsed, trainer, batch_size, config_dir) -> int:
+    """--job=time (TrainerBenchmark.cpp:30-90): 10 burn-in steps on one
+    batch, then ``--test_period`` timed steps; prints the StatSet table the
+    reference prints via globalStat.printSegTimerStatus().  The clock is
+    read after a host fetch of the cost (the device has finished then)."""
+    from paddle_tpu_torch.reader.pass_cache import PassCache
+    from paddle_tpu_torch.trainer.step import draw_seed
+    from paddle_tpu_torch.utils.flags import get_flag
+    from paddle_tpu_torch.utils.timers import global_stats, stat_timer
+    from paddle_tpu_torch.v1_compat import make_batched_reader
+
+    # honors use_bucketing: --job=time measures the bucketed feed when the
+    # flag is on
+    batch_reader = make_batched_reader(parsed, config_dir, batch_size, train=True)
+    batches = batch_reader()
+    feeder = trainer._make_feeder(parsed.feeding)
+
+    def next_batch():
+        nonlocal batches
+        with stat_timer("GetData"):
+            try:
+                raw = next(batches)
+            except StopIteration:
+                batches = batch_reader()
+                raw = next(batches)
+            return feeder(raw)
+
+    # --cache_pass_in_mem (or a CACHE_PASS_IN_MEM provider): stage the timed
+    # batches once, seal the device-resident cache, and feed every timed
+    # step from its replay — the timing then measures the cached-epoch
+    # regime instead of the host-to-device copy
+    cached_iter = None
+    if get_flag("cache_pass_in_mem") or getattr(batch_reader, "cache_pass_in_mem", False):
+        # timing feed: no echo (every timed step must be a distinct step)
+        cache = PassCache.from_flags(batch_reader, echo_factor=1)
+        # stage at most ONE pass, capped at the timed-step count
+        for raw in batch_reader():
+            with stat_timer("GetData"):
+                cache.observe(feeder(raw))
+            if not cache.active or cache.n_batches >= max(args.test_period, 1):
+                break
+        cache.seal()
+        if cache.ready:
+            cached_iter = cache.stream()
+            _echo(f"pass cache: {cache.summary()}")
+
+    batch = next(cached_iter) if cached_iter is not None else next_batch()
+    params, state = trainer.parameters.params, trainer.parameters.state
+    opt_state = trainer._opt_state
+
+    def one_step(params, state, opt_state, batch):
+        return trainer._train_step(params, state, opt_state, batch, draw_seed(trainer._rng))
+
+    _echo("Burning time...")
+    for _ in range(10):
+        params, state, opt_state, metrics = one_step(params, state, opt_state, batch)
+    float(metrics["cost"])  # host fetch: the device is done
+    _echo("Burning time end.")
+
+    n = 0
+    t0 = time.time()
+    for _ in range(max(args.test_period, 1)):
+        if args.feed_data:
+            batch = next(cached_iter) if cached_iter is not None else next_batch()
+        with stat_timer("FwdBwd"):
+            params, state, opt_state, metrics = one_step(params, state, opt_state, batch)
+        n += 1
+    float(metrics["cost"])
+    dt = time.time() - t0
+    global_stats.print_all_status()  # prints the StatSet table itself
+    _echo(
+        f"{n} batches of {batch_size}: {dt * 1000 / n:.3f} ms/batch, "
+        f"{n * batch_size / dt:.1f} samples/sec"
+    )
+    global_stats.reset()
+    return 0
+
+
+def directional_derivatives(trainer, fed, eps: float = 1e-5):
+    """The reference's gradient check (Trainer::checkGradient) of the
+    trainer's network on the fed batch `fed`, in float64: per parameter
+    tensor, in sorted order, a direction d drawn from
+    ``np.random.RandomState(0)`` (unit norm), the analytic <grad, d> of
+    the summed output means and the central difference
+    (cost(w + eps d) - cost(w - eps d)) / (2 eps).  Returns [(dotted name,
+    analytic, finite difference, relative error)].  The default dtype is
+    float64 only inside this call."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.core.batch import SeqTensor
+    from paddle_tpu_torch.core.compiler import CompiledNetwork
+    from paddle_tpu_torch.utils.tree import get_path, leaf_paths, map_leaves, set_path
+
+    def f64(x):
+        return x.to(torch.float64) if torch.is_tensor(x) and x.is_floating_point() else x
+
+    batch = {k: SeqTensor(f64(t.data), t.lengths, t.sub_lengths, sparse_ids=t.sparse_ids)
+             for k, t in fed.items()}
+    # the trainer's topology with no compute-dtype casts: float64 all through
+    net = CompiledNetwork(trainer.topology, compute_dtype=torch.float32)
+    state = map_leaves(f64, trainer.parameters.state)
+    out_names = list(net.topology.output_names)
+
+    def total_cost(params):
+        outs, _ = net.apply(params, batch, state=state, train=True, rng=0)
+        return sum(outs[name].data.to(torch.float64).mean() for name in out_names)
+
+    def loss(params) -> float:
+        with torch.no_grad():
+            return float(total_cost(params))
+
+    saved_dtype = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        base = map_leaves(lambda v: f64(v).detach(), trainer.parameters.params)
+        leaves = map_leaves(lambda v: v.clone().requires_grad_(True), base)
+        paths = sorted(leaf_paths(leaves), key=lambda pv: pv[0])
+        with torch.enable_grad():
+            grads = torch.autograd.grad(total_cost(leaves), [v for _, v in paths],
+                                        allow_unused=True)
+        rng_np = np.random.RandomState(0)
+        rows = []
+        for (path, _), g in zip(paths, grads):
+            w0 = get_path(base, path)
+            gval = np.zeros(tuple(w0.shape)) if g is None else g.cpu().numpy()
+            d = rng_np.standard_normal(tuple(w0.shape))
+            d /= max(np.linalg.norm(d), 1e-12)
+            step = eps * torch.as_tensor(d, device=w0.device)
+            pert = map_leaves(lambda x: x, base)  # a new tree sharing the leaves
+            set_path(pert, path, w0 + step)
+            lp = loss(pert)
+            set_path(pert, path, w0 - step)
+            lm = loss(pert)
+            fd = (lp - lm) / (2 * eps)
+            an = float((gval * d).sum())
+            rows.append((".".join(path), an, fd, abs(fd - an) / max(abs(fd), abs(an), 1e-8)))
+    finally:
+        torch.set_default_dtype(saved_dtype)
+    return rows
+
+
+def _job_checkgrad(args, parsed, trainer, batch_size, config_dir) -> int:
+    """--job=checkgrad (Trainer::checkGradient, Trainer.cpp): the
+    directional check of :func:`directional_derivatives` on the first
+    min(batch_size, 8) samples, in float64 (the reference's WITH_DOUBLE
+    build; in f32 the forward's noise swamps any usable eps); a parameter
+    fails above 1e-3 relative."""
+    from paddle_tpu_torch import minibatch
+    from paddle_tpu_torch.v1_compat import make_config_reader
+
+    reader = make_config_reader(parsed, config_dir, train=True)
+    raw = next(minibatch.batch(reader, min(batch_size, 8))())
+    rows = directional_derivatives(trainer, trainer._make_feeder(parsed.feeding)(raw))
+    failed = [r for r in rows if r[3] > 1e-3]
+    if failed:
+        for name, an, fd, rel in failed:
+            _echo(f"FAIL {name}: analytic {an:.6g} vs fd {fd:.6g} (rel {rel:.3g})")
+        return 1
+    n_layers = len({name.split(".")[0] for name, *_ in rows})
+    worst = max((r[3] for r in rows), default=0.0)
+    _echo(f"checkgrad PASSED ({n_layers} parameters, worst rel err {worst:.3g})")
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# the tooling subcommands (submit_local.sh.in:114-135)
+# ---------------------------------------------------------------------------
+
+def cmd_version(argv: List[str]) -> int:
+    import torch
+
+    import paddle_tpu_torch
+
+    print(f"paddle_tpu_torch {paddle_tpu_torch.__version__}, running on")
+    print(f"    torch: {torch.__version__} (CUDA {torch.version.cuda})")
+    if torch.cuda.is_available():
+        devs = [f"cuda:{i} ({torch.cuda.get_device_name(i)})"
+                for i in range(torch.cuda.device_count())]
+        print(f"    devices: {devs}")
+    else:
+        print("    devices: ['cpu'] (no CUDA device)")
+    return 0
+
+
+def cmd_dump_config(argv: List[str]) -> int:
+    ap = argparse.ArgumentParser(prog="python -m paddle_tpu_torch dump_config")
+    ap.add_argument("config")
+    ap.add_argument("--config_args", default="")
+    args = ap.parse_args(argv)
+    from paddle_tpu_torch.utils.model_tools import dump_config
+
+    print(dump_config(args.config, args.config_args))
+    return 0
+
+
+def cmd_make_diagram(argv: List[str]) -> int:
+    ap = argparse.ArgumentParser(prog="python -m paddle_tpu_torch make_diagram")
+    ap.add_argument("config")
+    ap.add_argument("dot_file")
+    ap.add_argument("--config_args", default="")
+    args = ap.parse_args(argv)
+    from paddle_tpu_torch.utils.model_tools import make_diagram
+    from paddle_tpu_torch.v1_compat import parse_config
+
+    parsed = parse_config(os.path.abspath(args.config), args.config_args)
+    make_diagram(parsed.topology, args.dot_file)
+    print(f"wrote {args.dot_file}")
+    return 0
+
+
+def cmd_merge_model(argv: List[str]) -> int:
+    ap = argparse.ArgumentParser(prog="python -m paddle_tpu_torch merge_model")
+    ap.add_argument("--model_dir", required=True, help="a pass-%%05d dir")
+    ap.add_argument("--config_file", required=True)
+    ap.add_argument("--model_file", required=True, help="output bundle path")
+    ap.add_argument("--config_args", default="")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the card; 'cpu' asks for the CPU)")
+    args = ap.parse_args(argv)
+    from paddle_tpu_torch import checkpoint as ckpt
+    from paddle_tpu_torch import parameters as v2_params
+    from paddle_tpu_torch.utils.model_tools import merge_model
+    from paddle_tpu_torch.v1_compat import parse_config
+
+    parsed = parse_config(os.path.abspath(args.config_file), args.config_args)
+    params = v2_params.create(parsed.topology, device=args.device)
+    ckpt.load_parameter_dir(params, args.model_dir)
+    merge_model(params, args.model_file)
+    print(f"wrote {args.model_file}")
+    return 0
+
+
+def cmd_plotcurve(argv: List[str]) -> int:
+    from paddle_tpu_torch.utils.plotcurve import main as plot_main
+
+    return plot_main(argv)
+
+
+def cmd_trace(argv: List[str]) -> int:
+    """``trace`` — the span-timeline tooling (obs/):
+
+    * ``merge --dir D [--out F]`` — zip the per-process
+      ``trace-<role>-<pid>.json`` files a launcher run left behind into ONE
+      Chrome-trace timeline (opens directly in Perfetto), clock-skew
+      aligned via the RPC plane's request/response pairs (wall-anchor
+      fallback for processes that never talked);
+    * ``validate F`` — schema-check a trace file (required event keys,
+      begin/end pairing, well-formed args); exit 0 iff valid.
+
+    One JSON summary line per run (event counts, pids, planes, applied
+    per-process clock offsets)."""
+    ap = argparse.ArgumentParser(
+        prog="python -m paddle_tpu_torch trace",
+        description="merge/validate span-timeline files (paddle_tpu_torch/obs)",
+    )
+    ap.add_argument("action", choices=["merge", "validate"])
+    ap.add_argument("paths", nargs="*",
+                    help="validate: trace file(s); merge: explicit trace "
+                    "files instead of --dir")
+    ap.add_argument("--dir", default=None,
+                    help="merge: directory of trace-*.json files")
+    ap.add_argument("--out", default=None,
+                    help="merge: merged timeline path (default <dir>/merged.json)")
+    args = ap.parse_args(argv)
+
+    from paddle_tpu_torch.obs import merge as _merge
+
+    if args.action == "validate":
+        if not args.paths:
+            print("error: validate needs trace file path(s)", file=sys.stderr)
+            return 2
+        bad = 0
+        for p in args.paths:
+            problems = _merge.validate_trace(_merge.load_trace(p))
+            print(json.dumps({"file": p, "valid": not problems, "problems": problems[:20]}))
+            bad += bool(problems)
+        return 1 if bad else 0
+
+    if args.paths:
+        merged = _merge.merge_traces([_merge.load_trace(p) for p in args.paths])
+        out = args.out or "merged.json"
+        with open(out, "w") as f:
+            json.dump(merged, f)
+    elif args.dir:
+        merged, out = _merge.merge_dir(args.dir, out_path=args.out)
+    else:
+        print("error: merge needs --dir or trace file paths", file=sys.stderr)
+        return 2
+    other = merged["otherData"]
+    print(json.dumps({
+        "merged": out,
+        "events": sum(1 for e in merged["traceEvents"] if e.get("ph") != "M"),
+        "pids": other["merged_pids"],
+        "roles": other["roles"],
+        "offsets_us": other["offsets_us"],
+        "rpc_pair_edges": other["rpc_pair_edges"],
+    }))
+    return 0
+
+
+def cmd_lint(argv: List[str]) -> int:
+    """``lint`` — static analysis (analysis/):
+
+    * --config=conf.py: parse the v1 config and graph-lint its topology
+      (rules G###) with layer + config provenance;
+    * --journal=master_journal-000001.log: verify a master journal file —
+      framing/CRC (J001), unknown record types (J002), sequence
+      monotonicity (J003), torn tail (J004).
+
+    The package self-lint (no --config or --journal) and --donation,
+    --concurrency, --protocol, --numerics and --certify are not ported yet
+    (ROADMAP Queue 1 item 7) and raise.  Exit 0 only when no diagnostics
+    fire."""
+    ap = argparse.ArgumentParser(
+        prog="python -m paddle_tpu_torch lint",
+        description="config-time graph lint and master-journal verification "
+        "(the reference config_parser's config_assert plane)",
+    )
+    ap.add_argument("--config", action="append", default=[],
+                    help="v1 config file to graph-lint (repeatable)")
+    ap.add_argument("--config_args", default="",
+                    help="comma-separated key=value pairs for the config(s)")
+    ap.add_argument("--journal", action="append", default=[],
+                    help="master journal file to verify (repeatable; rules J###)")
+    ap.add_argument("--extra", action="append", default=[],
+                    help="extra .py files to self-lint (not ported: item 7)")
+    for mode in ("donation", "concurrency", "numerics", "protocol", "certify"):
+        ap.add_argument(f"--{mode}", action="store_true", help="not ported yet (item 7)")
+    ap.add_argument("--compute-dtype", default=None, help="numerics (not ported: item 7)")
+    ap.add_argument("--master-dtype", default=None, help="numerics (not ported: item 7)")
+    ap.add_argument("--min-severity", default=None, choices=["info", "warning", "error"],
+                    help="only report findings at or above this severity")
+    args = ap.parse_args(argv)
+
+    unported = [m for m in ("donation", "concurrency", "numerics", "protocol", "certify")
+                if getattr(args, m)]
+    if not (args.config or args.journal):
+        unported.insert(0, "the package self-lint")
+    if unported:
+        raise NotImplementedError(
+            f"lint {', '.join(unported)} is not ported yet (ROADMAP Queue 1 item 7); the "
+            "port's lint has --config and --journal")
+
+    from paddle_tpu_torch import analysis
+
+    diags = []
+    if args.journal:
+        from paddle_tpu_torch import master_journal as _mj
+
+        for jpath in args.journal:
+            for f in _mj.verify_journal(jpath):
+                diags.append(analysis.Diagnostic(
+                    rule=f["rule"],
+                    severity=analysis.Severity[f["severity"].upper()],
+                    message=f["message"],
+                    source=jpath,
+                ))
+    if args.config:
+        import dataclasses as _dc
+
+        from paddle_tpu_torch.v1_compat import parse_config
+
+        for cfg in args.config:
+            if len(args.config) > 1:
+                print(f"graph-lint {cfg}")
+            try:
+                parsed = parse_config(os.path.abspath(cfg), args.config_args)
+            except analysis.DiagnosticError as e:
+                # build-time findings (duplicate names, feed-slot errors)
+                # report like any other lint result, not as a traceback,
+                # attributed to this config
+                diags.extend(_dc.replace(d, source=cfg) for d in e.diagnostics)
+                continue
+            diags.extend(analysis.lint_parsed(parsed))
+
+    if args.min_severity:
+        floor = analysis.Severity[args.min_severity.upper()]
+        diags = [d for d in diags if d.severity >= floor]
+
+    print(analysis.format_diagnostics(diags))
+    return 1 if diags else 0
 
 
 def cmd_worker(argv: List[str]) -> int:
@@ -902,20 +1707,22 @@ def cmd_route(argv: List[str]) -> int:
 
 
 # the JAX package's other subcommands, each waiting for its port
-_NOT_PORTED = ("train", "version", "dump_config", "make_diagram", "merge_model",
-               "plotcurve", "lint", "explore", "fuzz", "cache", "scenario", "trace")
+_NOT_PORTED = ("explore", "fuzz", "cache", "scenario")
 
 
 def _not_ported(name: str):
     def cmd(argv: List[str]) -> int:
         raise NotImplementedError(
-            f"the {name!r} subcommand is not ported yet (ROADMAP Queue 1 item 7); "
-            "the port's CLI has 'master', 'worker', 'serve' and 'route'")
+            f"the {name!r} subcommand is not ported yet (ROADMAP Queue 1 item 7); see "
+            "`python -m paddle_tpu_torch --help` for the ported ones")
 
     return cmd
 
 
-_COMMANDS = {"master": cmd_master, "worker": cmd_worker, "serve": cmd_serve,
+_COMMANDS = {"train": cmd_train, "version": cmd_version, "dump_config": cmd_dump_config,
+             "make_diagram": cmd_make_diagram, "merge_model": cmd_merge_model,
+             "plotcurve": cmd_plotcurve, "lint": cmd_lint, "trace": cmd_trace,
+             "master": cmd_master, "worker": cmd_worker, "serve": cmd_serve,
              "route": cmd_route,
              **{name: _not_ported(name) for name in _NOT_PORTED}}
 
@@ -925,6 +1732,17 @@ def main(argv: Optional[List[str]] = None) -> int:
     if not argv or argv[0] in ("-h", "--help"):
         print("usage: python -m paddle_tpu_torch <command> [<flags>]")
         print("commands:")
+        print("    train             train/test/time/checkgrad a v1 config (--job=...;")
+        print("                      on the card unless --device=cpu)")
+        print("    version           print version + device info")
+        print("    dump_config       print the resolved topology of a config")
+        print("    make_diagram      write a Graphviz diagram of a config")
+        print("    merge_model       bundle config + parameters into one file")
+        print("    plotcurve         plot training curves from a log")
+        print("    lint              static analysis: graph-lint a config")
+        print("                      (--config) or verify a master journal")
+        print("                      (--journal)")
+        print("    trace             merge/validate span-timeline files")
         print("    master            run an HA master candidate (elastic")
         print("                      scale-out: registry + shard leases)")
         print("    worker            run one elastic trainer process against")

@@ -43,6 +43,7 @@ from paddle_tpu_torch.core.device import resolve_device
 from paddle_tpu_torch.core.topology import Topology
 from paddle_tpu_torch.layers.base import ApplyContext, get_layer_impl, mix_seed
 from paddle_tpu_torch.ops.activations import apply_activation
+from paddle_tpu_torch.utils.profiler import active_trap
 from paddle_tpu_torch.utils.tree import get_path, leaves, map_leaves
 
 Params = Dict[str, Dict[str, Any]]
@@ -474,6 +475,9 @@ class CompiledNetwork:
         ctx = self.make_context(train=train, rng=rng, state=state)
         if preset:
             ctx.outputs.update(preset)
+        # the armed NaN trap names the layer it finds a NaN in
+        trap = active_trap()
+        outer_layer = trap.forward_layer if trap is not None else None
         for name in self.topology.order:
             if (preset and name in preset) or (only is not None and name not in only):
                 continue
@@ -489,6 +493,8 @@ class CompiledNetwork:
             ins = [ctx.outputs[i] for i in conf.inputs]
             n_before = len(ctx.outputs)
             p, ins = self.resolve_layer_call(name, params, ins)
+            if trap is not None:
+                trap.forward_layer = name
             try:
                 out = impl.apply(conf, p, ins, ctx)
             except Exception as e:
@@ -521,6 +527,10 @@ class CompiledNetwork:
             if eclip and train:
                 out = out.with_data(error_clip(out.data, eclip))
             ctx.outputs[name] = out
+            if trap is not None and out.data.requires_grad:
+                out.data.register_hook(trap.backward_hook(name))
+        if trap is not None:
+            trap.forward_layer = outer_layer
         return ctx.outputs, {**ctx.state, **ctx.new_state}
 
     def forward(

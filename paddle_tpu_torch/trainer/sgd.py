@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch import event as v2_event
+from paddle_tpu_torch import obs as _obs
 from paddle_tpu_torch.core.batch import DEFAULT_LADDER, batch_shape_key
 from paddle_tpu_torch.core.compiler import CompiledNetwork, CompileShapeCache
 from paddle_tpu_torch.core.device import resolve_device, tree_to
@@ -226,7 +227,9 @@ class SGD:
         the prefetch worker's form)."""
 
         def stage(data):
-            with stat_timer("feed"):
+            # obs: the stage leg (on the prefetch thread when feeding is
+            # asynchronous, so a timeline shows feed overlapping compute)
+            with stat_timer("feed"), _obs.span("feed", cat="trainer"):
                 host = feeder.convert(data)
                 if _chaos.fire("nan_batch"):
                     host = _chaos.poison_batch(host)
@@ -256,7 +259,8 @@ class SGD:
             kept = (clone_tree(params), clone_tree(state), clone_tree(opt_state),
                     self._rng.get_state())
         carry = make_train_carry(params, state, opt_state, self._rng)
-        with stat_timer("epoch_program"):
+        with stat_timer("epoch_program"), _obs.span("epoch_program", cat="trainer", p=pass_id,
+                                                     n_steps=n):
             carry, ms = prog(carry, pass_cache.stacked(), pass_cache.epoch_perm(pass_id))
         global_stats.incr("epoch_program/dispatches")
         global_stats.incr("epoch_program/steps", n)
@@ -546,10 +550,14 @@ class SGD:
                     if is_live and recovery is not None:
                         recovery.record(pass_id, bid, batch)
                     batch = DataFeeder.consume(batch)
+                    # obs: the dispatch of the step, then the block on its
+                    # metrics' host copy
                     with stat_timer("train_step"):
-                        params, state, opt_state, metrics = self._train_step(
-                            params, state, opt_state, batch, draw_seed(self._rng))
-                        metrics = fetch_metrics(metrics)
+                        with _obs.span("train_step", cat="trainer", p=pass_id, b=bid):
+                            params, state, opt_state, metrics = self._train_step(
+                                params, state, opt_state, batch, draw_seed(self._rng))
+                        with _obs.span("block_fetch", cat="trainer", b=bid):
+                            metrics = fetch_metrics(metrics)
                     self._step_count += 1
                     health = metrics.pop("health", None)
                     grad_norm = metrics.pop("grad_norm", None)

@@ -90,9 +90,11 @@ define_flag("show_parameter_stats_period", 0,
             "log per-parameter stats (size, mean, mean |x|, min, max) every "
             "N batches of SGD.train (0 = off)")
 define_flag("check_nans", False,
-            "NaN checks (the JAX package's jax nan-debugging); not ported yet: "
-            "init(check_nans=True) raises")
+            "arm the NaN trap (utils/profiler.enable_nan_checks, the FP trap "
+            "equivalent) in init()")
 define_flag("compute_dtype", "", "bfloat16 enables mixed precision")
+define_flag("profile_dir", "", "utils.profiler.profile() writes its torch profiler "
+            "traces here when called without a directory")
 define_flag("use_flash_attention", False,
             "hand-written flash-attention kernels (ops/flash_attention.py: "
             "the forward, and the dq and dk/dv backward kernels when a "

@@ -59,7 +59,8 @@ def test_every_module_imports_without_jax():
                 "obs", "obs.tracer", "obs.metrics", "obs.merge", "master_wire", "ops.quantize",
                 "robustness.netem", "master_journal", "master", "master_ha", "trainer.elastic",
                 "launcher", "cli", "__main__", "serving.router", "reader.loadgen",
-                "robustness.traces", "core.aot_cache", "analysis.diagnostics"):
+                "robustness.traces", "core.aot_cache", "analysis.diagnostics",
+                "analysis.graph_lint", "utils.profiler"):
         assert f"paddle_tpu_torch.{mod}" in names.split()
 
 

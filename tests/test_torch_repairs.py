@@ -10,9 +10,10 @@
   card as the device; ``use_pallas_attention`` is an alias of
   ``use_flash_attention``;
 - ``init`` takes the JAX package's positional order (use_tpu,
-  trainer_count, seed, compute_dtype); ``init(check_nans=True)``, whose NaN
-  checks are not ported, raises naming ROADMAP Queue 1 item 7 and changes
-  nothing;
+  trainer_count, seed, compute_dtype); ``init(check_nans=True)`` (by
+  argument or environment) arms the NaN trap, under which a step that makes
+  a NaN raises ``FloatingPointError`` and changes no parameter, and
+  ``enable_nan_checks(False)`` takes it off the dispatch stack;
 - the top level binds every module the JAX package's binds, except those
   of ROADMAP Queue 1 items 6 and 7 (a fresh process diffs the names), and
   ``paddle.dataset.mnist.train`` resolves without a submodule import;
@@ -195,20 +196,41 @@ def test_init_takes_the_jax_positional_order():
 
 
 def test_check_nans_raises_and_changes_nothing(monkeypatch):
+    import numpy as np
+    import torch
+    from torch.utils._python_dispatch import _get_current_dispatch_mode
+
     from paddle_tpu_torch.core import device as tdevice
 
+    profiler = paddle_tpu_torch.profiler
     flags = paddle_tpu_torch.flags
     saved = dict(flags._VALUES)
     try:
-        assert flags.get_flag("check_nans") is False
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            paddle_tpu_torch.init(device="cpu", seed=11, check_nans=True)
-        assert flags._VALUES == saved and tdevice._default_device == "cuda"
+        assert flags.get_flag("check_nans") is False and _get_current_dispatch_mode() is None
+        paddle_tpu_torch.init(device="cpu", seed=11, check_nans=True)
+        assert profiler.active_trap() is not None
+        assert _get_current_dispatch_mode() is profiler.active_trap()
+        cost = _pruned_net(paddle_tpu_torch)
+        trainer = paddle_tpu_torch.trainer.SGD(
+            cost, update_equation=paddle_tpu_torch.optimizer.Momentum(learning_rate=0.1),
+            device="cpu")
+        before = {k: v.clone() for k, v in trainer.parameters.params["pruned"].items()}
+        rows = _samples(8)
+        rows[3] = (np.full_like(rows[3][0], np.nan), rows[3][1])
+        with pytest.raises(FloatingPointError, match="forward of layer 'pruned'"):
+            trainer.train(paddle_tpu_torch.batch(lambda: iter(rows), 8),
+                          feeding={"x": 0, "label": 1})
+        for k, v in trainer.parameters.params["pruned"].items():
+            assert torch.equal(v, before[k])
+        profiler.enable_nan_checks(False)
+        assert _get_current_dispatch_mode() is None and profiler.active_trap() is None
+        flags._VALUES.clear()
+        flags._VALUES.update(saved)
         monkeypatch.setenv("PADDLE_TPU_TORCH_CHECK_NANS", "1")
-        with pytest.raises(NotImplementedError, match="check_nans"):
-            paddle_tpu_torch.init(device="cpu")
-        paddle_tpu_torch.init(device="cpu", check_nans=False)
+        paddle_tpu_torch.init(device="cpu")
+        assert profiler.active_trap() is not None
     finally:
+        profiler.enable_nan_checks(False)
         tdevice._default_device = "cuda"
         flags._VALUES.clear()
         flags._VALUES.update(saved)
@@ -216,7 +238,7 @@ def test_check_nans_raises_and_changes_nothing(monkeypatch):
 
 # top-level names of the JAX package the port does not bind yet, each with
 # the ROADMAP Queue 1 item that ports it
-NOT_YET_BOUND = {"parallel": 6, "profiler": 7}
+NOT_YET_BOUND = {"parallel": 6}
 
 _TOP_LEVEL = """
 import json, sys
@@ -268,8 +290,8 @@ def test_not_ported_messages_name_their_items(tmp_path):
         trainer.parameters.params
     with pytest.raises(NotImplementedError, match=r"init_cluster .*Queue 1 item 6\)"):
         paddle_tpu_torch.launcher.init_cluster()
-    with pytest.raises(NotImplementedError, match=r"'train' subcommand .*Queue 1 item 7\)"):
-        tcli.main(["train"])
+    with pytest.raises(NotImplementedError, match=r"'explore' subcommand .*Queue 1 item 7\)"):
+        tcli.main(["explore"])
     # the serving plane is ported: the scheduler and the CLI's serve and route
     from paddle_tpu_torch import serving
 
