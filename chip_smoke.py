@@ -424,7 +424,23 @@ Phases, in order; any failure exits non-zero:
      naming the op and the layer, disarmed the sentinel skips; armed
      against disarmed step time; (h) lint --config (clean; a planted
      dangling input exits 1 with G002), lint --journal (J001 on a corrupt
-     frame), dump_config, make_diagram, version, trace validate.
+     frame), dump_config, make_diagram, version, trace validate;
+ 26. scenarios and the fuzzer (robustness/scenarios.py, fuzz.py): (a) the
+     dynamic-width repair: fc(trans(data(12)), size=4, Tanh) with sum_cost
+     and Momentum(0.05) trained on the card at batches 7, 100 and 160 (3
+     passes, drop_last): w0 resolves to [batch, 4] and the pass-mean cost
+     falls by more than 0.1; the card's first-pass costs at batch 7 equal
+     the CPU's from the same imported parameters; (b) the seven fast
+     scenarios in this process at the JAX package's default sizes on a
+     card engine, each scenario's own gates asserted and its metrics line
+     printed, then a NaN planted in one decode slot's hidden state stays in
+     that slot; (c) ``python -m paddle_tpu_torch fuzz`` as subprocesses: a
+     clean 25-composition batch (seed 0) exits 0, the ledger_skew canary
+     (seed 7) exits 1 with its spec shrunk to the one overload arrival
+     item, and the spec's replay exits 0; (d) the drills ``scenario --name
+     fleet_kill_worker`` and ``--name fleet_rolling_restart`` with their
+     engines on the card, their gates asserted.  No flash kernel may launch
+     in phase 26.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels with their launches on the main path (the timed training steps of
@@ -432,8 +448,8 @@ phase 5; the NMT paths of phases 11-13, the LSTM classifier of phases 14
 and 16, the tagger of phase 15, the nested networks of phase 17, the
 N-gram and ranking networks of phase 18, the image and CTC networks of
 phase 19, the SSD and MDLSTM networks of phase 20, phase 21's framework,
-GAN and VAE paths, phase 22's image networks, phase 23's fleets and phase
-24's serving plane run none of them; phase 20's MoE Transformer runs each
+GAN and VAE paths, phase 22's image networks, phase 23's fleets, phase
+24's serving plane and phase 26's scenarios run none of them; phase 20's MoE Transformer runs each
 18 times per step and phase 25e's encoder twice per step), errors and
 times.
 Without a CUDA device, or without the paddle_tpu_torch package beside it, the script
@@ -7456,6 +7472,284 @@ def phase_cli(torch, P, fa, card, v1):
         f"{t[3] - t[2]:.1f} s, 25f-25h {t[4] - t[3]:.1f} s")
 
 
+# phase 26: the dynamic-width repair, the scenario harness and the
+# chaos-composition fuzzer (robustness/scenarios.py, robustness/fuzz.py)
+DW_BATCHES = (7, 100, 160)
+DW_FALL = 0.1  # the pass-mean cost must fall by more than this over 3 passes
+DW_RTOL, DW_ATOL = 1e-5, 1e-6  # card vs CPU first-pass costs (f32, TF32 off)
+FUZZ_COUNT = 25  # compositions of the clean batch and the canary, as the JAX package's Makefile
+FUZZ_CANARY = [{"axis": "arrival", "process": "burst", "rate_factor": 2.0}]
+
+
+def dw_train(P, dev, batch, passes, params=None):
+    """fc(trans(data(12)), size=4, Tanh) -> sum_cost trained with
+    Momentum(0.05) on `dev`; returns (trainer, per-batch costs, pass means)."""
+    from paddle_tpu_torch.core.topology import reset_auto_names
+
+    reset_auto_names()
+    L = P.layer
+    x = L.data("x", P.data_type.dense_vector(12))
+    cost = L.sum_cost(L.fc(L.trans(x), size=4, act=P.activation.Tanh(), name="dynfc"))
+    if params is None:
+        params = P.parameters.create(cost, seed=0, device=dev)
+        if tuple(params.params["dynfc"]["w0"].shape) != (12, 4):
+            raise SystemExit("dynamic width: init did not build the static [12, 4] weight")
+    trainer = P.trainer.SGD(cost=cost, parameters=params,
+                            update_equation=P.optimizer.Momentum(learning_rate=0.05), device=dev)
+    rng = np.random.RandomState(0)
+    rows = [(rng.randn(12).astype(np.float32),) for _ in range(batch * 4)]
+    costs, means = [], []
+
+    def handler(e):
+        if isinstance(e, P.event.EndIteration):
+            costs.append(e.cost)
+        elif isinstance(e, P.event.EndPass):
+            means.append(e.evaluator["mean_cost"])
+
+    trainer.train(reader=P.batch(lambda: iter(rows), batch, drop_last=True),
+                  num_passes=passes, event_handler=handler, async_load_data=False)
+    return trainer, costs, means
+
+
+def sc_dynamic_width(torch, P, dev):
+    """26a: the dynamic-width repair on the card."""
+    from paddle_tpu_torch.core.batch import SeqTensor
+
+    for batch in DW_BATCHES:
+        trainer, costs, means = dw_train(P, dev, batch, 3)
+        w0 = trainer.parameters.params["dynfc"]["w0"]
+        ok = (tuple(w0.shape) == (batch, 4) and w0.device.type == torch.device(dev).type
+              and all(np.isfinite(costs)) and means[-1] < means[0] - DW_FALL)
+        say(f"dynamic width batch {batch}: w0 {tuple(w0.shape)} on {w0.device}, pass-mean cost "
+            f"{' -> '.join(f'{m:.6f}' for m in means)} (must fall by > {DW_FALL})")
+        if not ok:
+            raise SystemExit(f"dynamic width: batch {batch} did not train")
+    # the same imported parameters on the CPU and the card: the resolved
+    # [7, 4] weight from the CPU, one pass each
+    cpu_tr, _, _ = dw_train(P, "cpu", 7, 0)
+    resolved, changed = cpu_tr.network.resolve_dynamic_widths(
+        cpu_tr.parameters.params, {"x": SeqTensor(torch.zeros(7, 12))})
+    if not changed:
+        raise SystemExit("dynamic width: the CPU resolve changed nothing")
+    tree = {k: {kk: vv.detach().cpu().numpy() for kk, vv in v.items()}
+            for k, v in resolved.items()}
+    got = {}
+    for d in ("cpu", dev):
+        _, costs, _ = dw_train(P, d, 7, 1, params=P.parameters.from_numpy(tree, {}, device=d))
+        got[d] = np.asarray(costs, np.float64)
+    err = np.abs(got[dev] - got["cpu"])
+    say(f"dynamic width batch 7 first pass, card vs CPU from the same parameters: costs "
+        f"{np.round(got[dev], 6).tolist()}, worst |d| {err.max():.3e} (bar {DW_RTOL:g} rel + "
+        f"{DW_ATOL:g})")
+    if not np.all(err <= DW_RTOL * np.abs(got["cpu"]) + DW_ATOL):
+        raise SystemExit("dynamic width: the card's first-pass costs differ from the CPU's")
+
+
+def sc_metrics(r) -> dict:
+    """The metrics line of one fast scenario: latency percentiles, goodput,
+    the status counts and the recovery time, per window."""
+    keep = ("p50_ms", "p95_ms", "p99_ms", "goodput_frac", "goodput_rps", "statuses",
+            "n_offered", "wall_s")
+    out = {k: r[k] for k in ("scenario", "slo_ms", "saturation_rps", "goodput_2x_over_1x",
+                             "recovery_after_fault_ms", "recovery_after_partition_ms",
+                             "train_steps_per_s_solo", "train_steps_per_s_mixed", "passed")
+           if k in r}
+    for win in ("at_1x", "at_2x", "live", "replay"):
+        if win in r:
+            out[win] = {k: r[win][k] for k in keep if k in r[win]}
+    if "at_1x" not in r and "live" not in r:
+        out["window"] = {k: r[k] for k in keep if k in r}
+    out["gates"] = {k: v for k, v in r.items() if k.startswith("gate_")}
+    return out
+
+
+def sc_fast(P, dev):
+    """26b: every fast scenario at the JAX package's default sizes, each on
+    a fresh card engine (as ``scenario --all-fast`` builds them), its own
+    gates asserted."""
+    from paddle_tpu_torch.robustness import scenarios
+
+    times = {}
+    for name in scenarios.FAST_SCENARIOS:
+        t0 = time.perf_counter()
+        r = scenarios.run_scenario(name, device=dev)
+        times[name] = time.perf_counter() - t0
+        r.pop("_requests", None)
+        say(f"scenario {name} ({times[name]:.1f} s): {json.dumps(sc_metrics(r))}")
+        if not r.get("passed"):
+            raise SystemExit(f"scenario {name} failed its gates: {json.dumps(r)[:4000]}")
+    return times
+
+
+def sc_nan_slot(torch, dev):
+    """26b: a NaN in one decode slot's hidden state stays in that slot: the
+    other slot's tokens equal its reference decode, and a request admitted
+    into the poisoned slot afterwards decodes cleanly."""
+    from paddle_tpu_torch.robustness import scenarios
+    from paddle_tpu_torch.serving import Request
+
+    eng = scenarios.make_serving_engine(0, device=dev)
+    srcs = scenarios._srcs(5, 3)
+    r0, r1 = Request(srcs[0]), Request(srcs[1])
+    eng.admit([r0, r1])
+    sid0 = next(sid for sid, sl in eng._slots.items() if sl.request is r0)
+    with torch.no_grad():
+        eng._h[sid0] = float("nan")
+    done = []
+    for _ in range(4 * scenarios._MAXLEN):
+        done += eng.step()
+        if not eng.n_live:
+            break
+    want1 = eng.reference_decode(r1.src_ids, scenarios._MAXLEN)
+    r2 = Request(srcs[2])
+    eng.admit([r2])
+    for _ in range(4 * scenarios._MAXLEN):
+        eng.step()
+        if not eng.n_live:
+            break
+    want2 = eng.reference_decode(r2.src_ids, scenarios._MAXLEN)
+    say(f"nan slot isolation: slot {sid0} poisoned; the other slot's {len(r1.tokens)} tokens "
+        f"{'equal' if r1.tokens == want1 else 'DIFFER from'} its reference decode; the next "
+        f"request's {len(r2.tokens)} tokens {'equal' if r2.tokens == want2 else 'DIFFER from'} "
+        f"its reference; pages in use after: {eng.pages.n_used}")
+    if r1.tokens != want1 or r2.tokens != want2 or eng.pages.n_used or eng.n_live:
+        raise SystemExit("nan slot isolation: a NaN in one slot reached another request")
+
+
+class ScCli:
+    """``python -m paddle_tpu_torch <argv>`` started as a subprocess, on the
+    card by default (``--device`` only elsewhere), its output in files
+    under `d`; ``result()`` waits within `timeout` (killing it past that)
+    and gives (exit code, stdout, stderr, seconds of command)."""
+
+    def __init__(self, argv, d, dev, timeout, tag):
+        env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        argv = list(argv) + ([] if dev == "cuda" else ["--device", dev])
+        self.paths = [os.path.join(d, f"{tag}.{k}") for k in ("out", "err")]
+        self.files = [open(p, "w") for p in self.paths]
+        self.timeout = timeout
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen([sys.executable, "-m", "paddle_tpu_torch", *argv], cwd=d,
+                                     env=env, stdout=self.files[0], stderr=self.files[1])
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+
+    def result(self):
+        try:
+            self.proc.wait(timeout=self.timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+        secs = time.perf_counter() - self.t0
+        for f in self.files:
+            f.close()
+        out, err = (open(p).read() for p in self.paths)
+        return self.proc.returncode, out, err, secs
+
+
+def sc_fuzz_clean(run):
+    rc, out, err, secs = run.result()
+    say(f"fuzz clean batch (--count {FUZZ_COUNT} --seed 0): exit {rc} in {secs:.1f} s: "
+        f"{out.strip().splitlines()[-1] if out.strip() else err[-500:]}")
+    if rc != 0 or f"clean: {FUZZ_COUNT} compositions" not in out:
+        raise SystemExit(f"fuzz: the clean batch was not clean:\n{out[-3000:]}\n{err[-3000:]}")
+
+
+def sc_fuzz_canary(d, dev):
+    """26c: the planted canary, found and shrunk to the one overload item,
+    and its spec replayed."""
+    spec_path = os.path.join(d, "ledger_skew.spec.json")
+    rc, out, err, secs = ScCli(["fuzz", "--count", str(FUZZ_COUNT), "--seed", "7", "--plant",
+                                "ledger_skew", "--out", spec_path], d, dev, 600,
+                               "canary").result()
+    if not os.path.exists(spec_path):
+        raise SystemExit(f"fuzz: the canary wrote no spec (exit {rc}):\n{out[-3000:]}\n"
+                         f"{err[-3000:]}")
+    with open(spec_path) as f:
+        spec = json.load(f)
+    say(f"fuzz canary (--seed 7 --plant ledger_skew): exit {rc} in {secs:.1f} s; shrunk to "
+        f"{spec['items']} after composition {spec['index']}: {spec['violations']}")
+    if rc != 1 or spec["items"] != FUZZ_CANARY or spec["planted"] != "ledger_skew" or not any(
+            v.startswith("ledger_sum_mismatch") for v in spec["violations"]):
+        raise SystemExit(f"fuzz: the canary was not found and shrunk:\n{out[-3000:]}")
+    rc, out, err, secs = ScCli(["fuzz", "--replay", spec_path], d, dev, 300, "replay").result()
+    say(f"fuzz replay of the shrunk spec: exit {rc} in {secs:.1f} s: "
+        f"{' '.join(out.split()[:3])}")
+    if rc != 0 or "reproduced" not in out:
+        raise SystemExit(f"fuzz: the replay did not reproduce:\n{out[-2000:]}\n{err[-2000:]}")
+
+
+def sc_drill(name, run):
+    """26d: one drill's own gates through the command line, engines on the
+    card, and for the worker kill also zero recomputed tasks."""
+    rc, out, err, secs = run.result()
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    r = json.loads(lines[-1]) if lines else {}
+    say(f"drill {name}: exit {rc}, {secs:.1f} s of command: {json.dumps(r)}")
+    ok = rc == 0 and r.get("passed") is True
+    if name == "fleet_kill_worker":
+        ok = ok and r.get("recovery_after_fault_s") is not None and r.get(
+            "zero_recomputed_tasks") is True and r.get("train_params_bit_identical") is True \
+            and r.get("only_shed_or_timeout_failed") is True
+    else:
+        ok = ok and r.get("min_live_engines", 0) >= r.get("n_engines", 2) - 1 and all(
+            s in ("served", "shed", "timeout") or n == 0 for s, n in r.get("statuses", {}).items())
+    if not ok:
+        raise SystemExit(f"drill {name} failed:\n{out[-3000:]}\n{err[-3000:]}")
+
+
+def sc_processes(d, dev):
+    """26c and 26d.  Their gates are structural (exit codes, ledgers,
+    bit-identity, leaks), so the clean fuzz batch and the worker-kill drill
+    run beside the canary; the rolling restart, whose 2 s engine leases a
+    busy host could expire, runs alone."""
+    runs = [ScCli(["fuzz", "--count", str(FUZZ_COUNT), "--seed", "0"], d, dev, 600, "clean"),
+            ScCli(["scenario", "--name", "fleet_kill_worker", "--workdir",
+                   os.path.join(d, "fleet_kill_worker")], d, dev, 600, "kill_worker")]
+    try:
+        sc_fuzz_canary(d, dev)
+        sc_fuzz_clean(runs[0])
+        sc_drill("fleet_kill_worker", runs[1])
+        runs.append(ScCli(["scenario", "--name", "fleet_rolling_restart", "--workdir",
+                           os.path.join(d, "fleet_rolling_restart")], d, dev, 600, "rolling"))
+        sc_drill("fleet_rolling_restart", runs[2])
+    finally:
+        for run in runs:  # a failed check leaves no process behind
+            run.stop()
+
+
+def phase_scenarios(torch, P, fa, card, dev="cuda"):
+    """Phase 26: the dynamic-width repair (26a), the fast scenarios and the
+    NaN slot check (26b), the fuzzer (26c) and two fleet drills (26d), the
+    subprocesses of 26c-26d partly side by side.  No flash kernel may
+    launch."""
+    import shutil
+    import tempfile
+
+    P.init(compute_dtype="float32", device=dev)
+    reset_counts(fa)
+    d = tempfile.mkdtemp(prefix="scenarios_")
+    t = [time.perf_counter()]
+    try:
+        sc_dynamic_width(torch, P, dev)
+        t.append(time.perf_counter())
+        times = sc_fast(P, dev)
+        sc_nan_slot(torch, dev)
+        t.append(time.perf_counter())
+        sc_processes(d, dev)
+        t.append(time.perf_counter())
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    if launch_counts(fa) != (0, 0, 0):
+        raise SystemExit("scenarios: phase 26 launched a flash kernel")
+    say(f"scenarios: phase 26 split on {card}: 26a {t[1] - t[0]:.1f} s, 26b {t[2] - t[1]:.1f} s "
+        f"({', '.join(f'{k} {v:.1f}' for k, v in times.items())}), 26c-26d {t[3] - t[2]:.1f} s; "
+        f"flash launches (fwd, dq, dkv) over it: {launch_counts(fa)}")
+
+
 def main() -> int:
     import torch
 
@@ -7572,6 +7866,10 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_cli(torch, P, fa, card, v1)
     say(f"cli: phase 25 took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_scenarios(torch, P, fa, card)
+    say(f"scenarios: phase 26 took {time.perf_counter() - t0:.1f} s")
     kernels = [
         {"name": name, "route": "cuda", "source": f"paddle_tpu_torch/csrc/{src}",
          "replaces": f"paddle_tpu/ops/pallas_attention.py:{line}",

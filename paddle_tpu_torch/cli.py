@@ -13,10 +13,14 @@
 * ``master`` and ``worker`` (an HA master candidate of the elastic cluster
   plane, and one elastic trainer process), ``serve`` and ``route`` (one
   serving engine under the SLO scheduler, or a fleet engine with
-  ``--register``; the fleet router).
+  ``--register``; the fleet router);
+* ``scenario`` (the mixed-traffic SLO and chaos scenario harness,
+  robustness/scenarios.py) and ``fuzz`` (the chaos-composition fuzzer,
+  robustness/fuzz.py), their serving engines on the card unless
+  ``--device=cpu``.
 
-``explore``, ``fuzz``, ``cache`` and ``scenario``, and lint's other modes,
-raise ``NotImplementedError`` (ROADMAP Queue 1 item 7).  Flags mirror the
+``explore`` and ``cache``, and lint's other modes, raise
+``NotImplementedError`` (ROADMAP Queue 1 item 7).  Flags mirror the
 reference gflags in ``--name=value`` form; argparse also accepts ``--name
 value``."""
 
@@ -33,11 +37,23 @@ from typing import List, Optional
 
 __all__ = ["main", "cmd_train", "cmd_version", "cmd_dump_config", "cmd_make_diagram",
            "cmd_merge_model", "cmd_plotcurve", "cmd_trace", "cmd_lint", "cmd_master",
-           "cmd_worker", "cmd_serve", "cmd_route"]
+           "cmd_worker", "cmd_serve", "cmd_route", "cmd_scenario", "cmd_fuzz"]
 
 
 def _echo(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _cli_device(arg):
+    """The resolved device of a ``--device`` argument, or None after
+    printing the device error (the command then exits 1)."""
+    from paddle_tpu_torch.core.device import resolve_device
+
+    try:
+        return resolve_device(arg)
+    except RuntimeError as e:
+        print(f"error: {e} (on the command line: --device=cpu)", file=sys.stderr)
+        return None
 
 
 def _build_train_parser() -> argparse.ArgumentParser:
@@ -289,14 +305,11 @@ def cmd_train(argv: List[str]) -> int:
             "--aot_cache_dir (the JAX package's persistent executable cache) is not "
             "ported yet (ROADMAP Queue 1 item 7)")
     from paddle_tpu_torch import obs as _obs
-    from paddle_tpu_torch.core.device import resolve_device
     from paddle_tpu_torch.utils import flags as _flags
     from paddle_tpu_torch.v1_compat import parse_config
 
-    try:
-        device = resolve_device(args.device)
-    except RuntimeError as e:
-        print(f"error: {e} (on the command line: --device=cpu)", file=sys.stderr)
+    device = _cli_device(args.device)
+    if device is None:
         return 1
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     _obs.tracer.configure(role="trainer")
@@ -1706,8 +1719,203 @@ def cmd_route(argv: List[str]) -> int:
     return rc if (ok or (args.synthetic <= 0 and not args.replay)) else 1
 
 
+def cmd_scenario(argv: List[str]) -> int:
+    """``scenario`` — the production-gate scenario harness
+    (robustness/scenarios.py): run named mixed-traffic/chaos scenarios and
+    print one JSON metrics line each (p50/p95/p99, goodput under the SLO,
+    shed/reject/timeout counts, recovery time after a fault).  Exit 0 only
+    when every requested scenario passed its gates."""
+    ap = argparse.ArgumentParser(
+        prog="python -m paddle_tpu_torch scenario",
+        description="mixed-traffic SLO + chaos scenario harness (robustness/scenarios.py)")
+    ap.add_argument("--name", action="append", default=[],
+                    help="scenario to run (repeatable); see --list")
+    ap.add_argument("--all-fast", action="store_true",
+                    help="run every fast (in-process) scenario")
+    ap.add_argument("--list", action="store_true", dest="list_",
+                    help="list known scenarios and exit")
+    ap.add_argument("--slo-ms", type=float, default=None,
+                    help="end-to-end SLO override (default: the scenario_slo_ms flag, else "
+                    "derived from measurement)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--workdir", default=None,
+                    help="scratch dir for fleet scenarios (default: a temp dir)")
+    ap.add_argument("--out", default="",
+                    help="append one JSON line per scenario here too")
+    ap.add_argument("--trace", action="store_true",
+                    help="run with span tracing armed and merge every process's trace file "
+                    "into one Perfetto-loadable timeline per scenario (subprocess fleets "
+                    "inherit the trace dir through the environment)")
+    ap.add_argument("--trace-dir", default=None,
+                    help="where the per-process and merged trace files land (default: a "
+                    "temp dir; implies --trace)")
+    ap.add_argument("--device", default=None,
+                    help="torch device of the serving engines (default: the card; 'cpu' "
+                    "asks for the CPU); fleet drills pass it to every engine process")
+    args = ap.parse_args(argv)
+
+    from paddle_tpu_torch.robustness import scenarios as _sc
+
+    if args.list_:
+        for n in sorted(_sc.FAST_SCENARIOS):
+            print(f"{n}  (fast)")
+        for n in sorted(_sc.SLOW_SCENARIOS):
+            print(f"{n}  (slow: spawns a worker fleet)")
+        return 0
+    names = list(args.name)
+    if args.all_fast:
+        names.extend(n for n in _sc.FAST_SCENARIOS if n not in names)
+    if not names:
+        print("error: give --name (repeatable), --all-fast, or --list", file=sys.stderr)
+        return 2
+    device = _cli_device(args.device)
+    if device is None:
+        return 1
+    import tempfile
+
+    from paddle_tpu_torch import obs as _obs
+
+    trace_dir = None
+    if args.trace or args.trace_dir:
+        trace_dir = args.trace_dir or tempfile.mkdtemp(prefix="paddle-tpu-torch-trace-")
+        os.makedirs(trace_dir, exist_ok=True)
+        os.environ.setdefault("PADDLE_TPU_TORCH_TRACE_ID", _obs.tracer.trace_id)
+    failed = []
+    for name in names:
+        kw = {"seed": args.seed, "device": device}
+        if args.slo_ms is not None:
+            kw["slo_ms"] = args.slo_ms
+        if name in _sc.SLOW_SCENARIOS:
+            kw["workdir"] = args.workdir or tempfile.mkdtemp(
+                prefix=f"paddle-tpu-torch-scenario-{name}-")
+        if trace_dir is not None:
+            from paddle_tpu_torch.utils import flags as _flags
+
+            # one subdirectory per scenario and the parent's rings reset, so
+            # that scenario N's merged timeline holds its own events only
+            sdir = os.path.join(trace_dir, name)
+            os.makedirs(sdir, exist_ok=True)
+            _flags.set_flag("trace_dir", sdir)
+            os.environ["PADDLE_TPU_TORCH_TRACE_DIR"] = sdir
+            _obs.tracer.reset()
+            _obs.tracer.configure(role="serve", trace_dir=sdir)
+        res = _sc.run_scenario(name, **kw)
+        res.pop("_requests", None)
+        if trace_dir is not None:
+            from paddle_tpu_torch.obs.merge import merge_dir
+
+            _obs.tracer.dump()
+            merged, mpath = merge_dir(os.path.join(trace_dir, name),
+                                      out_path=os.path.join(trace_dir, f"merged-{name}.json"))
+            res["trace"] = {
+                "merged": mpath,
+                "events": sum(1 for e in merged["traceEvents"] if e.get("ph") != "M"),
+                "pids": merged["otherData"]["merged_pids"],
+                "planes": sorted({e.get("cat") for e in merged["traceEvents"]
+                                  if e.get("ph") != "M" and e.get("cat")}),
+            }
+        line = json.dumps(res)
+        print(line, flush=True)
+        if args.out:
+            with open(args.out, "a") as f:
+                f.write(line + "\n")
+        if not res.get("passed"):
+            failed.append(name)
+    if failed:
+        print(f"SCENARIO FAILURES: {failed}", file=sys.stderr)
+    return 1 if failed else 0
+
+
+def cmd_fuzz(argv: List[str]) -> int:
+    """Coverage-guided chaos-composition fuzzer (robustness/fuzz.py).
+
+    Samples seeded compositions of the fault vocabulary — arrival process x
+    rate factor, serving chaos (nan_request, serve_slow_client), network
+    emulation (delay/drop/dup/corrupt/partition), training chaos
+    (worker_hang), torn checkpoints — runs each against the serving,
+    training and checkpoint planes in-process, and checks the invariant set
+    (disjoint status ledger, bit-identical training parameters, journal
+    lint, page and thread leaks, armed-chaos consultation, restore past a
+    torn checkpoint).
+
+    * default: ``--count`` seeded compositions; composition i draws from
+      ``Random(f"{seed}:{i}")``, so any run replays exactly;
+    * --plant NAME: plant a known bug (the canary ``ledger_skew``) to prove
+      the harness detects, shrinks and replays;
+    * --replay SPEC.json: re-run a shrunk violation spec; exit 0 iff the
+      violation reproduces.
+
+    Exit code: 0 = clean (or the replay reproduced), 1 = a violation was
+    found (or the replay did not reproduce).  A violation is ddmin-shrunk to
+    a minimal replayable spec, printed, and written to ``--out``.
+    """
+    ap = argparse.ArgumentParser(prog="python -m paddle_tpu_torch fuzz",
+                                 description=cmd_fuzz.__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--count", type=int, default=25,
+                    help="number of seeded compositions (default 25)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="batch seed; composition i uses Random(f'{seed}:{i}')")
+    ap.add_argument("--requests", type=int, default=16,
+                    help="serving requests offered per composition")
+    ap.add_argument("--plant", default=None,
+                    help="plant a known bug as a harness canary (e.g. ledger_skew)")
+    ap.add_argument("--no-shrink", action="store_true",
+                    help="skip ddmin shrinking of a found violation")
+    ap.add_argument("--replay", default=None, metavar="SPEC",
+                    help="re-run a shrunk violation spec JSON file")
+    ap.add_argument("--out", default=None, metavar="SPEC",
+                    help="write the shrunk violation spec here")
+    ap.add_argument("--device", default=None,
+                    help="torch device of the serving engine (default: the card; 'cpu' "
+                    "asks for the CPU)")
+    args = ap.parse_args(argv)
+
+    import tempfile
+
+    from paddle_tpu_torch.robustness import fuzz as _fz
+
+    device = _cli_device(args.device)
+    if device is None:
+        return 1
+    # fault cocktails make every plane log its injected failures: noise at
+    # batch scale, so keep only real errors
+    logging.getLogger("paddle_tpu_torch").setLevel(logging.ERROR)
+    workdir = tempfile.mkdtemp(prefix="paddle-tpu-torch-fuzz-")
+    if args.replay:
+        spec = _fz.load_spec(args.replay)
+        out = _fz.replay_fuzz_spec(spec, workdir=workdir, device=device)
+        if out["reproduced"]:
+            print("reproduced:")
+            for v in out["violations"]:
+                print(f"  {v}")
+            return 0
+        print("spec did NOT reproduce (clean run, no violation)", file=sys.stderr)
+        return 1
+
+    res = _fz.fuzz_batch(
+        count=args.count, seed=args.seed, workdir=workdir, planted=args.plant,
+        shrink=not args.no_shrink, n_requests=args.requests,
+        log=lambda m: _echo(f"fuzz: {m}"), device=device,
+    )
+    if not res["violation_found"]:
+        print(f"clean: {res['compositions_run']} compositions (seed {args.seed}), no violation")
+        return 0
+    spec = res["spec"]
+    print(f"VIOLATION after {res['compositions_run']} compositions, "
+          f"shrunk to {len(spec['items'])} item(s):")
+    for v in spec["violations"]:
+        print(f"  {v}")
+    print(json.dumps(spec, indent=2, sort_keys=True))
+    if args.out:
+        _fz.save_spec(spec, args.out)
+        print(f"spec written to {args.out} "
+              f"(replay: python -m paddle_tpu_torch fuzz --replay {args.out})")
+    return 1
+
+
 # the JAX package's other subcommands, each waiting for its port
-_NOT_PORTED = ("explore", "fuzz", "cache", "scenario")
+_NOT_PORTED = ("explore", "cache")
 
 
 def _not_ported(name: str):
@@ -1723,7 +1931,7 @@ _COMMANDS = {"train": cmd_train, "version": cmd_version, "dump_config": cmd_dump
              "make_diagram": cmd_make_diagram, "merge_model": cmd_merge_model,
              "plotcurve": cmd_plotcurve, "lint": cmd_lint, "trace": cmd_trace,
              "master": cmd_master, "worker": cmd_worker, "serve": cmd_serve,
-             "route": cmd_route,
+             "route": cmd_route, "scenario": cmd_scenario, "fuzz": cmd_fuzz,
              **{name: _not_ported(name) for name in _NOT_PORTED}}
 
 
@@ -1750,6 +1958,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         print("    serve             serve the NMT model under the SLO scheduler")
         print("                      (--register host:port: a fleet engine)")
         print("    route             run the serving-fleet router")
+        print("    scenario          mixed-traffic SLO + chaos scenarios (--list;")
+        print("                      on the card unless --device=cpu)")
+        print("    fuzz              chaos-composition fuzzer (--count/--seed/")
+        print("                      --plant/--replay; on the card unless --device=cpu)")
         print("not ported yet: " + ", ".join(_NOT_PORTED))
         return 0 if argv else 1
     cmd, rest = argv[0], argv[1:]

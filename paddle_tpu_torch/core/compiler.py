@@ -26,13 +26,19 @@ autograd.  Non-trainable layer state (batch norm's moving statistics) is
 threaded functionally as in the JAX package: ``apply`` reads ``state`` and
 returns ``{**state, **updates}``, leaving its inputs untouched.
 
-Not ported yet: dynamic widths (``resolve_dynamic_widths``; no layer of the
-port's DSL makes them) and layers sharded over a device mesh (a layer with
-a ``shard_axis`` raises when the network is built).
+An fc or matrix projection over a whole-minibatch ``trans`` has a dynamic
+width (the DSL tags it ``dynamic_width_in`` / ``dynamic_width``): its weight
+height is the runtime batch size, so init builds the declared static shape
+and :meth:`CompiledNetwork.resolve_dynamic_widths` re-draws it at the first
+batch's size, as the JAX package does.
+
+Not ported yet: layers sharded over a device mesh (a layer with a
+``shard_axis`` raises when the network is built).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -370,6 +376,83 @@ class CompiledNetwork:
             if p:
                 params[name] = p
         return params
+
+    @property
+    def has_dynamic_widths(self) -> bool:
+        """Any fc / matrix projection stacked on a dynamic-width input (a
+        whole-minibatch trans, reference TransLayer.cpp): its true weight
+        height is the runtime batch size."""
+        for conf in self.topology.layers.values():
+            if conf.attr("dynamic_width_in"):
+                return True
+            if any(s.get("dynamic_width") for s in conf.attrs.get("projections", ())):
+                return True
+        return False
+
+    def resolve_dynamic_widths(self, params: Params, batch: Batch,
+                               seed: int = 0) -> Tuple[Params, bool]:
+        """Re-draw the weights whose height is the runtime batch size, now
+        that a batch exists; returns ``(params, changed)``.
+
+        A whole-minibatch ``trans`` outputs [D, B], so a consuming fc or
+        matrix-projection weight must be [B, size]; init built the declared
+        static size (the reference's parameter dims).  A weight still at
+        that fresh static shape is re-drawn at this batch's shape from the
+        layer's own generator (seeded from `seed` and the layer's name, as
+        ``init_params`` seeds it), on the weight's device; the caller
+        rebuilds its optimizer state when ``changed``.  A weight at a shape
+        that is neither raises ``ValueError``: it trained at another batch
+        size, and batch-wide-trans weights only run at the batch size they
+        trained at (feed with ``drop_last=True``).  The one blind spot is a
+        checkpoint trained at exactly B == the static size."""
+        b, bdev = 0, None
+        for t in batch.values():
+            data = t.data if isinstance(t, SeqTensor) else t
+            b, bdev = int(data.shape[0]), getattr(data, "device", None)
+            break
+        if not b:
+            return params, False
+        out = dict(params)
+        changed = False
+        for name in self.topology.order:
+            conf = self.topology.layers[name]
+            dyn_fc = conf.attr("dynamic_width_in") or ()
+            projs = conf.attrs.get("projections", ())
+            targets = set(dyn_fc) | {s["in"] for s in projs if s.get("dynamic_width")}
+            if not targets:
+                continue
+            in_confs = [self.topology.layers[i] for i in conf.inputs]
+            # the dynamic input's runtime width is the batch size (trans
+            # swaps [B, D] -> [D, B]; width-preserving unaries keep it)
+            patched = [dataclasses.replace(c, size=b) if i in targets else c
+                       for i, c in enumerate(in_confs)]
+            cur = dict(out.get(name, {}))
+            device = next((v.device for v in cur.values() if torch.is_tensor(v)), bdev)
+            impl = self._impls[name]
+            fresh = impl.init(conf, patched, torch.Generator().manual_seed(mix_seed(seed, name)),
+                              device)
+            # only a weight still at the fresh static shape may be re-drawn;
+            # any other shape was trained or restored at another batch size
+            static = impl.init(conf, in_confs,
+                               torch.Generator().manual_seed(mix_seed(seed, name)), device)
+            layer_changed = False
+            for k, v in fresh.items():
+                if k not in cur or tuple(cur[k].shape) == tuple(v.shape):
+                    continue
+                want_static = tuple(static[k].shape) if k in static else None
+                if tuple(cur[k].shape) != want_static:
+                    raise ValueError(
+                        f"layer {name!r} parameter {k!r} has shape {tuple(cur[k].shape)} — "
+                        f"neither the declared static shape {want_static} nor this batch's "
+                        f"resolved shape {tuple(v.shape)}.  It was trained/restored at a "
+                        "different batch size; batch-wide-trans weights are only usable at "
+                        "the batch size they trained at.")
+                cur[k] = v
+                layer_changed = True
+            if layer_changed:
+                out[name] = cur
+                changed = True
+        return out, changed
 
     def init_state(self, device=None) -> NetState:
         """Each stateful layer's initial state (batch norm: mean 0, var 1),

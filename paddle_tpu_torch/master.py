@@ -1360,6 +1360,10 @@ def reader_over(next_record_fn):
 # RPC layer
 # ---------------------------------------------------------------------------
 
+# the bound on Server.close's wake-up dial of its own accept loop
+_WAKE_DIAL_S = 5.0
+
+
 def _dial_with_deadline(address, authkey: bytes, timeout: Optional[float]):
     """Connect + authenticate with a hard deadline.
 
@@ -1680,7 +1684,10 @@ class Server:
         port bound and break a master restarting on its own address."""
         self._stop = True
         try:
-            _ConnClient(tuple(self.address), authkey=self._authkey).close()
+            # deadline-guarded: an accept loop that saw _stop between two
+            # accepts has already returned, and a dial into a backlog that
+            # nobody accepts would wait for the auth challenge forever
+            _dial_with_deadline(self.address, self._authkey, _WAKE_DIAL_S).close()
         except Exception:  # noqa: BLE001 — wake-up is best effort
             pass
         self._listener.close()

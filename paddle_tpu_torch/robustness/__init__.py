@@ -13,9 +13,15 @@ and chaos — the counterpart of ``paddle_tpu/robustness/``.
   flag or environment.
 * :mod:`~paddle_tpu_torch.robustness.netem` — the ``net_*`` points' faults
   on the master's wire.
+* :mod:`~paddle_tpu_torch.robustness.traces` — ``.ptt`` serving-traffic
+  record and replay.
+* :mod:`~paddle_tpu_torch.robustness.scenarios` — the mixed-traffic SLO
+  and chaos scenario harness over the serving, training and fleet planes.
+* :mod:`~paddle_tpu_torch.robustness.fuzz` — the chaos-composition fuzzer
+  with ddmin shrinking and replayable specs.
 
-The JAX package's ``scenarios``, ``fuzz`` and ``traces`` drive its serving
-and fleet planes; they come with ROADMAP Queue 1 item 7.
+As in the JAX package, the last three are imported by module path (the
+package binds none of their names).
 """
 
 from paddle_tpu_torch.robustness import chaos  # noqa: F401

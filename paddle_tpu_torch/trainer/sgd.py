@@ -177,6 +177,29 @@ class SGD:
         # utils.timers.global_stats): a laddered feed stays bounded
         self.compile_cache = CompileShapeCache("train_step")
         self._eval_cache = CompileShapeCache("eval_step")
+        # dynamic-width (batch-wide trans) weights resolve once, at the
+        # first batch this trainer sees; a later batch-size change fails in
+        # the step, never silently re-draws trained weights
+        self._width_resolved = not self.network.has_dynamic_widths
+
+    def _resolve_widths(self, params, batch):
+        """Pin the dynamic widths to `batch`'s size (once per trainer).
+        When a weight was re-drawn: the new tree is published, the optimizer
+        state is rebuilt, and so are the pruning masks and the train step
+        that closes over them (the masks are shaped by the weights).
+        Returns (params, changed)."""
+        self._width_resolved = True
+        params, changed = self.network.resolve_dynamic_widths(params, batch)
+        if changed:
+            self.parameters.params = params
+            self._opt_state = self.optimizer.init(params)
+            self._prune_masks = build_prune_masks(self.network, params)
+            apply_prune_masks(params, self._prune_masks)
+            self._train_step = make_train_step(
+                self.network, self.optimizer, extra_metrics=self._metrics_fn,
+                prune_masks=self._prune_masks,
+            )
+        return params, changed
 
     # ------------------------------------------------------------------
     def _build_metrics_fn(self):
@@ -214,11 +237,21 @@ class SGD:
     def _make_feeder(self, feeding) -> DataFeeder:
         """Under the ``use_bucketing`` flag, sequence slots pad to the shape
         ladder: the rung ``reader.bucketing.token_budget_batch`` packed each
-        batch for."""
+        batch for.  Bucketing refuses a network with dynamic widths: its
+        batch sizes vary per rung, those weights train at one batch size."""
+        bucketing = _flags.get_flag("use_bucketing")
+        if bucketing and self.network.has_dynamic_widths:
+            raise ValueError(
+                "use_bucketing is incompatible with dynamic (batch-wide "
+                "trans) width layers: bucketed batch sizes vary per "
+                "length rung, but these weights train at exactly one "
+                "batch size.  Feed this network with paddle.batch "
+                "(fixed size, drop_last=True) instead."
+            )
         return DataFeeder(
             self.topology.data_types(), feeding,
             feed_dtypes=feed_dtypes_of(self.topology), device=self.device,
-            ladder=DEFAULT_LADDER if _flags.get_flag("use_bucketing") else None,
+            ladder=DEFAULT_LADDER if bucketing else None,
         )
 
     def _stage_fn(self, feeder: DataFeeder, staged: bool):
@@ -550,6 +583,12 @@ class SGD:
                     if is_live and recovery is not None:
                         recovery.record(pass_id, bid, batch)
                     batch = DataFeeder.consume(batch)
+                    if not self._width_resolved:
+                        params, changed = self._resolve_widths(params, batch)
+                        if changed:
+                            opt_state = self._opt_state
+                            if "pass" in opt_state:
+                                opt_state["pass"] = pass_id
                     # obs: the dispatch of the step, then the block on its
                     # metrics' host copy
                     with stat_timer("train_step"):
@@ -667,6 +706,9 @@ class SGD:
         for batch in batches:
             self._eval_cache.observe(batch)
             batch = DataFeeder.consume(batch)
+            if not self._width_resolved:
+                # a trainer that never trained: the eval batch pins the widths
+                self._resolve_widths(self.parameters.params, batch)
             metrics = fetch_metrics(
                 self._eval_step(self.parameters.params, self.parameters.state, batch))
             rows = _batch_rows(batch)

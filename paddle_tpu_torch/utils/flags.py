@@ -275,6 +275,12 @@ define_flag("serving_prefill_chunk_tokens", 0,
             "path).  Must be a multiple of serving_block_tokens and "
             "divide every larger shape-ladder rung.  0 = off (whole-"
             "prompt prefill)")
+define_flag("scenario_slo_ms", 0.0,
+            "end-to-end latency SLO for the scenario harness "
+            "(robustness/scenarios.py): goodput counts requests completed "
+            "within this many ms of submit, and per-request deadlines "
+            "default to it.  0 = derive from the measured saturation "
+            "wave (2.5x its p95 service time, floored at 50 ms)")
 define_flag("serving_priority_aging_s", 2.0,
             "aging rate of the strict-priority-with-aging dequeue "
             "(serving/scheduler.py): every this-many seconds of queue "

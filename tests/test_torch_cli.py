@@ -301,14 +301,16 @@ def test_help_unknown_and_not_ported_commands(capsys):
     rc, out = _main(["--help"], capsys)
     assert rc == 0
     for cmd in ("train", "version", "dump_config", "make_diagram", "merge_model", "plotcurve",
-                "lint", "trace", "master", "worker", "serve", "route"):
+                "lint", "trace", "master", "worker", "serve", "route", "scenario", "fuzz"):
         assert f"    {cmd} " in out
-    assert "not ported yet: explore, fuzz, cache, scenario" in out
+    assert "not ported yet: explore, cache" in out
     assert tcli.main(["frobnicate"]) == 1
     assert "unknown command" in capsys.readouterr().err
-    for cmd in ("explore", "fuzz", "cache", "scenario"):
+    for cmd in ("explore", "cache"):
         with pytest.raises(NotImplementedError, match=f"'{cmd}' subcommand .*item 7"):
             tcli.main([cmd])
+    rc, out = _main(["scenario", "--list"], capsys)
+    assert rc == 0 and "overload  (fast)" in out and "fleet_kill_worker  (slow" in out
     with pytest.raises(NotImplementedError, match="aot_cache_dir.*item 7"):
         tcli.main(["train", "--config=x.py", "--aot_cache_dir=/nowhere", "--device=cpu"])
 

@@ -60,7 +60,8 @@ def test_every_module_imports_without_jax():
                 "robustness.netem", "master_journal", "master", "master_ha", "trainer.elastic",
                 "launcher", "cli", "__main__", "serving.router", "reader.loadgen",
                 "robustness.traces", "core.aot_cache", "analysis.diagnostics",
-                "analysis.graph_lint", "utils.profiler"):
+                "analysis.graph_lint", "utils.profiler", "robustness.scenarios",
+                "robustness.fuzz"):
         assert f"paddle_tpu_torch.{mod}" in names.split()
 
 
@@ -428,3 +429,50 @@ def test_serve_raises_without_cuda_unless_on_the_cpu():
 
     summary = json.loads(proc.stdout.strip().splitlines()[-1])
     assert summary["served"] == 3 and summary["unfinished"] == 0
+
+
+def test_scenario_and_fuzz_entry_points_raise_without_cuda_unless_on_the_cpu(capsys):
+    """``make_serving_engine``, the scenario and fuzz functions and their
+    subcommands put the engine on the card unless asked for the CPU: without
+    CUDA they raise (or exit 1) naming the CPU option."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device; the no-CUDA error cannot show")
+    from paddle_tpu_torch import cli
+    from paddle_tpu_torch.robustness import fuzz, scenarios
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        scenarios.make_serving_engine()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        scenarios.run_scenario("overload", n_requests=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fuzz.fuzz_batch(count=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        scenarios.run_fleet_serving("unused-workdir")
+    assert not os.path.exists("unused-workdir")
+    assert cli.main(["scenario", "--name", "overload"]) == 1
+    assert cli.main(["fuzz", "--count", "1"]) == 1
+    assert "--device=cpu" in capsys.readouterr().err
+    assert scenarios.make_serving_engine(device="cpu").device == torch.device("cpu")
+
+
+_SLOW_MARK = re.compile(r"^pytestmark\s*=\s*pytest\.mark\.slow\s*$", re.M)
+
+
+def test_every_torch_e2e_file_is_slow_marked():
+    """Process-spawning drills live in ``tests/test_torch_*_e2e.py`` and each
+    carries the module-level slow mark, so the tier-1 run (``-m 'not
+    slow'``) never starts a fleet (the port's counterpart of
+    ``scripts/tier1_failset.py --slow-guard``)."""
+    tests_dir = os.path.join(ROOT, "tests")
+    files = sorted(f for f in os.listdir(tests_dir)
+                   if f.startswith("test_torch_") and f.endswith("_e2e.py"))
+    assert {"test_torch_scenarios_e2e.py", "test_torch_fuzz_e2e.py",
+            "test_torch_fleet_e2e.py"} <= set(files)
+    unmarked = []
+    for f in files:
+        with open(os.path.join(tests_dir, f)) as fh:
+            if not _SLOW_MARK.search(fh.read()):
+                unmarked.append(f)
+    assert not unmarked, unmarked
+    assert _SLOW_MARK.search("import pytest\npytestmark = pytest.mark.slow\n")
+    assert not _SLOW_MARK.search("# pytestmark = pytest.mark.slow\n")

@@ -234,3 +234,23 @@ def test_master_stats_and_snapshot_are_json(tmp_path):
     assert sorted(js) == sorted(ts)
     assert js["todo"] == [{**t, "chunks": [{**c, "path": c["path"].replace("/t/", "/j/")}
                                              for c in t["chunks"]]} for t in ts["todo"]]
+
+
+def test_server_close_returns_when_its_accept_loop_already_ended(tmp_path):
+    """``Server.close`` sets the stop flag, then dials its own listener to
+    wake the accept loop.  When the loop saw the flag between two accepts
+    it has already returned, and nobody answers that dial's auth
+    handshake: the wake-up is bounded, so ``close`` returns (before the
+    bound, an xdist worker hung in it for good).  The close runs on a
+    thread here so a regression fails instead of hanging the run."""
+    import threading
+
+    srv = tmaster.Server(_service(tmaster, tmp_path))
+    srv._stop = True
+    tmaster.Client(srv.address, call_timeout_s=5.0).close()  # the loop wakes, sees the flag
+    srv._thread.join(5.0)
+    assert not srv._thread.is_alive()
+    closer = threading.Thread(target=srv.close, daemon=True)
+    closer.start()
+    closer.join(tmaster._WAKE_DIAL_S + 10.0)
+    assert not closer.is_alive(), "Server.close hung on its wake-up dial"
