@@ -440,7 +440,17 @@ Phases, in order; any failure exits non-zero:
      item, and the spec's replay exits 0; (d) the drills ``scenario --name
      fleet_kill_worker`` and ``--name fleet_rolling_restart`` with their
      engines on the card, their gates asserted.  No flash kernel may launch
-     in phase 26.
+     in phase 26;
+ 27. the port's gates through ``paddle_tpu_torch.cli.main`` (host code that
+     imports no JAX): (a) ``lint --extra chip_smoke.py`` (the
+     self-lint), ``lint --concurrency`` and ``lint --protocol`` each exit 0;
+     (b) ``reader/creator.py`` copied with its A206 pragma cut reports A206
+     at that line; (c) the explore batch of the JAX package's Makefile
+     (router 200 schedules with DFS to depth 3, ha 200 to depth 4, master
+     60, all seed 0) prints clean, the double_serve canary (router, seed 7,
+     12 events) exits 1 with a spec of at most 6 events and its replay
+     exits 0.  Seconds of each step and runs/s beside the card.  No flash
+     kernel may launch in phase 27.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels with their launches on the main path (the timed training steps of
@@ -449,7 +459,7 @@ and 16, the tagger of phase 15, the nested networks of phase 17, the
 N-gram and ranking networks of phase 18, the image and CTC networks of
 phase 19, the SSD and MDLSTM networks of phase 20, phase 21's framework,
 GAN and VAE paths, phase 22's image networks, phase 23's fleets, phase
-24's serving plane and phase 26's scenarios run none of them; phase 20's MoE Transformer runs each
+24's serving plane, phase 26's scenarios and phase 27's gates run none of them; phase 20's MoE Transformer runs each
 18 times per step and phase 25e's encoder twice per step), errors and
 times.
 Without a CUDA device, or without the paddle_tpu_torch package beside it, the script
@@ -7750,6 +7760,122 @@ def phase_scenarios(torch, P, fa, card, dev="cuda"):
         f"flash launches (fwd, dq, dkv) over it: {launch_counts(fa)}")
 
 
+# phase 27: the jax-free lints and the interleaving explorer (analysis/
+# ast_rules.py, concurrency_lint.py, protocol_lint.py, interleave.py)
+EXPLORE_BATCH = (  # the JAX package's Makefile batch: (model, schedules, seed, dfs depth)
+    ("router", 200, 0, 3), ("ha", 200, 0, 4), ("master", 60, 0, 0))
+
+
+def gate_lints(tcli, card):
+    """27a: the self-lint (with this script), ``--concurrency`` and
+    ``--protocol`` over the port's tree through the command line, each clean;
+    seconds of each beside the card."""
+    times = {}
+    for name, argv in (("self-lint", ["lint", "--extra", os.path.join(HERE, "chip_smoke.py")]),
+                       ("concurrency", ["lint", "--concurrency"]),
+                       ("protocol", ["lint", "--protocol"])):
+        t0 = time.perf_counter()
+        rc, out = cli_run(tcli, argv)
+        times[name] = time.perf_counter() - t0
+        if rc != 0 or "no diagnostics" not in out:
+            raise SystemExit(f"gates 27a: lint {name} exited {rc}:\n{out[-3000:]}")
+    say(f"gates 27a on {card}: lint " + ", ".join(f"{k} {v:.2f} s" for k, v in times.items())
+        + ", each clean")
+
+
+def gate_planted(d):
+    """27b: ``reader/creator.py`` copied into a temporary tree with its first
+    A206 pragma cut off must report A206 at that line, and nothing else."""
+    from paddle_tpu_torch.analysis import ast_rules
+
+    src_path = os.path.join(HERE, "paddle_tpu_torch", "reader", "creator.py")
+    with open(src_path) as f:
+        lines = f.read().split("\n")
+    at = next(i for i, line in enumerate(lines) if "# wire: allow[A206]" in line)
+    lines[at] = lines[at][:lines[at].index("# wire:")].rstrip()
+    copy = os.path.join(d, "paddle_tpu_torch", "reader", "creator.py")
+    os.makedirs(os.path.dirname(copy))
+    with open(copy, "w") as f:
+        f.write("\n".join(lines))
+    found = [(x.rule, x.line) for x in ast_rules.lint_file(copy, root=d)]
+    if found != [("A206", at + 1)]:
+        raise SystemExit(f"gates 27b: the planted raw pickle.loads at creator.py:{at + 1} gave "
+                         f"{found}, not [('A206', {at + 1})]")
+    say(f"gates 27b: pragma cut at reader/creator.py:{at + 1}: the self-lint reports {found}")
+
+
+def gate_explore(tcli, d, card):
+    """27c: the explore batch of the JAX package's Makefile: three clean
+    models, then the double_serve canary (exit 1, shrunk to at most 6
+    events) and the replay of its spec (exit 0)."""
+    import re
+
+    for model, schedules, seed, depth in EXPLORE_BATCH:
+        argv = ["explore", "--model", model, "--schedules", str(schedules), "--seed", str(seed)]
+        if depth:
+            argv += ["--dfs-depth", str(depth)]
+        t0 = time.perf_counter()
+        rc, out = cli_run(tcli, argv)
+        secs = time.perf_counter() - t0
+        if rc != 0 or f"clean: {schedules} schedules on model {model!r}" not in out:
+            raise SystemExit(f"gates 27c: explore {model} exited {rc}:\n{out[-3000:]}")
+        m = re.search(r"dfs: (\d+) paths", out)
+        paths = int(m.group(1)) if m else 0
+        say(f"gates 27c on {card}: explore {model}: {schedules} schedules (seed {seed})"
+            + (f" + {paths} dfs paths to depth {depth}" if depth else "")
+            + f" clean in {secs:.2f} s, {(schedules + paths) / secs:.1f} runs/s")
+    spec_path = os.path.join(d, "double_serve.spec.json")
+    t0 = time.perf_counter()
+    rc, out = cli_run(tcli, ["explore", "--model", "router", "--schedules", "200", "--seed", "7",
+                             "--max-events", "12", "--plant", "double_serve",
+                             "--out", spec_path])
+    canary_s = time.perf_counter() - t0
+    if rc != 1 or "double-serve" not in out or not os.path.exists(spec_path):
+        raise SystemExit(f"gates 27c: the double_serve canary exited {rc}:\n{out[-3000:]}")
+    with open(spec_path) as f:
+        spec = json.load(f)
+    if len(spec["events"]) > 6:
+        raise SystemExit(f"gates 27c: the canary shrank to {len(spec['events'])} events, not <= 6")
+    t0 = time.perf_counter()
+    rc, out = cli_run(tcli, ["explore", "--replay", spec_path])
+    replay_s = time.perf_counter() - t0
+    if rc != 0 or "reproduced" not in out:
+        raise SystemExit(f"gates 27c: the canary spec's replay exited {rc}:\n{out[-3000:]}")
+    say(f"gates 27c on {card}: canary double_serve found and shrunk to {len(spec['events'])} "
+        f"events ({' -> '.join(e['op'] for e in spec['events'])}) in {canary_s:.2f} s, "
+        f"replay reproduced in {replay_s:.2f} s")
+
+
+def phase_gates(fa, card):
+    """Phase 27: the port's static gates and the interleaving explorer
+    through ``paddle_tpu_torch.cli.main``: host code that imports no JAX.
+    No flash kernel may launch."""
+    import logging
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import cli as tcli
+
+    reset_counts(fa)
+    level = logging.getLogger("paddle_tpu_torch").level
+    d = tempfile.mkdtemp(prefix="gates_")
+    t = [time.perf_counter()]
+    try:
+        gate_lints(tcli, card)
+        t.append(time.perf_counter())
+        gate_planted(d)
+        t.append(time.perf_counter())
+        gate_explore(tcli, d, card)
+        t.append(time.perf_counter())
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+        logging.getLogger("paddle_tpu_torch").setLevel(level)
+    if launch_counts(fa) != (0, 0, 0):
+        raise SystemExit("gates: phase 27 launched a flash kernel")
+    say(f"gates: phase 27 split on {card}: 27a {t[1] - t[0]:.2f} s, 27b {t[2] - t[1]:.2f} s, "
+        f"27c {t[3] - t[2]:.2f} s; flash launches (fwd, dq, dkv) over it: {launch_counts(fa)}")
+
+
 def main() -> int:
     import torch
 
@@ -7870,6 +7996,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_scenarios(torch, P, fa, card)
     say(f"scenarios: phase 26 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_gates(fa, card)
+    say(f"gates: phase 27 took {time.perf_counter() - t0:.1f} s")
     kernels = [
         {"name": name, "route": "cuda", "source": f"paddle_tpu_torch/csrc/{src}",
          "replaces": f"paddle_tpu/ops/pallas_attention.py:{line}",

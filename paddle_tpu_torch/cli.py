@@ -8,8 +8,10 @@
   unless ``--device=cpu``; ``--job=time`` is the reference's
   TrainerBenchmark (TrainerBenchmark.cpp:71);
 * ``version``, ``dump_config``, ``make_diagram``, ``merge_model``,
-  ``plotcurve``; ``trace merge|validate`` over obs span files; ``lint
-  --config`` (the graph lint) and ``lint --journal``;
+  ``plotcurve``; ``trace merge|validate`` over obs span files; ``lint``
+  (the self-lint of the port's source), ``lint --config`` (the graph
+  lint), ``lint --journal``, ``lint --concurrency`` and ``lint
+  --protocol``;
 * ``master`` and ``worker`` (an HA master candidate of the elastic cluster
   plane, and one elastic trainer process), ``serve`` and ``route`` (one
   serving engine under the SLO scheduler, or a fleet engine with
@@ -17,12 +19,14 @@
 * ``scenario`` (the mixed-traffic SLO and chaos scenario harness,
   robustness/scenarios.py) and ``fuzz`` (the chaos-composition fuzzer,
   robustness/fuzz.py), their serving engines on the card unless
-  ``--device=cpu``.
+  ``--device=cpu``;
+* ``explore`` (the interleaving explorer over the router, master and HA
+  lease state machines, analysis/interleave.py; host code, no card).
 
-``explore`` and ``cache``, and lint's other modes, raise
-``NotImplementedError`` (ROADMAP Queue 1 item 7).  Flags mirror the
-reference gflags in ``--name=value`` form; argparse also accepts ``--name
-value``."""
+``cache`` raises ``NotImplementedError`` (ROADMAP Queue 1 item 7e), and
+so do lint's ``--donation``, ``--numerics`` and ``--certify`` (item 7d).
+Flags mirror the reference gflags in ``--name=value`` form; argparse also
+accepts ``--name value``."""
 
 from __future__ import annotations
 
@@ -37,7 +41,8 @@ from typing import List, Optional
 
 __all__ = ["main", "cmd_train", "cmd_version", "cmd_dump_config", "cmd_make_diagram",
            "cmd_merge_model", "cmd_plotcurve", "cmd_trace", "cmd_lint", "cmd_master",
-           "cmd_worker", "cmd_serve", "cmd_route", "cmd_scenario", "cmd_fuzz"]
+           "cmd_worker", "cmd_serve", "cmd_route", "cmd_scenario", "cmd_fuzz",
+           "cmd_explore"]
 
 
 def _echo(msg: str) -> None:
@@ -759,45 +764,63 @@ def cmd_trace(argv: List[str]) -> int:
 def cmd_lint(argv: List[str]) -> int:
     """``lint`` — static analysis (analysis/):
 
+    * no mode: self-lint of the port's own source (rules A###: unseeded
+      reader RNG, duplicate flags, wall clock in obs/, raw deserialization
+      outside master_wire.py; ``# wire: allow[A206] <why>`` escapes a
+      genuinely-local read), plus any ``--extra`` files;
     * --config=conf.py: parse the v1 config and graph-lint its topology
       (rules G###) with layer + config provenance;
     * --journal=master_journal-000001.log: verify a master journal file —
       framing/CRC (J001), unknown record types (J002), sequence
-      monotonicity (J003), torn tail (J004).
+      monotonicity (J003), torn tail (J004);
+    * --concurrency: lock-discipline lint (rules C###) over the port's
+      threaded planes, plus any ``--extra`` files;
+    * --protocol: protocol-conformance lint (rules P###) over the master,
+      HA, journal, wire and serving-fleet surfaces.
 
-    The package self-lint (no --config or --journal) and --donation,
-    --concurrency, --protocol, --numerics and --certify are not ported yet
-    (ROADMAP Queue 1 item 7) and raise.  Exit 0 only when no diagnostics
-    fire."""
+    The modes combine in one run.  --donation, --numerics and --certify
+    lint traced jaxprs in the JAX package; their FX-graph twins are not
+    ported yet (ROADMAP Queue 1 item 7d) and raise.  Exit 0 only when no
+    diagnostics fire."""
     ap = argparse.ArgumentParser(
         prog="python -m paddle_tpu_torch lint",
-        description="config-time graph lint and master-journal verification "
+        description="config-time graph lint + package self-lint "
         "(the reference config_parser's config_assert plane)",
     )
     ap.add_argument("--config", action="append", default=[],
-                    help="v1 config file to graph-lint (repeatable)")
+                    help="v1 config file to graph-lint (repeatable; skips the self-lint)")
     ap.add_argument("--config_args", default="",
                     help="comma-separated key=value pairs for the config(s)")
-    ap.add_argument("--journal", action="append", default=[],
-                    help="master journal file to verify (repeatable; rules J###)")
     ap.add_argument("--extra", action="append", default=[],
-                    help="extra .py files to self-lint (not ported: item 7)")
-    for mode in ("donation", "concurrency", "numerics", "protocol", "certify"):
-        ap.add_argument(f"--{mode}", action="store_true", help="not ported yet (item 7)")
-    ap.add_argument("--compute-dtype", default=None, help="numerics (not ported: item 7)")
-    ap.add_argument("--master-dtype", default=None, help="numerics (not ported: item 7)")
+                    help="extra .py files to self-lint (e.g. chip_smoke.py)")
+    ap.add_argument("--journal", action="append", default=[],
+                    help="master journal file to verify (repeatable; rules J###; "
+                    "skips the self-lint)")
+    ap.add_argument("--concurrency", action="store_true",
+                    help="lock-discipline lint (rules C###) over the package source "
+                    "(skips the self-lint)")
+    ap.add_argument("--protocol", action="store_true",
+                    help="protocol-conformance lint (rules P###) over the distributed "
+                    "planes: RPC surface vs handlers vs wire universe, journal "
+                    "record/replay/compaction coverage, status-ledger exhaustiveness, "
+                    "lease/fence monotonicity, timeout completeness (skips the self-lint)")
+    for mode in ("donation", "numerics", "certify"):
+        ap.add_argument(f"--{mode}", action="store_true",
+                        help="not ported yet (ROADMAP Queue 1 item 7d)")
+    ap.add_argument("--compute-dtype", default=None,
+                    help="numerics (not ported yet: item 7d)")
+    ap.add_argument("--master-dtype", default=None,
+                    help="numerics (not ported yet: item 7d)")
     ap.add_argument("--min-severity", default=None, choices=["info", "warning", "error"],
                     help="only report findings at or above this severity")
     args = ap.parse_args(argv)
 
-    unported = [m for m in ("donation", "concurrency", "numerics", "protocol", "certify")
-                if getattr(args, m)]
-    if not (args.config or args.journal):
-        unported.insert(0, "the package self-lint")
+    unported = [m for m in ("donation", "numerics", "certify") if getattr(args, m)]
     if unported:
         raise NotImplementedError(
-            f"lint {', '.join(unported)} is not ported yet (ROADMAP Queue 1 item 7); the "
-            "port's lint has --config and --journal")
+            f"lint {', '.join('--' + m for m in unported)} is not ported yet (ROADMAP "
+            "Queue 1 item 7d); the port's lint has the self-lint, --config, --journal, "
+            "--concurrency and --protocol")
 
     from paddle_tpu_torch import analysis
 
@@ -830,6 +853,12 @@ def cmd_lint(argv: List[str]) -> int:
                 diags.extend(_dc.replace(d, source=cfg) for d in e.diagnostics)
                 continue
             diags.extend(analysis.lint_parsed(parsed))
+    if args.concurrency:
+        diags.extend(analysis.lint_concurrency_package(extra_paths=args.extra))
+    if args.protocol:
+        diags.extend(analysis.lint_protocol_package())
+    if not (args.config or args.journal or args.concurrency or args.protocol):
+        diags = analysis.lint_package(extra_paths=args.extra)
 
     if args.min_severity:
         floor = analysis.Severity[args.min_severity.upper()]
@@ -954,7 +983,7 @@ def cmd_master(argv: List[str]) -> int:
             announced = True
         elif not ha.is_leader.is_set():
             announced = False
-        time.sleep(0.2)
+        time.sleep(0.2)  # lock: allow[C306] CLI supervision loop: wall-clock by design, driven end-to-end by the failover drills
     ha.stop()
     return 0
 
@@ -1914,14 +1943,116 @@ def cmd_fuzz(argv: List[str]) -> int:
     return 1
 
 
+def cmd_explore(argv: List[str]) -> int:
+    """``explore`` — the deterministic interleaving explorer over the
+    distributed planes (analysis/interleave.py).
+
+    Drives the REAL state machines (the serving router, the journaled
+    master, the HA lease file) in-process on a virtual clock with a
+    simulated transport, searching event interleavings for
+    protocol-invariant violations (double-serve, epoch-fence breach,
+    recovery infidelity).  Host code only: it needs no card.
+
+    * default: seeded-random exploration (``--schedules`` independent
+      schedules; schedule i draws from ``Random(f"{seed}:{i}")``, so any
+      run replays exactly);
+    * --dfs-depth N: additionally sweep every interleaving up to depth N
+      (bounded DFS, first ``--dfs-branch`` enabled events per state);
+    * --plant NAME: plant a known bug (canary) to prove the harness
+      detects, shrinks, and replays — e.g. ``double_serve``;
+    * --replay SPEC.json: re-run a shrunk violation spec; exit 0 iff the
+      violation reproduces (the regression-test contract).
+
+    Exit code: 0 = clean (or replay reproduced), 1 = violation found (or
+    replay failed to reproduce).  A found violation is ddmin-shrunk to a
+    minimal replayable spec, printed, and written to ``--out``.  Specs are
+    the JAX package's: either package replays the other's."""
+    ap = argparse.ArgumentParser(prog="python -m paddle_tpu_torch explore",
+                                 description=cmd_explore.__doc__)
+    ap.add_argument("--model", default="router", choices=["router", "master", "ha"],
+                    help="which state machine to drive (default router)")
+    ap.add_argument("--schedules", type=int, default=200,
+                    help="number of seeded-random schedules (default 200)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="batch seed; schedule i uses Random(f'{seed}:{i}')")
+    ap.add_argument("--max-events", type=int, default=14,
+                    help="events per random schedule (default 14)")
+    ap.add_argument("--dfs-depth", type=int, default=0,
+                    help="also run bounded DFS to this depth (0 = skip)")
+    ap.add_argument("--dfs-branch", type=int, default=5,
+                    help="DFS branch limit per state (default 5)")
+    ap.add_argument("--plant", default=None,
+                    help="plant a known bug as a harness canary (e.g. double_serve)")
+    ap.add_argument("--replay", default=None, metavar="SPEC",
+                    help="re-run a shrunk violation spec JSON file")
+    ap.add_argument("--out", default=None, metavar="SPEC",
+                    help="write the shrunk violation spec here")
+    args = ap.parse_args(argv)
+
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.analysis.interleave import (
+        dfs_explore, explore_schedules, make_model, replay_spec,
+    )
+
+    # fault injection makes the router log every simulated transport
+    # failure — noise at batch scale, so keep only real errors
+    logging.getLogger("paddle_tpu_torch").setLevel(logging.ERROR)
+
+    if args.replay:
+        with open(args.replay, "r", encoding="utf-8") as fh:
+            spec = json.load(fh)
+        out = replay_spec(spec)
+        if out["reproduced"]:
+            print(f"reproduced ({out['applied']} events applied):")
+            for v in out["violations"]:
+                print(f"  {v}")
+            return 0
+        print(f"spec did NOT reproduce ({out['applied']} events applied, no violation)",
+              file=sys.stderr)
+        return 1
+
+    workdir = tempfile.mkdtemp(prefix="paddle-tpu-torch-explore-")
+    model = make_model(args.model, workdir, planted=args.plant)
+    try:
+        res = explore_schedules(model, schedules=args.schedules, seed=args.seed,
+                                max_events=args.max_events)
+        if not res["violation_found"] and args.dfs_depth > 0:
+            dres = dfs_explore(model, depth=args.dfs_depth, branch_limit=args.dfs_branch)
+            print(f"dfs: {dres['paths_run']} paths to depth {args.dfs_depth}")
+            if dres["violation_found"]:
+                res = {"violation_found": True, "schedules_run": res["schedules_run"],
+                       "spec": dres["spec"]}
+        if not res["violation_found"]:
+            print(f"clean: {res['schedules_run']} schedules on model {args.model!r} "
+                  f"(seed {args.seed}), no violation")
+            return 0
+        spec = res["spec"]
+        print(f"VIOLATION on model {args.model!r} after {res['schedules_run']} schedules, "
+              f"shrunk to {len(spec['events'])} events:")
+        for v in spec["violations"]:
+            print(f"  {v}")
+        print(json.dumps(spec, indent=2, sort_keys=True))
+        if args.out:
+            with open(args.out, "w", encoding="utf-8") as fh:
+                json.dump(spec, fh, indent=2, sort_keys=True)
+            print(f"spec written to {args.out} "
+                  f"(replay: python -m paddle_tpu_torch explore --replay {args.out})")
+        return 1
+    finally:
+        model.close()
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 # the JAX package's other subcommands, each waiting for its port
-_NOT_PORTED = ("explore", "cache")
+_NOT_PORTED = ("cache",)
 
 
 def _not_ported(name: str):
     def cmd(argv: List[str]) -> int:
         raise NotImplementedError(
-            f"the {name!r} subcommand is not ported yet (ROADMAP Queue 1 item 7); see "
+            f"the {name!r} subcommand is not ported yet (ROADMAP Queue 1 item 7e); see "
             "`python -m paddle_tpu_torch --help` for the ported ones")
 
     return cmd
@@ -1932,7 +2063,7 @@ _COMMANDS = {"train": cmd_train, "version": cmd_version, "dump_config": cmd_dump
              "plotcurve": cmd_plotcurve, "lint": cmd_lint, "trace": cmd_trace,
              "master": cmd_master, "worker": cmd_worker, "serve": cmd_serve,
              "route": cmd_route, "scenario": cmd_scenario, "fuzz": cmd_fuzz,
-             **{name: _not_ported(name) for name in _NOT_PORTED}}
+             "explore": cmd_explore, **{name: _not_ported(name) for name in _NOT_PORTED}}
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -1947,9 +2078,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         print("    make_diagram      write a Graphviz diagram of a config")
         print("    merge_model       bundle config + parameters into one file")
         print("    plotcurve         plot training curves from a log")
-        print("    lint              static analysis: graph-lint a config")
-        print("                      (--config) or verify a master journal")
-        print("                      (--journal)")
+        print("    lint              static analysis: self-lint the package")
+        print("                      (rules A###), graph-lint a config (--config),")
+        print("                      verify a master journal (--journal), lock")
+        print("                      discipline (--concurrency), protocol")
+        print("                      conformance (--protocol)")
         print("    trace             merge/validate span-timeline files")
         print("    master            run an HA master candidate (elastic")
         print("                      scale-out: registry + shard leases)")
@@ -1962,6 +2095,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         print("                      on the card unless --device=cpu)")
         print("    fuzz              chaos-composition fuzzer (--count/--seed/")
         print("                      --plant/--replay; on the card unless --device=cpu)")
+        print("    explore           interleaving explorer over the router, master")
+        print("                      and HA lease state machines (--model/--schedules/")
+        print("                      --dfs-depth/--plant/--replay)")
         print("not ported yet: " + ", ".join(_NOT_PORTED))
         return 0 if argv else 1
     cmd, rest = argv[0], argv[1:]

@@ -56,7 +56,7 @@ def recordio_local(paths, buf_size: int = 100, pickled: bool = True):
                     rec = r.next()
                     if rec is None:
                         break
-                    yield pickle.loads(rec) if pickled else rec   # records written by dataset.common.convert
+                    yield pickle.loads(rec) if pickled else rec  # wire: allow[A206] operator-written recordio dataset (common.convert pickled these samples to local disk); v2 reader-API parity, never a network peer's bytes
 
     return buffered(reader, buf_size)
 
@@ -82,6 +82,6 @@ def cloud_reader(paths, master, buf_size: int = 64, pickled: bool = True):
             rec = client.next_record()
             if rec is None:
                 return
-            yield pickle.loads(rec) if pickled else rec   # records written by dataset.common.convert
+            yield pickle.loads(rec) if pickled else rec  # wire: allow[A206] records are the operator's own common.convert output streamed back opaquely by the master; the RPC envelope around them rides the safe codec
 
     return buffered(reader, buf_size)

@@ -209,7 +209,7 @@ class ImageClassificationDatasetCreater:
 
 def load_meta(data_path: str) -> dict:
     with open(os.path.join(data_path, "batches", "batches.meta"), "rb") as f:
-        return pickle.load(f)  # a meta file create_batches wrote
+        return pickle.load(f)  # wire: allow[A206] meta file this module itself wrote to local disk in create_batches (v1 preprocess format parity)
 
 
 def batch_reader(list_file: str, meta: Optional[dict] = None):
@@ -223,7 +223,7 @@ def batch_reader(list_file: str, meta: Optional[dict] = None):
         mean = meta["mean_image"] if meta is not None else None
         for p in paths:
             with open(p, "rb") as bf:
-                batch = pickle.load(bf)  # a batch file create_batches wrote
+                batch = pickle.load(bf)  # wire: allow[A206] batch files this module itself wrote to local disk (v1 preprocess format parity)
             for img, lab in zip(batch["images"], batch["labels"]):
                 x = img.astype(np.float32)
                 if mean is not None:

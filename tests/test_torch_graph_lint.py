@@ -324,8 +324,11 @@ def test_lint_config_exit_codes(tmp_path):
     rc, out = _lint(["--config", os.path.join(CONFIGS, "demo_mnist_mlp.py"),
                      "--min-severity", "error"])
     assert rc == 0
-    for unported in (["--donation", "--config", str(bad)], ["--numerics"], []):
-        with pytest.raises(NotImplementedError, match="item 7"):
+    # no mode is the self-lint of the port's source, which is clean
+    rc, out = _lint([])
+    assert rc == 0 and "no diagnostics" in out
+    for unported in (["--donation", "--config", str(bad)], ["--numerics"]):
+        with pytest.raises(NotImplementedError, match="item 7d"):
             _lint(unported)
 
 

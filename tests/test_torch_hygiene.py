@@ -401,11 +401,13 @@ _TORCH_IMPORT = re.compile(r"^(?:import|from)\s+torch\b", re.M)
 
 
 def test_router_loadgen_and_traces_import_no_torch_at_module_level():
-    """Like their JAX twins, which import no jax, these three modules keep
-    torch out of their own top level (``ops/quantize.py`` imports it only
-    inside its tensor functions)."""
+    """Like their JAX twins, which import no jax, these modules keep torch
+    out of their own top level (``ops/quantize.py`` imports it only inside
+    its tensor functions; the analysis passes are host code)."""
     for rel in ("serving/router.py", "reader/loadgen.py", "robustness/traces.py",
-                "ops/quantize.py"):
+                "ops/quantize.py", "analysis/pragmas.py", "analysis/ast_rules.py",
+                "analysis/concurrency_lint.py", "analysis/protocol_lint.py",
+                "analysis/interleave.py"):
         with open(os.path.join(PKG, rel)) as f:
             assert not _TORCH_IMPORT.search(f.read()), rel
     assert _TORCH_IMPORT.search("import torch\n")
@@ -467,7 +469,7 @@ def test_every_torch_e2e_file_is_slow_marked():
     files = sorted(f for f in os.listdir(tests_dir)
                    if f.startswith("test_torch_") and f.endswith("_e2e.py"))
     assert {"test_torch_scenarios_e2e.py", "test_torch_fuzz_e2e.py",
-            "test_torch_fleet_e2e.py"} <= set(files)
+            "test_torch_fleet_e2e.py", "test_torch_explore_e2e.py"} <= set(files)
     unmarked = []
     for f in files:
         with open(os.path.join(tests_dir, f)) as fh:

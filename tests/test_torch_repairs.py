@@ -290,8 +290,8 @@ def test_not_ported_messages_name_their_items(tmp_path):
         trainer.parameters.params
     with pytest.raises(NotImplementedError, match=r"init_cluster .*Queue 1 item 6\)"):
         paddle_tpu_torch.launcher.init_cluster()
-    with pytest.raises(NotImplementedError, match=r"'explore' subcommand .*Queue 1 item 7\)"):
-        tcli.main(["explore"])
+    # the interleaving explorer is ported: a small clean batch exits 0
+    assert tcli.main(["explore", "--model", "ha", "--schedules", "5"]) == 0
     # the serving plane is ported: the scheduler and the CLI's serve and route
     from paddle_tpu_torch import serving
 
