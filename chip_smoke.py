@@ -48,7 +48,11 @@ Phases, in order; any failure exits non-zero:
      cost finite, the cost falling over repeated steps on one batch, 18
      forward, 18 dq and 18 dk/dv launches per step, one step's gradients
      with flash against the dense path (f32 and bf16 compute), seconds per
-     step, tokens per second and peak memory;
+     step, tokens per second and peak memory; (5b) the flash kernels' two
+     routes, launched straight (training) and through their custom
+     operators (``as_graph_ops``, a traced step's route): host µs per call
+     of flash_attention and of flash_attention_diff's forward and backward
+     at a small shape, and phase 5's seconds per step on each, in turns;
   6. torch.profiler over two training steps: the top device kernels by time,
      the device's busy share of the window, and the dq kernel, which must
      run as fa_bwd_dq_mma_kernel 18 times per step (this shows the main
@@ -450,7 +454,26 @@ Phases, in order; any failure exits non-zero:
      60, all seed 0) prints clean, the double_serve canary (router, seed 7,
      12 events) exits 1 with a spec of at most 6 events and its replay
      exits 0.  Seconds of each step and runs/s beside the card.  No flash
-     kernel may launch in phase 27.
+     kernel may launch in phase 27;
+ 28. the traced-step lints and the numerics sanitizer on phase 5's model
+     and batch shape: (a) in two subprocesses, ``lint --numerics`` over the
+     package probes and over three tests/configs demos, at f32 and at bf16
+     compute, each exit 0 and clean; (b) one train step traced (make_fx):
+     18 forward and 18 backward flash custom-op nodes, each kernel launched
+     18 times by the trace, the T-rules raw naming the step's host sync and
+     clean with the pragmas, ``lint --donation``'s audit of the three step
+     builders raw naming the epoch program's clone of the carry and clean
+     with the pragmas, the bf16 numerics lint clean, certificates ACCEPT /
+     REJECT (N402) / REJECT without a trace; (c) the sanitizer armed through
+     SGD.train: a healthy step captured once and torch.equal to an unarmed
+     trainer's, then a NaN in the first encoder attention's query weight and
+     that weight scaled until q.k leaves the f32 range, each step skipped by
+     the sentinel, the postmortems naming the query ``mm`` and the flash
+     forward node (whose re-execution launches the forward kernel); (d) in
+     a subprocess, ``init(compute_dtype="bfloat16")`` turns cuBLAS's bf16
+     reduced-precision switch off, N401 is clean on a bf16 step and fires
+     with the switch forced on.  Phase 28's launches are the kernels line's
+     ``phase28_launches``.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels with their launches on the main path (the timed training steps of
@@ -460,8 +483,9 @@ N-gram and ranking networks of phase 18, the image and CTC networks of
 phase 19, the SSD and MDLSTM networks of phase 20, phase 21's framework,
 GAN and VAE paths, phase 22's image networks, phase 23's fleets, phase
 24's serving plane, phase 26's scenarios and phase 27's gates run none of them; phase 20's MoE Transformer runs each
-18 times per step and phase 25e's encoder twice per step), errors and
-times.
+18 times per step, phase 25e's encoder twice per step, and phase 28's
+trace, steps and postmortems run them as ``phase28_launches`` counts),
+errors and times.
 Without a CUDA device, or without the paddle_tpu_torch package beside it, the script
 exits non-zero and prints no result.
 """
@@ -470,6 +494,8 @@ from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -509,6 +535,8 @@ MIN_LEN = 600  # shortest training source or target
 TRAIN_LR = 0.05 / T
 TRAIN_BATCHES = 4  # distinct batches of the timed training run
 FIXED_STEPS = 5  # repeated steps on one batch: the cost must fall
+DISPATCH_CALLS = 1000  # calls per turn of phase 5b's host-time loops
+DISPATCH_STEPS = 7  # phase 5 steps per turn of phase 5b (the first is dropped)
 # one step's gradients, flash against dense: |dg| / |g_dense|, L2 over every
 # leaf.  Per-leaf maxima are no bar at this size: a ReLU unit of the FFN
 # whose pre-activation is within rounding of 0 flips between the paths and
@@ -701,7 +729,12 @@ def phase_kernel(torch, fa):
                 tol_o, tol_l = TOL_O[dtype_name], TOL_LSE[dtype_name]
                 mask = attention_mask(torch, lengths, causal)
                 qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
-                ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, lengths, causal))
+                # the kernel alone, into preallocated outputs (as phase 4 times
+                # dq and dk/dv: the wrapper's host time per call is about as
+                # long as the kernel, phase 5b), and through the wrapper
+                outs = (torch.empty_like(o_k), torch.empty_like(lse_k))
+                ms = time_ms(torch, lambda: fa._launch_fwd((q, k, v, lengths), outs, causal))
+                wrapped = time_ms(torch, lambda: fa.flash_attention(q, k, v, lengths, causal))
                 plain = time_ms(torch, lambda: fa.flash_attention_reference(q, k, v, lengths, causal), iters=5)
                 lib = time_ms(torch, lambda: sdpa(qh, kh, vh, attn_mask=mask))
                 peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
@@ -709,7 +742,8 @@ def phase_kernel(torch, fa):
                 say(f"kernel {layout} {dtype_name} causal={causal} strides {q.stride()}: "
                     f"max|dO|={err_o:.3e} (<= {tol_o} + {TOL_O_REL[dtype_name]}*|O|, "
                     f"worst excess {excess_o:.3e}) max|dlse|={err_l:.3e} (<= {tol_l}); "
-                    f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, "
+                    f"kernel {ms:.4f} ms ({wrapped:.4f} through the wrapper), plain "
+                    f"{plain:.4f} ms, sdpa {lib:.4f} ms, "
                     f"bound {bnd:.4f} ms ({bound_by})")
                 if not finite or excess_o > tol_o or err_l > tol_l:
                     raise SystemExit(f"flash kernel disagrees with its plain version "
@@ -1132,6 +1166,76 @@ def phase_train(torch, P, fa, card):
             raise SystemExit(f"{dtype_name} gradients: flash and dense disagree")
         del g_f, g_d
     return {"fwd": launches[0], "dq": launches[1], "dkv": launches[2]}, trainer, mean_s
+
+
+def host_us_per_call(torch, fn, n):
+    """Wall µs per call of `fn` over `n` calls, the card synchronized at both
+    ends (host time per call while each launch is shorter than it)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def phase_dispatch(torch, P, fa, card, trainer):
+    """5b: what routing the flash kernels through their custom operators
+    (``fa.as_graph_ops``, the route a traced step takes) costs against
+    launching them straight (the training route).  Host µs per call at a
+    small shape (B=1, T=128, H=8, dh=64, bf16: each kernel takes a few µs,
+    so a call's wall time is its host time), then phase 5's trainer,
+    seconds per step, on each route in turns."""
+    import contextlib
+
+    routes = {"straight": contextlib.nullcontext, "custom op": fa.as_graph_ops}
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v, do = (torch.randn((1, 128, 8, 64), generator=g, device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+
+    def diff():
+        torch.autograd.grad(fa.flash_attention_diff(qg, kg, vg), (qg, kg, vg), do)
+
+    calls = (("flash_attention", lambda: fa.flash_attention(q, k, v), DISPATCH_CALLS),
+             ("flash_attention_diff fwd+bwd", diff, DISPATCH_CALLS // 2))
+    us = {(name, r): [] for name, _, _ in calls for r in routes}
+    order = ("straight", "custom op", "custom op", "straight")
+    for r in order:
+        with routes[r]():
+            for name, fn, n in calls:
+                fn()
+                us[name, r].append(host_us_per_call(torch, fn, n))
+    for name, _, _ in calls:
+        say(f"dispatch 5b {name}: host µs per call straight "
+            f"{[round(x, 2) for x in us[name, 'straight']]}, through the custom op "
+            f"{[round(x, 2) for x in us[name, 'custom op']]} on {card}")
+    samples = train_samples(np.random.RandomState(55), BATCH)
+    secs = {r: [] for r in routes}
+    for r in ("straight", "custom op", "custom op", "straight", "straight", "custom op"):
+        turn, clock = [], [0.0]
+
+        def on_event(e):
+            if isinstance(e, P.event.BeginIteration):
+                torch.cuda.synchronize()
+                clock[0] = time.perf_counter()
+            elif isinstance(e, P.event.EndIteration):
+                turn.append(time.perf_counter() - clock[0])
+
+        with routes[r]():
+            run_steps(P, trainer, samples * DISPATCH_STEPS, on_event)
+        secs[r].extend(turn[1:])
+    mean = {r: float(np.mean(x)) for r, x in secs.items()}
+    extra_ms = 18 * (np.mean(us["flash_attention_diff fwd+bwd", "custom op"])
+                     - np.mean(us["flash_attention_diff fwd+bwd", "straight"])) / 1e3
+    say(f"dispatch 5b: phase 5 seconds per step straight {mean['straight']:.5f} (median "
+        f"{float(np.median(secs['straight'])):.5f}), through the custom ops "
+        f"{mean['custom op']:.5f} (median {float(np.median(secs['custom op'])):.5f}), "
+        f"{len(secs['straight'])} steps a route in turns; the custom ops' host cost at 18 "
+        f"differentiable calls a step {extra_ms:.3f} ms = "
+        f"{100 * extra_ms / 1e3 / mean['straight']:.2f}% of a straight step, on {card}")
+    for r, x in secs.items():
+        say(f"dispatch 5b {r} steps: {[round(t, 5) for t in x]}")
 
 
 PROFILE_TRIES = 3  # profiler windows run in turn while none records device activity
@@ -7876,6 +7980,299 @@ def phase_gates(fa, card):
         f"27c {t[3] - t[2]:.2f} s; flash launches (fwd, dq, dkv) over it: {launch_counts(fa)}")
 
 
+# Phase 28: the traced-step lints and the numerics sanitizer (PR 24).  The
+# step is phase 5's: Transformer-base, bf16 compute over f32 masters, B=8,
+# lengths 600-1024, flash on.
+NS_LAYER = "enc0_att"  # the first encoder attention: the planted faults' weight
+NS_Q_MAX = 1e38  # the overflow plant scales the query weight until max |q| is this:
+# finite in bf16 (max 3.39e38), while q.k over dh = 64 passes the f32 range
+NS_CONFIGS = ("demo_mnist_mlp.py", "demo_seq2seq_attention.py", "demo_text_lstm.py")
+
+
+def lint_legs_drive(half: int) -> int:
+    """28a in its own process (two, each running one half of the legs): the
+    port's command line lints traced train steps on the card —
+    ``--numerics`` over the package probes and over tests/configs/*.py, at
+    f32 and at bf16 compute (28b runs ``--donation``'s audit, raw and with
+    the pragmas).  Prints each leg's exit code, seconds and findings; exits
+    1 unless every leg is clean."""
+    from paddle_tpu_torch import cli as tcli
+
+    cfgs = []
+    for c in NS_CONFIGS:
+        cfgs += ["--config", os.path.join(HERE, "tests", "configs", c)]
+    bf16 = ["--compute-dtype", "bfloat16"]
+    legs = ((("numerics f32", ["lint", "--numerics"]),
+             ("numerics configs f32", ["lint", "--numerics"] + cfgs)),
+            (("numerics bf16", ["lint", "--numerics"] + bf16),
+             ("numerics configs bf16", ["lint", "--numerics"] + bf16 + cfgs)))[half]
+    bad = 0
+    for name, argv in legs:
+        t0 = time.perf_counter()
+        rc, out = cli_run(tcli, argv)
+        findings = [ln for ln in out.splitlines() if re.match(r"(error|warning|info)\[", ln)]
+        say(f"lint 28a {name}: exit {rc} in {time.perf_counter() - t0:.2f} s, "
+            f"{len(findings)} finding(s) {findings}")
+        bad += rc != 0 or "no diagnostics" not in out
+    return 1 if bad else 0
+
+
+def f32_acc_drive() -> int:
+    """28d in its own process, which never sets the reduced-precision
+    switch: ``init(compute_dtype="bfloat16")`` pins f32 accumulation, N401
+    stays clean on a bf16 step; with the switch forced True it fires on
+    the step's GEMMs."""
+    import torch
+
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.analysis import numerics_lint as NL
+    from paddle_tpu_torch.analysis import trace_lint as TL
+    from paddle_tpu_torch.models.transformer import transformer_cost
+    from paddle_tpu_torch.reader.feeder import DataFeeder
+    from paddle_tpu_torch.trainer.step import make_train_step
+
+    m = torch.backends.cuda.matmul
+    before = m.allow_bf16_reduced_precision_reduction
+    P.init(seed=3, compute_dtype="bfloat16", use_flash_attention=True)
+    after = m.allow_bf16_reduced_precision_reduction
+    cost, _ = transformer_cost(512, 512, d_model=64, n_heads=4, n_layers=1, d_ff=128)
+    net = P.CompiledNetwork(P.Topology(cost))
+    params, state = net.init(3)
+    opt = P.optimizer.Momentum(learning_rate=1e-3, momentum=0.9)
+    rng = np.random.RandomState(3)
+    batch = DataFeeder(net.topology.data_types(), FEEDING)(
+        [tuple(list(rng.randint(2, 512, 128)) for _ in range(3)) for _ in range(4)])
+    step = make_train_step(net, opt)
+    clean = NL.lint_numerics_graph(TL.trace_step(step, params, state, opt.init(params), batch, 1))
+    m.allow_bf16_reduced_precision_reduction = True
+    forced = NL.lint_numerics_graph(TL.trace_step(step, params, state, opt.init(params), batch, 1))
+    n401 = [d for d in forced if d.rule == "N401"]
+    say(f"f32 accumulation 28d: switch {before} before init, {after} after "
+        f"init(compute_dtype='bfloat16'); N401 on the bf16 step {sum(d.rule == 'N401' for d in clean)}"
+        f" with it pinned, {len(n401)} with it forced True, e.g. "
+        f"{n401[0].message[:90] if n401 else '-'}")
+    ok = before is True and after is False and not clean and n401 \
+        and all(d.rule == "N401" for d in forced)
+    return 0 if ok else 1
+
+
+def ns_drive(call):
+    """A ``python -c`` subprocess running chip_smoke's drive `call` (28a or
+    28d), its output kept for the end of the phase."""
+    code = (f"import sys; sys.path.insert(0, {HERE!r}); import chip_smoke as cs; "
+            f"sys.exit(cs.{call})")
+    return subprocess.Popen([sys.executable, "-c", code], cwd=HERE, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def ns_step_parts(torch, P, dev, rng):
+    """Phase 5's network, a fresh Momentum state and one batch."""
+    from paddle_tpu_torch.models.transformer import transformer_base
+    from paddle_tpu_torch.reader.feeder import DataFeeder
+
+    cost, _ = transformer_base(VOCAB, VOCAB)
+    samples = train_samples(rng, BATCH)
+    net = P.CompiledNetwork(P.Topology(cost))
+    batch = DataFeeder(net.topology.data_types(), FEEDING, device=dev)(samples)
+    return cost, net, samples, batch
+
+
+def ns_trace(torch, P, fa, card, cost, net, batch, dev):
+    """28b: one traced Transformer-base train step, its flash nodes, the
+    T-rules raw and triaged, the numerics lint at bf16 and three
+    certificates."""
+    from paddle_tpu_torch.analysis import format_diagnostics
+    from paddle_tpu_torch.analysis import numerics_lint as NL
+    from paddle_tpu_torch.analysis import trace_lint as TL
+    from paddle_tpu_torch.trainer.step import make_train_step
+
+    params, state = net.init(11, device=dev)
+    opt = P.optimizer.Momentum(learning_rate=TRAIN_LR, momentum=0.9)
+    before = launch_counts(fa)
+    tr = TL.trace_step(make_train_step(net, opt), params, state, opt.init(params), batch, 1)
+    torch.cuda.synchronize()
+    ran = tuple(a - b for a, b in zip(launch_counts(fa), before))
+    ops = [TL.op_name(n) for n in tr.graph.nodes if n.op == "call_function"]
+    fwd = [n for n in tr.graph.nodes if n.op == "call_function"
+           and TL.op_name(n) == "paddle_tpu_torch.flash_attention_fwd"]
+    n_fwd, n_bwd = len(fwd), ops.count("paddle_tpu_torch.flash_attention_bwd")
+    say(f"trace 28b on {card}: Transformer-base step traced in {tr.seconds:.2f} s, "
+        f"{len(tr.graph.nodes)} nodes, flash custom-op nodes {n_fwd} forward / {n_bwd} "
+        f"backward (layers {sorted({TL.node_layer(n) for n in fwd})[:3]}...), launches the "
+        f"trace ran (fwd, dq, dkv) {ran}")
+    if (n_fwd, n_bwd) != (18, 18) or ran != (18, 18, 18):
+        raise SystemExit("trace 28b: expected 18 forward and 18 backward flash nodes, each "
+                         "launched once by the trace")
+    raw = TL.lint_graph(tr, apply_pragmas=False)
+    kept = TL.lint_graph(tr)
+    say(f"trace 28b T-rules without pragmas ({len(raw)}): " + " | ".join(
+        f"{d.rule} {d.message}" for d in raw))
+    if not any(d.rule == "T103" and "trainer/step.py" in d.message for d in raw) or kept:
+        raise SystemExit(f"trace 28b: the step's one sync is not named, or a T finding is "
+                         f"left:\n{format_diagnostics(kept)}")
+    # lint --donation's audit of the three step builders on its probe MLP (a
+    # full-width epoch would be one more full trace): raw, the epoch
+    # program's snapshot of the carry; with the pragmas (the command's own
+    # run), clean
+    from paddle_tpu_torch import cli as tcli
+
+    t0 = time.perf_counter()
+    t106 = tcli._donation_audit_builders(dev, apply_pragmas=False)
+    t106_kept = tcli._donation_audit_builders(dev)
+    say(f"trace 28b lint --donation's audit, raw and with the pragmas "
+        f"({time.perf_counter() - t0:.2f} s), step builders without pragmas: "
+        + " | ".join(f"{d.rule} {d.source} {d.message}" for d in t106)
+        + f"; with them {len(t106_kept)} finding(s)")
+    if not any(d.rule == "T106" and "make_epoch_program" in d.source and "clones" in d.message
+               for d in t106) or t106_kept:
+        raise SystemExit("trace 28b: the epoch program's clone of the carry is not named, or "
+                         f"a donation finding is left:\n{format_diagnostics(t106_kept)}")
+    t0 = time.perf_counter()
+    cert = NL.certify_precision_plan(net.topology, {"compute_dtype": "bfloat16"}, _traced=tr)
+    nl_s = time.perf_counter() - t0
+    say(f"trace 28b numerics lint at bf16 ({nl_s:.2f} s): {len(cert.diagnostics)} finding(s) "
+        f"{[(d.rule, d.layer) for d in cert.diagnostics]}")
+    rej = NL.certify_precision_plan(net.topology, {"compute_dtype": "bfloat16",
+                                                   "master_dtype": "bfloat16"}, _traced=tr)
+    int8 = NL.certify_precision_plan(net.topology, {"master_dtype": "int8"})
+    verdicts = [c.format().splitlines()[0] for c in (cert, rej, int8)]
+    say(f"trace 28b certificates: {verdicts}; the ACCEPT's first rows: "
+        + "; ".join(f"{r['layer']} {r['dtype']} {r['dots']}({r['acc']})" for r in cert.rows[:4]))
+    if not (cert.ok and not rej.ok and "N402" in {d.rule for d in rej.diagnostics}
+            and not int8.ok and int8.rows == [] and not cert.diagnostics):
+        raise SystemExit("trace 28b: the certificates are not ACCEPT / REJECT(N402) / "
+                         "REJECT without a trace, or the bf16 step has numerics findings:\n"
+                         + cert.format())
+    return tr
+
+
+def ns_postmortem(torch, P, fa, trainer, samples, d, what):
+    """One skipped step of `trainer` with the sanitizer armed: the flight
+    dump's numerics record, and the launches (fwd, dq, dkv) the call made."""
+    from paddle_tpu_torch.utils.timers import global_stats
+
+    path = os.path.join(d, f"flight-{os.getpid()}.json")
+    if os.path.exists(path):
+        os.remove(path)
+    before = {k: v.clone() for k, v in trainer.parameters.params[NS_LAYER].items()}
+    skipped = global_stats.count("robustness.skipped_steps")
+    costs = []
+    counts = launch_counts(fa)
+    t0 = time.perf_counter()
+    run_steps(P, trainer, samples,
+              lambda e: costs.append(e.cost) if isinstance(e, P.event.EndIteration) else None)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = tuple(a - b for a, b in zip(launch_counts(fa), counts))
+    if not os.path.exists(path):
+        raise SystemExit(f"sanitizer 28c {what}: no flight dump at {path}")
+    with open(path) as f:
+        rec = json.load(f)["otherData"]["numerics"]
+    same = all(torch.equal(v, before[k]) or k == "wq"
+               for k, v in trainer.parameters.params[NS_LAYER].items())
+    say(f"sanitizer 28c {what}: cost {costs}, skipped by the sentinel "
+        f"{global_stats.count('robustness.skipped_steps') - skipped}, params untouched {same}; "
+        f"postmortem in {secs:.2f} s (step, trace and re-execution): first non-finite "
+        f"{rec['node']} layer {rec['layer']} at {rec['source']}:{rec['line']}, inputs "
+        f"{[(s['shape'], s['dtype'], s.get('max_abs'), s.get('n_nonfinite')) for s in rec['inputs'][:3]]}"
+        f", poisoned inputs {[p['input'] for p in rec['poisoned_inputs']]}; flash launches "
+        f"(fwd, dq, dkv) {launches}; flight dump {path}")
+    if np.isfinite(costs[0]) or not same:
+        raise SystemExit(f"sanitizer 28c {what}: the planted step was not skipped")
+    return rec, launches
+
+
+def ns_sanitize(torch, P, fa, card, cost, net, samples, dev):
+    """28c: the sanitizer armed through SGD.train on phase 5's model."""
+    import tempfile
+
+    from paddle_tpu_torch.utils.timers import global_stats
+
+    d = tempfile.mkdtemp(prefix="numsan_")
+    P.flags.set_flag("trace_dir", d)
+    trainers = []
+    for armed in (True, False):
+        P.flags.set_flag("num_sanitizer", armed)
+        t = P.trainer.SGD(cost, P.parameters.create(cost, seed=11),
+                          P.optimizer.Momentum(learning_rate=TRAIN_LR, momentum=0.9))
+        caps = global_stats.count("num_sanitizer/captures")
+        t0 = time.perf_counter()
+        run_steps(P, t, samples)
+        torch.cuda.synchronize()
+        trainers.append((t, global_stats.count("num_sanitizer/captures") - caps,
+                         time.perf_counter() - t0))
+    (a, caps_a, secs_a), (b, caps_b, secs_b) = trainers
+    equal = all(torch.equal(v, b.parameters.params[k][kk])
+                for k, dd in a.parameters.params.items() for kk, v in dd.items())
+    say(f"sanitizer 28c on {card}: one healthy step armed {secs_a:.2f} s ({caps_a} capture), "
+        f"unarmed {secs_b:.2f} s ({caps_b}); parameters torch.equal after it: {equal}")
+    if (caps_a, caps_b) != (1, 0) or not equal:
+        raise SystemExit("sanitizer 28c: the armed step captured otherwise than once, or "
+                         "changed the trajectory")
+    del b, trainers
+    P.flags.set_flag("num_sanitizer", True)
+    wq = a.parameters.params[NS_LAYER]["wq"]
+    saved = wq.detach().clone()
+    with torch.no_grad():
+        wq[0, 0] = float("nan")
+    rec, _ = ns_postmortem(torch, P, fa, a, samples, d, "NaN in the query weight")
+    if rec["primitive"] != "aten.mm" or rec["layer"] != NS_LAYER:
+        raise SystemExit("sanitizer 28c: the NaN postmortem does not name the query mm")
+    with torch.no_grad():
+        wq.copy_(saved)
+        feeder_batch = a._make_feeder(FEEDING)(samples)
+        outs, _ = a.network.apply(a.parameters.params, feeder_batch, state=a.parameters.state,
+                                  train=True)
+        q = outs[a.network.topology.layers[NS_LAYER].inputs[0]].data \
+            @ wq.to(torch.bfloat16)
+        alpha = NS_Q_MAX / float(q.abs().max().float())
+        del outs, q
+        wq.mul_(alpha)
+    rec, launches = ns_postmortem(torch, P, fa, a, samples, d,
+                                  f"query weight x{alpha:.3e} (q.k past f32)")
+    interp_fwd = launches[0] - 36
+    say(f"sanitizer 28c: the re-execution launched the forward kernel {interp_fwd} more "
+        f"time(s) (launches beyond the step's and the trace's 18 each), dq/dkv "
+        f"{launches[1] - 36}/{launches[2] - 36}")
+    if (rec["primitive"] != "paddle_tpu_torch.flash_attention_fwd" or rec["layer"] != NS_LAYER
+            or rec["inputs"][0].get("n_nonfinite") or interp_fwd < 1
+            or launches[1:] != (36, 36)):
+        raise SystemExit("sanitizer 28c: the overflow postmortem does not name the flash "
+                         "forward node, or the re-execution did not launch its kernel")
+    with torch.no_grad():
+        wq.copy_(saved)
+    P.flags.set_flag("num_sanitizer", False)
+    P.flags.set_flag("trace_dir", "")
+    shutil.rmtree(d, ignore_errors=True)
+
+
+def phase_numerics(torch, P, fa, card):
+    """Phase 28: 28a (two processes) and 28d run in subprocesses beside 28b
+    and 28c."""
+    procs = {"28a": ns_drive("lint_legs_drive(0)"), "28a'": ns_drive("lint_legs_drive(1)"),
+             "28d": ns_drive("f32_acc_drive()")}
+    t = [time.perf_counter()]
+    dev = torch.device("cuda")
+    P.init(seed=11, compute_dtype="bfloat16", use_flash_attention=True)
+    cost, net, samples, batch = ns_step_parts(torch, P, dev, np.random.RandomState(28))
+    ns_trace(torch, P, fa, card, cost, net, batch, dev)
+    t.append(time.perf_counter())
+    ns_sanitize(torch, P, fa, card, cost, net, samples, dev)
+    t.append(time.perf_counter())
+    failed = []
+    for name, proc in procs.items():
+        out, _ = proc.communicate(timeout=600)
+        for line in out.strip().splitlines():
+            say(f"  {name}| {line}")
+        if proc.returncode != 0:
+            failed.append(name)
+    t.append(time.perf_counter())
+    say(f"numerics: phase 28 split on {card}: 28b {t[1] - t[0]:.2f} s, 28c {t[2] - t[1]:.2f} s,"
+        f" then waited {t[3] - t[2]:.2f} s for 28a and 28d (run beside them)")
+    if failed:
+        raise SystemExit(f"numerics: {failed} failed")
+
+
 def main() -> int:
     import torch
 
@@ -7912,6 +8309,7 @@ def main() -> int:
     phase_bar_sweep(torch, fa)
     phase_edges(torch, fa)
     launches, trainer, phase5_s = phase_train(torch, P, fa, card)
+    phase_dispatch(torch, P, fa, card, trainer)
     phase_profile(torch, P, trainer)
     del trainer
     # the ResNet path runs no flash kernel: its counts stay 0 over phases 8, 7, 9
@@ -7999,10 +8397,18 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_gates(fa, card)
     say(f"gates: phase 27 took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    reset_counts(fa)
+    phase_numerics(torch, P, fa, card)
+    launches28 = launch_counts(fa)
+    say(f"numerics: phase 28 took {time.perf_counter() - t0:.1f} s; flash launches (fwd, dq, "
+        f"dkv) over it: {launches28}")
     kernels = [
         {"name": name, "route": "cuda", "source": f"paddle_tpu_torch/csrc/{src}",
          "replaces": f"paddle_tpu/ops/pallas_attention.py:{line}",
          "launches": launches[kn],
+         "phase28_launches": launches28[("fwd", "dq", "dkv").index(kn)],
          **{key: rows[kn][key] for key in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
         for kn, name, src, line in (

@@ -111,8 +111,9 @@ def init(use_tpu=None, trainer_count=None, seed=None, compute_dtype=None, *, dev
     import numpy as np
     import torch
 
-    from paddle_tpu_torch.core.compiler import set_default_compute_dtype
+    from paddle_tpu_torch.core.compiler import as_dtype, set_default_compute_dtype
     from paddle_tpu_torch.core.device import set_default_device
+    from paddle_tpu_torch.ops import needs_f32_acc, pin_f32_accumulation
 
     set_default_device(device if device is not None else "cuda")
     explicit = {
@@ -134,5 +135,7 @@ def init(use_tpu=None, trainer_count=None, seed=None, compute_dtype=None, *, dev
     dtype_src = compute_dtype if compute_dtype is not None else flags.get_flag("compute_dtype")
     if dtype_src:
         set_default_compute_dtype(dtype_src)
+        if needs_f32_acc(as_dtype(dtype_src)):
+            pin_f32_accumulation()  # sub-f32 GEMMs accumulate in f32 (ops/__init__.py)
     if flags.get_flag("check_nans"):
         profiler.enable_nan_checks(True)

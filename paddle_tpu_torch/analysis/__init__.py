@@ -17,18 +17,23 @@
   * :mod:`~paddle_tpu_torch.analysis.interleave` — the interleaving
     explorer over the real router, master and HA lease state machines
     (``python -m paddle_tpu_torch explore``);
+  * :mod:`~paddle_tpu_torch.analysis.trace_lint` — one traced train step
+    as an FX graph (``make_fx``; the flash kernels are custom-op nodes) and
+    its hazards (rules ``T###``; ``lint --donation``);
+  * :mod:`~paddle_tpu_torch.analysis.numerics_lint` — precision-flow lint
+    over that graph and the precision certificate (rules ``N###``; ``lint
+    --numerics [--certify]``);
+  * :mod:`~paddle_tpu_torch.analysis.num_sanitizer` — the runtime leg: a
+    skipped step re-executed node by node to name its first non-finite op
+    (the ``num_sanitizer`` flag);
   * :mod:`~paddle_tpu_torch.analysis.pragmas` — the ``# lock:/# proto:/
-    # wire:/# obs:`` allowlist grammar those passes share;
+    # wire:/# obs:/# num:/# trace:`` allowlist grammar those passes share;
   * :mod:`~paddle_tpu_torch.analysis.lock_sanitizer` — instrumented locks
     that detect lock-order cycles at run time.
 
-The JAX package's jaxpr passes (``trace_lint``, ``numerics_lint`` and the
-``num_sanitizer``) are not ported yet: their twins over the FX graph are
-ROADMAP Queue 1 item 7d.
-
-Submodules import lazily (PEP 562): ``graph_lint`` pulls torch and the
-core IR, which the torch-free consumers of ``lock_sanitizer`` and
-``diagnostics`` (master.py) must not pay for; the A/C/P passes and the
+Submodules import lazily (PEP 562): ``graph_lint`` and the traced-step
+passes pull torch and the core IR, which the torch-free consumers of
+``lock_sanitizer`` and ``diagnostics`` (master.py) must not pay for; the A/C/P passes and the
 explorer's module import neither torch nor jax.
 """
 
@@ -58,6 +63,22 @@ _EXPORTS = {
     "explore_schedules": "interleave",
     "replay_spec": "interleave",
     "shrink_events": "interleave",
+    "donation_audit": "trace_lint",
+    "lint_graph": "trace_lint",
+    "lint_jaxpr": "trace_lint",
+    "lint_step": "trace_lint",
+    "recompile_audit": "trace_lint",
+    "trace_step": "trace_lint",
+    "PrecisionCertificate": "numerics_lint",
+    "certify_precision_plan": "numerics_lint",
+    "lint_numerics_config": "numerics_lint",
+    "lint_numerics_graph": "numerics_lint",
+    "lint_numerics_jaxpr": "numerics_lint",
+    "lint_numerics_package": "numerics_lint",
+    "lint_numerics_step": "numerics_lint",
+    "NumericsSanitizer": "num_sanitizer",
+    "find_first_nonfinite": "num_sanitizer",
+    "num_sanitizer_armed": "num_sanitizer",
     "DeadlockReport": "lock_sanitizer",
     "make_lock": "lock_sanitizer",
     "make_rlock": "lock_sanitizer",

@@ -5,8 +5,9 @@ passes.
 
 The analysis planes grew line-anchored escape hatches independently:
 the C-rules' ``# lock: allow[C304] <why>`` (concurrency_lint), the
-numerics plane's ``# num: allow[N403] <why>`` (the JAX package's
-numerics_lint; its port is ROADMAP Queue 1 item 7d), and the A205
+numerics plane's ``# num: allow[N403] <why>`` (numerics_lint), the
+traced-step plane's ``# trace: allow[T103] <why>`` (trace_lint; the port's
+own: the JAX package's trace lint has no pragmas), and the A205
 wall-clock escape ``# obs: allow-wall-clock <why>`` (ast_rules).
 They share one discipline — a pragma is a COMMENT token (never a string
 literal showing the syntax), it names the rules it suppresses, and its
@@ -20,6 +21,8 @@ Per plane the grammar differs only in spelling:
                                       ban (ast_rules A206)
     # proto: allow[P504] why          same grammar, the protocol
                                       conformance plane (protocol_lint)
+    # trace: allow[T103] why          same grammar, the traced-step
+                                      hazards (trace_lint)
     # obs: allow-wall-clock why       keyword form; always rule A205
 
 ``collect`` returns ``{line: Pragma}`` plus uniform findings for
@@ -81,6 +84,7 @@ PLANES: Dict[str, _Plane] = {
     "num": _allow_plane("num", "N400", "N403"),
     "wire": _allow_plane("wire", "A206", "A206"),
     "proto": _allow_plane("proto", "P500", "P504"),
+    "trace": _allow_plane("trace", "T107", "T103"),
     "obs": _Plane(
         name="obs",
         pattern=re.compile(r"#\s*obs:\s*allow-wall-clock\s*(())?(.*)$"),

@@ -10,8 +10,9 @@
 * ``version``, ``dump_config``, ``make_diagram``, ``merge_model``,
   ``plotcurve``; ``trace merge|validate`` over obs span files; ``lint``
   (the self-lint of the port's source), ``lint --config`` (the graph
-  lint), ``lint --journal``, ``lint --concurrency`` and ``lint
-  --protocol``;
+  lint), ``lint --journal``, ``lint --concurrency``, ``lint --protocol``,
+  and over traced train steps ``lint --donation`` and ``lint --numerics
+  [--config ... --compute-dtype ... --certify]``;
 * ``master`` and ``worker`` (an HA master candidate of the elastic cluster
   plane, and one elastic trainer process), ``serve`` and ``route`` (one
   serving engine under the SLO scheduler, or a fleet engine with
@@ -23,8 +24,7 @@
 * ``explore`` (the interleaving explorer over the router, master and HA
   lease state machines, analysis/interleave.py; host code, no card).
 
-``cache`` raises ``NotImplementedError`` (ROADMAP Queue 1 item 7e), and
-so do lint's ``--donation``, ``--numerics`` and ``--certify`` (item 7d).
+``cache`` raises ``NotImplementedError`` (ROADMAP Queue 1 item 7e).
 Flags mirror the reference gflags in ``--name=value`` form; argparse also
 accepts ``--name value``."""
 
@@ -776,12 +776,20 @@ def cmd_lint(argv: List[str]) -> int:
     * --concurrency: lock-discipline lint (rules C###) over the port's
       threaded planes, plus any ``--extra`` files;
     * --protocol: protocol-conformance lint (rules P###) over the master,
-      HA, journal, wire and serving-fleet surfaces.
+      HA, journal, wire and serving-fleet surfaces;
+    * --donation: buffer-donation audit (rule T106) over the shipped step
+      builders — trace make_train_step / make_multi_train_step / the
+      whole-pass epoch program on a probe network and flag any large
+      carried buffer that is not updated in place;
+    * --numerics: precision-flow lint (rules N###) over traced train steps.
+      Alone it lints the package's step over probe topologies; with
+      --config it lints each config's real train step;
+      --compute-dtype/--master-dtype pick the precision plan, and --certify
+      (needs --config) prints the per-layer precision certificate
+      (analysis.certify_precision_plan).
 
-    The modes combine in one run.  --donation, --numerics and --certify
-    lint traced jaxprs in the JAX package; their FX-graph twins are not
-    ported yet (ROADMAP Queue 1 item 7d) and raise.  Exit 0 only when no
-    diagnostics fire."""
+    --donation and --numerics trace on the card unless ``--device=cpu``.
+    The modes combine in one run.  Exit 0 only when no diagnostics fire."""
     ap = argparse.ArgumentParser(
         prog="python -m paddle_tpu_torch lint",
         description="config-time graph lint + package self-lint "
@@ -804,23 +812,36 @@ def cmd_lint(argv: List[str]) -> int:
                     "planes: RPC surface vs handlers vs wire universe, journal "
                     "record/replay/compaction coverage, status-ledger exhaustiveness, "
                     "lease/fence monotonicity, timeout completeness (skips the self-lint)")
-    for mode in ("donation", "numerics", "certify"):
-        ap.add_argument(f"--{mode}", action="store_true",
-                        help="not ported yet (ROADMAP Queue 1 item 7d)")
+    ap.add_argument("--donation", action="store_true",
+                    help="audit the shipped step builders' in-place updates (rule T106; "
+                    "skips the self-lint)")
+    ap.add_argument("--numerics", action="store_true",
+                    help="precision-flow lint (rules N###) over traced train steps: "
+                    "package probes, or each --config's real step (skips the self-lint)")
     ap.add_argument("--compute-dtype", default=None,
-                    help="numerics (not ported yet: item 7d)")
+                    help="numerics: compute dtype of the precision plan (e.g. bfloat16; "
+                    "default float32)")
     ap.add_argument("--master-dtype", default=None,
-                    help="numerics (not ported yet: item 7d)")
+                    help="numerics: master/param dtype of the plan (default float32)")
+    ap.add_argument("--certify", action="store_true",
+                    help="numerics + --config: print the per-layer precision "
+                    "certificate for the dtype plan")
+    ap.add_argument("--device", default=None,
+                    help="device the --donation and --numerics traces run on "
+                    "(default: the card)")
     ap.add_argument("--min-severity", default=None, choices=["info", "warning", "error"],
                     help="only report findings at or above this severity")
     args = ap.parse_args(argv)
 
-    unported = [m for m in ("donation", "numerics", "certify") if getattr(args, m)]
-    if unported:
-        raise NotImplementedError(
-            f"lint {', '.join('--' + m for m in unported)} is not ported yet (ROADMAP "
-            "Queue 1 item 7d); the port's lint has the self-lint, --config, --journal, "
-            "--concurrency and --protocol")
+    if args.certify and not (args.numerics and args.config):
+        print("error: --certify needs --numerics and --config (a certificate is "
+              "per-topology; the package probes have none)", file=sys.stderr)
+        return 2
+    dev = None
+    if args.donation or args.numerics:
+        dev = _cli_device(args.device)
+        if dev is None:
+            return 1
 
     from paddle_tpu_torch import analysis
 
@@ -836,7 +857,7 @@ def cmd_lint(argv: List[str]) -> int:
                     message=f["message"],
                     source=jpath,
                 ))
-    if args.config:
+    if args.config and not args.numerics:
         import dataclasses as _dc
 
         from paddle_tpu_torch.v1_compat import parse_config
@@ -857,7 +878,12 @@ def cmd_lint(argv: List[str]) -> int:
         diags.extend(analysis.lint_concurrency_package(extra_paths=args.extra))
     if args.protocol:
         diags.extend(analysis.lint_protocol_package())
-    if not (args.config or args.journal or args.concurrency or args.protocol):
+    if args.donation:
+        diags.extend(_donation_audit_builders(dev))
+    if args.numerics:
+        diags.extend(_lint_numerics(args, dev))
+    if not (args.config or args.journal or args.concurrency or args.protocol
+            or args.donation or args.numerics):
         diags = analysis.lint_package(extra_paths=args.extra)
 
     if args.min_severity:
@@ -866,6 +892,86 @@ def cmd_lint(argv: List[str]) -> int:
 
     print(analysis.format_diagnostics(diags))
     return 1 if diags else 0
+
+
+def _donation_audit_builders(dev, apply_pragmas: bool = True):
+    """T106 over the shipped step builders: trace make_train_step,
+    make_multi_train_step and the whole-pass epoch program on a probe MLP
+    and audit that every large carried buffer (params/opt-state/carry) is
+    updated in place (``apply_pragmas=False``: the justified findings too)."""
+    import torch
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.analysis.trace_lint import donation_audit
+    from paddle_tpu_torch.core.batch import SeqTensor
+    from paddle_tpu_torch.core.compiler import CompiledNetwork
+    from paddle_tpu_torch.core.topology import Topology, reset_auto_names
+    from paddle_tpu_torch.trainer.step import (
+        make_epoch_program,
+        make_multi_train_step,
+        make_train_carry,
+        make_train_step,
+    )
+
+    reset_auto_names()
+    x = paddle.layer.data("x", paddle.data_type.dense_vector(64))
+    h = paddle.layer.fc(x, size=256, act=paddle.activation.Relu())
+    pred = paddle.layer.fc(h, size=10, act=paddle.activation.Softmax())
+    y = paddle.layer.data("y", paddle.data_type.integer_value(10))
+    cost = paddle.layer.classification_cost(input=pred, label=y)
+    net = CompiledNetwork(Topology([cost]))
+    opt = paddle.optimizer.Adam(learning_rate=1e-2)
+    params, state = net.init(0, device=dev)
+    opt_state = opt.init(params)
+    batch = {"x": SeqTensor(torch.zeros((8, 64), device=dev)),
+             "y": SeqTensor(torch.zeros((8,), dtype=torch.int32, device=dev))}
+    k = 4
+    stacked = {n: SeqTensor(torch.stack([t.data] * k)) for n, t in batch.items()}
+    carry = make_train_carry(params, state, opt_state, torch.Generator().manual_seed(0))
+    kw = {"apply_pragmas": apply_pragmas}
+    diags = []
+    diags += donation_audit(make_train_step(net, opt), params, state, opt_state, batch, 0,
+                            source="trainer/step.py:make_train_step", **kw)
+    diags += donation_audit(make_multi_train_step(net, opt, k), params, state, opt_state,
+                            stacked, 0, source="trainer/step.py:make_multi_train_step", **kw)
+    diags += donation_audit(make_epoch_program(net, opt), carry, stacked, torch.arange(k),
+                            source="trainer/step.py:make_epoch_program", **kw)
+    print(f"donation audit: 3 step builders traced, {len(diags)} T106 finding(s)")
+    return diags
+
+
+def _lint_numerics(args, dev):
+    """The ``lint --numerics`` body: the package probes, or each
+    ``--config``'s real step (with ``--certify`` its certificate)."""
+    from paddle_tpu_torch.analysis.numerics_lint import (
+        _config_step_parts,
+        certify_precision_plan,
+        lint_numerics_config,
+        lint_numerics_package,
+    )
+
+    if not args.config:
+        return lint_numerics_package(compute_dtype=args.compute_dtype,
+                                     master_dtype=args.master_dtype, device=dev)
+    diags = []
+    for cfg in args.config:
+        if len(args.config) > 1 or args.certify:
+            print(f"numerics-lint {cfg} (compute={args.compute_dtype or 'float32'})")
+        if args.certify:
+            # ONE trace: the certificate carries every (pragma-filtered)
+            # N-rule finding for this plan, and a REJECT fails the exit code
+            parsed, parts = _config_step_parts(cfg, args.config_args, args.compute_dtype,
+                                               args.master_dtype, dev)
+            cert = certify_precision_plan(parsed.topology, {
+                "compute_dtype": args.compute_dtype, "master_dtype": args.master_dtype,
+            }, _step=parts)
+            print(cert.format())
+            diags.extend(cert.diagnostics)
+        else:
+            diags.extend(lint_numerics_config(cfg, args.config_args,
+                                              compute_dtype=args.compute_dtype,
+                                              master_dtype=args.master_dtype, device=dev))
+    return diags
 
 
 def cmd_worker(argv: List[str]) -> int:
@@ -2082,7 +2188,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         print("                      (rules A###), graph-lint a config (--config),")
         print("                      verify a master journal (--journal), lock")
         print("                      discipline (--concurrency), protocol")
-        print("                      conformance (--protocol)")
+        print("                      conformance (--protocol), traced steps'")
+        print("                      in-place updates (--donation) and")
+        print("                      precision (--numerics [--certify])")
         print("    trace             merge/validate span-timeline files")
         print("    master            run an HA master candidate (elastic")
         print("                      scale-out: registry + shard leases)")

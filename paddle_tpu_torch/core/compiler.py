@@ -39,6 +39,7 @@ Not ported yet: layers sharded over a device mesh (a layer with a
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -48,6 +49,7 @@ from paddle_tpu_torch.core.batch import Batch, SeqTensor, batch_shape_key
 from paddle_tpu_torch.core.device import resolve_device
 from paddle_tpu_torch.core.topology import Topology
 from paddle_tpu_torch.layers.base import ApplyContext, get_layer_impl, mix_seed
+from paddle_tpu_torch.ops import needs_f32_acc, pin_f32_accumulation
 from paddle_tpu_torch.ops.activations import apply_activation
 from paddle_tpu_torch.utils.profiler import active_trap
 from paddle_tpu_torch.utils.tree import get_path, leaves, map_leaves
@@ -59,6 +61,12 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torc
 
 # default compute dtype for newly built networks (None = float32)
 _default_compute_dtype: Optional[torch.dtype] = None
+
+# layer provenance of the ops being issued: ``provenance.layer`` is
+# "<type>:<name>" of the outermost layer apply() is running on this thread
+# (the JAX package's named_scope label), None outside apply.  The step
+# tracer (analysis/trace_lint.py) copies it into each traced node.
+provenance = threading.local()
 
 
 def as_dtype(dtype) -> torch.dtype:
@@ -171,7 +179,7 @@ def _cast_floats(x, dtype):
     if isinstance(x, dict):
         return {k: _cast_floats(v, dtype) for k, v in x.items()}
     if torch.is_tensor(x) and x.is_floating_point():
-        return x.to(dtype)
+        return x.to(dtype)  # num: allow[N406] the mixed contract quantizes EVERY non-full-precision layer output at its boundary, even when an f32 consumer follows — downstream must see the same values a fully-bf16 pipeline produces
     return x
 
 
@@ -245,6 +253,8 @@ class CompiledNetwork:
         if compute_dtype is None:
             compute_dtype = _default_compute_dtype or self.dtype
         self.compute_dtype = as_dtype(compute_dtype)
+        if needs_f32_acc(self.compute_dtype):
+            pin_f32_accumulation()  # the mixed contract's f32 GEMM accumulators
         # a moe layer's shard_axis only places its experts on a mesh (the
         # JAX package runs it unsharded without one): it runs here on one
         # device; any other layer sharded over a mesh is not ported
@@ -554,6 +564,13 @@ class CompiledNetwork:
         training.  `only` restricts the run to the named layers, `preset`
         seeds layer outputs (a recurrent group runs its step, its hoisted
         prologue and its hoisted epilogue through these)."""
+        outer = getattr(provenance, "layer", None)
+        try:
+            return self._apply(params, batch, state, train, rng, only, preset, outer)
+        finally:
+            provenance.layer = outer
+
+    def _apply(self, params, batch, state, train, rng, only, preset, outer):
         mixed = self.compute_dtype != torch.float32
         ctx = self.make_context(train=train, rng=rng, state=state)
         if preset:
@@ -576,6 +593,8 @@ class CompiledNetwork:
             ins = [ctx.outputs[i] for i in conf.inputs]
             n_before = len(ctx.outputs)
             p, ins = self.resolve_layer_call(name, params, ins)
+            if outer is None:  # a nested apply keeps its group's label
+                provenance.layer = f"{conf.type}:{name}"
             if trap is not None:
                 trap.forward_layer = name
             try:

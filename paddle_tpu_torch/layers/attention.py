@@ -46,7 +46,7 @@ def layer_norm_apply(conf, params, inputs, ctx):
     mu = x32.mean(dim=-1, keepdim=True)
     var = ((x32 - mu) ** 2).mean(dim=-1, keepdim=True)
     y = (x32 - mu) * torch.rsqrt(var + eps)
-    y = y * params["gamma"].float() + params["beta"].float()
+    y = y * params["gamma"].float() + params["beta"].float()  # num: allow[N406] gamma and beta arrive as the mixed contract's compute-dtype cast (core/compiler.py resolve_layer_call) and the affine runs in f32, as the JAX package's layer_norm reads them: the bf16 rounding of the affine is the contract both packages train with
     return x.with_data(y.to(x.data.dtype))
 
 

@@ -24,14 +24,25 @@ raises), a CPU tensor runs the plain version (:func:`flash_attention_reference`,
 ``interpret=True`` plays in the JAX package.  There is no fallback from one
 to the other.
 
-:func:`flash_attention` has no autograd history (the kernel writes into
-fresh tensors), so it refuses inputs that require grad while grad mode is
-on; :func:`flash_attention_diff` is the differentiable entry point, a
-``torch.autograd.Function`` whose backward is the two backward kernels.
+The kernels are also bound as two custom operators,
+``paddle_tpu_torch::flash_attention_fwd`` and ``::flash_attention_bwd``
+(``torch.library.custom_op``: the CUDA kernel launches the kernels, the CPU
+kernel is the plain version, a fake kernel gives shapes, and the forward's
+autograd formula calls the backward op).  The entry points go through them
+only inside :func:`as_graph_ops`, which ``analysis.trace_lint.trace_step``
+enters: a dispatcher-level trace of a step then holds one opaque node per
+launch, and re-running that node launches the kernel.  Outside it they call
+the same launches straight, which keeps the dispatcher's Python round trip
+(measured in ``chip_smoke.py`` phase 5) off every training step.
+
+:func:`flash_attention` refuses inputs that require grad while grad mode
+is on; :func:`flash_attention_diff` is the differentiable entry point,
+whose backward is the two backward kernels.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -40,7 +51,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -223,27 +234,120 @@ def flash_attention(
             "flash_attention records no gradient; inputs that require grad "
             "go through flash_attention_diff"
         )
-    b, t, h, dh = _check(q, k, v, lengths)
-    if q.device.type == "cpu":
-        return flash_attention_reference(
-            q, k, v, lengths, causal, return_lse=return_lse
-        )
+    _check(q, k, v, lengths)
+    out, lse = (_fwd_op if _graph_ops.depth else _fwd)(q, k, v, lengths, bool(causal))
+    return (out, lse) if return_lse else out
+
+
+class _GraphOps(threading.local):
+    depth = 0
+
+
+_graph_ops = _GraphOps()
+
+
+@contextlib.contextmanager
+def as_graph_ops():
+    """Within this block (on this thread) the entry points call the custom
+    operators, so that a dispatcher-level trace records each launch as one
+    node; outside it they launch the kernels directly."""
+    _graph_ops.depth += 1
+    try:
+        yield
+    finally:
+        _graph_ops.depth -= 1
+
+
+def _fwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                lengths: Optional[torch.Tensor], causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel: (O, f32 lse) of checked [B, T, H, dh] operands."""
+    b, t, h, dh = q.shape
     lengths = _kernel_operands(q.device, q.dtype, dh, lengths, b, t, q=q, k=k, v=v)
-    lib = _load()
     out = torch.empty((b, t, h, dh), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    _launch_fwd((q, k, v, lengths), (out, lse), causal)
+    return out, lse
+
+
+def _launch_fwd(operands, outs, causal: bool) -> None:
+    """Launch the forward kernel on the current stream: `operands` =
+    (q, k, v, lengths) as :func:`_kernel_operands` checked them, `outs` =
+    (O, lse), dense."""
+    q, k, v, lengths = operands
+    out, lse = outs
+    b, t, h, dh = q.shape
     with torch.cuda.device(q.device):  # the launch goes to the current device
-        err = lib.flash_attention_fwd(
+        err = _load().flash_attention_fwd(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             lengths.data_ptr(), out.data_ptr(), lse.data_ptr(), b, t, h, dh,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-            v.stride(0), v.stride(1), int(bool(causal)),
+            v.stride(0), v.stride(1), int(causal),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: cudaError {err}")
     flash_attention.launches += 1
-    return (out, lse) if return_lse else out
+
+
+def _fwd_plain(q, k, v, lengths, causal):
+    return flash_attention_reference(q, k, v, lengths, causal, return_lse=True)
+
+
+def _fwd(q, k, v, lengths, causal):
+    """The forward by device, outside the dispatcher."""
+    return (_fwd_plain if q.device.type == "cpu" else _fwd_kernel)(q, k, v, lengths, causal)
+
+
+_fwd_op = torch.library.custom_op("paddle_tpu_torch::flash_attention_fwd", _fwd_kernel,
+                                  mutates_args=(), device_types="cuda")
+_fwd_op.register_kernel("cpu")(_fwd_plain)
+
+
+@_fwd_op.register_fake
+def _fwd_fake(q, k, v, lengths, causal):
+    b, t, h, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b, h, t), dtype=_acc_dtype(q.dtype))
+
+
+def _fwd_setup(ctx, inputs, output):
+    q, k, v, lengths, causal = inputs
+    ctx.save_for_backward(q, k, v, output[0], output[1], lengths)
+    ctx.causal = causal
+
+
+def _grads(bwd, ctx, do):
+    """delta = rowsum(dO * O) in plain torch (outside the kernels, as in the
+    JAX package), then the backward kernels through `bwd` (the op or the
+    straight route, as the forward went: autograd may run this on another
+    thread than the forward's)."""
+    q, k, v, o, lse, lengths = ctx.saved_tensors
+    acc = _acc_dtype(o.dtype)
+    delta = (do.to(acc) * o.to(acc)).sum(-1).permute(0, 2, 1).contiguous()
+    dq, dk, dv = _backward(bwd, q, k, v, o, lse, delta, do, lengths, ctx.causal)
+    return dq, dk, dv, None, None
+
+
+def _fwd_backward(ctx, do, _dlse):
+    return _grads(_bwd_op, ctx, do)
+
+
+_fwd_op.register_autograd(_fwd_backward, setup_context=_fwd_setup)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The differentiable forward outside :func:`as_graph_ops`: the forward
+    kernel (or its plain version) with the row lse kept, the backward
+    kernels in its backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lengths, causal):
+        o, lse = _fwd(q, k, v, lengths, causal)
+        _fwd_setup(ctx, (q, k, v, lengths, causal), (o, lse))
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        return _grads(_bwd, ctx, do)
 
 
 # launches of the CUDA kernel; the plain version never counts
@@ -256,6 +360,12 @@ def flash_attention_bwd(q, k, v, o, lse, delta, do, lengths=None, causal=False):
     read it only through ``delta``), ``lse`` [B, H, T] from the forward,
     ``delta = rowsum(dO * O)`` [B, H, T] and the output gradient ``do``.  The
     two CUDA kernels on a CUDA tensor, their plain version on a CPU tensor."""
+    bwd = _bwd_op if _graph_ops.depth else _bwd
+    return _backward(bwd, q, k, v, o, lse, delta, do, lengths, causal)
+
+
+def _backward(bwd, q, k, v, o, lse, delta, do, lengths, causal):
+    """Check the backward's operands, then run `bwd` on them."""
     b, t, h, dh = _check(q, k, v, lengths)
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(
@@ -270,9 +380,15 @@ def flash_attention_bwd(q, k, v, o, lse, delta, do, lengths=None, causal=False):
         raise ValueError("o, lse, delta and do must lie on q's device")
     if do.dtype != q.dtype:
         raise TypeError(f"do must be {q.dtype}, not {do.dtype}")
+    return bwd(q, k, v, lse, delta, do, lengths, bool(causal))
+
+
+def _bwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lse: torch.Tensor,
+                delta: torch.Tensor, do: torch.Tensor, lengths: Optional[torch.Tensor],
+                causal: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The dq and dk/dv kernels on checked operands."""
+    b, t, h, dh = q.shape
     do = do.contiguous()  # a copy only if autograd handed a strided gradient
-    if q.device.type == "cpu":
-        return flash_attention_bwd_reference(q, k, v, lse, delta, do, lengths, causal)
     lengths = _kernel_operands(q.device, q.dtype, dh, lengths, b, t, q=q, k=k, v=v, do=do)
     if lse.dtype != torch.float32 or delta.dtype != torch.float32:
         raise TypeError("lse and delta must be float32")
@@ -284,6 +400,26 @@ def flash_attention_bwd(q, k, v, o, lse, delta, do, lengths=None, causal=False):
     _launch_bwd("dq", operands, (dq,), causal)
     _launch_bwd("dkv", operands, (dk, dv), causal)
     return dq, dk, dv
+
+
+def _bwd_plain(q, k, v, lse, delta, do, lengths, causal):
+    return flash_attention_bwd_reference(q, k, v, lse, delta, do.contiguous(), lengths, causal)
+
+
+def _bwd(q, k, v, lse, delta, do, lengths, causal):
+    """The backward by device, outside the dispatcher."""
+    kernel = _bwd_plain if q.device.type == "cpu" else _bwd_kernel
+    return kernel(q, k, v, lse, delta, do, lengths, causal)
+
+
+_bwd_op = torch.library.custom_op("paddle_tpu_torch::flash_attention_bwd", _bwd_kernel,
+                                  mutates_args=(), device_types="cuda")
+_bwd_op.register_kernel("cpu")(_bwd_plain)
+
+
+@_bwd_op.register_fake
+def _bwd_fake(q, k, v, lse, delta, do, lengths, causal):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
 
 def _launch_bwd(kernel: str, operands, outs, causal: bool) -> None:
@@ -311,31 +447,14 @@ flash_attention_bwd.dq_launches = 0
 flash_attention_bwd.dkv_launches = 0
 
 
-class _FlashAttention(torch.autograd.Function):
-    """Forward: the kernel (or its plain version) with the row lse kept.
-    Backward: delta = rowsum(dO * O) in plain torch (outside the kernels, as
-    in the JAX package), then :func:`flash_attention_bwd`."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, lengths, causal):
-        o, lse = flash_attention(q, k, v, lengths, causal, return_lse=True)
-        ctx.save_for_backward(q, k, v, o, lse, lengths)
-        ctx.causal = causal
-        return o
-
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse, lengths = ctx.saved_tensors
-        acc = _acc_dtype(o.dtype)
-        delta = (do.to(acc) * o.to(acc)).sum(-1).permute(0, 2, 1).contiguous()
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, delta, do, lengths, ctx.causal)
-        return dq, dk, dv, None, None
-
-
 def flash_attention_diff(q, k, v, lengths=None, causal=False):
     """Differentiable flash attention (the counterpart of the JAX package's
-    ``flash_attention_diff`` custom VJP): gradients flow to q, k and v."""
-    return _FlashAttention.apply(q, k, v, lengths, causal)
+    ``flash_attention_diff`` custom VJP): gradients flow to q, k and v
+    through the backward kernels."""
+    _check(q, k, v, lengths)
+    if _graph_ops.depth:
+        return _fwd_op(q, k, v, lengths, bool(causal))[0]
+    return _FlashAttention.apply(q, k, v, lengths, bool(causal))
 
 
 def _operand(x, dtype):

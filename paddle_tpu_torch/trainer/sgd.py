@@ -36,9 +36,10 @@ from the device; ``checkpoint_dir`` turns on the robustness plane
 ``resume``, chaos points).  ``compile_cache`` counts the batch shapes.
 
 ``elastic_model`` adapts the trainer to an elastic worker
-(trainer/elastic.py).  Not ported yet: the ahead-of-time executable cache
-(ROADMAP Queue 1 item 7), the numerics sanitizer (item 7) and device
-meshes (item 6).
+(trainer/elastic.py).  The ``num_sanitizer`` flag arms the numerics
+sanitizer on the stepwise loop (analysis/num_sanitizer.py; the epoch
+program's steps are not captured).  Not ported yet: the ahead-of-time
+executable cache (ROADMAP Queue 1 item 7e) and device meshes (item 6).
 """
 
 from __future__ import annotations
@@ -377,6 +378,17 @@ class SGD:
         sentinel = None
         if _flags.get_flag("divergence_sentinel"):
             sentinel = DivergenceSentinel.from_flags()
+        # numerics sanitizer (analysis/num_sanitizer.py): armed by the
+        # num_sanitizer flag it host-copies each step's inputs before the
+        # in-place update and, when the sentinel flags a step, re-executes
+        # it node by node to name the first non-finite-producing op in a
+        # flight-recorder postmortem.  Unarmed: num_san stays None and the
+        # loop is untouched (no captures, no copies).
+        num_san = None
+        if _flags.get_flag("num_sanitizer"):
+            from paddle_tpu_torch.analysis.num_sanitizer import NumericsSanitizer
+
+            num_san = NumericsSanitizer.for_trainer(self)
         recovery = manager = None
         if checkpoint_dir:
             from paddle_tpu_torch import checkpoint as _ckpt
@@ -593,8 +605,14 @@ class SGD:
                     # metrics' host copy
                     with stat_timer("train_step"):
                         with _obs.span("train_step", cat="trainer", p=pass_id, b=bid):
+                            seed = draw_seed(self._rng)
+                            if num_san is not None:
+                                # the step updates in place: copy its inputs
+                                # out first, or nothing is left to re-execute
+                                num_san.capture(params, state, opt_state, batch, seed,
+                                                where=f"pass {pass_id} batch {bid}")
                             params, state, opt_state, metrics = self._train_step(
-                                params, state, opt_state, batch, draw_seed(self._rng))
+                                params, state, opt_state, batch, seed)
                         with _obs.span("block_fetch", cat="trainer", b=bid):
                             metrics = fetch_metrics(metrics)
                     self._step_count += 1
@@ -615,6 +633,10 @@ class SGD:
                                   format_parameter_stats(parameter_stats(params)))
                     verdict = judge_step(pass_id, bid, cost, health, grad_norm, metrics,
                                          _batch_rows(batch))
+                    if num_san is not None and (verdict in ("skip", "diverged")
+                                                or not np.isfinite(cost)):
+                        # name the op that went non-finite, not just the step
+                        num_san.postmortem(f"{verdict} at pass {pass_id} batch {bid}")
                     if not is_live and not replay and recovery is not None:
                         recovery.replay_done()  # the window applied cleanly again
                     if verdict == "diverged":

@@ -147,12 +147,12 @@ def fetch_metrics(metrics: Metrics) -> Metrics:
     on_card = [(k, v) for k, v in metrics.items() if torch.is_tensor(v) and v.is_cuda]
     if not on_card:
         return metrics
-    flat = torch.cat([v.detach().reshape(-1).to(torch.float64) for _, v in on_card]).cpu()
+    flat = torch.cat([v.detach().reshape(-1).to(torch.float64) for _, v in on_card]).cpu()  # trace: allow[T101,T103] the step's one device-to-host copy, by design: every metric rides one float64 carrier (exact for f32 and for ints below 2**53)
     out = dict(metrics)
     at = 0
     for k, v in on_card:
         n = v.numel()
-        out[k] = flat[at:at + n].reshape(v.shape).to(v.dtype)
+        out[k] = flat[at:at + n].reshape(v.shape).to(v.dtype)  # trace: allow[T101] host-side unpacking of the float64 carrier the one copy brought back
         at += n
     return out
 
@@ -205,7 +205,7 @@ def _train_step_body(network: CompiledNetwork, optimizer: Optimizer, extra_metri
             ok = torch.isfinite(cost.detach().float()) & torch.isfinite(grad_norm)
             metrics["health"] = ok.float()
             with torch.no_grad():
-                kept = [v.clone() for v in _tensor_leaves(params) + _tensor_leaves(opt_state)]
+                kept = [v.clone() for v in _tensor_leaves(params) + _tensor_leaves(opt_state)]  # trace: allow[T106] the skip must leave every leaf bit-identical and the optimizer updates in place, so the old values are kept for the step (2x the carry; ROADMAP Queue 3)
                 params, opt_state = optimizer.update(grads, opt_state, params)
                 params = apply_prune_masks(params, prune_masks)
                 for v, old in zip(_tensor_leaves(params) + _tensor_leaves(opt_state), kept):
@@ -214,8 +214,8 @@ def _train_step_body(network: CompiledNetwork, optimizer: Optimizer, extra_metri
             return params, new_state, opt_state, metrics
         # the one host sync of the step: the trainer reads these anyway
         metrics = fetch_metrics(metrics)
-        healthy = bool(torch.isfinite(metrics["cost"].float()) & torch.isfinite(
-            metrics["grad_norm"].float()))
+        ok = torch.isfinite(metrics["cost"].float()) & torch.isfinite(metrics["grad_norm"].float())
+        healthy = bool(ok)  # trace: allow[T103] the sentinel decides on the host copy fetch_metrics brought back: no sync of its own beyond that one copy
         metrics["health"] = torch.tensor(float(healthy))
         if healthy:
             params, opt_state = optimizer.update(grads, opt_state, params)

@@ -108,6 +108,17 @@ define_flag("divergence_sentinel", True,
             "skipped, leaving parameters, layer state and optimizer state "
             "bit-identical, and its health and grad_norm ride the metrics; "
             "the decision rides the cost's host copy, so it adds no sync")
+define_flag("num_sanitizer", False,
+            "arm the divergence-localizing numerics sanitizer "
+            "(analysis/num_sanitizer.py; env PADDLE_TPU_TORCH_NUM_SANITIZER "
+            "reaches subprocesses): SGD.train host-copies each step's inputs "
+            "before the in-place update, and a step the sentinel flags is "
+            "traced and re-executed node by node to name the first "
+            "non-finite-producing op (layer and source provenance, input "
+            "max-abs stats under StatSet num/<node>) in a flight-recorder "
+            "postmortem.  Capture costs one host copy of the parameters, "
+            "optimizer state and batch per step — debug drills only; unarmed "
+            "the train path is untouched")
 define_flag("saving_period", 1,
             "SGD.train with save_dir writes pass-%05d every N passes (the "
             "default of the JAX package's train(saving_period=...) and of "

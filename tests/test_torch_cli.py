@@ -495,3 +495,43 @@ def test_version_and_the_device_rule(work, capsys, monkeypatch):
     assert tcli.main(["train", f"--config={cfg}", "--job=test"]) == 1
     err = capsys.readouterr().err
     assert "CUDA device by default and none is available" in err and "--device=cpu" in err
+
+
+# ---------------------------------------------------------------------------
+# lint over traced train steps: --donation, --numerics, --certify
+# ---------------------------------------------------------------------------
+
+
+def test_lint_donation_audits_the_three_builders(capsys):
+    rc, out = _main(["lint", "--donation", "--device=cpu"], capsys)
+    assert rc == 0, out
+    assert "donation audit: 3 step builders traced, 0 T106 finding(s)" in out
+    assert "no diagnostics" in out
+
+
+def test_lint_numerics_package_and_config_legs(capsys):
+    rc, out = _main(["lint", "--numerics", "--device=cpu"], capsys)
+    assert rc == 0 and "no diagnostics" in out, out
+    cfg = os.path.join(tcli_configs(), "demo_mnist_mlp.py")
+    rc, out = _main(["lint", "--numerics", "--device=cpu", "--config", cfg,
+                     "--compute-dtype", "bfloat16"], capsys)
+    assert rc == 0 and "no diagnostics" in out, out
+    # without --device and without CUDA: the device error, exit 1
+    assert _main(["lint", "--numerics", "--config", cfg], capsys)[0] == 1
+
+
+def test_lint_certify_accepts_and_rejects(capsys):
+    cfg = os.path.join(tcli_configs(), "demo_text_lstm.py")
+    rc, out = _main(["lint", "--numerics", "--certify", "--device=cpu", "--config", cfg,
+                     "--compute-dtype", "bfloat16"], capsys)
+    assert rc == 0, out
+    assert "compute=bfloat16 master=float32 -> ACCEPT" in out and "__lstmemory_0__" in out
+    rc, out = _main(["lint", "--numerics", "--certify", "--device=cpu", "--config", cfg,
+                     "--compute-dtype", "bfloat16", "--master-dtype", "bfloat16"], capsys)
+    assert rc == 1 and "-> REJECT" in out and "error[N402]" in out
+    # a certificate is per topology: --certify needs --config
+    assert _main(["lint", "--numerics", "--certify", "--device=cpu"], capsys)[0] == 2
+
+
+def tcli_configs():
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")

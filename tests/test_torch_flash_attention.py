@@ -407,6 +407,40 @@ def test_cpu_gradient_comes_from_the_plain_backward(monkeypatch):
     assert (dq == 1).all() and (dk == 2).all() and (dv == 3).all()
 
 
+@pytest.mark.parametrize("causal", [False, True])
+def test_graph_ops_route_is_the_custom_ops_and_agrees(causal):
+    """Outside ``as_graph_ops`` the entry points launch straight, so a
+    dispatcher-level trace holds no custom-op node; inside it each call is
+    one ``paddle_tpu_torch::flash_attention_fwd`` node and its gradient one
+    ``::flash_attention_bwd`` node.  Both routes give equal outputs and
+    gradients."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    from paddle_tpu_torch.analysis.trace_lint import _make_fx_kwargs
+
+    q, k, v = _torch(*_qkv(t=128, b=1))
+    lens = torch.tensor([100], dtype=torch.int32)
+
+    def step(q, k, v):
+        qkv = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        o = tfa.flash_attention_diff(*qkv, lens, causal)
+        return (o, *torch.autograd.grad((o ** 2).sum(), qkv))
+
+    def custom_ops(gm):
+        return sorted(str(n.target) for n in gm.graph.nodes
+                      if n.op == "call_function" and "paddle_tpu_torch" in str(n.target))
+
+    straight = step(q, k, v)
+    assert custom_ops(make_fx(step, **_make_fx_kwargs())(q, k, v)) == []
+    with tfa.as_graph_ops():
+        through = step(q, k, v)
+        traced = make_fx(step, **_make_fx_kwargs())(q, k, v)
+    assert custom_ops(traced) == ["paddle_tpu_torch.flash_attention_bwd.default",
+                                  "paddle_tpu_torch.flash_attention_fwd.default"]
+    for a, b in zip(straight, through):
+        assert torch.equal(a, b)
+
+
 def test_flash_attention_refuses_grad_inputs():
     q, k, v = (torch.from_numpy(x).requires_grad_(True) for x in _qkv(t=64, b=1))
     with pytest.raises(RuntimeError, match="flash_attention_diff"):

@@ -327,9 +327,11 @@ def test_lint_config_exit_codes(tmp_path):
     # no mode is the self-lint of the port's source, which is clean
     rc, out = _lint([])
     assert rc == 0 and "no diagnostics" in out
-    for unported in (["--donation", "--config", str(bad)], ["--numerics"]):
-        with pytest.raises(NotImplementedError, match="item 7d"):
-            _lint(unported)
+    # the traced-step modes combine with the graph lint of --config; they
+    # trace on the card unless --device=cpu (no card here: the device error)
+    rc, out = _lint(["--donation", "--device=cpu", "--config", str(bad)])
+    assert rc == 1 and "error[G002]" in out and "0 T106 finding(s)" in out
+    assert _lint(["--numerics"])[0] == 1
 
 
 def test_lint_journal_exit_codes(tmp_path):
