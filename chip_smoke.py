@@ -474,6 +474,20 @@ Phases, in order; any failure exits non-zero:
      reduced-precision switch off, N401 is clean on a bf16 step and fires
      with the switch forced on.  Phase 28's launches are the kernels line's
      ``phase28_launches``.
+ 29. the persistent build store (core/aot_cache.py) on phase 5's model, each
+     boot a fresh process on a fresh temporary store: (a) cold, ``python -m
+     paddle_tpu_torch cache warm`` on a v1 Transformer-base config the
+     phase writes: nvcc builds the flash library into the store (one
+     compile, one miss, one entry); then the same 3 steps of phase 5's
+     training (bf16, flash on, B = 8, T = 1024) in a process on an empty
+     store of its own (it pays nvcc before its first step) and (b) warm, in
+     a process on (a)'s store: no compile, one load, one hit, the library
+     loaded from under the store and not from ``_build/``, 18 launches of
+     each kernel per step, costs bit-identical to the cold process's, and
+     the store-loaded kernels held to their plain versions at phase 2's and
+     phase 4's bars on one small case; the time from spawn to the first
+     step's cost, cold against warm; (c) the entry truncated: an in-process
+     ``load`` counts one corrupt and loads nothing.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels with their launches on the main path (the timed training steps of
@@ -483,9 +497,9 @@ N-gram and ranking networks of phase 18, the image and CTC networks of
 phase 19, the SSD and MDLSTM networks of phase 20, phase 21's framework,
 GAN and VAE paths, phase 22's image networks, phase 23's fleets, phase
 24's serving plane, phase 26's scenarios and phase 27's gates run none of them; phase 20's MoE Transformer runs each
-18 times per step, phase 25e's encoder twice per step, and phase 28's
-trace, steps and postmortems run them as ``phase28_launches`` counts),
-errors and times.
+18 times per step, phase 25e's encoder twice per step, phase 28's
+trace, steps and postmortems run them as ``phase28_launches`` counts, and
+phase 29's processes 18 times per step, from the store), errors and times.
 Without a CUDA device, or without the paddle_tpu_torch package beside it, the script
 exits non-zero and prints no result.
 """
@@ -8273,6 +8287,222 @@ def phase_numerics(torch, P, fa, card):
         raise SystemExit(f"numerics: {failed} failed")
 
 
+# phase 29: the persistent build store (core/aot_cache.py) on phase 5's
+# Transformer-base, booted cold and warm in processes of their own
+AOT_STEPS = 3  # phase 5's training steps each boot takes
+AOT_SMALL = (2, 256, 2, 64)  # B, T, H, dh of the store-loaded kernels' check
+AOT_CONFIG = """
+from paddle.trainer_config_helpers import *
+from paddle_tpu_torch.models.transformer import transformer_base
+
+settings(batch_size=8, learning_rate=0.05 / 1024,
+         learning_method=MomentumOptimizer(0.9))
+define_py_data_sources2("tb.list", None, module="tb_provider", obj="process")
+cost, _ = transformer_base(32000, 32000)
+outputs(cost)
+"""
+AOT_PROVIDER = """
+import pickle
+from paddle.trainer.PyDataProvider2 import *
+
+@provider(input_types=[integer_value_sequence(32000)] * 3, should_shuffle=False)
+def process(settings, path):
+    with open(path, "rb") as f:
+        for sample in pickle.load(f):
+            yield sample
+"""
+
+
+def aot_kernel_check(torch, fa) -> str:
+    """The flash kernels of this process (loaded from the store) against
+    their plain versions on one small bf16 case, dense operands, ragged
+    lengths, causal off and on: the forward at phase 2's bars, dq, dk and
+    dv at phase 4's (flash_attention_bwd_bar).  Raises on a miss."""
+    b, t, h, dh = AOT_SMALL
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    lengths = torch.tensor([t, t // 2 + 3], dtype=torch.int32, device="cuda")
+    q, k, v, do = (torch.randn((b, t, h, dh), generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    out = []
+    for causal in (False, True):
+        o, lse = fa.flash_attention(q, k, v, lengths, causal, return_lse=True)
+        o_r, lse_r = fa.flash_attention_reference(q, k, v, lengths, causal, return_lse=True)
+        d_o = (o.float() - o_r.float()).abs()
+        excess_o = (d_o - TOL_O_REL["bfloat16"] * o_r.float().abs()).max().item()
+        err_l = (lse - lse_r).abs().max().item()
+        delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+        args = (q, k, v, lse, delta, do)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, delta, do, lengths, causal)
+        want = fa.flash_attention_bwd_reference(*args, lengths, causal)
+        ex = bwd_excess(torch, got, want, fa.flash_attention_bwd_bar(*args, lengths, causal))
+        out.append(f"causal={causal}: max|dO| {d_o.max().item():.3e} (excess {excess_o:.3e} "
+                   f"<= {TOL_O['bfloat16']}), max|dlse| {err_l:.3e} (<= {TOL_LSE['bfloat16']}); "
+                   + fmt_excess(ex))
+        if excess_o > TOL_O["bfloat16"] or err_l > TOL_LSE["bfloat16"] or any(
+                e[0] > 0 for e in ex.values()):
+            raise SystemExit(f"build store: a store-loaded kernel disagrees with its plain "
+                             f"version (causal={causal}): {out[-1]}")
+    return " | ".join(out)
+
+
+def aot_drive(spec_json: str) -> int:
+    """One boot of phase 29 (``sys.executable -c``): phase 5's Transformer-
+    base trainer with the aot_cache_dir flag on the given store takes
+    AOT_STEPS steps through SGD.train; prints one JSON line with the
+    store's summary, the path the flash library was loaded from, each
+    step's cost, launches and wall clock, and (``check``) the store-loaded
+    kernels against their plain versions."""
+    import torch
+
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.models.transformer import transformer_base
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    spec = json.loads(spec_json)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    P.init(seed=11, compute_dtype="bfloat16", use_flash_attention=True)
+    P.flags.set_flag("aot_cache_dir", spec["store"])
+    cost, _ = transformer_base(VOCAB, VOCAB)
+    trainer = P.trainer.SGD(cost, P.parameters.create(cost, seed=11),
+                            P.optimizer.Momentum(learning_rate=TRAIN_LR, momentum=0.9))
+    rng = np.random.RandomState(29)
+    samples = [s for _ in range(AOT_STEPS) for s in train_samples(rng, BATCH)]
+    steps = []
+
+    def on_event(e):
+        if isinstance(e, P.event.EndIteration):
+            steps.append((time.time(), launch_counts(fa), e.cost))
+
+    reset_counts(fa)
+    run_steps(P, trainer, samples, on_event)
+    launches = [tuple(c - p for c, p in zip(cur[1], prev))
+                for cur, prev in zip(steps, [(0, 0, 0)] + [x[1] for x in steps[:-1]])]
+    report = {**trainer._aot_cache.summary(), "lib": fa.loaded_library(),
+              "costs": [x[2] for x in steps], "launches": launches,
+              "first_step_at": steps[0][0] if steps else None}
+    if spec.get("check"):
+        report["check"] = aot_kernel_check(torch, fa)
+    print(json.dumps(report), flush=True)
+    return 0
+
+
+def aot_child(argv, cwd, env):
+    """(seconds from spawn to exit, the last stdout line as JSON, the time
+    the child was spawned) of one phase-29 process; raises unless it exits
+    0."""
+    t_spawn = time.time()
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=cwd, env=env, capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SystemExit(f"build store: {argv[1:4]} exited {proc.returncode}:\n"
+                         f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return secs, json.loads(proc.stdout.strip().splitlines()[-1]), t_spawn
+
+
+def phase_build_cache(torch, P, fa, card):
+    """Phase 29: cold and warm boots through the build store, each a
+    process of its own (the flash library is loaded once per process)."""
+    import pickle
+    import tempfile
+
+    from paddle_tpu_torch.core import aot_cache as ac
+    from paddle_tpu_torch.utils.timers import StatSet
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_aot_")
+    store = os.path.join(d, "store")
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    env.pop("PADDLE_TPU_TORCH_AOT_CACHE_DIR", None)
+    drive = ("import sys; sys.path.insert(0, sys.argv[2]); import chip_smoke as cs; "
+             "sys.exit(cs.aot_drive(sys.argv[1]))")
+    try:
+        t = [time.perf_counter()]
+        with open(os.path.join(d, "tb.pkl"), "wb") as f:
+            pickle.dump(train_samples(np.random.RandomState(29), BATCH), f, protocol=2)
+        cli_write(d, {"tb.py": AOT_CONFIG, "tb_provider.py": AOT_PROVIDER, "tb.list": "tb.pkl\n"})
+        # (a) cold: the CLI's prewarm builds the flash library into the store
+        cold_s, warm_cli, _ = aot_child(
+            [sys.executable, "-m", "paddle_tpu_torch", "cache", "warm", "--dir", store,
+             "--config", os.path.join(d, "tb.py")], d,
+            dict(env, PADDLE_TPU_TORCH_COMPUTE_DTYPE="bfloat16",
+                 PADDLE_TPU_TORCH_USE_FLASH_ATTENTION="1"))
+        say(f"build store 29a: cache warm on a v1 Transformer-base config (B 8, T 1024, bf16, "
+            f"flash on): {warm_cli['shapes']} shape(s), compiles {warm_cli['compiles']}, miss "
+            f"{warm_cli['miss']}, hit {warm_cli['hit']}, entries {warm_cli['entries']} "
+            f"({warm_cli['mb']} MB), warm_s {warm_cli['warm_s']}; the process {cold_s:.2f} s "
+            f"from spawn to exit on {card}")
+        if (warm_cli["compiles"], warm_cli["miss"], warm_cli["entries"], warm_cli["shapes"]) \
+                != (1, 1, 1, 1):
+            raise SystemExit(f"build store 29a: expected one nvcc build into the store, got "
+                             f"{warm_cli}")
+        (entry,) = ac.AOTCache(store, stats=StatSet()).entries()
+        say(f"build store 29a: entry {entry['file']}: {entry['key']['name']}, "
+            f"{entry['key']['device_name']} capability {entry['key']['capability']}, torch "
+            f"{entry['key']['torch']} cuda {entry['key']['cuda']}; built by "
+            f"{entry['compiler']} in {entry['build_s']:.2f} s")
+        t.append(time.perf_counter())
+        # the same steps in a process on an empty store of its own: nvcc runs
+        # before its first step
+        runs = {}
+        for name, where, check in (("cold", os.path.join(d, "cold_store"), False),
+                                   ("warm", store, True)):
+            secs, rep, t_spawn = aot_child(
+                [sys.executable, "-c", drive, json.dumps({"store": where, "check": check}), HERE],
+                HERE, env)
+            runs[name] = rep
+            first = rep["first_step_at"] - t_spawn
+            say(f"build store 29b {name}: time to first step {first:.2f} s (spawn to the first "
+                f"step's cost), the process {secs:.2f} s, on {card}; compiles "
+                f"{rep['compiles']}, loads {rep['loads']}, hit {rep['hit']}, miss "
+                f"{rep['miss']}; library {rep['lib']}; costs {rep['costs']}; launches per step "
+                f"(fwd, dq, dkv) {rep['launches']}")
+        cold, warm = runs["cold"], runs["warm"]
+        say(f"build store 29b: store-loaded kernels vs plain (B, T, H, dh {AOT_SMALL}, bf16): "
+            f"{warm['check']}")
+        lib_dir = os.path.join(store, "lib") + os.sep
+        if (cold["compiles"], cold["miss"], cold["loads"]) != (1, 1, 0):
+            raise SystemExit(f"build store 29b: the cold process did not build once: {cold}")
+        if (warm["compiles"], warm["loads"], warm["hit"], warm["miss"]) != (0, 1, 1, 0) or \
+                not warm["lib"].startswith(lib_dir):
+            raise SystemExit(f"build store 29b: the warm process did not load from the store: "
+                             f"{warm}")
+        for rep in (cold, warm):
+            if rep["launches"] != [[18, 18, 18]] * AOT_STEPS or not all(
+                    np.isfinite(rep["costs"])):
+                raise SystemExit(f"build store 29b: expected 18/18/18 launches per step and "
+                                 f"finite costs, got {rep['launches']}, {rep['costs']}")
+        if warm["costs"] != cold["costs"]:
+            raise SystemExit(f"build store 29b: warm costs {warm['costs']} are not the cold "
+                             f"process's {cold['costs']} bit for bit")
+        say(f"build store 29b: warm costs bit-identical to the cold process's: True; library "
+            f"under the store, not _build/: {warm['lib'].startswith(lib_dir)}")
+        t.append(time.perf_counter())
+        # (c) a truncated entry is corrupt and loads nothing
+        ident = ac.library_identity("flash_attention", (*fa.SOURCES, *fa.HEADERS),
+                                    fa.NVCC_FLAGS)
+        meta = ac.device_key()
+        if ac.AOTCache(store, stats=StatSet()).load(ident, meta) is None:
+            raise SystemExit("build store 29c: the stored entry does not load in this process")
+        path = ac.AOTCache(store).entry_path(ident)
+        with open(path, "r+b") as f:
+            f.truncate(os.path.getsize(path) // 2)
+        stats = StatSet()
+        damaged = ac.AOTCache(store, stats=stats)
+        got = damaged.load(ident, meta)
+        say(f"build store 29c: entry truncated to {os.path.getsize(path)} bytes: load returned "
+            f"{got}, corrupt {stats.count('aot_cache/corrupt')}, loads {damaged.loads}")
+        if got is not None or stats.count("aot_cache/corrupt") != 1 or damaged.loads != 0:
+            raise SystemExit("build store 29c: a truncated entry was not counted corrupt")
+        t.append(time.perf_counter())
+        say(f"build store: phase 29 split on {card}: 29a {t[1] - t[0]:.1f} s, 29b "
+            f"{t[2] - t[1]:.1f} s, 29c {t[3] - t[2]:.2f} s")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -8404,6 +8634,10 @@ def main() -> int:
     launches28 = launch_counts(fa)
     say(f"numerics: phase 28 took {time.perf_counter() - t0:.1f} s; flash launches (fwd, dq, "
         f"dkv) over it: {launches28}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_build_cache(torch, P, fa, card)
+    say(f"build store: phase 29 took {time.perf_counter() - t0:.1f} s")
     kernels = [
         {"name": name, "route": "cuda", "source": f"paddle_tpu_torch/csrc/{src}",
          "replaces": f"paddle_tpu/ops/pallas_attention.py:{line}",

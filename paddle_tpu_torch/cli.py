@@ -22,9 +22,12 @@
   robustness/fuzz.py), their serving engines on the card unless
   ``--device=cpu``;
 * ``explore`` (the interleaving explorer over the router, master and HA
-  lease state machines, analysis/interleave.py; host code, no card).
+  lease state machines, analysis/interleave.py; host code, no card);
+* ``cache ls|warm|prune|clear`` over the persistent build store
+  (core/aot_cache.py): ``warm`` walks a config's feed and resolves the
+  train step's rung for each distinct batch shape, building or loading
+  the native libraries it launches, on the card unless ``--device=cpu``.
 
-``cache`` raises ``NotImplementedError`` (ROADMAP Queue 1 item 7e).
 Flags mirror the reference gflags in ``--name=value`` form; argparse also
 accepts ``--name value``."""
 
@@ -42,7 +45,7 @@ from typing import List, Optional
 __all__ = ["main", "cmd_train", "cmd_version", "cmd_dump_config", "cmd_make_diagram",
            "cmd_merge_model", "cmd_plotcurve", "cmd_trace", "cmd_lint", "cmd_master",
            "cmd_worker", "cmd_serve", "cmd_route", "cmd_scenario", "cmd_fuzz",
-           "cmd_explore"]
+           "cmd_explore", "cmd_cache"]
 
 
 def _echo(msg: str) -> None:
@@ -124,8 +127,10 @@ def _build_train_parser() -> argparse.ArgumentParser:
     )
     ap.add_argument(
         "--aot_cache_dir", default=None,
-        help="persistent AOT executable cache of the JAX package; not "
-        "ported (ROADMAP Queue 1 item 7)",
+        help="persistent build cache (core/aot_cache.py): warm boots load "
+        "the native libraries (the flash kernels, the readers) from here "
+        "instead of compiling them; prewarm with `python -m "
+        "paddle_tpu_torch cache warm`",
     )
     ap.add_argument(
         "--whole_pass_program", type=_flag_bool, default=False, nargs="?",
@@ -305,10 +310,6 @@ def cmd_train(argv: List[str]) -> int:
             file=sys.stderr,
         )
         return 2
-    if args.aot_cache_dir:
-        raise NotImplementedError(
-            "--aot_cache_dir (the JAX package's persistent executable cache) is not "
-            "ported yet (ROADMAP Queue 1 item 7)")
     from paddle_tpu_torch import obs as _obs
     from paddle_tpu_torch.utils import flags as _flags
     from paddle_tpu_torch.v1_compat import parse_config
@@ -330,6 +331,8 @@ def cmd_train(argv: List[str]) -> int:
         _flags.set_flag("data_echo_factor", args.data_echo_factor)
     if args.whole_pass_program:
         _flags.set_flag("whole_pass_program", True)
+    if args.aot_cache_dir:
+        _flags.set_flag("aot_cache_dir", args.aot_cache_dir)
     if args.chaos:
         from paddle_tpu_torch.robustness import chaos as _chaos
 
@@ -2151,14 +2154,126 @@ def cmd_explore(argv: List[str]) -> int:
         shutil.rmtree(workdir, ignore_errors=True)
 
 
-# the JAX package's other subcommands, each waiting for its port
-_NOT_PORTED = ("cache",)
+def cmd_cache(argv: List[str]) -> int:
+    """``cache`` — the persistent build store (core/aot_cache.py), the JAX
+    package's ``cache`` over the port's native libraries:
+
+    * ``ls``               — entries with size, key and build provenance;
+    * ``warm``             — prewarm: parse a config, walk its feed, and
+                             resolve the train step's rung for every
+                             distinct batch shape (building or loading each
+                             native library the step launches there), so
+                             that later boots run no compiler;
+    * ``prune --max-mb N`` — drop the oldest entries until the store fits;
+    * ``clear``            — drop everything.
+
+    Each run ends with one JSON summary line (the store's counters and the
+    StatSet's ``aot_cache/{hit,miss,stale,corrupt}``)."""
+    ap = argparse.ArgumentParser(
+        prog="python -m paddle_tpu_torch cache",
+        description="persistent build cache maintenance (core/aot_cache.py)",
+    )
+    ap.add_argument("action", choices=["ls", "warm", "prune", "clear"])
+    ap.add_argument("--dir", required=True, help="cache directory")
+    ap.add_argument("--config", default=None,
+                    help="warm: v1 config file whose train step to prewarm")
+    ap.add_argument("--config_args", default="")
+    ap.add_argument("--batch_size", type=int, default=0,
+                    help="warm: override the config's batch size")
+    ap.add_argument("--max-shapes", type=int, default=16,
+                    help="warm: stop after this many distinct batch shapes")
+    ap.add_argument("--max-mb", type=float, default=None,
+                    help="prune: keep the store under this many MB")
+    ap.add_argument("--device", default=None,
+                    help="warm: the trainer's device (default: the card)")
+    args = ap.parse_args(argv)
+
+    from paddle_tpu_torch.core.aot_cache import AOTCache
+
+    if args.action == "ls":
+        cache = AOTCache(args.dir)
+        for e in cache.entries():
+            key = e.get("key", {})
+            prov = ", ".join(
+                f"{k}={key[k]}" for k in
+                ("kind", "name", "torch", "cuda", "device_name", "capability")
+                if key.get(k) is not None
+            )
+            if e.get("compiler"):
+                prov += f", compiler={e['compiler']}, build_s={e['build_s']:.2f}"
+            print(f"{e['file']}  {e['bytes'] / 1e6:8.2f} MB  "
+                  + (f"CORRUPT: {e['corrupt']}" if "corrupt" in e else prov))
+        print(json.dumps(cache.summary()))
+        return 0
+    if args.action == "clear":
+        cache = AOTCache(args.dir)
+        n = cache.clear()
+        print(json.dumps({**cache.summary(), "removed": n}))
+        return 0
+    if args.action == "prune":
+        if args.max_mb is None:
+            print("error: prune needs --max-mb", file=sys.stderr)
+            return 2
+        cache = AOTCache(args.dir)
+        removed = cache.prune(int(args.max_mb * 1e6))
+        print(json.dumps({**cache.summary(), "removed": removed}))
+        return 0
+
+    # warm: resolve every distinct shape the config's feed realizes
+    if not args.config:
+        print("error: warm needs --config", file=sys.stderr)
+        return 2
+    from paddle_tpu_torch.core.batch import batch_shape_key
+    from paddle_tpu_torch.utils import flags as _flags
+    from paddle_tpu_torch.v1_compat import make_batched_reader, parse_config
+
+    device = _cli_device(args.device)
+    if device is None:
+        return 1
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
+    _flags.set_flag("aot_cache_dir", args.dir)
+    if _flags.get_flag("compute_dtype"):
+        from paddle_tpu_torch.core.compiler import set_default_compute_dtype
+
+        set_default_compute_dtype(_flags.get_flag("compute_dtype"))
+    config_path = os.path.abspath(args.config)
+    parsed = parse_config(config_path, args.config_args)
+    if args.batch_size:
+        parsed.settings.batch_size = args.batch_size
+    trainer = _make_trainer(parsed, _flags.get_flag("seed"), device)
+    reader = make_batched_reader(parsed, os.path.dirname(config_path),
+                                 parsed.settings.batch_size, train=True)
+    feeder = trainer._make_feeder(parsed.feeding)
+    seen = set()
+    t0 = time.time()
+    for raw in reader():
+        # shapes from the host conversion: a rung's resolution reads shapes
+        # only, so no batch is copied to the device
+        host = feeder.convert(raw)
+        key = batch_shape_key(host)
+        if key in seen:
+            continue
+        seen.add(key)
+        trainer.warm_compile(host)
+        if len(seen) >= args.max_shapes:
+            break
+    print(json.dumps({
+        **trainer._aot_cache.summary(),
+        "config": args.config,
+        "shapes": len(seen),
+        "warm_s": round(time.time() - t0, 3),
+    }))
+    return 0
+
+
+# the JAX package's subcommands still waiting for their port: none
+_NOT_PORTED: tuple = ()
 
 
 def _not_ported(name: str):
     def cmd(argv: List[str]) -> int:
         raise NotImplementedError(
-            f"the {name!r} subcommand is not ported yet (ROADMAP Queue 1 item 7e); see "
+            f"the {name!r} subcommand is not ported yet (ROADMAP Queue 1); see "
             "`python -m paddle_tpu_torch --help` for the ported ones")
 
     return cmd
@@ -2169,7 +2284,8 @@ _COMMANDS = {"train": cmd_train, "version": cmd_version, "dump_config": cmd_dump
              "plotcurve": cmd_plotcurve, "lint": cmd_lint, "trace": cmd_trace,
              "master": cmd_master, "worker": cmd_worker, "serve": cmd_serve,
              "route": cmd_route, "scenario": cmd_scenario, "fuzz": cmd_fuzz,
-             "explore": cmd_explore, **{name: _not_ported(name) for name in _NOT_PORTED}}
+             "explore": cmd_explore, "cache": cmd_cache,
+             **{name: _not_ported(name) for name in _NOT_PORTED}}
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -2206,7 +2322,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         print("    explore           interleaving explorer over the router, master")
         print("                      and HA lease state machines (--model/--schedules/")
         print("                      --dfs-depth/--plant/--replay)")
-        print("not ported yet: " + ", ".join(_NOT_PORTED))
+        print("    cache             persistent build cache: ls, warm (--config;")
+        print("                      on the card unless --device=cpu), prune, clear")
+        if _NOT_PORTED:
+            print("not ported yet: " + ", ".join(_NOT_PORTED))
         return 0 if argv else 1
     cmd, rest = argv[0], argv[1:]
     if cmd not in _COMMANDS:

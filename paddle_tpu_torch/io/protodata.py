@@ -20,11 +20,12 @@ import dataclasses
 import gzip
 import os
 import struct
-import subprocess
 import threading
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from paddle_tpu_torch.core import aot_cache as _aot
 
 # SlotDef.SlotType (DataFormat.proto:50-58)
 VECTOR_DENSE = 0
@@ -192,7 +193,8 @@ def _parse_sample(buf: bytes) -> DataSample:
 
 # ---------------------------------------------------------------------------
 # native fast path (native/protodata.cc of this package, built with g++ at
-# first use into _build/): one-pass C++ decode of
+# first use into _build/, or taken from the build store under the
+# aot_cache_dir flag): one-pass C++ decode of
 # DENSE+INDEX files (the mnist_bin_part shape) into contiguous numpy
 # buffers; anything else (sparse, sequences, gzip) falls back to the
 # pure-Python decoder below.
@@ -215,27 +217,13 @@ def _load_native():
             return _native_lib
         _native_tried = True
         try:
-            have_so = os.path.exists(_NATIVE_SO)
-            have_src = os.path.exists(_NATIVE_SRC)
-            stale = (
-                have_so and have_src
-                and os.path.getmtime(_NATIVE_SO) < os.path.getmtime(_NATIVE_SRC)
-            )
-            if (not have_so or stale) and have_src:
-                os.makedirs(os.path.dirname(_NATIVE_SO), exist_ok=True)
-                # build to a per-pid temp and rename: concurrent processes
-                # (pytest workers, multi-process launch) must never CDLL a
-                # half-written .so
-                tmp = f"{_NATIVE_SO}.{os.getpid()}.tmp"
-                subprocess.run(  # lock: allow[C304] one-time lazy native build; the lock exists to serialize exactly this compile
-                    ["g++", "-O2", "-shared", "-fPIC", "-std=c++17",
-                     _NATIVE_SRC, "-o", tmp],
-                    check=True, capture_output=True,
-                )
-                os.replace(tmp, _NATIVE_SO)
-            elif not have_so:
+            # built in _build/ (rebuilt when older than its source), or from
+            # the build store under the aot_cache_dir flag (core/aot_cache.py)
+            path = _aot.host_library(_NATIVE_SRC, _NATIVE_SO,
+                                     ("-O2", "-shared", "-fPIC", "-std=c++17"))
+            if path is None:
                 return None
-            lib = ctypes.CDLL(_NATIVE_SO)
+            lib = ctypes.CDLL(path)
             lib.pdx_scan.restype = ctypes.c_int
             lib.pdx_scan.argtypes = [
                 ctypes.c_char_p,

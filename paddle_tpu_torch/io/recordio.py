@@ -10,7 +10,8 @@ paddle/gserver/dataproviders/DataProvider.h):
 
 Two interchangeable backends over the same bytes-on-disk: the C++ library
 (native/recordio.cc of this package, built on demand with g++ into _build/,
-threads + ring buffer) and a
+or taken from the build store under the ``aot_cache_dir`` flag,
+core/aot_cache.py; threads + ring buffer) and a
 pure-Python fallback.  `Prefetcher` always exists; it is native when possible.
 """
 
@@ -27,6 +28,8 @@ import queue as _queue
 import zlib
 from typing import Iterable, List, Optional, Sequence
 
+from paddle_tpu_torch.core import aot_cache as _aot
+
 _MAGIC = 0x7061646C
 
 _PKG_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -35,6 +38,7 @@ _PKG_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG_ROOT, "native", "recordio.cc")
 _BUILD_DIR = os.path.join(_PKG_ROOT, "_build")
 _SO = os.path.join(_BUILD_DIR, "libpaddle_tpu_torch_io.so")
+_GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17", "-pthread")
 
 _lib = None
 _lib_tried = False
@@ -52,26 +56,12 @@ def _load_native():
             return _lib
         _lib_tried = True
         try:
-            have_so = os.path.exists(_SO)
-            have_src = os.path.exists(_SRC)
-            stale = (
-                have_so and have_src
-                and os.path.getmtime(_SO) < os.path.getmtime(_SRC)
-            )
-            if (not have_so or stale) and have_src:
-                os.makedirs(_BUILD_DIR, exist_ok=True)
-                # per-pid temp + rename: concurrent processes must never
-                # CDLL a half-written .so
-                tmp = f"{_SO}.{os.getpid()}.tmp"
-                subprocess.run(  # lock: allow[C304] one-time lazy native build; the lock exists to serialize exactly this compile
-                    ["g++", "-O2", "-shared", "-fPIC", "-std=c++17",
-                     "-pthread", _SRC, "-o", tmp],
-                    check=True, capture_output=True,
-                )
-                os.replace(tmp, _SO)
-            elif not have_so:
+            # built in _build/ (rebuilt when older than its source), or from
+            # the build store under the aot_cache_dir flag (core/aot_cache.py)
+            path = _aot.host_library(_SRC, _SO, _GXX_FLAGS)
+            if path is None:
                 return None  # neither a prebuilt .so nor source to build
-            lib = ctypes.CDLL(_SO)
+            lib = ctypes.CDLL(path)
         except (OSError, subprocess.CalledProcessError, FileNotFoundError):
             return None
         lib.rio_writer_create.restype = ctypes.c_void_p

@@ -7,7 +7,11 @@ Counterpart of ``paddle_tpu/ops/pallas_attention.py`` (``flash_attention``,
 kernels live in ``paddle_tpu_torch/csrc/*.cu`` (with the tensor-core building
 blocks in ``csrc/flash_mma.cuh``); they are compiled with ``nvcc`` at first
 use into one shared library under ``paddle_tpu_torch/_build/`` and bound
-through plain C functions loaded with ``ctypes``.
+through plain C functions loaded with ``ctypes``.  With the
+``aot_cache_dir`` flag set the library comes from that build store instead
+(``core/aot_cache.py``): a hit loads it with no ``nvcc`` on the machine, a
+miss builds it and stores it, keyed by the sources, the flags, torch, the
+CUDA runtime and the device.
 
 bf16 inputs run all three kernels on the tensor cores (``mma.sync``,
 ``ldmatrix``, ``cp.async``), which copy 16 bytes at a time: each bf16
@@ -55,6 +59,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from paddle_tpu_torch.core import aot_cache as _aot
+
 NEG_INF = -1e30
 BLOCK = 64  # keys per tile: BN of the kernels in csrc/
 
@@ -84,25 +90,27 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the flash-attention kernels cannot be built")
 
 
-def build(verbose: bool = False) -> str:
-    """Compile every ``csrc/*.cu`` into one shared library in ``_build/``
-    (keyed by the hash of every source and header plus the flags, so an
-    edited source or header rebuilds) and return its path.  One ``nvcc`` per
-    source, all started together, then one link; ``verbose`` prints ptxas's
-    per-kernel registers, shared memory and spills."""
+def build(verbose: bool = False, out_dir: Optional[str] = None) -> str:
+    """Compile every ``csrc/*.cu`` into one shared library in `out_dir`
+    (default ``_build/``; keyed by the hash of every source and header plus
+    the flags, so an edited source or header rebuilds) and return its path.
+    One ``nvcc`` per source, all started together, then one link;
+    ``verbose`` prints ptxas's per-kernel registers, shared memory and
+    spills."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in (*SOURCES, *HEADERS):
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + b"\0" + f.read())
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    out = os.path.join(BUILD_DIR, f"flash_attention-{h.hexdigest()[:16]}.so")
+    out_dir = BUILD_DIR if out_dir is None else out_dir
+    os.makedirs(out_dir, exist_ok=True)
+    out = os.path.join(out_dir, f"flash_attention-{h.hexdigest()[:16]}.so")
     if os.path.exists(out):
         return out
     nvcc = _nvcc()
     tag = f"{os.getpid()}.tmp"
     jobs = []
     for src in SOURCES:
-        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+        obj = os.path.join(out_dir, f"{os.path.basename(src)}.{tag}.o")
         cmd = [nvcc, *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()), "-c", "-o", obj, src]
         jobs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
@@ -139,17 +147,29 @@ _ARGTYPES = {
 }
 
 
-def _load():
+def load_library(cache=None):
+    """The flash library, loaded once per process: at the first load from
+    the build store (`cache`, else the ``aot_cache_dir`` flag's;
+    core/aot_cache.py), where a miss runs nvcc and stores the result, or
+    without one from :func:`build`.  A failed build raises."""
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
+            lib = ctypes.CDLL(_aot.native_library(
+                "flash_attention", (*SOURCES, *HEADERS), NVCC_FLAGS,
+                lambda out_dir: build(out_dir=out_dir), device=True, compiler=_nvcc,
+                cache=cache))
             for name, argtypes in _ARGTYPES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             _lib = lib
     return _lib
+
+
+def loaded_library() -> Optional[str]:
+    """The path this process loaded the flash library from, or None."""
+    return None if _lib is None else _lib._name
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -277,7 +297,7 @@ def _launch_fwd(operands, outs, causal: bool) -> None:
     out, lse = outs
     b, t, h, dh = q.shape
     with torch.cuda.device(q.device):  # the launch goes to the current device
-        err = _load().flash_attention_fwd(
+        err = load_library().flash_attention_fwd(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             lengths.data_ptr(), out.data_ptr(), lse.data_ptr(), b, t, h, dh,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1),
@@ -428,7 +448,7 @@ def _launch_bwd(kernel: str, operands, outs, causal: bool) -> None:
     :func:`flash_attention_bwd` checked them, `outs` its dense outputs."""
     q, k, v, do, lse, delta, lengths = operands
     b, t, h, dh = q.shape
-    fn = getattr(_load(), f"flash_attention_bwd_{kernel}")
+    fn = getattr(load_library(), f"flash_attention_bwd_{kernel}")
     with torch.cuda.device(q.device):
         err = fn(
             _DTYPE_CODE[q.dtype], *(x.data_ptr() for x in (*operands, *outs)), b, t, h, dh,

@@ -71,8 +71,11 @@ The four arms keep that rule:
 blocks and f32 scales (``ops/quantize.py``); every dispatch dequantizes it
 with torch ops.
 
-Not ported: the AOT cache (``aot_cache_dir``, ROADMAP Queue 1 item 7)
-raises ``NotImplementedError``.
+**build store** (``aot_cache_dir``, else the flag): the engine holds the
+store (core/aot_cache.py) and reports its summary.  Its prefill and decode
+families are torch ops and launch no native library, so the store has
+nothing of theirs to load: it matters to the process's other loaders
+(the flash kernels, the recordio reader).
 """
 
 from __future__ import annotations
@@ -86,7 +89,7 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch import obs as _obs
-from paddle_tpu_torch.core.aot_cache import topology_fingerprint
+from paddle_tpu_torch.core.aot_cache import AOTCache, topology_fingerprint
 from paddle_tpu_torch.core.batch import (
     DEFAULT_BATCH_LADDER,
     DEFAULT_LADDER,
@@ -191,10 +194,6 @@ class ServingEngine:
         stats=None,
         device=None,
     ):
-        if aot_cache_dir:
-            raise NotImplementedError(
-                "ServingEngine(aot_cache_dir=...): the AOT cache is not ported yet "
-                "(ROADMAP Queue 1 item 7)")
         if generator._match is None or not _flags.get_flag("fused_attention_gru"):
             raise ValueError(
                 "serving requires the fused attention-GRU decoder step "
@@ -206,6 +205,9 @@ class ServingEngine:
         self._gen = generator
         self._clock = clock
         self._stats = stats if stats is not None else global_stats
+        if aot_cache_dir is None:
+            aot_cache_dir = _flags.get_flag("aot_cache_dir")
+        self._aot = AOTCache(aot_cache_dir, stats=self._stats) if aot_cache_dir else None
         self.max_slots = max_slots if max_slots is not None else _flags.get_flag(
             "serving_max_slots")
         blk = block_tokens if block_tokens is not None else _flags.get_flag(
@@ -1205,4 +1207,5 @@ class ServingEngine:
             "prefix_misses": self.prefix_misses,
             "spec_decode": self.spec_decode,
             "spec_accept_rate": self.spec_accept_rate(),
+            "aot_cache": self._aot.summary() if self._aot is not None else None,
         }

@@ -38,8 +38,16 @@ from the device; ``checkpoint_dir`` turns on the robustness plane
 ``elastic_model`` adapts the trainer to an elastic worker
 (trainer/elastic.py).  The ``num_sanitizer`` flag arms the numerics
 sanitizer on the stepwise loop (analysis/num_sanitizer.py; the epoch
-program's steps are not captured).  Not ported yet: the ahead-of-time
-executable cache (ROADMAP Queue 1 item 7e) and device meshes (item 6).
+program's steps are not captured).
+
+The ``aot_cache_dir`` flag puts the trainer on the persistent build store
+(core/aot_cache.py): every train-step, eval-step and epoch-program rung
+(step kind, batch shape) resolves once per trainer, and resolving a rung
+loads through the store every native library a step at that rung launches
+(the flash library, when an attention layer routes to flash at the batch's
+T and dh on the card), so a warm boot runs no compiler.  ``warm_compile``
+resolves a rung without running a step (``python -m paddle_tpu_torch cache
+warm``).  Not ported yet: device meshes (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -56,10 +64,12 @@ import torch
 
 from paddle_tpu_torch import event as v2_event
 from paddle_tpu_torch import obs as _obs
+from paddle_tpu_torch.core import aot_cache as _aot
 from paddle_tpu_torch.core.batch import DEFAULT_LADDER, batch_shape_key
 from paddle_tpu_torch.core.compiler import CompiledNetwork, CompileShapeCache
 from paddle_tpu_torch.core.device import resolve_device, tree_to
 from paddle_tpu_torch.core.topology import LayerOutput, Topology
+from paddle_tpu_torch.ops import flash_attention as _fa
 from paddle_tpu_torch.optimizer import Optimizer
 from paddle_tpu_torch.parameters import create_from_network
 from paddle_tpu_torch.reader.feeder import DataFeeder, feed_dtypes_of
@@ -173,7 +183,12 @@ class SGD:
         self.preempted = False
         self._pass_cache = None  # set per train() call when caching is on
         self._pass_cache_reader = None  # the reader the cache was captured from
-        self._exec_table: Dict[tuple, Any] = {}  # epoch programs by pass shape
+        # the build store (core/aot_cache.py) under the aot_cache_dir flag:
+        # each rung resolves once, loading the native libraries its step
+        # launches from the store; None = libraries load at first launch
+        self._aot_cache = _aot.process_store()
+        # (kind, shape key) -> rung record; epoch programs by pass shape
+        self._exec_table: Dict[tuple, Any] = {}
         # every train and eval batch's shape is counted (hits and misses in
         # utils.timers.global_stats): a laddered feed stays bounded
         self.compile_cache = CompileShapeCache("train_step")
@@ -271,6 +286,95 @@ class SGD:
 
         return stage
 
+    # -- build-store dispatch (core/aot_cache.py) -------------------------
+    def _aot_identity(self, kind: str, batch, n_steps=None) -> Dict[str, Any]:
+        """Identity of one step variant, as the JAX package keys its
+        executables: the step kind (and scan length), the graph (topology
+        fingerprint with the compute dtype), the rung (batch shape key) and
+        the mesh.  The port's steps update their inputs in place where the
+        JAX package donates them."""
+        return {
+            "kind": kind,
+            "n_steps": n_steps,
+            "topology": _aot.topology_fingerprint(self.network),
+            "batch": repr(batch_shape_key(batch)),
+            "mesh": _aot.mesh_fingerprint(None),
+            "donation": "in_place",
+            "model_sharded": False,
+        }
+
+    def _aot_meta(self) -> Dict[str, Any]:
+        """The constants that change a step without changing which step it
+        is: the optimizer's fingerprint, the sentinel, the pruning masks."""
+        return {
+            "optimizer": _aot.optimizer_fingerprint(self.optimizer),
+            "sentinel": bool(_flags.get_flag("divergence_sentinel")),
+            "pruned": bool(self._prune_masks),
+        }
+
+    def _seq_len(self, name: str, batch) -> Optional[int]:
+        """T of the data slot a layer's first-input chain starts from, or
+        None (not a sequence slot of `batch`)."""
+        conf = self.topology.layers.get(name)
+        while conf is not None and conf.type != "data":
+            conf = self.topology.layers.get(conf.inputs[0]) if conf.inputs else None
+        if conf is None:
+            return None
+        t = batch.get(conf.name)
+        return int(t.data.shape[1]) if t is not None and t.is_seq else None
+
+    def _rung_libraries(self, batch) -> tuple:
+        """The native libraries a step at `batch`'s shapes launches: the
+        flash library when an attention layer routes to flash (the
+        ``use_flash_attention`` flag, the card, equal query and key lengths
+        and ``supported(T, dh)``, T read from the slot its input chain
+        starts at), else none.  A library this misses still loads through
+        the store at its first launch."""
+        if self.device.type != "cuda" or not _flags.get_flag("use_flash_attention"):
+            return ()
+        for conf in self.topology.layers.values():
+            if conf.type != "multi_head_attention":
+                continue
+            tq = self._seq_len(conf.inputs[0], batch)
+            tk = self._seq_len(conf.inputs[-1], batch)
+            if tq is not None and tq == tk and _fa.supported(tq, conf.size // conf.attrs["n_heads"]):
+                return ("flash_attention",)
+        return ()
+
+    def _rung_record(self, kind: str, batch, n_steps=None) -> Dict[str, Any]:
+        """Resolve one rung: load through the store every native library
+        its step launches, and return what was resolved."""
+        libs = self._rung_libraries(batch)
+        if libs:
+            _fa.load_library(self._aot_cache)
+        return {"identity": self._aot_identity(kind, batch, n_steps), "meta": self._aot_meta(),
+                "libraries": {"flash_attention": _fa.loaded_library()} if libs else {}}
+
+    def _resolve_rung(self, kind: str, batch) -> bool:
+        """Resolve `batch`'s rung of `kind` once per trainer; True when it
+        was new."""
+        key = (kind, batch_shape_key(batch))
+        if key in self._exec_table:
+            return False
+        self._exec_table[key] = self._rung_record(kind, batch)
+        return True
+
+    def _run_train_step(self, params, state, opt_state, batch, seed):
+        """One train step; with the build store its rung resolves first
+        (once per shape)."""
+        if self._aot_cache is not None:
+            self._resolve_rung("train_step", batch)
+        return self._train_step(params, state, opt_state, batch, seed)
+
+    def warm_compile(self, batch) -> bool:
+        """Resolve `batch`'s train-step rung through the build store
+        without running a step (parameters, optimizer slots and the step
+        count stay as they are): the ``cache warm`` prewarm path.  True when
+        the rung was new."""
+        if self._aot_cache is None:
+            raise ValueError("warm_compile needs the aot_cache_dir flag")
+        return self._resolve_rung("train_step", batch)
+
     def _dispatch_epoch_program(self, pass_cache, pass_id, params, state, opt_state):
         """One cached pass through the epoch program (trainer/step.py
         make_epoch_program), then one fetch of its folds and per-step
@@ -284,10 +388,13 @@ class SGD:
         key = ("epoch_program", n, batch_shape_key(pass_cache.sample_batch()))
         prog = self._exec_table.get(key)
         if prog is None:
+            if self._aot_cache is not None:
+                self._rung_record("epoch_program", pass_cache.sample_batch(), n_steps=n)
             prog = make_epoch_program(self.network, self.optimizer, None, self._metrics_fn,
                                       prune_masks=self._prune_masks)
             self._exec_table[key] = prog
-            _log.info("whole-pass epoch program ready: %d steps, one fetch per pass", n)
+            _log.info("whole-pass epoch program ready: %d steps, one fetch per pass (%s)", n,
+                      "build store" if self._aot_cache is not None else "no build store")
         guarded = _flags.get_flag("divergence_sentinel")
         if guarded:
             kept = (clone_tree(params), clone_tree(state), clone_tree(opt_state),
@@ -611,7 +718,7 @@ class SGD:
                                 # out first, or nothing is left to re-execute
                                 num_san.capture(params, state, opt_state, batch, seed,
                                                 where=f"pass {pass_id} batch {bid}")
-                            params, state, opt_state, metrics = self._train_step(
+                            params, state, opt_state, metrics = self._run_train_step(
                                 params, state, opt_state, batch, seed)
                         with _obs.span("block_fetch", cat="trainer", b=bid):
                             metrics = fetch_metrics(metrics)
@@ -731,6 +838,8 @@ class SGD:
             if not self._width_resolved:
                 # a trainer that never trained: the eval batch pins the widths
                 self._resolve_widths(self.parameters.params, batch)
+            if self._aot_cache is not None:
+                self._resolve_rung("eval_step", batch)
             metrics = fetch_metrics(
                 self._eval_step(self.parameters.params, self.parameters.state, batch))
             rows = _batch_rows(batch)

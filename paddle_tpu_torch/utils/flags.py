@@ -146,6 +146,18 @@ define_flag("pass_cache_hbm_budget_mb", 4096,
             "(wire-form) batches; a pass that does not fit falls back to "
             "streaming with a warning.  Sizing: n_samples x bytes per sample "
             "in wire form (uint8 224x224x3 is 0.15 MB an image)")
+define_flag("aot_cache_dir", "",
+            "persistent build cache directory (core/aot_cache.py): every "
+            "native library the port builds (the flash-attention kernels "
+            "with nvcc, the recordio and protodata readers with g++) is "
+            "stored after its first build, and a later process boot LOADS "
+            "it instead of running the compiler (warm boot).  Entries are "
+            "keyed by the sources' hash and the compiler flags, and checked "
+            "against torch and CUDA runtime versions, machine, libc, package "
+            "version and (nvcc) device name and capability: stale or "
+            "foreign entries are detected and rebuilt, never loaded wrong.  "
+            "Prewarm a config's rungs with `python -m paddle_tpu_torch cache "
+            "warm`; empty = off (build into the package's _build/)")
 define_flag("whole_pass_program", False,
             "whole-pass epoch program (trainer/step.py make_epoch_program): "
             "when the pass cache holds a sealed single-shape pass, passes "

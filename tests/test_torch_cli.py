@@ -8,8 +8,9 @@ train sets flags and logging globally), over a small textcls config (the
 reference rnn benchmark's network at vocab 50, width 8) and a small tanh
 MLP config, each with its @provider, written into a temporary directory.
 
-- ``--help`` lists the ported commands; an unknown command exits 1; a
-  command or mode not ported yet raises naming ROADMAP item 7;
+- ``--help`` lists the ported commands, every one of the JAX package's;
+  an unknown command exits 1; ``cache`` runs and ``train
+  --aot_cache_dir`` trains;
 - the ignored reference-flag sets equal the JAX package's, and a reference
   ``train.sh`` line is accepted (typos and stray tokens exit 2);
 - ``--job=train`` writes pass dirs whose file names equal the JAX CLI's;
@@ -297,23 +298,30 @@ def _close(got, want):
     return abs(got - want) <= 1e-5 * abs(want) + 5e-7
 
 
-def test_help_unknown_and_not_ported_commands(capsys):
+def test_help_unknown_and_not_ported_commands(work, tmp_path, capsys):
+    """Every subcommand of the JAX package is ported: ``cache`` runs (it
+    raised before the build store was ported) and ``train --aot_cache_dir``
+    trains with the flag set (it raised too)."""
     rc, out = _main(["--help"], capsys)
     assert rc == 0
     for cmd in ("train", "version", "dump_config", "make_diagram", "merge_model", "plotcurve",
                 "lint", "trace", "master", "worker", "serve", "route", "scenario", "fuzz",
-                "explore"):
+                "explore", "cache"):
         assert f"    {cmd} " in out
-    assert "not ported yet: cache" in out
+    assert "not ported yet" not in out and tcli._NOT_PORTED == ()
     assert tcli.main(["frobnicate"]) == 1
     assert "unknown command" in capsys.readouterr().err
     assert tcli._COMMANDS["explore"] is tcli.cmd_explore
-    with pytest.raises(NotImplementedError, match="'cache' subcommand .*item 7e"):
-        tcli.main(["cache"])
+    assert tcli._COMMANDS["cache"] is tcli.cmd_cache
+    store = str(tmp_path / "store")
+    rc, out = _main(["cache", "ls", "--dir", store], capsys)
+    assert rc == 0 and json.loads(out.strip().splitlines()[-1])["entries"] == 0
     rc, out = _main(["scenario", "--list"], capsys)
     assert rc == 0 and "overload  (fast)" in out and "fleet_kill_worker  (slow" in out
-    with pytest.raises(NotImplementedError, match="aot_cache_dir.*item 7"):
-        tcli.main(["train", "--config=x.py", "--aot_cache_dir=/nowhere", "--device=cpu"])
+    rc, out = _main(["train", f"--config={os.path.join(work['dir'], 'textcls.py')}",
+                     f"--aot_cache_dir={store}", "--num_passes=1", "--device=cpu"], capsys)
+    assert rc == 0 and "Pass 0: mean cost" in out
+    assert paddle_tpu_torch.flags.get_flag("aot_cache_dir") == store
 
 
 def test_ignored_flags_equal_the_jax_package_and_train_sh_lines_pass(work, capsys):

@@ -186,7 +186,7 @@ def test_armed_flag_reads_env(monkeypatch):
     assert not num_sanitizer_armed()
     monkeypatch.setenv("PADDLE_TPU_TORCH_NUM_SANITIZER", "1")
     assert num_sanitizer_armed()
-    assert len(flags._DEFS) == 62
+    assert len(flags._DEFS) == 63
 
 
 def test_flash_forward_overflow_is_named_as_the_custom_op():

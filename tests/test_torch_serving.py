@@ -15,8 +15,9 @@ f32, at the JAX package's test sizes (vocab 20, word width 8, hidden 12):
 - chunked prefill (tests/test_serving.py:425-488): interleaved with
   decoding and cancelled mid-prefill, its flag checks, and an encoder
   outside the idiom raising when the engine is built;
-- ``paddle_tpu_torch.serving`` binds the JAX package's names, and the one
-  deferred arm (``aot_cache_dir``) raises naming ROADMAP item 7.
+- ``paddle_tpu_torch.serving`` binds the JAX package's names, and the once
+  deferred arm (``aot_cache_dir``) gives the engine the build store, whose
+  summary the engine's reports.
 
 The other arms live in tests/test_torch_serving_speed.py, the scheduler in
 tests/test_torch_scheduler.py."""
@@ -464,6 +465,13 @@ def test_serving_binds_every_name_of_the_jax_package():
 
 
 @pytest.mark.parametrize("arm,value", [("aot_cache_dir", "/nonexistent")])
-def test_deferred_engine_arms_raise(small_gen, arm, value):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        make_engine(small_gen, **{arm: value})
+def test_deferred_engine_arms_raise(small_gen, tmp_path, arm, value):
+    """The once-deferred arm is ported: the engine takes it and reports it
+    (the build store, whose summary the engine's carries); the store is
+    made under the test's own directory."""
+    where = str(tmp_path / value.lstrip("/"))
+    eng = make_engine(small_gen, **{arm: where})
+    got = eng.summary()[arm.replace("_dir", "")]
+    assert got["dir"] == where
+    assert (got["entries"], got["compiles"], got["loads"]) == (0, 0, 0)
+    assert make_engine(small_gen).summary()["aot_cache"] is None
